@@ -9,8 +9,15 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    and ptxas' register / shared-memory report.
 3. Hold each kernel against its plain PyTorch version on the card, at
    the main path's shape and larger ones, then time both (CUDA events
-   over 1000 eager calls, and per call inside a replayed CUDA graph).
-4. The main path: the `impala` section of config.json at full width
+   over many eager calls, and per call inside a replayed CUDA graph,
+   with the inputs rotated past the 50 MB L2 cache where they fit).
+   V-trace (K1) at three shapes; the LSTM forward and backward (K2a,
+   K2b) at (T, B, H) = (10, 32, 512) and (10, 16, 512) (the r2d2 learn
+   step and ingest), (20, 32, 256) (the r2d2_pixel shape) and
+   (20, 256, 512), with ~15% dones, each kernel against its plain
+   version and the gradients through `LSTMFunction` against autograd of
+   the plain loop.
+4. The IMPALA path: the `impala` section of config.json at full width
    (Breakout frames 84x84x4, NatureConv, LSTM 256, 18 actions, batch
    32 x 20, 4 actors x 5 envs), 3 learner updates on random seeded
    weights. Kernel launch counts are zeroed just before and read just
@@ -20,14 +27,28 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 5. Device parity: one learn step from the same parameters on the same
    seeded batch on CUDA and on the CPU (TF32 off) must agree to rtol 1e-4
    on each loss term and the gradient norm.
-6. A `{"kernels": [...]}` line with each kernel's numbers.
-7. The device line, then `{"ok": true, "device": {...}}` as the last line.
+6. The R2D2 path: the `r2d2` section at full width (CartPole-POMDP, MLP
+   torso, LSTM 512, batch 32 x 10, 3 actors x 4 envs) through
+   build_local and run_sync for 3 train steps (8 rounds). With the
+   counts zeroed just before: exactly 2 K2a launches per ingest and 2
+   K2a + 1 K2b per train step (22 and 3), finite loss and priorities,
+   parameters that moved; then the synchronised learn step, a profiler
+   breakdown and peak memory.
+7. R2D2 device parity: td_error and one learn step from the same
+   parameters and seeded batch on CUDA and on the CPU (TF32 off): rtol
+   1e-4 on loss, grad norm and priorities.
+8. A `{"kernels": [...]}` line with each kernel's numbers.
+
+Before each phase from 3 on, the device memory still allocated is
+logged, so that the peaks of phases 4 and 6 are read net of it.
+9. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -39,8 +60,12 @@ import numpy as np
 import torch
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaBatch
+from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Batch
+from distributed_reinforcement_learning_tpu_torch.data.fifo import stack_pytrees
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import _build
+from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import vtrace as kvt
+from distributed_reinforcement_learning_tpu_torch.ops.lstm import _scan_reference
 from distributed_reinforcement_learning_tpu_torch.runtime.launch import build_local
 from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
 
@@ -51,6 +76,12 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor-core float32
 MAIN_SHAPE = (18, 32)  # V-trace at the impala section: T = trajectory - 2, B = batch
 SHAPES = [MAIN_SHAPE, (20, 256), (20, 65536)]
 UPDATES = 3
+R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
+# LSTM (T, B, H): the r2d2 learn step and ingest (12 sequences padded to
+# 16), the r2d2_pixel section's shape, and a larger batch.
+LSTM_MAIN = (10, 32, 512)
+LSTM_INGEST = (10, 16, 512)
+LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, (20, 32, 256), (20, 256, 512)]
 
 
 def log(msg: str) -> None:
@@ -126,6 +157,24 @@ def time_graph_ms(fns, calls: int = 100, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+def phase_memory(name: str) -> int:
+    """Device memory still allocated as phase `name` starts, after
+    gc.collect() and again after freeing cuBLAS's per-stream workspaces
+    (PyTorch keeps one for every stream a cuBLAS call ran on, and counts
+    it as allocated); logs both and returns the second, so that a phase's
+    own peak can be read net of what came before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    after_gc = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)  # private; absent on CPU builds
+    if clear is not None:
+        clear()
+    start = torch.cuda.memory_allocated()
+    log(f"[memory] {name} starts with {after_gc / 2**20:.1f} MiB allocated after gc.collect(), "
+        f"{start / 2**20:.1f} MiB after freeing the cuBLAS workspaces")
+    return start
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -175,6 +224,121 @@ def phase_vtrace() -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
+def lstm_inputs(T: int, B: int, H: int, seed: int, device) -> list[torch.Tensor]:
+    """(xg, wh, keep, h0, c0), time-major, with ~15% dones."""
+    rng = np.random.RandomState(seed)
+    arrays = [
+        (rng.randn(T, B, 4 * H) * 0.5).astype(np.float32),
+        (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
+        (rng.rand(T, B) > 0.15).astype(np.float32),
+        (rng.randn(B, H) * 0.1).astype(np.float32),
+        (rng.randn(B, H) * 0.1).astype(np.float32),
+    ]
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def lstm_bound_ms(T: int, B: int, H: int, backward: bool) -> tuple[float, str]:
+    """Least time for one call: the h @ Wh products (2*T*B*H*4H flops;
+    the backward recomputes them and adds dgates @ Wh^T, twice that)
+    against each input read once and each output written once."""
+    flops = 2 * T * B * H * 4 * H * (2 if backward else 1)
+    if backward:  # xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT -> dxg, dh0, dc0
+        floats = 2 * T * B * 4 * H + H * 4 * H + T * B + 3 * T * B * H + 6 * B * H
+    else:  # xg, wh, keep, h0, c0 -> h_all, c_all, hT, cT
+        floats = T * B * 4 * H + H * 4 * H + T * B + 2 * T * B * H + 4 * B * H
+    t_bytes, t_ops = 4 * floats / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lstm_loss(h_all, hT, cT):
+    """The loss of the JAX package's gradient test: touches h_all, hT, cT."""
+    w = torch.cos(torch.arange(h_all.shape[-1], device=h_all.device, dtype=h_all.dtype))
+    return (h_all * w).sum() + (hT ** 2).sum() + 0.3 * cT.sum()
+
+
+def phase_lstm() -> dict:
+    """K2a and K2b against their plain versions on the card, and the
+    gradients through `LSTMFunction` against autograd of the plain loop;
+    then timings. Tolerances: forward atol 1e-5 (512-term float32 sums in
+    another order than cuBLAS), gradients atol 5e-5; dWh sums T*B
+    products per entry, so its bar is 5e-5 times its largest magnitude
+    where that exceeds 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for T, B, H in LSTM_SHAPES:
+        xg, wh, keep, h0, c0 = lstm_inputs(T, B, H, seed=T + B + H, device="cuda")
+        got = klstm.lstm_fwd_cuda(xg, wh, keep, h0, c0)
+        want = klstm.lstm_fwd_plain(xg, wh, keep, h0, c0)
+        torch.cuda.synchronize()
+        fwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        for name, a, b in zip(("h_all", "c_all", "hT", "cT"), got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=lambda m, n=name: f"{n}: {m}")
+
+        h_all, c_all = want[:2]
+        rng = np.random.RandomState(T * B)
+        dh_all, dhT, dcT = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+                            for s in ((T, B, H), (B, H), (B, H)))
+        got = klstm.lstm_bwd_cuda(xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT)
+        want = klstm.lstm_bwd_plain(xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT)
+        torch.cuda.synchronize()
+        bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        for name, a, b in zip(("dxg", "dh0", "dc0"), got, want):
+            torch.testing.assert_close(a, b, atol=5e-5, rtol=0, msg=lambda m, n=name: f"{n}: {m}")
+
+        # End to end through autograd: the Function (K2a + K2b) against
+        # autograd of the plain loop.
+        leaves = [t.clone().requires_grad_(True) for t in (xg, wh, h0, c0)]
+        out = klstm.LSTMFunction.apply(leaves[0], leaves[1], keep, leaves[2], leaves[3])
+        grads = torch.autograd.grad(lstm_loss(*out), leaves)
+        ref = [t.clone().requires_grad_(True) for t in (xg, wh, h0, c0)]
+        h_ref, (hT_ref, cT_ref) = _scan_reference(ref[0], ref[1], keep, ref[2], ref[3])
+        want = torch.autograd.grad(lstm_loss(h_ref, hT_ref, cT_ref), ref)
+        torch.cuda.synchronize()
+        dwh_bar = 5e-5 * max(1.0, float(want[1].abs().max()))
+        for name, a, b in zip(("dxg", "dwh", "dh0", "dc0"), grads, want):
+            atol = dwh_bar if name == "dwh" else 5e-5
+            torch.testing.assert_close(a, b, atol=atol, rtol=0, msg=lambda m, n=name: f"{n}: {m}")
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(grads, want))
+        dwh_err = float((grads[1] - want[1]).abs().max())
+        err["fwd"] = max(err["fwd"], fwd_err)
+        err["bwd"] = max(err["bwd"], bwd_err, grad_err)
+        log(f"[lstm] T={T} B={B} H={H}: max |kernel - plain| forward {fwd_err:.3e}, "
+            f"backward {bwd_err:.3e}; autograd grads {grad_err:.3e}, of which dWh "
+            f"{dwh_err:.3e} against a bar of {dwh_bar:.3e} ({100 * dwh_err / dwh_bar:.1f}%)")
+
+    timings = {}
+    for T, B, H in LSTM_SHAPES:
+        # Rotate through enough input sets to pass the 50 MB L2 cache.
+        per_set = 4 * (T * B * 4 * H * 2 + H * 4 * H + 3 * T * B * H)
+        sets = [lstm_inputs(T, B, H, seed=i, device="cuda")
+                for i in range(max(1, min(8, -(-64 * 2**20 // per_set))))]
+        bwd_sets = []
+        for a in sets:
+            h_all, c_all, _, _ = klstm.lstm_fwd_plain(*a)
+            bwd_sets.append((*a, h_all, c_all, torch.ones_like(h_all),
+                             torch.ones_like(a[3]), torch.ones_like(a[4])))
+        row = {}
+        for tag, kernel, plain, groups in (
+                ("fwd", klstm.lstm_fwd_cuda, klstm.lstm_fwd_plain, sets),
+                ("bwd", klstm.lstm_bwd_cuda, klstm.lstm_bwd_plain, bwd_sets)):
+            k_fns = [lambda a=a: kernel(*a) for a in groups]
+            p_fns = [lambda a=a: plain(*a) for a in groups]
+            row[tag] = {
+                "ms": time_eager_ms(k_fns, iters=200, warmup=20),
+                "plain_ms": time_eager_ms(p_fns, iters=50, warmup=5),
+                "graph_ms": time_graph_ms(k_fns, calls=20, replays=10),
+                "plain_graph_ms": time_graph_ms(p_fns, calls=5, replays=10),
+            }
+            row[tag]["bound_ms"], row[tag]["bound_by"] = lstm_bound_ms(T, B, H, tag == "bwd")
+            r = row[tag]
+            log(f"[lstm] {tag} T={T} B={B} H={H}: kernel {r['ms'] * 1e3:.2f} us eager, "
+                f"{r['graph_ms'] * 1e3:.2f} us in a graph; plain {r['plain_ms'] * 1e3:.2f} us "
+                f"eager, {r['plain_graph_ms'] * 1e3:.2f} us in a graph; bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); {len(groups)} input set(s)")
+        timings[(T, B, H)] = row
+    return {"max_abs_err": err, "timings": timings}
+
+
 def seeded_batch(cfg, B: int, seed: int) -> ImpalaBatch:
     rng = np.random.RandomState(seed)
     T, A, H = cfg.trajectory, cfg.num_actions, cfg.lstm_size
@@ -192,7 +356,7 @@ def seeded_batch(cfg, B: int, seed: int) -> ImpalaBatch:
     )
 
 
-def phase_main_path() -> dict:
+def phase_main_path(mem_start: int) -> dict:
     agent_cfg, rt = load_config(CONFIG, "impala")
     learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
     before = {k: v.detach().clone() for k, v in learner.state.params.items()}
@@ -211,7 +375,8 @@ def phase_main_path() -> dict:
     log(f"[main] {UPDATES} updates, {result['frames']} env frames in {wall:.2f} s "
         f"({wall / UPDATES * 1e3:.1f} ms wall per update, "
         f"{result['frames'] / wall:.0f} env frames/s end to end); peak device memory "
-        f"{peak / 2**20:.1f} MiB; launches {launches}")
+        f"{peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the phase's own; "
+        f"launches {launches}")
     log(f"[main] last metrics {json.dumps(metrics)}")
     if launches["vtrace"] != 2 * UPDATES:
         raise RuntimeError(f"V-trace kernel launched {launches['vtrace']} times in "
@@ -256,24 +421,9 @@ def phase_main_path() -> dict:
     log(f"[main] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}, "
         f"T={agent_cfg.trajectory}): {frames_per_s:.0f} learned frames/s")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = learner.agent.learn(state, batch)
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-    def device_us(e):  # the attribute's name changed across PyTorch versions
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    total_us = sum(device_us(e) for e in events)
-    log(f"[profile] one learn step: {step_s * 1e3:.2f} ms host clock, {total_us / 1e3:.2f} ms "
-        f"of device kernels ({100 * total_us / 1e3 / (step_s * 1e3):.1f}% busy)")
-    for e in sorted(events, key=lambda e: -device_us(e))[:10]:
-        log(f"[profile]   {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    profile_breakdown("one learn step", lambda: learner.agent.learn(state, batch))
     return {"launches": launches, "learn_ms": learn_ms, "wall_per_update_ms": wall / UPDATES * 1e3,
-            "frames": result["frames"], "peak_mib": peak / 2**20}
+            "frames": result["frames"], "peak_mib": (peak - mem_start) / 2**20}
 
 
 def phase_device_parity() -> None:
@@ -298,6 +448,173 @@ def phase_device_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
+def device_us(e) -> float:
+    """An event's own device time (the attribute's name changed across
+    PyTorch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_breakdown(what: str, fn) -> None:
+    """torch.profiler over one synchronised call of `fn`: host time,
+    device-kernel time, and the ten largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total_us = sum(device_us(e) for e in events)
+    log(f"[profile] {what}: {step_s * 1e3:.2f} ms host clock, {total_us / 1e3:.2f} ms "
+        f"of device kernels ({100 * total_us / 1e3 / (step_s * 1e3):.1f}% busy)")
+    for e in sorted(events, key=lambda e: -device_us(e))[:10]:
+        log(f"[profile]   {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def r2d2_batch(cfg, B: int, seed: int) -> tuple[R2D2Batch, np.ndarray]:
+    """A seeded full-width sequence batch (CartPole-POMDP observations)
+    and IS weights."""
+    rng = np.random.RandomState(seed)
+    T, H = cfg.seq_len, cfg.lstm_size
+    batch = R2D2Batch(
+        state=(rng.randn(B, T, 2) * 0.2 * 255).astype(np.int32),
+        previous_action=rng.randint(0, cfg.num_actions, (B, T)).astype(np.int32),
+        action=rng.randint(0, cfg.num_actions, (B, T)).astype(np.int32),
+        reward=np.ones((B, T), np.float32),
+        done=rng.rand(B, T) < 0.1,
+        initial_h=(rng.randn(B, H) * 0.1).astype(np.float32),
+        initial_c=(rng.randn(B, H) * 0.1).astype(np.float32),
+    )
+    return batch, (0.5 + 0.5 * rng.rand(B)).astype(np.float32)
+
+
+def phase_r2d2(mem_start: int) -> dict:
+    """The `r2d2` section at full width (CartPole-POMDP, MLP torso 256,
+    LSTM 512, dueling head 128, batch 32 x 10, 3 actors x 4 envs) through
+    build_local and run_sync for R2D2_UPDATES train steps."""
+    agent_cfg, rt = load_config(CONFIG, "r2d2")
+    learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in learner.state.params.values())
+    before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    klstm.lstm_fwd_cuda.launches = klstm.lstm_bwd_cuda.launches = kvt.vtrace_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = run(learner, actors, R2D2_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"lstm_fwd": klstm.lstm_fwd_cuda.launches,
+                "lstm_bwd": klstm.lstm_bwd_cuda.launches, "vtrace": kvt.vtrace_cuda.launches}
+
+    peak = torch.cuda.max_memory_allocated()
+    per_round = sum(a.env.num_envs for a in actors) * agent_cfg.seq_len
+    rounds = result["frames"] // per_round
+    metrics = result["last_metrics"]
+    log(f"[r2d2] {n_params:,} parameters; {R2D2_UPDATES} train steps in {rounds} rounds, "
+        f"{result['frames']} env frames in {wall:.2f} s ({wall / rounds * 1e3:.1f} ms wall "
+        f"per round, {result['frames'] / wall:.0f} env frames/s end to end); peak device "
+        f"memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the "
+        f"phase's own; launches {launches}")
+    log(f"[r2d2] last metrics {json.dumps(metrics)}")
+    want = {"lstm_fwd": 2 * rounds + 2 * R2D2_UPDATES, "lstm_bwd": R2D2_UPDATES, "vtrace": 0}
+    if rounds != 8 or launches != want:
+        raise RuntimeError(f"r2d2 path: {rounds} rounds, launches {launches}, expected 8 "
+                           f"rounds and {want}")
+    priorities = learner.replay.tree._tree
+    if (learner.train_steps != R2D2_UPDATES or not all(math.isfinite(v) for v in metrics.values())
+            or not np.isfinite(priorities).all() or learner.replay.tree.total <= 0):
+        raise RuntimeError(f"bad r2d2 result: steps {learner.train_steps}, {metrics}, "
+                           f"priority total {learner.replay.tree.total}")
+    still = [k for k, v in before.items()
+             if float((learner.state.params[k].detach() - v).abs().max()) == 0.0]
+    if still:
+        raise RuntimeError(f"r2d2 parameters did not move: {still}")
+
+    # Synchronised learn step and ingest scoring on replayed sequences.
+    agent, state = learner.agent, learner.state
+    items, _, is_weight = learner.replay.sample(rt.batch_size, np.random.RandomState(0))
+    batch = stack_pytrees(items)
+    ingest = stack_pytrees(items[:16])
+    for _ in range(2):
+        agent.learn(state, batch, is_weight)
+        agent.td_error(state, ingest)
+    torch.cuda.synchronize()
+    steps = 10
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.learn(state, batch, is_weight)
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.td_error(state, ingest)
+    torch.cuda.synchronize()
+    td_ms = (time.perf_counter() - t0) / steps * 1e3
+    frames_per_s = rt.batch_size * agent_cfg.seq_len / (learn_ms / 1e3)
+    log(f"[r2d2] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}, "
+        f"T={agent_cfg.seq_len}): {frames_per_s:.0f} learned frames/s; ingest td_error "
+        f"(B=16) {td_ms:.2f} ms")
+    profile_breakdown("one r2d2 learn step", lambda: agent.learn(state, batch, is_weight))
+    return {"launches": launches, "learn_ms": learn_ms, "td_ms": td_ms,
+            "wall_per_round_ms": wall / rounds * 1e3, "frames": result["frames"],
+            "peak_mib": (peak - mem_start) / 2**20, "params": n_params}
+
+
+def phase_r2d2_parity() -> None:
+    """One R2D2 learn step (and the td_error before it) from the same
+    parameters, target network and seeded batch on CUDA and on the CPU,
+    TF32 off: rtol 1e-4 on loss, grad norm and priorities."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    agent_cfg, rt = load_config(CONFIG, "r2d2")
+    batch, is_weight = r2d2_batch(agent_cfg, rt.batch_size, seed=7)
+    results = {}
+    for device in ("cuda", "cpu"):
+        agent = R2D2Agent(agent_cfg, device=device)
+        state = agent.init_state(seed=11)
+        for k, v in agent.init_state(seed=12).params.items():
+            state.target_params[k].copy_(v.detach())
+        td = agent.td_error(state, batch).cpu().numpy()
+        _, prio, metrics = agent.learn(state, batch, is_weight)
+        results[device] = {"td": td, "prio": prio.cpu().numpy(),
+                           **{k: float(v) for k, v in metrics.items()}}
+    for k in ("loss", "grad_norm"):
+        if not math.isclose(results["cuda"][k], results["cpu"][k], rel_tol=1e-4):
+            raise RuntimeError(f"r2d2 cuda vs cpu learn step: {k} {results['cuda'][k]} "
+                               f"vs {results['cpu'][k]}")
+    worst = max(abs(results["cuda"][k] / results["cpu"][k] - 1) for k in ("loss", "grad_norm"))
+    for k in ("td", "prio"):
+        np.testing.assert_allclose(results["cuda"][k], results["cpu"][k], rtol=1e-4, atol=1e-7,
+                                   err_msg=f"r2d2 cuda vs cpu {k}")
+        worst = max(worst, float(np.max(np.abs(results["cuda"][k] - results["cpu"][k])
+                                        / np.maximum(np.abs(results["cpu"][k]), 1e-7))))
+    log(f"[parity] r2d2 cuda vs cpu learn step agrees (worst rel diff {worst:.2e}): "
+        f"loss {results['cuda']['loss']}, grad_norm {results['cuda']['grad_norm']}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def lstm_rows(k2: dict, r2d2: dict) -> list[dict]:
+    """The K2a and K2b entries of the kernels line."""
+    rows = []
+    for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
+        t = k2["timings"][LSTM_MAIN][tag]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_reinforcement_learning_tpu_torch/csrc/lstm.cu",
+            "replaces": f"distributed_reinforcement_learning_tpu/ops/pallas/lstm.py:{line}",
+            "launches": r2d2["launches"][name], "max_abs_err": k2["max_abs_err"][tag],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
+            "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
+            "other_shapes": [{"shape": list(shape), **k2["timings"][shape][tag]}
+                             for shape in LSTM_SHAPES[1:]],
+        })
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -308,9 +625,16 @@ def main() -> int:
         f"nvidia-smi: {smi}")
     t_start = time.perf_counter()
     phase_build()
+    phase_memory("vtrace")
     k1 = phase_vtrace()
-    main_path = phase_main_path()
+    phase_memory("lstm")
+    k2 = phase_lstm()
+    main_path = phase_main_path(phase_memory("impala path"))
+    phase_memory("impala parity")
     phase_device_parity()
+    r2d2 = phase_r2d2(phase_memory("r2d2 path"))
+    phase_memory("r2d2 parity")
+    phase_r2d2_parity()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -328,10 +652,11 @@ def main() -> int:
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }]
+    }, *lstm_rows(k2, r2d2)]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
-        f"{main_path['wall_per_update_ms']:.1f} ms, peak {main_path['peak_mib']:.1f} MiB; "
-        f"smoke took {time.perf_counter() - t_start:.1f} s")
+        f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
+        f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
+        f"ms, own peak {r2d2['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

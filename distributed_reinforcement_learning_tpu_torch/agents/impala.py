@@ -80,21 +80,6 @@ class ActOutput(NamedTuple):
     c: torch.Tensor
 
 
-_INDEX_FIELDS = ("action", "previous_action")
-
-
-def batch_to_device(batch: ImpalaBatch, device: torch.device) -> ImpalaBatch:
-    """numpy (or tensor) batch -> tensors on `device`; action fields as
-    int64, the index type `gather` and `one_hot` take."""
-    out = {}
-    for name, x in batch._asdict().items():
-        t = torch.as_tensor(x)
-        if name in _INDEX_FIELDS:
-            t = t.long()
-        out[name] = t.to(device)
-    return ImpalaBatch(**out)
-
-
 class ImpalaAgent:
     """Config + model + optimizer; `act` and `learn` on `device`."""
 
@@ -196,7 +181,7 @@ class ImpalaAgent:
         `learning_rate` is the schedule at the step being taken (before
         the increment) and `grad_norm` the norm before clipping, as in the
         JAX package. Metric values are device tensors (no host sync)."""
-        batch = batch_to_device(batch, self.device)
+        batch = common.batch_to_device(batch, self.device)
         total, metrics = self.loss(state.params, batch)
         names = list(state.params)
         grads = torch.autograd.grad(total, [state.params[k] for k in names])

@@ -1,4 +1,5 @@
-"""CartPole-v0 physics in numpy: single and vectorized variants.
+"""CartPole-v0 physics in numpy: single and vectorized variants, and the
+POMDP view R2D2 trains on.
 
 Copy of the JAX package's `envs/cartpole.py`: classic Barto-Sutton-Anderson
 cart-pole with Euler integration, +1 reward per step, termination at
@@ -114,3 +115,10 @@ class VectorCartPole:
         infos = {"episode_return": episode_returns, "done_mask": done.copy(),
                  "truncated": truncated}
         return self._state.astype(np.float32), reward, done, infos
+
+
+def pomdp_project(obs: np.ndarray) -> np.ndarray:
+    """CartPole POMDP view: keep position and pole angle only, scaled x255
+    and cast to int32 (the reference's transport convention; the /255 is
+    undone at the model input)."""
+    return (obs[..., [0, 2]] * 255.0).astype(np.int32)

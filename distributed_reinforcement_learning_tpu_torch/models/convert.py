@@ -1,10 +1,11 @@
-"""Flax IMPALA parameters -> the port's `state_dict`.
+"""Flax parameters -> the port's `state_dict`.
 
 The JAX package's parameter tree, as nested dicts of numpy arrays (for
 example `params/torso/conv0_kernel (8, 8, 4, 32)`,
 `params/lstm/gates_kernel (3648, 1024)`,
-`params/policy_head/Dense_2/kernel (256, 18)`), maps onto
-`ImpalaActorCritic` names and layouts:
+`params/policy_head/Dense_2/kernel (256, 18)`), maps onto the port's
+module names and layouts (`ImpalaActorCritic`, `R2D2Net`) by one set of
+rules:
 
 - conv kernels HWIO -> OIHW; Dense `[in, out]` -> Linear `[out, in]`;
 - `Dense_{i}` -> `layers.{i}`; `conv{i}_kernel` / `conv{i}_bias` ->
@@ -37,6 +38,17 @@ def _flatten(tree, prefix=()):
 
 def impala_params_from_jax(tree) -> dict[str, torch.Tensor]:
     """-> a state_dict for `ImpalaActorCritic.load_state_dict(strict=True)`."""
+    return _params_from_jax(tree, "IMPALA")
+
+
+def r2d2_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """-> a state_dict for `R2D2Net.load_state_dict(strict=True)`
+    (`state_fc1/kernel` -> `state_fc1.weight`, `cell/gates_kernel` ->
+    `cell.gates_kernel`, `torso/conv0_kernel` -> `torso.conv0.weight`)."""
+    return _params_from_jax(tree, "R2D2")
+
+
+def _params_from_jax(tree, family: str) -> dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     out = {}
@@ -52,7 +64,7 @@ def impala_params_from_jax(tree) -> dict[str, torch.Tensor]:
         elif leaf in ("kernel", "bias"):
             names.append("weight" if leaf == "kernel" else "bias")
         else:
-            raise KeyError(f"unknown IMPALA parameter {'/'.join(path)}")
+            raise KeyError(f"unknown {family} parameter {'/'.join(path)}")
         if names[-1] == "weight":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[".".join(names)] = torch.tensor(np.ascontiguousarray(arr))

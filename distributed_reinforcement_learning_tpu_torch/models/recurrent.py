@@ -6,8 +6,14 @@ TF1 `LSTMCell` parity with forget bias 1.0 (`ops/lstm.py:lstm_step`).
 `torch.nn.LSTMCell` keeps separate input and recurrent matrices, two
 biases and no forget bias, so it is not used.
 
-Only the single step is ported: stored-state IMPALA applies the cell to a
-flattened `[B*T]` batch and needs no unroll. `unroll` comes with R2D2.
+- The single step (`forward`) serves the act paths and stored-state
+  IMPALA, which applies the cell to a flattened `[B*T]` batch. It stays
+  plain on every device, as the JAX cell pins its single step to the
+  reference scan.
+- `unroll` runs a `[B, T]` sequence with done-masked resets (R2D2): the
+  input half of the kernel projects all steps in one product, and only
+  the recurrent half enters the recursion (`ops/lstm.py:lstm_scan`, the
+  CUDA kernels on the card).
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 from torch import nn
 
 from distributed_reinforcement_learning_tpu_torch.models.torso import glorot_uniform_
-from distributed_reinforcement_learning_tpu_torch.ops.lstm import lstm_step
+from distributed_reinforcement_learning_tpu_torch.ops.lstm import lstm_scan, lstm_step
 
 
 class LSTMCell(nn.Module):
@@ -40,3 +46,13 @@ class LSTMCell(nn.Module):
         feat = x.shape[-1]
         xg = x @ self.gates_kernel[:feat] + self.gates_bias
         return lstm_step(xg + h @ self.gates_kernel[feat:], c)
+
+    def unroll(self, z_seq: torch.Tensor, done_seq: torch.Tensor, h: torch.Tensor,
+               c: torch.Tensor):
+        """`[B, T, F]` inputs, `[B, T]` bool dones, `[B, hidden]` start
+        state -> (h_all `[B, T, hidden]` pre-mask outputs, (hT, cT) masked
+        carry). (h, c) are zeroed AFTER any step where done is set."""
+        feat = z_seq.shape[-1]
+        xg = z_seq @ self.gates_kernel[:feat] + self.gates_bias
+        keep = 1.0 - done_seq.to(xg.dtype)
+        return lstm_scan(xg, self.gates_kernel[feat:], keep, h, c)

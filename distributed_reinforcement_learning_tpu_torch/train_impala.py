@@ -15,10 +15,11 @@ import json
 from distributed_reinforcement_learning_tpu_torch.runtime.launch import train_local
 
 
-def main(argv: list[str] | None = None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_cli(doc: str, section: str, argv: list[str] | None) -> dict:
+    """The launchers' shared command line: train, print the summary."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--config", default="config.json")
-    ap.add_argument("--section", default="impala")
+    ap.add_argument("--section", default=section)
     ap.add_argument("--updates", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--run_dir", default=None)
@@ -30,6 +31,10 @@ def main(argv: list[str] | None = None) -> dict:
     summary["episodes"] = len(result["episode_returns"])
     print(json.dumps(summary))
     return result
+
+
+def main(argv: list[str] | None = None) -> dict:
+    return run_cli(__doc__, "impala", argv)
 
 
 if __name__ == "__main__":
