@@ -37,11 +37,30 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 7. R2D2 device parity: td_error and one learn step from the same
    parameters and seeded batch on CUDA and on the CPU (TF32 off): rtol
    1e-4 on loss, grad norm and priorities.
-8. A `{"kernels": [...]}` line with each kernel's numbers.
+8. Flash attention (K3a forward, K3b dq, K3c dk/dv) at (B, H, T, D) =
+   (16, 2, 16, 32) (the ximpala section's act and learn shape), (64, 4,
+   32, 64) (bench.py's ximpala_learn shape) and (1, 4, 8192, 64), with
+   ~8% dones in the segment ids: each kernel against its plain version,
+   the gradients through `FlashAttentionFunction` against autograd of
+   the plain `dense_attention`, and the yardstick
+   `scaled_dot_product_attention` with a causal & same-segment mask
+   against the same; then timings of all three beside their bounds.
+9. The Transformer-IMPALA path: the `ximpala` section at full width
+   (CartPole, d_model 64, 2 heads, 2 layers, batch 16 x 16, 1 actor x 16
+   envs) through build_local and run_sync for 3 updates. With the
+   counts zeroed just before: exactly 16 x 2 + 2 K3a launches per update
+   (the act calls and the learn forward, 102 in all), 2 K3b, 2 K3c and 2
+   K1 per update (6 each) and no K2; finite metrics, parameters that
+   moved; then the synchronised learn step, a profiler breakdown and
+   the phase's own peak memory.
+10. Transformer-IMPALA device parity: one learn step from the same
+   parameters on the same seeded batch on CUDA and on the CPU (TF32
+   off): rtol 1e-4 on each loss term and the gradient norm.
+11. A `{"kernels": [...]}` line with each kernel's numbers.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4 and 6 are read net of it.
-9. The device line, then `{"ok": true, "device": {...}}` as the last line.
+logged, so that the peaks of phases 4, 6 and 9 are read net of it.
+12. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -61,8 +80,12 @@ import torch
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Batch
+from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
+    XImpalaAgent, XImpalaBatch)
 from distributed_reinforcement_learning_tpu_torch.data.fifo import stack_pytrees
+from distributed_reinforcement_learning_tpu_torch.ops.attention import dense_attention
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import _build
+from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import vtrace as kvt
 from distributed_reinforcement_learning_tpu_torch.ops.lstm import _scan_reference
@@ -82,6 +105,11 @@ R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 LSTM_MAIN = (10, 32, 512)
 LSTM_INGEST = (10, 16, 512)
 LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, (20, 32, 256), (20, 256, 512)]
+# Flash attention (B, H, T, D): the ximpala section's act and learn
+# shape, bench.py's ximpala_learn shape, and a long sequence.
+ATTN_MAIN = (16, 2, 16, 32)
+ATTN_SHAPES = [ATTN_MAIN, (64, 4, 32, 64), (1, 4, 8192, 64)]
+XIMPALA_UPDATES = 3
 
 
 def log(msg: str) -> None:
@@ -363,7 +391,7 @@ def phase_main_path(mem_start: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    kvt.vtrace_cuda.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     result = run(learner, actors, UPDATES)
     torch.cuda.synchronize()
@@ -500,7 +528,7 @@ def phase_r2d2(mem_start: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    klstm.lstm_fwd_cuda.launches = klstm.lstm_bwd_cuda.launches = kvt.vtrace_cuda.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     result = run(learner, actors, R2D2_UPDATES)
     torch.cuda.synchronize()
@@ -615,6 +643,343 @@ def lstm_rows(k2: dict, r2d2: dict) -> list[dict]:
     return rows
 
 
+def attention_inputs(B: int, H: int, T: int, D: int, seed: int, device):
+    """q, k, v, dO `[BH, T, D]` and `[BH, T]` int32 segment ids (episode
+    ids from ~8% dones, shared by the heads of a batch row)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy((rng.randn(B * H, T, D) * s).astype(np.float32)).to(device)
+                   for s in (0.3, 0.3, 0.3, 0.5))
+    segs = np.repeat(np.cumsum(rng.rand(B, T) < 0.08, axis=1).astype(np.int32), H, axis=0)
+    return q, k, v, torch.from_numpy(segs).to(device), do
+
+
+def attended_pairs(segs: torch.Tensor) -> int:
+    """(query, key) pairs with key <= query in the same segment, summed over
+    rows: the work these inputs need. Episode ids increase along T, so a
+    segment of length L holds L (L + 1) / 2 pairs."""
+    rows = segs.cpu().numpy()
+    assert (np.diff(rows, axis=1) >= 0).all()
+    total = 0
+    for row in rows:
+        _, counts = np.unique(row, return_counts=True)
+        total += int((counts * (counts + 1) // 2).sum())
+    return total
+
+
+def attention_bound_ms(kind: str, BH: int, T: int, D: int, pairs: int) -> tuple[float, str]:
+    """Least time for one call: 4*D flops per attended pair forward (q.k
+    and p.v), 6*D for dq (s, dO.v, ds.k) and 8*D for dk/dv (s, p.dO, dO.v,
+    ds.q) at the float32 rate, against each input read and each output
+    written once."""
+    per_pair = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * D
+    rows, mats = BH * T, BH * T * D
+    floats = {"fwd": 3 * mats + 2 * rows + mats + rows,  # q k v qs ks -> o lse
+              "dq": 4 * mats + 4 * rows + mats,  # q k v do qs ks lse delta -> dq
+              "dkv": 4 * mats + 4 * rows + 2 * mats}[kind]  # ... -> dk dv
+    t_bytes, t_ops = 4 * floats / HBM_BYTES_PER_S, per_pair * pairs / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flat_to_bthd(x: torch.Tensor, B: int, H: int) -> torch.Tensor:
+    return x.reshape(B, H, x.shape[1], x.shape[2]).transpose(1, 2)
+
+
+def bthd_to_flat(x: torch.Tensor) -> torch.Tensor:
+    B, T, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, T, D)
+
+
+def sdpa_mask(segs: torch.Tensor) -> torch.Tensor:
+    T = segs.shape[1]
+    causal = torch.ones(T, T, dtype=torch.bool, device=segs.device).tril()
+    return causal[None] & (segs[:, :, None] == segs[:, None, :])
+
+
+def phase_attention() -> dict:
+    """K3a, K3b and K3c against their plain versions on the card, the
+    gradients through `FlashAttentionFunction` against autograd of the
+    plain `dense_attention`, and the library call held to the same bars;
+    then timings. Tolerances: forward atol 1e-5 (o and lse); dq, dk, dv
+    atol 1e-4 x max(1, max |ref|), the JAX package's gradient bar scaled
+    where the gradients are large."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    timings = {}
+    for B, H, T, D in ATTN_SHAPES:
+        blk = kattn.flash_blocks(T)
+        q, k, v, segs, do = attention_inputs(B, H, T, D, seed=T + D, device="cuda")
+        o, lse = kattn.flash_fwd_cuda(q, k, v, segs, segs)
+        want_o, want_lse = kattn.flash_fwd_plain(q, k, v, segs, segs, blk, blk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o, want_o, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+        fwd_err = max(float((o - want_o).abs().max()), float((lse - want_lse).abs().max()))
+
+        delta = (do * want_o).sum(-1)
+        dq = kattn.flash_dq_cuda(q, k, v, segs, segs, do, want_lse, delta)
+        dk, dv = kattn.flash_dkv_cuda(q, k, v, segs, segs, do, want_lse, delta)
+        want = kattn.flash_bwd_plain(q, k, v, segs, segs, do, want_lse, delta, blk, blk)
+        torch.cuda.synchronize()
+        bwd_err = {}
+        for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            bar = 1e-4 * max(1.0, float(b.abs().max()))
+            torch.testing.assert_close(a, b, atol=bar, rtol=0, msg=lambda m, n=name: f"{n}: {m}")
+            bwd_err[name] = float((a - b).abs().max())
+
+        # End to end through autograd: the Function (K3a + K3b + K3c)
+        # against autograd of the dense reference; the library call too.
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = kattn.flash_attention_bhtd(*leaves, segs, segs, blk, blk)
+        grads = torch.autograd.grad(out, leaves, do)
+        ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        seg_b = segs[::H]
+        ref = bthd_to_flat(dense_attention(*(flat_to_bthd(t, B, H) for t in ref_leaves),
+                                           causal=True, q_seg=seg_b, k_seg=seg_b))
+        ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+        mask = sdpa_mask(segs)
+        lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask)
+        lib_grads = torch.autograd.grad(lib, lib_leaves, do)
+        torch.cuda.synchronize()
+        for what, got, got_grads in (("function", out, grads), ("library", lib, lib_grads)):
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=0,
+                                       msg=lambda m, w=what: f"{w} output vs dense: {m}")
+            for name, a, b in zip(("dq", "dk", "dv"), got_grads, ref_grads):
+                bar = 1e-4 * max(1.0, float(b.abs().max()))
+                torch.testing.assert_close(a, b, atol=bar, rtol=0,
+                                           msg=lambda m, n=name, w=what: f"{w} {n}: {m}")
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
+        lib_err = max(float((a - b).abs().max()) for a, b in zip(lib_grads, ref_grads))
+        err["fwd"] = max(err["fwd"], fwd_err)
+        err["dq"] = max(err["dq"], bwd_err["dq"])
+        err["dkv"] = max(err["dkv"], bwd_err["dk"], bwd_err["dv"])
+        log(f"[attention] B={B} H={H} T={T} D={D}: max |kernel - plain| forward {fwd_err:.3e}, "
+            f"dq {bwd_err['dq']:.3e}, dk {bwd_err['dk']:.3e}, dv {bwd_err['dv']:.3e}; "
+            f"Function grads vs dense autograd {grad_err:.3e}; library grads vs dense "
+            f"{lib_err:.3e}")
+        del leaves, out, grads, ref_leaves, ref, ref_grads, lib_leaves, lib, lib_grads
+
+        timings[(B, H, T, D)] = attention_timings(B, H, T, D, q, k, v, segs, do, want_lse,
+                                                  delta, mask, blk)
+    return {"max_abs_err": err, "timings": timings}
+
+
+def attention_timings(B, H, T, D, q, k, v, segs, do, lse, delta, mask, blk) -> dict:
+    """Eager and CUDA-graph per-call times of each kernel, its plain
+    version and the library call, beside the bound of this data."""
+    import torch.nn.functional as F
+
+    big = T >= 1024
+    eager = dict(iters=20, warmup=3) if big else dict(iters=500, warmup=20)
+    graph = dict(calls=5, replays=3) if big else dict(calls=50, replays=10)
+    plain_eager = dict(iters=5, warmup=1) if big else dict(iters=100, warmup=5)
+    plain_graph = dict(calls=2, replays=3) if big else dict(calls=10, replays=5)
+    lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask)
+        return torch.autograd.grad(out, lib_leaves, do)
+
+    bwd_args = (q, k, v, segs, segs, do, lse, delta)
+    fns = {
+        "fwd": (lambda: kattn.flash_fwd_cuda(q, k, v, segs, segs),
+                lambda: kattn.flash_fwd_plain(q, k, v, segs, segs, blk, blk), sdpa_fwd),
+        "dq": (lambda: kattn.flash_dq_cuda(*bwd_args),
+               lambda: kattn.flash_bwd_plain(*bwd_args, blk, blk), sdpa_fwd_bwd),
+        "dkv": (lambda: kattn.flash_dkv_cuda(*bwd_args), None, None),
+    }
+    pairs = attended_pairs(segs)
+    causal_pairs = B * H * T * (T + 1) // 2
+    rows = {}
+    for kind, (kernel, plain, library) in fns.items():
+        row = {"ms": time_eager_ms([kernel], **eager), "graph_ms": time_graph_ms([kernel], **graph)}
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(kind, B * H, T, D, pairs)
+        row["bound_causal_ms"], row["bound_causal_by"] = attention_bound_ms(
+            kind, B * H, T, D, causal_pairs)
+        rows[kind] = row
+        if plain is not None:
+            row["plain_ms"] = time_eager_ms([plain], **plain_eager)
+            row["plain_graph_ms"] = time_graph_ms([plain], **plain_graph)
+            row["library_ms"] = time_eager_ms([library], **plain_eager)
+            row["library_graph_ms"] = time_graph_ms([library], **plain_graph)
+    # The plain backward and the library's backward each compute dq, dk and
+    # dv together: the dk/dv row carries the same numbers.
+    for key in ("plain_ms", "plain_graph_ms", "library_ms", "library_graph_ms"):
+        rows["dkv"][key] = rows["dq"][key]
+    for kind, r in rows.items():
+        log(f"[attention] {kind} B={B} H={H} T={T} D={D}: kernel {r['ms'] * 1e3:.2f} us eager, "
+            f"{r['graph_ms'] * 1e3:.2f} us in a graph; plain {r['plain_ms'] * 1e3:.2f} us eager, "
+            f"{r['plain_graph_ms'] * 1e3:.2f} us in a graph; library "
+            f"{r['library_ms'] * 1e3:.2f} us eager, {r['library_graph_ms'] * 1e3:.2f} us in a "
+            f"graph; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}, {pairs} attended "
+            f"pairs), causal bound {r['bound_causal_ms'] * 1e3:.3f} us "
+            f"({r['bound_causal_by']}, {causal_pairs} pairs)")
+    return rows
+
+
+def ximpala_batch(cfg, B: int, seed: int) -> XImpalaBatch:
+    """A seeded full-width unroll batch (CartPole observations) whose
+    recorded dones include extra shaped ones beside the env dones."""
+    rng = np.random.RandomState(seed)
+    T, A = cfg.trajectory, cfg.num_actions
+    logits = rng.randn(B, T, A)
+    env_done = rng.rand(B, T) < 0.05
+    return XImpalaBatch(
+        state=(rng.randn(B, T, *cfg.obs_shape) * 0.1).astype(np.float32),
+        reward=np.ones((B, T), np.float32),
+        action=rng.randint(0, A, (B, T)).astype(np.int32),
+        done=env_done | (rng.rand(B, T) < 0.03),
+        env_done=env_done,
+        behavior_policy=(np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(
+            np.float32),
+        previous_action=rng.randint(0, A, (B, T)).astype(np.int32),
+    )
+
+
+def zero_launch_counts() -> None:
+    for fn in (kvt.vtrace_cuda, klstm.lstm_fwd_cuda, klstm.lstm_bwd_cuda, kattn.flash_fwd_cuda,
+               kattn.flash_dq_cuda, kattn.flash_dkv_cuda):
+        fn.launches = 0
+
+
+def phase_ximpala(mem_start: int) -> dict:
+    """The `ximpala` section at full width through build_local and
+    run_sync for XIMPALA_UPDATES updates."""
+    agent_cfg, rt = load_config(CONFIG, "ximpala")
+    learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in learner.state.params.values())
+    before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = run(learner, actors, XIMPALA_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd": kattn.flash_fwd_cuda.launches,
+                "attention_dq": kattn.flash_dq_cuda.launches,
+                "attention_dkv": kattn.flash_dkv_cuda.launches,
+                "vtrace": kvt.vtrace_cuda.launches,
+                "lstm": klstm.lstm_fwd_cuda.launches + klstm.lstm_bwd_cuda.launches}
+
+    peak = torch.cuda.max_memory_allocated()
+    metrics = result["last_metrics"]
+    layers, T = agent_cfg.num_layers, agent_cfg.trajectory
+    log(f"[ximpala] {n_params:,} parameters; {XIMPALA_UPDATES} updates, {result['frames']} env "
+        f"frames in {wall:.2f} s ({wall / XIMPALA_UPDATES * 1e3:.1f} ms wall per update, "
+        f"{result['frames'] / wall:.0f} env frames/s end to end); peak device memory "
+        f"{peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the phase's own; "
+        f"launches {launches}")
+    log(f"[ximpala] last metrics {json.dumps(metrics)}")
+    # One actor round of 16 envs fills the batch of 16: per update, T act
+    # calls and one learn forward, each through every layer.
+    rounds = result["frames"] // (rt.envs_per_actor * rt.num_actors * T)
+    want = {"attention_fwd": rounds * T * layers + XIMPALA_UPDATES * layers,
+            "attention_dq": XIMPALA_UPDATES * layers, "attention_dkv": XIMPALA_UPDATES * layers,
+            "vtrace": 2 * XIMPALA_UPDATES, "lstm": 0}
+    if rounds != XIMPALA_UPDATES or launches != want or want["attention_fwd"] != 102:
+        raise RuntimeError(f"ximpala path: {rounds} rounds, launches {launches}, expected "
+                           f"{XIMPALA_UPDATES} rounds and {want}")
+    if (learner.train_steps != XIMPALA_UPDATES
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise RuntimeError(f"bad ximpala result: steps {learner.train_steps}, {metrics}")
+    still = [k for k, v in before.items()
+             if float((learner.state.params[k].detach() - v).abs().max()) == 0.0]
+    if still:
+        raise RuntimeError(f"ximpala parameters did not move: {still}")
+
+    # Where an update's wall time goes: one actor unroll (16 act calls on
+    # 16 x 16 windows, 16 steps of 16 envs), and the env steps alone.
+    actor = actors[0]
+    t0 = time.perf_counter()
+    actor.run_unroll()
+    torch.cuda.synchronize()
+    unroll_ms = (time.perf_counter() - t0) * 1e3
+    actor.queue.get_batch(rt.batch_size, timeout=1.0)
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    for _ in range(T):
+        actor.env.step(rng.randint(0, rt.available_action[0], actor.env.num_envs))
+    env_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[ximpala] one actor unroll ({T} act calls, {T} steps x {actor.env.num_envs} envs): "
+        f"{unroll_ms:.1f} ms, of which env steps alone take ~{env_ms:.1f} ms")
+
+    batch = ximpala_batch(agent_cfg, rt.batch_size, seed=5)
+    agent, state = learner.agent, learner.state
+    for _ in range(2):
+        agent.learn(state, batch)
+    torch.cuda.synchronize()
+    steps = 10
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.learn(state, batch)
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) / steps * 1e3
+    frames_per_s = rt.batch_size * T / (learn_ms / 1e3)
+    log(f"[ximpala] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}, T={T}): "
+        f"{frames_per_s:.0f} learned frames/s")
+    profile_breakdown("one ximpala learn step", lambda: agent.learn(state, batch))
+    return {"launches": launches, "learn_ms": learn_ms, "unroll_ms": unroll_ms,
+            "wall_per_update_ms": wall / XIMPALA_UPDATES * 1e3, "frames": result["frames"],
+            "peak_mib": (peak - mem_start) / 2**20, "params": n_params}
+
+
+def phase_ximpala_parity() -> None:
+    """One ximpala learn step from the same parameters on the same seeded
+    batch on CUDA and on the CPU, TF32 off: rtol 1e-4 on each loss term
+    and the gradient norm."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    agent_cfg, rt = load_config(CONFIG, "ximpala")
+    batch = ximpala_batch(agent_cfg, rt.batch_size, seed=7)
+    results = {}
+    for device in ("cuda", "cpu"):
+        agent = XImpalaAgent(agent_cfg, device=device)
+        _, metrics = agent.learn(agent.init_state(seed=11), batch)
+        results[device] = {k: float(v) for k, v in metrics.items()}
+    for k, want in results["cpu"].items():
+        if not math.isclose(results["cuda"][k], want, rel_tol=1e-4):
+            raise RuntimeError(f"ximpala cuda vs cpu learn step: {k} {results['cuda'][k]} "
+                               f"vs {want}")
+    worst = max(abs(results["cuda"][k] - v) / abs(v) for k, v in results["cpu"].items() if v)
+    log(f"[parity] ximpala cuda vs cpu learn step agrees (worst rel diff {worst:.2e}): "
+        f"{json.dumps(results['cuda'])}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def attention_rows(k3: dict, ximpala: dict) -> list[dict]:
+    """The K3a, K3b and K3c entries of the kernels line, at the main path's
+    shape, with the other shapes beside."""
+    rows = []
+    for kind, line in (("fwd", 59), ("dq", 108), ("dkv", 152)):
+        name = f"attention_{kind}"
+        t = k3["timings"][ATTN_MAIN][kind]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_reinforcement_learning_tpu_torch/csrc/attention.cu",
+            "replaces": f"distributed_reinforcement_learning_tpu/ops/pallas/attention.py:{line}",
+            "launches": ximpala["launches"][name], "max_abs_err": k3["max_abs_err"][kind],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": ("scaled_dot_product_attention, causal & same-segment mask"
+                             + ("" if kind == "fwd" else ", forward + backward (dq, dk, dv)")),
+            "shape": list(ATTN_MAIN), "graph_ms": t["graph_ms"],
+            "plain_graph_ms": t["plain_graph_ms"], "library_graph_ms": t["library_graph_ms"],
+            "bound_causal_ms": t["bound_causal_ms"],
+            "other_shapes": [{"shape": list(shape), **k3["timings"][shape][kind]}
+                             for shape in ATTN_SHAPES[1:]],
+        })
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -635,6 +1000,11 @@ def main() -> int:
     r2d2 = phase_r2d2(phase_memory("r2d2 path"))
     phase_memory("r2d2 parity")
     phase_r2d2_parity()
+    phase_memory("attention")
+    k3 = phase_attention()
+    ximpala = phase_ximpala(phase_memory("ximpala path"))
+    phase_memory("ximpala parity")
+    phase_ximpala_parity()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -652,11 +1022,13 @@ def main() -> int:
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }, *lstm_rows(k2, r2d2)]
+    }, *lstm_rows(k2, r2d2), *attention_rows(k3, ximpala)]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
-        f"ms, own peak {r2d2['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
+        f"ms, own peak {r2d2['peak_mib']:.1f} MiB; ximpala learn_ms {ximpala['learn_ms']:.3f}, "
+        f"wall per update {ximpala['wall_per_update_ms']:.1f} ms, own peak "
+        f"{ximpala['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -137,12 +137,17 @@ class ImpalaAgent:
         return ActOutput(action, out.policy, out.h, out.c)
 
     # -- learn -----------------------------------------------------------
+    def _forward(self, params: dict[str, torch.Tensor], batch: ImpalaBatch):
+        """-> (policy [B, T, A], value [B, T]), each step seeded from its
+        actor-recorded LSTM state."""
+        return apply_stored_state(
+            self.model, params, self._prep_obs(batch.state), batch.previous_action,
+            batch.initial_h, batch.initial_c)
+
     def loss(self, params: dict[str, torch.Tensor], batch: ImpalaBatch):
         """-> (total loss, metrics) for a batch of tensors on the device."""
         cfg = self.cfg
-        policy, value = apply_stored_state(
-            self.model, params, self._prep_obs(batch.state), batch.previous_action,
-            batch.initial_h, batch.initial_c)
+        policy, value = self._forward(params, batch)
 
         clipped_r = common.clip_rewards(batch.reward, cfg.reward_clipping)
         discounts = (~batch.done).to(torch.float32) * cfg.discount_factor

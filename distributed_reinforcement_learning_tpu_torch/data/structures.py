@@ -1,6 +1,6 @@
 """Client-side trajectory accumulators.
 
-Counterpart of the IMPALA and R2D2 parts of the JAX package's
+Counterpart of the IMPALA, R2D2 and Transformer-IMPALA parts of the JAX package's
 `data/structures.py`: one accumulator holds a whole vectorized actor's
 unroll as a `[T]`-list of `[N, ...]` numpy arrays and emits one
 trajectory (or sequence) per env.
@@ -12,6 +12,7 @@ import numpy as np
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Batch
+from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaBatch
 
 
 class _StackedUnrollAccumulator:
@@ -50,6 +51,15 @@ class ImpalaTrajectoryAccumulator(_StackedUnrollAccumulator):
 
     def _batch_cls(self):
         return ImpalaBatch
+
+
+class XImpalaTrajectoryAccumulator(_StackedUnrollAccumulator):
+    """T steps of an `[N]`-env actor -> N `XImpalaBatch`es: the IMPALA
+    payload minus the stored (h, c), since the transformer re-attends
+    over the unroll."""
+
+    def _batch_cls(self):
+        return XImpalaBatch
 
 
 class R2D2SequenceAccumulator(_StackedUnrollAccumulator):

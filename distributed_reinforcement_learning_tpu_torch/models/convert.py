@@ -15,6 +15,10 @@ rules:
 
 The feature order after a flatten needs no permutation: the port's
 torsos flatten NHWC, as the JAX torsos do.
+
+`TransformerQNet` takes flax's automatic names through a table instead
+(`transformer_params_from_jax`), and LayerNorm's `scale` becomes
+`weight` with no transpose.
 """
 
 from __future__ import annotations
@@ -46,6 +50,48 @@ def r2d2_params_from_jax(tree) -> dict[str, torch.Tensor]:
     (`state_fc1/kernel` -> `state_fc1.weight`, `cell/gates_kernel` ->
     `cell.gates_kernel`, `torso/conv0_kernel` -> `torso.conv0.weight`)."""
     return _params_from_jax(tree, "R2D2")
+
+
+# Flax's automatic names in TransformerQNet -> the port's module names.
+_XF_TOP = {"Dense_0": "obs_fc1", "Dense_1": "obs_fc2", "ActionEmbedding_0": "action_embed",
+           "Dense_2": "embed", "LayerNorm_0": "final_ln", "Dense_3": "head_fc"}
+_XF_HEADS = {"actor_critic": {"Dense_4": "logits", "Dense_5": "value"},
+             "dueling_q": {"Dense_4": "q", "Dense_5": "mean"}}
+_XF_BLOCK = {"LayerNorm_0": "ln1", "Dense_0": "qkv", "Dense_1": "proj", "LayerNorm_1": "ln2",
+             "Dense_2": "mlp1", "Dense_3": "mlp2"}
+_XF_BLOCK_NAME = re.compile(r"SelfAttentionBlock_(\d+)$")
+
+
+def transformer_params_from_jax(tree, head: str = "dueling_q") -> dict[str, torch.Tensor]:
+    """-> a state_dict for `TransformerQNet(head=head).load_state_dict(strict=True)`
+    (`SelfAttentionBlock_1/Dense_0/kernel` -> `blocks.1.qkv.weight`,
+    `ActionEmbedding_0/Dense_1/bias` -> `action_embed.layers.1.bias`,
+    `LayerNorm_0/scale` -> `final_ln.weight`)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    top = {**_XF_TOP, **_XF_HEADS[head]}
+    out = {}
+    for path, arr in _flatten(tree):
+        arr = np.asarray(arr, np.float32)
+        *scope, leaf = path
+        block = _XF_BLOCK_NAME.match(scope[0])
+        if block and len(scope) == 2 and scope[1] in _XF_BLOCK:
+            names = ["blocks", block.group(1), _XF_BLOCK[scope[1]]]
+        elif scope[0] == "ActionEmbedding_0" and len(scope) == 2 and _DENSE.match(scope[1]):
+            names = ["action_embed", "layers", _DENSE.match(scope[1]).group(1)]
+        elif len(scope) == 1 and scope[0] in top:
+            names = [top[scope[0]]]
+        else:
+            raise KeyError(f"unknown transformer parameter {'/'.join(path)}")
+        if leaf == "kernel":
+            names.append("weight")
+            arr = arr.T
+        elif leaf in ("scale", "bias"):
+            names.append("weight" if leaf == "scale" else "bias")
+        else:
+            raise KeyError(f"unknown transformer parameter {'/'.join(path)}")
+        out[".".join(names)] = torch.tensor(np.ascontiguousarray(arr))
+    return out
 
 
 def _params_from_jax(tree, family: str) -> dict[str, torch.Tensor]:

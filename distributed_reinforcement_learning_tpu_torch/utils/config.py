@@ -1,11 +1,12 @@
-"""Config loading: the IMPALA and R2D2 sections of the repo's `config.json`.
+"""Config loading: the IMPALA, R2D2 and Transformer-IMPALA sections of
+the repo's `config.json`.
 
-Counterpart of the JAX package's `utils/config.py`, IMPALA and R2D2
-branches. Loads one section into an agent config and a `RuntimeConfig`
-and applies the same validation (actor, env and action-set counts
-agree). Keys that select what the port does not run yet (another
-algorithm, several optimizer steps per call) raise instead of being
-ignored.
+Counterpart of the JAX package's `utils/config.py`, IMPALA, R2D2 and
+ximpala branches. Loads one section into an agent config and a
+`RuntimeConfig` and applies the same validation (actor, env and
+action-set counts agree). Keys that select what the port does not run
+yet (another algorithm, several optimizer steps per call, a non-dense
+transformer body) raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from pathlib import Path
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Config
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import check_dense_body
+from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +50,13 @@ def check_config(rt: RuntimeConfig, num_actions: int) -> None:
 
 
 def load_config(path: str | Path, section: str):
-    """One config section -> (ImpalaConfig or R2D2Config, RuntimeConfig)."""
+    """One config section -> (ImpalaConfig, R2D2Config or XImpalaConfig,
+    RuntimeConfig)."""
     d = json.loads(Path(path).read_text())[section]
     algorithm = d.get("algorithm", section.split("_")[0])
-    if algorithm not in ("impala", "r2d2"):
+    if algorithm not in ("impala", "r2d2", "ximpala"):
         raise ValueError(f"section {section!r} is {algorithm!r}; the PyTorch port "
-                         "runs the IMPALA and R2D2 families only")
+                         "runs the IMPALA, R2D2 and Transformer-IMPALA families only")
     if d.get("updates_per_call", 1) != 1:
         raise ValueError("updates_per_call > 1 is not ported")
     rt = RuntimeConfig(
@@ -87,6 +91,10 @@ def load_config(path: str | Path, section: str):
         )
         check_config(rt, agent_cfg.num_actions)
         return agent_cfg, rt
+    if algorithm == "ximpala":
+        agent_cfg = _ximpala_config(d)
+        check_config(rt, agent_cfg.num_actions)
+        return agent_cfg, rt
     agent_cfg = ImpalaConfig(
         obs_shape=tuple(d["model_input"]),
         num_actions=d["model_output"],
@@ -106,3 +114,37 @@ def load_config(path: str | Path, section: str):
     )
     check_config(rt, agent_cfg.num_actions)
     return agent_cfg, rt
+
+
+def _ximpala_config(d: dict) -> XImpalaConfig:
+    """The ximpala branch, with the JAX package's keys and defaults. The
+    body knobs that need what is not ported (sequence-parallel attention,
+    experts, pipelined, stacked or rematerialised layers) raise."""
+    cfg = XImpalaConfig(
+        obs_shape=tuple(d["model_input"]),
+        num_actions=d["model_output"],
+        trajectory=d.get("trajectory", 20),
+        d_model=d.get("d_model", 128),
+        num_heads=d.get("num_heads", 4),
+        num_layers=d.get("num_layers", 2),
+        discount_factor=d.get("discount_factor", 0.99),
+        baseline_loss_coef=d.get("baseline_loss_coef", 1.0),
+        entropy_coef=d.get("entropy_coef", 0.05),
+        gradient_clip_norm=d.get("gradient_clip_norm", 40.0),
+        reward_clipping=d.get("reward_clipping", "abs_one"),
+        start_learning_rate=d.get("start_learning_rate", 6e-4),
+        end_learning_rate=d.get("end_learning_rate", 0.0),
+        learning_frame=int(d.get("learning_frame", 1e9)),
+        attention=d.get("attention", "dense"),
+        num_experts=d.get("num_experts", 0),
+        moe_top_k=d.get("moe_top_k", 2),
+        moe_capacity_factor=d.get("moe_capacity_factor", 2.0),
+        moe_aux_weight=d.get("moe_aux_weight", 1e-2),
+        pipeline=d.get("pipeline", False),
+        pipeline_microbatches=d.get("pipeline_microbatches", 2),
+        pipeline_stages=d.get("pipeline_stages", 0),
+        stacked=d.get("stacked", False),
+        remat=d.get("remat", False),
+    )
+    check_dense_body(cfg)
+    return cfg

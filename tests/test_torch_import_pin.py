@@ -56,7 +56,9 @@ print("imported", len({modules!r}))
 def test_port_imports_with_jax_blocked():
     modules = _module_names()
     for name in ("ops.kernels.vtrace", "ops.kernels.lstm", "agents.r2d2", "data.replay",
-                 "runtime.r2d2_runner", "train_r2d2"):
+                 "runtime.r2d2_runner", "train_r2d2", "ops.attention",
+                 "ops.kernels.attention", "models.transformer_net", "agents.xformer",
+                 "agents.ximpala", "runtime.ximpala_runner", "train_ximpala"):
         assert f"distributed_reinforcement_learning_tpu_torch.{name}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
