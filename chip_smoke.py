@@ -16,7 +16,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    step and ingest), (20, 32, 256) (the r2d2_pixel shape) and
    (20, 256, 512), with ~15% dones, each kernel against its plain
    version and the gradients through `LSTMFunction` against autograd of
-   the plain loop.
+   the plain loop; the profiler may record no more than one device
+   kernel per LSTM call (the persistent kernels), and the log gives each
+   kernel's launch plan, ptxas' registers and spills, and its time a
+   step.
 4. The IMPALA path: the `impala` section of config.json at full width
    (Breakout frames 84x84x4, NatureConv, LSTM 256, 18 actions, batch
    32 x 20, 4 actors x 5 envs), 3 learner updates on random seeded
@@ -33,7 +36,7 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    counts zeroed just before: exactly 2 K2a launches per ingest and 2
    K2a + 1 K2b per train step (22 and 3), finite loss and priorities,
    parameters that moved; then the synchronised learn step, a profiler
-   breakdown and peak memory.
+   breakdown that names K2's device time, and peak memory.
 7. R2D2 device parity: td_error and one learn step from the same
    parameters and seeded batch on CUDA and on the CPU (TF32 off): rtol
    1e-4 on loss, grad norm and priorities.
@@ -215,6 +218,34 @@ def phase_build() -> None:
                 log(f"[build] {stem}: {line.strip()}")
 
 
+def ptxas_report(stem: str) -> dict[str, str]:
+    """Registers, stack and spills per kernel of `csrc/<stem>.cu`, from the
+    `-Xptxas -v` output of this process's build."""
+    report, name = {}, None
+    for line in _build.build_logs.get(stem, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill" in line:
+            report[name] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            report[name] = line.split(":", 1)[1].strip() + "; " + report.get(name, "")
+    return report
+
+
+def device_kernels(fn, calls: int = 3) -> dict[str, int]:
+    """Device kernels (name -> count) that `calls` synchronised calls of
+    `fn` run, through torch.profiler (copies and fills left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
 def phase_vtrace() -> dict:
     """K1 against the plain version on the card, then timings."""
     max_err = 0.0
@@ -292,6 +323,7 @@ def phase_lstm() -> dict:
     products per entry, so its bar is 5e-5 times its largest magnitude
     where that exceeds 1."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = {"fwd": 0.0, "bwd": 0.0}
     for T, B, H in LSTM_SHAPES:
         xg, wh, keep, h0, c0 = lstm_inputs(T, B, H, seed=T + B + H, device="cuda")
@@ -358,12 +390,29 @@ def phase_lstm() -> dict:
                 "plain_graph_ms": time_graph_ms(p_fns, calls=5, replays=10),
             }
             row[tag]["bound_ms"], row[tag]["bound_by"] = lstm_bound_ms(T, B, H, tag == "bwd")
+            plan = klstm.lstm_plan(T, B, H, sms, backward=tag == "bwd")
+            calls = 3
+            launched = device_kernels(k_fns[0], calls)
             r = row[tag]
+            # Only measured numbers go into the row: the plan is logged.
+            r.update(us_per_step=r["graph_ms"] * 1e3 / T,
+                     device_kernels_per_call=sum(launched.values()) / calls)
             log(f"[lstm] {tag} T={T} B={B} H={H}: kernel {r['ms'] * 1e3:.2f} us eager, "
-                f"{r['graph_ms'] * 1e3:.2f} us in a graph; plain {r['plain_ms'] * 1e3:.2f} us "
-                f"eager, {r['plain_graph_ms'] * 1e3:.2f} us in a graph; bound "
-                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); {len(groups)} input set(s)")
+                f"{r['graph_ms'] * 1e3:.2f} us in a graph ({r['us_per_step']:.2f} us a step); "
+                f"plain {r['plain_ms'] * 1e3:.2f} us eager, {r['plain_graph_ms'] * 1e3:.2f} us "
+                f"in a graph; bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); "
+                f"{len(groups)} input set(s); {plan.blocks} blocks x {plan.units} units, "
+                f"{plan.rows}-row chunks, {plan.smem_bytes} bytes of shared memory a block; "
+                f"device kernels in {calls} calls {launched}")
+            # More than one kernel a call, or another kernel, is a fault; a
+            # count below the calls is a record the profiler dropped.
+            if (r["device_kernels_per_call"] > 1
+                    or any(f"lstm_{tag}_kernel" not in k for k in launched)):
+                raise RuntimeError(f"{calls} LSTM {tag} calls ran {launched} on the device, "
+                                   f"expected {calls} launches of lstm_{tag}_kernel")
         timings[(T, B, H)] = row
+    for kernel, line in sorted(ptxas_report("lstm").items()):
+        log(f"[lstm] ptxas {kernel}: {line}")
     return {"max_abs_err": err, "timings": timings}
 
 
@@ -482,9 +531,10 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def profile_breakdown(what: str, fn) -> None:
+def profile_breakdown(what: str, fn) -> list:
     """torch.profiler over one synchronised call of `fn`: host time,
-    device-kernel time, and the ten largest device items."""
+    device-kernel time, and the ten largest device items; -> the device
+    items."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -498,6 +548,7 @@ def profile_breakdown(what: str, fn) -> None:
         f"of device kernels ({100 * total_us / 1e3 / (step_s * 1e3):.1f}% busy)")
     for e in sorted(events, key=lambda e: -device_us(e))[:10]:
         log(f"[profile]   {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return events
 
 
 def r2d2_batch(cfg, B: int, seed: int) -> tuple[R2D2Batch, np.ndarray]:
@@ -584,8 +635,14 @@ def phase_r2d2(mem_start: int) -> dict:
     log(f"[r2d2] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}, "
         f"T={agent_cfg.seq_len}): {frames_per_s:.0f} learned frames/s; ingest td_error "
         f"(B=16) {td_ms:.2f} ms")
-    profile_breakdown("one r2d2 learn step", lambda: agent.learn(state, batch, is_weight))
-    return {"launches": launches, "learn_ms": learn_ms, "td_ms": td_ms,
+    events = profile_breakdown("one r2d2 learn step", lambda: agent.learn(state, batch, is_weight))
+    k2 = {e.key: (e.count, device_us(e)) for e in events if "lstm" in e.key}
+    k2_us = sum(us for _, us in k2.values())
+    total_us = sum(device_us(e) for e in events)
+    log(f"[r2d2] K2 in one learn step: {sum(n for n, _ in k2.values())} device kernel(s), "
+        f"{k2_us / 1e3:.3f} ms of {total_us / 1e3:.3f} ms of device time: "
+        + "; ".join(f"{k[:40]} x{n} {us / 1e3:.3f} ms" for k, (n, us) in k2.items()))
+    return {"launches": launches, "learn_ms": learn_ms, "td_ms": td_ms, "k2_ms": k2_us / 1e3,
             "wall_per_round_ms": wall / rounds * 1e3, "frames": result["frames"],
             "peak_mib": (peak - mem_start) / 2**20, "params": n_params}
 
@@ -1026,7 +1083,8 @@ def main() -> int:
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
-        f"ms, own peak {r2d2['peak_mib']:.1f} MiB; ximpala learn_ms {ximpala['learn_ms']:.3f}, "
+        f"ms, own peak {r2d2['peak_mib']:.1f} MiB, K2 device ms a learn step {r2d2['k2_ms']:.3f}; "
+        f"ximpala learn_ms {ximpala['learn_ms']:.3f}, "
         f"wall per update {ximpala['wall_per_update_ms']:.1f} ms, own peak "
         f"{ximpala['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -75,10 +75,17 @@ def _lstm_inputs(T, B, H, seed):
 
 
 LSTM_SHAPES = [(10, 32, 512), (20, 32, 256), (10, 8, 64)]
+# Shapes that stress the persistent kernels' partition: a batch that is
+# not a multiple of the 8-row tile, one row, several 64-row chunks, one
+# step, H = 1024 (8 units a block, K staged in chunks), and hidden sizes
+# that leave the last block partly filled on a 132-SM card (268: 90
+# blocks of 3 units; 532: 107 blocks of 5).
+LSTM_STRESS_SHAPES = [(10, 13, 512), (6, 1, 256), (4, 256, 512), (1, 32, 512),
+                      (5, 16, 1024), (3, 3, 64), (1, 32, 268), (10, 13, 532)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,B,H", LSTM_SHAPES)
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES + LSTM_STRESS_SHAPES)
 def test_lstm_forward_kernel_matches_plain(T, B, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -94,7 +101,7 @@ def test_lstm_forward_kernel_matches_plain(T, B, H):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,B,H", LSTM_SHAPES)
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES + LSTM_STRESS_SHAPES)
 def test_lstm_backward_kernel_matches_plain(T, B, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -135,6 +142,118 @@ def test_lstm_function_gradients_match_autograd(T, B, H):
     want = torch.autograd.grad(loss(h_ref, hT_ref, cT_ref), ref)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=5e-5, rtol=0)
+
+
+def _lstm_bwd_args(xg, wh, keep, h0, c0, seed=1):
+    """The backward's inputs: the plain forward's h_all, c_all and seeded
+    gradients of h_all, hT, cT."""
+    T, B, H = keep.shape + (wh.shape[0],)
+    h_all, c_all, _, _ = klstm.lstm_fwd_plain(xg, wh, keep, h0, c0)
+    rng = np.random.RandomState(seed)
+    grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+             for s in ((T, B, H), (B, H), (B, H))]
+    return (xg, wh, keep, h0, c0, h_all, c_all, *grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dones", ["all", "first_step"])
+def test_lstm_kernels_done_masks(dones):
+    """keep all zeros (a done at every step: every carry restarts from
+    zero) and a done at t = 0 only, forward and backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xg, wh, keep, h0, c0 = _lstm_inputs(8, 32, 512, seed=11)
+    keep = torch.zeros_like(keep) if dones == "all" else torch.ones_like(keep)
+    if dones == "first_step":
+        keep[0] = 0.0
+    got = klstm.lstm_fwd_cuda(xg, wh, keep, h0, c0)
+    for a, b in zip(got, klstm.lstm_fwd_plain(xg, wh, keep, h0, c0)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    args = _lstm_bwd_args(xg, wh, keep, h0, c0)
+    for a, b in zip(klstm.lstm_bwd_cuda(*args), klstm.lstm_bwd_plain(*args)):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,H", [(10, 32, 512), (4, 256, 512)])
+def test_lstm_kernels_are_bit_identical_across_calls(T, B, H):
+    """One writer per output and no atomics: two calls give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _lstm_inputs(T, B, H, seed=2)
+    first, second = klstm.lstm_fwd_cuda(*args), klstm.lstm_fwd_cuda(*args)
+    bwd_args = _lstm_bwd_args(*args)
+    first += klstm.lstm_bwd_cuda(*bwd_args)
+    second += klstm.lstm_bwd_cuda(*bwd_args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lstm_kernels_refuse_hidden_sizes_past_the_limit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    H = klstm.max_hidden(sms) + 4
+    xg, wh, keep, h0, c0 = _lstm_inputs(2, 8, H, seed=0)
+    with pytest.raises(ValueError, match="at most"):
+        klstm.lstm_fwd_cuda(xg, wh, keep, h0, c0)
+    with pytest.raises(ValueError, match="at most"):
+        klstm.lstm_bwd_cuda(xg, wh, keep, h0, c0, *(torch.zeros(2, 8, H, device="cuda"),) * 3,
+                            h0, c0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("region", ["w_floats", "red_floats", "stage_floats"])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_lstm_launch_refuses_a_plan_smaller_than_the_kernels_need(which, region, monkeypatch):
+    """The kernels' entry points check the caller's plan against the
+    shared-memory regions they index: a region cut to 4 floats is a
+    refused launch, not a kernel that runs past it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    args = _lstm_inputs(4, 32, 512, seed=0)
+    if which == "bwd":
+        args = _lstm_bwd_args(*args)
+    fn = klstm.lstm_fwd_cuda if which == "fwd" else klstm.lstm_bwd_cuda
+    fn(*args)  # the plan as it is launches
+    plan = klstm.lstm_plan
+    monkeypatch.setattr(klstm, "lstm_plan",
+                        lambda *a, **k: dataclasses.replace(plan(*a, **k), **{region: 4}))
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(*args)
+    assert fn.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_lstm_wrapper_call_is_one_device_kernel(which):
+    """Through torch.profiler: each wrapper call runs exactly one LSTM
+    kernel on the device, and nothing per step (3 calls, 3 kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _lstm_inputs(10, 32, 512, seed=4)
+    if which == "bwd":
+        args = _lstm_bwd_args(*args)
+    fn = klstm.lstm_fwd_cuda if which == "fwd" else klstm.lstm_bwd_cuda
+    fn(*args)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    device = {e.key: e.count for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    kernels = {k: n for k, n in device.items() if "lstm" in k}
+    assert list(kernels.values()) == [calls], device
+    assert f"lstm_{which}_kernel" in next(iter(kernels))
 
 
 @pytest.mark.gpu

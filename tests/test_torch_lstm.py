@@ -151,3 +151,68 @@ def test_wrappers_reject_bad_inputs():
         klstm.lstm_fwd(tm[0], wh[:4], *tm[2:])
     with pytest.raises(TypeError, match="float32"):
         klstm.lstm_fwd(tm[0].double(), *tm[1:])
+
+
+def _r2d2_lstm_sizes():
+    """Every `lstm_size` of a config.json section that R2D2 trains."""
+    import json
+    from pathlib import Path
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "config.json").read_text())
+    return sorted({sec["lstm_size"] for name, sec in cfg.items()
+                   if name.startswith("r2d2") and "lstm_size" in sec})
+
+
+H100_SMS = 132
+
+
+def test_plan_covers_r2d2_sizes_and_1024():
+    sizes = _r2d2_lstm_sizes()
+    assert {512, 256} <= set(sizes)
+    assert klstm.max_hidden(H100_SMS) >= max(sizes + [1024])
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("T,B", [(1, 1), (10, 13), (10, 16), (10, 32), (20, 256)])
+@pytest.mark.parametrize("H", [64, 256, 268, 512, 532, 1024, "limit"])
+def test_launch_plan_fits_an_h100(H, T, B, backward):
+    """The persistent kernels' plan: a grid no larger than one block per
+    SM of a 132-SM card (so it is co-resident), every unit owned by one
+    block, at most 232,448 bytes of shared memory a block, and regions
+    large enough for what `csrc/lstm.cu` puts in them."""
+    if H == "limit":
+        H = klstm.max_hidden(H100_SMS)
+    p = klstm.lstm_plan(T, B, H, H100_SMS, backward)
+    assert p.blocks <= H100_SMS
+    assert (p.blocks - 1) * p.units < H <= p.blocks * p.units
+    assert p.smem_bytes <= 232_448
+    assert p.rows % klstm.ROW_TILE == 0 and min(B, klstm.MAX_ROWS) <= p.rows <= klstm.MAX_ROWS
+    assert p.rows_all % klstm.ROW_TILE == 0 and klstm.ROW_TILE <= p.rows_all <= klstm.MAX_ROWS
+    assert p.rows * p.units <= 4 * klstm.THREADS  # kMaxOut cell outputs a thread
+    C = 4 * p.units
+    rows = p.rows_all if backward else p.rows
+    items = (rows // klstm.ROW_TILE) * (C // klstm.COL_TILE)
+    lanes, warp_groups = klstm._split_layout(rows, C)
+    # Every 8 x 4 output tile has its lanes, a power of two within a warp.
+    assert lanes & (lanes - 1) == 0 and lanes * items <= klstm.THREADS and warp_groups >= 1
+    assert p.w_floats >= H * C + H
+    assert p.red_floats >= warp_groups * rows * C
+    assert p.stage_floats >= rows * (min(H, klstm.MIN_K_CHUNK) + 4)
+    if backward:
+        assert p.stage_floats >= 2 * p.rows_all * (H + 4)  # two chunks of the recompute
+        assert p.red_floats >= p.rows * (C + 4)  # a chunk's dgates
+        assert p.stage_floats >= 4 * (p.rows * p.units + 4)  # 4 owners' partials of a chunk
+        Bp = -(-B // p.rows) * p.rows
+        assert p.part_floats == 2 * p.blocks * p.blocks * Bp * p.units
+    else:
+        assert p.part_floats == 0
+    # Float4 alignment of the regions.
+    assert p.w_floats % 4 == 0 and p.red_floats % 4 == 0
+
+
+@pytest.mark.parametrize("H", [6, "above"])
+def test_launch_plan_refuses_what_does_not_fit(H):
+    if H == "above":
+        H = klstm.max_hidden(H100_SMS) + 4
+    with pytest.raises(ValueError, match="multiple of 4 and at most"):
+        klstm.lstm_plan(10, 32, H, H100_SMS)
