@@ -47,7 +47,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the gradients through `FlashAttentionFunction` against autograd of
    the plain `dense_attention`, and the yardstick
    `scaled_dot_product_attention` with a causal & same-segment mask
-   against the same; then timings of all three beside their bounds.
+   against the same; the profiler may record no more than one device
+   kernel per call; then timings of all three beside their bounds and
+   the launch floor (a one-element `add_` through the same harness, on
+   its own log line), and ptxas' registers, stack and spills of the
+   flash kernels (K3a and K3c at D = 32 and 64 must show none).
 9. The Transformer-IMPALA path: the `ximpala` section at full width
    (CartPole, d_model 64, 2 heads, 2 layers, batch 16 x 16, 1 actor x 16
    envs) through build_local and run_sync for 3 updates. With the
@@ -73,6 +77,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -818,9 +823,55 @@ def phase_attention() -> dict:
             f"{lib_err:.3e}")
         del leaves, out, grads, ref_leaves, ref, ref_grads, lib_leaves, lib, lib_grads
 
+        if (B, H, T, D) == ATTN_MAIN:
+            one_kernel_per_call(q, k, v, segs, do, want_lse, delta)
         timings[(B, H, T, D)] = attention_timings(B, H, T, D, q, k, v, segs, do, want_lse,
                                                   delta, mask, blk)
-    return {"max_abs_err": err, "timings": timings}
+    floor = launch_floor()
+    log(f"[attention] launch floor: a one-element add_ takes {floor['ms'] * 1e3:.2f} us eager, "
+        f"{floor['graph_ms'] * 1e3:.2f} us in a graph")
+    flash_ptxas()
+    return {"max_abs_err": err, "timings": timings, "launch_floor": floor}
+
+
+def one_kernel_per_call(q, k, v, segs, do, lse, delta) -> None:
+    """Through torch.profiler: each wrapper call of K3a, K3b and K3c runs
+    exactly one device kernel, its own."""
+    calls = 3
+    bwd_args = (q, k, v, segs, segs, do, lse, delta)
+    for name, fn in (("flash_fwd_kernel", lambda: kattn.flash_fwd_cuda(q, k, v, segs, segs)),
+                     ("flash_dq_kernel", lambda: kattn.flash_dq_cuda(*bwd_args)),
+                     ("flash_dkv_kernel", lambda: kattn.flash_dkv_cuda(*bwd_args))):
+        launched = device_kernels(fn, calls)
+        log(f"[attention] device kernels in {calls} calls of {name}'s wrapper: {launched}")
+        if list(launched.values()) != [calls] or name not in next(iter(launched)):
+            raise RuntimeError(f"{calls} calls ran {launched} on the device, expected {calls} "
+                               f"launches of {name}")
+
+
+def launch_floor() -> dict:
+    """Per-call time of a one-element in-place add through the harness
+    that times the kernels: what any launch costs, eager and in a graph."""
+    x = torch.zeros(1, device="cuda")
+
+    def fn():
+        x.add_(1)
+
+    return {"ms": time_eager_ms([fn], iters=500, warmup=20),
+            "graph_ms": time_graph_ms([fn], calls=50, replays=10)}
+
+
+def flash_ptxas() -> None:
+    """Log ptxas' registers, stack and spills for each flash kernel; K3a
+    and K3c at D = 32 and 64 must have no stack and no spills."""
+    for kernel, line in sorted(ptxas_report("attention").items()):
+        name = next(n for n in ("flash_fwd", "flash_dq", "flash_dkv") if n in kernel)
+        d = kernel.split("ILi")[1].split("E")[0]
+        log(f"[attention] ptxas {name} D={d}: {line}")
+        spilled = [int(n) for n in re.findall(r"(\d+) bytes (?:stack|spill)", line)]
+        spilled += [int(n) for n in re.findall(r"(\d+) bytes cumulative stack", line)]
+        if name != "flash_dq" and d in ("32", "64") and any(spilled):
+            raise RuntimeError(f"{name} at D={d} uses stack or spills: {line}")
 
 
 def attention_timings(B, H, T, D, q, k, v, segs, do, lse, delta, mask, blk) -> dict:

@@ -198,3 +198,98 @@ def test_no_attention_across_episodes(T):
     out2 = attn.causal_attention(*_t(q, k2, v2), q_seg=seg_t, k_seg=seg_t)
     torch.testing.assert_close(out1[:, :T // 2], out2[:, :T // 2], atol=0, rtol=0)
     assert not torch.allclose(out1[:, T // 2:], out2[:, T // 2:])
+
+
+# The CUDA kernels K3a and K3c form every product on the tensor cores in
+# 3xTF32: each float32 operand x splits into hi = tf32(x) and
+# lo = tf32(x - hi), both rounded to nearest with ties away from zero
+# (10 explicit mantissa bits), and a product sums a_lo b_hi + a_hi b_lo,
+# then a_hi b_hi, in float32. Emulated here on the CPU at the gpu tests'
+# shapes and seeds (tests/test_torch_kernels_gpu.py:ATTN_SHAPES), against
+# a float64 reference, beside one TF32 product (hi b_hi alone): the split
+# must hold the kernels' bars (o and lse atol 1e-5; dk, dv atol 1e-4 x
+# max(1, max |ref|)) and be at least 10x closer than one TF32 product.
+TF32_SHAPES = [(16, 2, 16, 32), (64, 4, 32, 64), (2, 2, 200, 128), (1, 2, 1096, 64),
+               (3, 2, 8, 32), (2, 3, 24, 64)]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32, to nearest with ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _gpu_test_inputs(B, H, T, D, seed):
+    """The inputs of the gpu tests' `_attn_inputs`, on the CPU."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy((rng.randn(B * H, T, D) * s).astype(np.float32))
+                   for s in (0.3, 0.3, 0.3, 0.5))
+    segs = np.repeat(np.cumsum(rng.rand(B, T) < 0.08, axis=1).astype(np.int32), H, axis=0)
+    return q, k, v, torch.from_numpy(segs), do
+
+
+def _mask(segs):
+    t = segs.shape[1]
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    return causal[None] & (segs[:, :, None] == segs[:, None, :])
+
+
+def _forward(q, k, v, mask, mm):
+    """o and lse of the kernels' forward with products by `mm`."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.where(mask, mm(q, k.transpose(1, 2)) * scale, attn._MASK_VALUE)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l_safe = p.sum(-1).clamp(min=torch.finfo(torch.float32).tiny)
+    return mm(p, v) / l_safe[..., None], m + torch.log(l_safe)
+
+
+def _dk_dv(q, k, v, mask, do, lse, delta, mm):
+    """dk and dv of the kernels' dk/dv arithmetic with products by `mm`."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.where(mask, torch.exp(mm(q, k.transpose(1, 2)) * scale - lse[..., None]), 0.0)
+    ds = p * (mm(do, v.transpose(1, 2)) - delta[..., None]) * scale
+    return mm(ds.transpose(1, 2), q), mm(p.transpose(1, 2), do)
+
+
+def _max_err(got, want):
+    return max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("B,H,T,D", TF32_SHAPES)
+def test_3xtf32_forward_holds_the_bar(B, H, T, D):
+    q, k, v, segs, _ = _gpu_test_inputs(B, H, T, D, seed=T + D)
+    mask = _mask(segs)
+    want = _forward(q.double(), k.double(), v.double(), mask, torch.matmul)
+    err3 = _max_err(_forward(q, k, v, mask, _mm_3xtf32), want)
+    err1 = _max_err(_forward(q, k, v, mask, _mm_tf32), want)
+    assert err3 <= 1e-5, err3
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("B,H,T,D", TF32_SHAPES)
+def test_3xtf32_dk_dv_hold_the_bar(B, H, T, D):
+    q, k, v, segs, do = _gpu_test_inputs(B, H, T, D, seed=T + D)
+    mask = _mask(segs)
+    q64, k64, v64, do64 = q.double(), k.double(), v.double(), do.double()
+    o64, lse64 = _forward(q64, k64, v64, mask, torch.matmul)
+    delta64 = (do64 * o64).sum(-1)
+    want = _dk_dv(q64, k64, v64, mask, do64, lse64, delta64, torch.matmul)
+    lse, delta = lse64.float(), delta64.float()
+    got3 = _dk_dv(q, k, v, mask, do, lse, delta, _mm_3xtf32)
+    got1 = _dk_dv(q, k, v, mask, do, lse, delta, _mm_tf32)
+    for a, b in zip(got3, want):
+        bar = 1e-4 * max(1.0, float(b.abs().max()))
+        assert float((a.double() - b).abs().max()) <= bar
+    err3, err1 = _max_err(got3, want), _max_err(got1, want)
+    assert err1 >= 10 * err3, (err1, err3)

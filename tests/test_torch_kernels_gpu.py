@@ -270,9 +270,11 @@ def test_lstm_kernels_reject_strided_input():
 
 
 # Flash attention (B, H, T, D): the ximpala section's act and learn shape,
-# bench.py's ximpala_learn shape, D = 128 with a partial last tile, and a
-# sequence of more than 32 tiles (the kernels test 32 tiles per pass).
-ATTN_SHAPES = [(16, 2, 16, 32), (64, 4, 32, 64), (2, 2, 200, 128), (1, 2, 1096, 64)]
+# bench.py's ximpala_learn shape, D = 128 with a partial last tile, a
+# sequence of more than 32 tiles (the kernels test 32 tiles per pass),
+# half of one 16-row tile (T = 8) and a partial second one (T = 24).
+ATTN_SHAPES = [(16, 2, 16, 32), (64, 4, 32, 64), (2, 2, 200, 128), (1, 2, 1096, 64),
+               (3, 2, 8, 32), (2, 3, 24, 64)]
 
 
 def _attn_inputs(B, H, T, D, seed):
@@ -309,6 +311,57 @@ def test_attention_kernels_match_plain(B, H, T, D):
     torch.testing.assert_close(o, want_o, atol=1e-5, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
     _grad_close(got, kattn.flash_bwd_plain(q, k, v, segs, segs, do, want_lse, delta, blk, blk))
+
+
+def _edge_segments(kind, B, H, T):
+    """[BH, T] segment ids: episodes that start in the middle of a 16-row
+    tile (rows 5 and 21, then every 11), all zeros (plain causal), or ids
+    that alternate every 3 rows (not increasing, so no tile is skipped)."""
+    t = np.arange(T)
+    if kind == "mid_tile":
+        ids = (t >= 5).astype(np.int32) + np.maximum(0, (t - 21) // 11 + 1)
+    elif kind == "zeros":
+        ids = np.zeros(T, np.int32)
+    else:
+        ids = (t // 3) % 2
+    return torch.from_numpy(np.tile(ids.astype(np.int32), (B * H, 1))).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mid_tile", "zeros", "alternating"])
+@pytest.mark.parametrize("B,H,T,D", [(2, 2, 48, 32), (1, 3, 72, 64)])
+def test_attention_kernels_segment_edges(B, H, T, D, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _, do = _attn_inputs(B, H, T, D, seed=T + D)
+    segs = _edge_segments(kind, B, H, T)
+    blk = kattn.flash_blocks(T)
+    o, lse = kattn.flash_fwd_cuda(q, k, v, segs, segs)
+    want_o, want_lse = kattn.flash_fwd_plain(q, k, v, segs, segs, blk, blk)
+    torch.testing.assert_close(o, want_o, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+    delta = (do * want_o).sum(-1)
+    got = kattn.flash_bwd(q, k, v, segs, segs, do, want_lse, delta)
+    _grad_close(got, kattn.flash_bwd_plain(q, k, v, segs, segs, do, want_lse, delta, blk, blk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D", [(16, 2, 16, 32), (1, 2, 1096, 64)])
+def test_attention_kernels_are_bit_identical_across_calls(B, H, T, D):
+    """One writer per output and no atomics: two calls of K3a, and of K3c,
+    give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, segs, do = _attn_inputs(B, H, T, D, seed=6)
+    first = kattn.flash_fwd_cuda(q, k, v, segs, segs)
+    second = kattn.flash_fwd_cuda(q, k, v, segs, segs)
+    lse, delta = first[1], (do * first[0]).sum(-1)
+    bwd_args = (q, k, v, segs, segs, do, lse, delta)
+    first += kattn.flash_dkv_cuda(*bwd_args)
+    second += kattn.flash_dkv_cuda(*bwd_args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
