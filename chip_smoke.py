@@ -5,13 +5,19 @@
 Phases, each of which raises (and the script exits nonzero) on failure:
 
 1. Require CUDA; print the device and its power limit (nvidia-smi).
-2. Build every CUDA source of the port with nvcc; print the build time
-   and ptxas' register / shared-memory report.
+2. Build every CUDA source of the port with nvcc, anew even where a
+   library is already there, so that ptxas reports on every kernel in
+   this process; print the build time and ptxas' register /
+   shared-memory report.
 3. Hold each kernel against its plain PyTorch version on the card, at
    the main path's shape and larger ones, then time both (CUDA events
    over many eager calls, and per call inside a replayed CUDA graph,
    with the inputs rotated past the 50 MB L2 cache where they fit).
-   V-trace (K1) at three shapes; the LSTM forward and backward (K2a,
+   V-trace (K1) at three shapes and on a set of NaN, +inf and -inf
+   log-rhos, with and without the rho clip, each bit for bit equal to
+   its plain version; each K1 call must make one kernel launch and run
+   no other kernel, and ptxas may report no stack or spills for it.
+   The LSTM forward and backward (K2a,
    K2b) at (T, B, H) = (10, 32, 512) and (10, 16, 512) (the r2d2 learn
    step and ingest), (20, 32, 256) (the r2d2_pixel shape) and
    (20, 256, 512), with ~15% dones, each kernel against its plain
@@ -47,11 +53,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the gradients through `FlashAttentionFunction` against autograd of
    the plain `dense_attention`, and the yardstick
    `scaled_dot_product_attention` with a causal & same-segment mask
-   against the same; the profiler may record no more than one device
-   kernel per call; then timings of all three beside their bounds and
+   against the same; each call must make one kernel launch and run no
+   other kernel; then timings of all three beside their bounds and
    the launch floor (a one-element `add_` through the same harness, on
    its own log line), and ptxas' registers, stack and spills of the
-   flash kernels (K3a and K3c at D = 32 and 64 must show none).
+   flash kernels (K3a, K3b and K3c at D = 32 and 64 must show none).
 9. The Transformer-IMPALA path: the `ximpala` section at full width
    (CartPole, d_model 64, 2 heads, 2 layers, batch 16 x 16, 1 actor x 16
    envs) through build_local and run_sync for 3 updates. With the
@@ -143,6 +149,40 @@ def vtrace_inputs(T: int, B: int, seed: int, device) -> list[torch.Tensor]:
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+def vtrace_special_inputs(T: int, B: int, seed: int, device) -> list[torch.Tensor]:
+    """`vtrace_inputs` with NaN, +inf and -inf log-rhos spread over the
+    columns (a NaN log-rho comes from a taken action whose target and
+    behaviour probabilities both underflow to 0)."""
+    args = vtrace_inputs(T, B, seed, device)
+    flat = args[0].view(-1)
+    flat[0::7] = float("nan")
+    flat[3::11] = float("inf")
+    flat[5::13] = float("-inf")
+    return args
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits everywhere, any NaN equal to any NaN."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.masked_fill(nan, 0).view(torch.int32),
+                            b.masked_fill(nan, 0).view(torch.int32)))
+
+
+def check_no_spills(stem: str, kernels: str, where=lambda kernel: True) -> None:
+    """Raise if ptxas reports stack or spills for a kernel of
+    `csrc/<stem>.cu` whose name contains `kernels` and passes `where`,
+    or if ptxas reported on none of them."""
+    report = ptxas_report(stem)
+    if not any(kernels in kernel for kernel in report):
+        raise RuntimeError(f"no ptxas report for {kernels}* of csrc/{stem}.cu in this process")
+    for kernel, line in report.items():
+        spilled = [int(n) for n in re.findall(r"(\d+) bytes (?:stack|spill)", line)]
+        spilled += [int(n) for n in re.findall(r"(\d+) bytes cumulative stack", line)]
+        if kernels in kernel and where(kernel) and any(spilled):
+            raise RuntimeError(f"{kernel} uses stack or spills: {line}")
+
+
 def vtrace_bound_ms(T: int, B: int) -> tuple[float, str]:
     """Least time for one call: each input read once, each output written
     once, against ~10 float32 operations per element."""
@@ -213,7 +253,7 @@ def phase_memory(name: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    libs = _build.build_all(force=True)  # ptxas' report of every kernel, for the checks
     log(f"[build] {len(libs)} CUDA source(s) built in {time.perf_counter() - t0:.2f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     for stem, text in sorted(_build.build_logs.items()):
@@ -237,34 +277,83 @@ def ptxas_report(stem: str) -> dict[str, str]:
     return report
 
 
-def device_kernels(fn, calls: int = 3) -> dict[str, int]:
-    """Device kernels (name -> count) that `calls` synchronised calls of
-    `fn` run, through torch.profiler (copies and fills left out)."""
+def launch_profile(fn, calls: int = 3) -> tuple[dict[str, int], int]:
+    """Through torch.profiler over `calls` synchronised calls of `fn`:
+    the device kernels (name -> count; copies and fills left out) and the
+    number of kernel launches the host made through the CUDA runtime or
+    driver API (`cudaLaunchKernel` and its kin)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()  # once outside the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0
-            and not e.key.startswith(("Memcpy", "Memset"))}
+    counts: dict[str, int] = {}
+    api = 0
+    for e in prof.key_averages():  # a kernel's records may come in more than one group
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if device_us(e) > 0 and not e.key.startswith(("Memcpy", "Memset")):
+                counts[e.key] = counts.get(e.key, 0) + e.count
+        elif e.key.startswith(("cudaLaunch", "cuLaunch")):
+            api += e.count
+    return counts, api
+
+
+def device_kernels(fn, calls: int = 3) -> dict[str, int]:
+    """The device kernels (name -> count) that `calls` synchronised calls
+    of `fn` run, through torch.profiler (copies and fills left out)."""
+    return launch_profile(fn, calls)[0]
+
+
+def check_one_kernel_per_call(fn, kernel: str, calls: int = 3) -> str:
+    """Raise unless `calls` calls of `fn` make exactly `calls` kernel
+    launches on the host, and the device runs `kernel` and nothing else.
+    The device's records are counted too, but the profiler drops one now
+    and then (its log shows an "Activity Buffer Request" then): a device
+    count below the host's is logged, never taken for a missing launch.
+    -> a line for the log."""
+    launched, api = launch_profile(fn, calls)
+    names = list(launched)
+    if api != calls or not names or any(kernel not in n for n in names):
+        raise RuntimeError(f"{calls} calls made {api} kernel launches on the host and ran "
+                           f"{launched} on the device, expected {calls} launches of {kernel}")
+    return (f"{api} host launches in {calls} calls, the device's records: "
+            f"{sum(launched.values())} of {kernel}")
 
 
 def phase_vtrace() -> dict:
-    """K1 against the plain version on the card, then timings."""
+    """K1 against the plain version on the card, bit for bit (the kernel
+    runs the plain version's operations in its order, NaN and inf
+    included), one device kernel a call, no stack or spills; then
+    timings."""
     max_err = 0.0
     for T, B in SHAPES:
         for clip in (1.0, None):
-            args = vtrace_inputs(T, B, seed=T + B, device="cuda")
-            vs, rhos = kvt.vtrace_cuda(*args, clip_rho_threshold=clip)
-            want_vs, want_rhos = kvt.vtrace_plain(*args, clip_rho_threshold=clip)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(vs, want_vs, atol=2e-6, rtol=0)
-            torch.testing.assert_close(rhos, want_rhos, atol=1e-7, rtol=2e-7)
-            err = max(float((vs - want_vs).abs().max()), float((rhos - want_rhos).abs().max()))
-            max_err = max(max_err, err)
-            log(f"[vtrace] T={T} B={B} clip_rho={clip}: max |kernel - plain| = {err:.3e}")
+            for what, make in (("finite", vtrace_inputs), ("nan/inf", vtrace_special_inputs)):
+                args = make(T, B, seed=T + B, device="cuda")
+                vs, rhos = kvt.vtrace_cuda(*args, clip_rho_threshold=clip)
+                want_vs, want_rhos = kvt.vtrace_plain(*args, clip_rho_threshold=clip)
+                torch.cuda.synchronize()
+                for name, a, b in (("vs", vs, want_vs), ("clipped_rhos", rhos, want_rhos)):
+                    if not bit_equal(a, b):
+                        diff = (a - b).abs().nan_to_num(nan=float("inf"))
+                        raise RuntimeError(
+                            f"vtrace T={T} B={B} clip_rho={clip} {what}: {name} differs from "
+                            f"the plain version in {int((diff > 0).sum())} places")
+                n_nan = int(torch.isnan(vs).sum())
+                if what == "finite":
+                    err = max(float((vs - want_vs).abs().max()),
+                              float((rhos - want_rhos).abs().max()))
+                    max_err = max(max_err, err)
+                log(f"[vtrace] T={T} B={B} clip_rho={clip} {what} inputs: kernel and plain "
+                    f"agree bit for bit ({n_nan} NaN vs)")
+    args = vtrace_inputs(*MAIN_SHAPE, seed=0, device="cuda")
+    log(f"[vtrace] {check_one_kernel_per_call(lambda: kvt.vtrace_cuda(*args), 'vtrace_kernel')}")
+    for kernel, line in ptxas_report("vtrace").items():
+        log(f"[vtrace] ptxas {kernel}: {line}")
+    check_no_spills("vtrace", "vtrace_kernel")
     timings = {}
     for T, B in (MAIN_SHAPE, SHAPES[-1]):
         # The main path's 14 KB stay in L2 between its producer and the
@@ -837,16 +926,11 @@ def phase_attention() -> dict:
 def one_kernel_per_call(q, k, v, segs, do, lse, delta) -> None:
     """Through torch.profiler: each wrapper call of K3a, K3b and K3c runs
     exactly one device kernel, its own."""
-    calls = 3
     bwd_args = (q, k, v, segs, segs, do, lse, delta)
     for name, fn in (("flash_fwd_kernel", lambda: kattn.flash_fwd_cuda(q, k, v, segs, segs)),
                      ("flash_dq_kernel", lambda: kattn.flash_dq_cuda(*bwd_args)),
                      ("flash_dkv_kernel", lambda: kattn.flash_dkv_cuda(*bwd_args))):
-        launched = device_kernels(fn, calls)
-        log(f"[attention] device kernels in {calls} calls of {name}'s wrapper: {launched}")
-        if list(launched.values()) != [calls] or name not in next(iter(launched)):
-            raise RuntimeError(f"{calls} calls ran {launched} on the device, expected {calls} "
-                               f"launches of {name}")
+        log(f"[attention] {name}'s wrapper: {check_one_kernel_per_call(fn, name)}")
 
 
 def launch_floor() -> dict:
@@ -861,17 +945,18 @@ def launch_floor() -> dict:
             "graph_ms": time_graph_ms([fn], calls=50, replays=10)}
 
 
+def head_dim(kernel: str) -> str:
+    """The D of a mangled flash kernel name (its template argument)."""
+    return kernel.split("ILi")[1].split("E")[0]
+
+
 def flash_ptxas() -> None:
-    """Log ptxas' registers, stack and spills for each flash kernel; K3a
-    and K3c at D = 32 and 64 must have no stack and no spills."""
+    """Log ptxas' registers, stack and spills for each flash kernel; K3a,
+    K3b and K3c at D = 32 and 64 must have no stack and no spills."""
     for kernel, line in sorted(ptxas_report("attention").items()):
         name = next(n for n in ("flash_fwd", "flash_dq", "flash_dkv") if n in kernel)
-        d = kernel.split("ILi")[1].split("E")[0]
-        log(f"[attention] ptxas {name} D={d}: {line}")
-        spilled = [int(n) for n in re.findall(r"(\d+) bytes (?:stack|spill)", line)]
-        spilled += [int(n) for n in re.findall(r"(\d+) bytes cumulative stack", line)]
-        if name != "flash_dq" and d in ("32", "64") and any(spilled):
-            raise RuntimeError(f"{name} at D={d} uses stack or spills: {line}")
+        log(f"[attention] ptxas {name} D={head_dim(kernel)}: {line}")
+    check_no_spills("attention", "flash_", lambda kernel: head_dim(kernel) in ("32", "64"))
 
 
 def attention_timings(B, H, T, D, q, k, v, segs, do, lse, delta, mask, blk) -> dict:

@@ -27,6 +27,7 @@ from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.models.r2d2_net import R2D2Net
+from distributed_reinforcement_learning_tpu_torch.ops.kernels.lstm import check_hidden_size
 from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
 
 
@@ -75,6 +76,11 @@ class R2D2Agent(common.SequenceReplayLearnMixin):
     def __init__(self, cfg: R2D2Config, device: str | torch.device | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # The LSTM kernels' limit on H depends on the card: fail here,
+            # before any launch.
+            check_hidden_size(cfg.lstm_size,
+                              torch.cuda.get_device_properties(self.device).multi_processor_count)
         # Structure only: every call runs it under explicit params.
         self.model = self._build_model(None).to("meta")
         self.tx = common.AdamWithClip(cfg.learning_rate, clip_norm=cfg.gradient_clip_norm)

@@ -23,9 +23,9 @@
 // the segment test skips all but one or two kv tiles per q tile, so
 // reading each input once (3.35 TB/s) bounds it; causal attention
 // without segments would be bound by the products (4*D flops per
-// attended pair forward, 8*D for dk/dv).
+// attended pair forward, 6*D for dq, 8*D for dk/dv).
 //
-// K3a and K3c (tensor cores). Every product is `mma.sync` m16n8k8 in
+// All three run on the tensor cores. Every product is `mma.sync` m16n8k8 in
 // 3xTF32: each float32 operand x splits into hi = tf32(x) and
 // lo = tf32(x - hi) (round to nearest, ties away), and the accumulator
 // takes a_lo b_hi + a_hi b_lo, then a_hi b_hi, so the sum keeps about
@@ -36,13 +36,13 @@
 // where the path's T is 16, and wants TF32 operands K-major, which V and
 // dO are not.
 //
-// One block of 4 warps owns one (bh, 16-row tile): the q rows in K3a,
-// the keys in K3c; blocks run the heaviest tiles first (the last q tiles
-// in K3a, the first key tiles in K3c). It walks the other side's live
-// 16-row tiles (K, V and their segment ids in K3a; Q, dO, their ids, lse
-// and delta in K3c), staged by 16-byte cp.async into a double-buffered
-// ring in shared memory that the 4 warps share: tile j + 1 lands while
-// tile j is computed. The 4 warps split each tile's work, and meet at two
+// One block of 4 warps owns one (bh, 16-row tile): the q rows in K3a
+// and K3b, the keys in K3c; blocks run the heaviest tiles first (the last
+// q tiles in K3a and K3b, the first key tiles in K3c). It walks the other
+// side's live 16-row tiles (K, V and their segment ids in K3a and K3b; Q,
+// dO, their ids, lse and delta in K3c), staged by 16-byte cp.async into
+// a double-buffered ring in shared memory that the 4 warps share: tile
+// j + 1 lands while tile j is computed. The 4 warps split each tile's work, and meet at two
 // barriers a tile (the tile has landed; the parts of S are out):
 //
 // - K3a: warp w computes S = Q K^T for keys 8 (w % 2).. over half of D
@@ -53,6 +53,12 @@
 //   is 2 shuffles; l stays per lane and is summed once at the end), then
 //   warp w computes O += P V for its quarter of D, with P passed from the
 //   accumulator layout to the A-fragment layout in registers.
+// - K3b: warps 0, 1 compute S = Q K^T and warps 2, 3 dP = dO V^T, each
+//   for 8 of the tile's keys over all of D (Q's or dO's fragments, split
+//   into hi and lo once, stay in registers with each row's lse and
+//   delta); after the exchange every warp forms P and dS in the same
+//   order, and computes dQ += dS K for its quarter of D, with dS passed
+//   from the accumulator layout to the A-fragment layout in registers.
 // - K3c: warps 0, 1 compute S^T = K Q^T and warps 2, 3 dP^T = V dO^T, each
 //   for 8 of the tile's q rows; after the exchange every warp forms P^T
 //   and dS^T, and computes dV += P^T dO and dK += dS^T Q for its quarter
@@ -68,38 +74,32 @@
 // A (16 x 8, row) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
 // B (8 x 8, col) b0 (k t, n g), b1 (k t + 4, n g); C (16 x 8) c0 (g, 2t),
 // c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1). A product whose k
-// is the 8 columns of a C tile (P V, P^T dO, dS^T Q) takes the k order
+// is the 8 columns of a C tile (P V, dS K, P^T dO, dS^T Q) takes the k order
 // 2t, 2t + 1 for logical t, t + 4 in A and B alike, so c0..c3 become
 // a0, a2, a1, a3 with no shuffle. Shared rows are D + 4 floats apart,
 // which puts the 32 lanes of every fragment load on 32 banks.
-//
-// K3b (CUDA cores, the first port's design): one 128-thread block per (bh, 32-row
-// q tile), looping over the 32-key kv tiles up to the diagonal with K
-// and V staged in shared memory; lane = key for the dot products, lane =
-// head dimension for the accumulation, each key's ds passed by shuffle.
 //
 // Tiles skipped, all exactly (a fully masked tile adds p = 0 and leaves
 // m unchanged, alpha = exp(0) = 1): tiles past the diagonal, and tiles
 // whose segment-id ranges [min, max] cannot meet the owner's (no equal
 // pair can exist). Episode ids from cumsum(done) increase along T, so
 // at long T only the tiles near the diagonal that share an episode are
-// computed. The test runs 32 tiles at a time, one tile per lane
-// (`live_tiles`: independent 16-byte loads, then one ballot); K3a and
-// K3c test 128 at a time, one chunk of 32 a warp (`Walk`), the first 128
-// while the diagonal tile's copy is in flight (the diagonal tile holds
-// every row's own key, so it is always live). Each output has exactly one
-// writer: no atomics, the same bits from call to call.
+// computed. The test runs 128 tiles at a time, one chunk of 32 a warp
+// (`Walk`), one tile a lane (`live_tiles`: independent 16-byte loads,
+// then one ballot), the first 128 while the diagonal tile's copy is in
+// flight (the diagonal tile holds every row's own key, so it is always
+// live). Each output has exactly one writer: no atomics, the same bits
+// from call to call.
 //
-// Precision: float32 sums, 3xTF32 products (K3a, K3c) or float32 FMAs
-// (K3b), no fast math (expf, logf at full precision). Sums run in
-// another order than the plain PyTorch version's matrix products, so
-// the two agree to rounding.
+// Precision: float32 sums, 3xTF32 products, no fast math (expf, logf at
+// full precision). Sums run in another order than the plain PyTorch
+// version's matrix products, so the two agree to rounding.
 //
 // Bound through ctypes: plain C interface, device pointers and the
 // caller's stream, cudaError_t returned to the caller.
 //
 // Built with -DDRL_FLASH_PHASES (which ops/kernels/_build.py never sets),
-// K3a and K3c also write the globaltimer at each phase boundary of a
+// each kernel also writes the globaltimer at each phase boundary of a
 // block's walk: scripts/attention_phase_profile.py reads them.
 
 #include <cfloat>
@@ -111,18 +111,17 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;                      // K3b: q rows and kv keys per tile
-constexpr int kPerWarp = kTile / kWarps;       // K3b: rows each warp owns
-constexpr int kMma = 16;                       // K3a, K3c: rows (keys) of a tile
+constexpr int kMma = 16;                       // rows (keys) of a tile
 constexpr float kMask = -0.5f * FLT_MAX;       // ops/attention.py:_MASK_VALUE
 constexpr unsigned kAll = 0xffffffffu;
 
 #ifdef DRL_FLASH_PHASES
-// [blocks, 8] of globaltimer readings (ns) per block of a K3a or K3c
-// call (warp 0's view), or null: 0 start, 1 first tile landed, 2 first
-// tile computed, 3 last tile computed, 4 outputs stored; 5 holds the
-// number of tiles computed; 6 and 7 fall inside the first tile, before
-// and after the barrier that exchanges the warps' parts of S (S^T, dP^T).
+// [blocks, 8] of globaltimer readings (ns) per block of a K3a, K3b or
+// K3c call (warp 0's view), or null: 0 start, 1 first tile landed, 2
+// first tile computed, 3 last tile computed, 4 outputs stored; 5 holds
+// the number of tiles computed; 6 and 7 fall inside the first tile,
+// before and after the barrier that exchanges the warps' parts of S (and
+// dP; S^T and dP^T in K3c).
 __device__ unsigned long long* g_marks;
 #define MARK(block, i)                                                       \
   do {                                                                       \
@@ -147,13 +146,12 @@ __device__ unsigned long long* g_marks;
   } while (0)
 #endif
 
-// [lo, hi] of the segment ids of rows [r0, r0 + kRows) below T, in every
+// [lo, hi] of the segment ids of rows [r0, r0 + 16) below T, in every
 // lane of the warp.
-template <int kRows = kTile>
 __device__ __forceinline__ void seg_range(const int* seg, int r0, int T, int& lo, int& hi) {
   const int lane = static_cast<int>(threadIdx.x % 32);
   const int r = r0 + lane;
-  const bool in = lane < kRows && r < T;
+  const bool in = lane < kMma && r < T;
   int a = in ? seg[r] : INT_MAX;
   int b = in ? seg[r] : INT_MIN;
 #pragma unroll
@@ -165,12 +163,11 @@ __device__ __forceinline__ void seg_range(const int* seg, int r0, int T, int& lo
   hi = b;
 }
 
-// Bit i set: the segment-id range [min, max] of tile c0 + i (of kRows
-// rows; only tiles first..last count) meets [lo, hi]. Lane i reads its
-// tile's ids, 4 at a time (T is a multiple of 8, so a group of 4 is
-// wholly in or out of range). Every lane gets the same mask, so a loop
-// over it is uniform across the warp.
-template <int kRows = kTile>
+// Bit i set: the segment-id range [min, max] of 16-row tile c0 + i (only
+// tiles first..last count) meets [lo, hi]. Lane i reads its tile's ids,
+// 4 at a time (T is a multiple of 8, so a group of 4 is wholly in or out
+// of range). Every lane gets the same mask, so a loop over it is uniform
+// across the warp.
 __device__ __forceinline__ unsigned live_tiles(const int* seg, int c0, int first, int last,
                                                int T, int lo, int hi) {
   const int j = c0 + static_cast<int>(threadIdx.x % 32);
@@ -178,8 +175,8 @@ __device__ __forceinline__ unsigned live_tiles(const int* seg, int c0, int first
   if (j >= first && j <= last) {
     int a = INT_MAX, b = INT_MIN;
 #pragma unroll
-    for (int i = 0; i < kRows; i += 4) {
-      const int r = j * kRows + i;
+    for (int i = 0; i < kMma; i += 4) {
+      const int r = j * kMma + i;
       if (r < T) {
         const int4 x = *reinterpret_cast<const int4*>(seg + r);
         a = min(a, min(min(x.x, x.y), min(x.z, x.w)));
@@ -207,7 +204,7 @@ struct Walk {
   __device__ __forceinline__ void test(int c) {
     const int warp = static_cast<int>(threadIdx.x / 32);
     const int first = min(from, to), last = max(from, to);
-    const unsigned m = live_tiles<kMma>(seg, c + dir * 32 * warp, first, last, T, lo, hi);
+    const unsigned m = live_tiles(seg, c + dir * 32 * warp, first, last, T, lo, hi);
     pass ^= 1;
     if (threadIdx.x % 32 == 0) masks[pass * kWarps + warp] = m;
     c0 = c;
@@ -239,36 +236,7 @@ struct Walk {
   }
 };
 
-// Copy rows [r0, r0 + 32) of a [T, D] matrix into shared memory with row
-// stride LD, zero-filling rows at or past T.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int T) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c);
-    const float4 y = *reinterpret_cast<const float4*>(b + c);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  }
-  return s;
-}
-
-// ---- K3a and K3c: 3xTF32 tensor-core products and cp.async staging ----
+// ---- 3xTF32 tensor-core products and cp.async staging ----
 
 // Round to TF32 (10 explicit mantissa bits), to nearest with ties away
 // from zero: the result of cvt.rna.tf32.f32 for every finite x, in two
@@ -442,7 +410,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   Walk walk;  // down from the diagonal, while its copy is in flight
   walk.from = tile - 1, walk.to = 0, walk.dir = -1, walk.T = T, walk.lo = 0, walk.hi = -1;
   walk.seg = ksb, walk.masks = masks;
-  if (tile > 0) seg_range<kMma>(qs + base, q0, T, walk.lo, walk.hi);
+  if (tile > 0) seg_range(qs + base, q0, T, walk.lo, walk.hi);
   int next = walk.next(tile - 1);
 
   float acc[kQuarter][4] = {};
@@ -550,82 +518,156 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   MARK(blockIdx.x, 4);
 }
 
-// K3b. Shared memory: q and dO [32][D], k and v [32][D + 4].
+// K3b. One block per (bh, 16-row q tile), walking the live key tiles as
+// K3a does. Shared memory: two stages of K and V [16][D + 4] with their 16
+// segment ids, then the warps' parts of S and dP. At D = 64, 4 blocks an
+// SM (128 registers, not the 135 ptxas would take): the 512 blocks of
+// (64, 4, 32, 64) then run in one wave, not 3 blocks an SM in two.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ qs,
                 const int* __restrict__ ks, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                float* __restrict__ dq, int T, int n_tiles, float scale) {
+                float* __restrict__ dq, int BH, int T, int n_tiles, float scale) {
   constexpr int LD = D + 4;
-  constexpr int kDims = D / 32;
+  constexpr int kSteps = D / 8;                      // k steps of S and dP
+  constexpr int kQuarter = D / 32;                   // n tiles of dQ a warp owns
+  constexpr int kStage = 2 * kMma * LD + kMma;       // floats: K, V, key ids
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + kTile * D;
-  float* sk = sdo + kTile * D;
-  float* sv = sk + kTile * LD;
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* part = ring + 2 * kStage;
+  unsigned* masks = reinterpret_cast<unsigned*>(part + kWarps * 32 * 4);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  MARK(blockIdx.x, 0);
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / BH;  // heaviest (last) first
+  const size_t base = static_cast<size_t>(blockIdx.x % BH) * T;
+  const int q0 = tile * kMma;
+  const int g = lane / 4, t = lane % 4;
+  const int rows[2] = {q0 + g, q0 + g + 8};
+  // This warp's unit: S = Q K^T (warps 0, 1) or dP = dO V^T (2, 3), for
+  // keys 8 * half_n.. of the tile.
+  const int half_n = warp & 1;
+  const float* kb = k + base * D;
+  const float* vb = v + base * D;
+  const int* ksb = ks + base;
 
-  const int bh = blockIdx.x / n_tiles;
-  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles)) * kTile;
-  const size_t base = static_cast<size_t>(bh) * T;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // The diagonal tile first: it holds every row's own key, so it is live.
+  auto stage = [&](int j, float* dst) {
+    stage_rows<D>(dst, kb, j * kMma, T, tid);
+    stage_rows<D>(dst + kMma * LD, vb, j * kMma, T, tid);
+    stage_ids(reinterpret_cast<int*>(dst + 2 * kMma * LD), ksb, j * kMma, T, tid);
+  };
+  stage(tile, ring);
+  cp_async_commit();
 
-  load_tile<D, D>(sq, q + base * D, q0, T);
-  load_tile<D, D>(sdo, dout + base * D, q0, T);
-  int q_lo, q_hi;
-  seg_range(qs + base, q0, T, q_lo, q_hi);
-
-  float row_lse[kPerWarp], row_delta[kPerWarp], acc[kPerWarp][kDims];
-  int qseg[kPerWarp];
+  // Q (warps 0, 1) or dO (2, 3) as A fragments over all of D, rows g and
+  // g + 8 (zero past T), split into hi and lo once; each row's segment
+  // id, lse and delta.
+  uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
+  int qseg[2];
+  float row_lse[2], row_delta[2];
+  {
+    float x[kSteps][4];
+    const float* src = warp < 2 ? q : dout;
 #pragma unroll
-  for (int r = 0; r < kPerWarp; ++r) {
-    const int row = q0 + r * kWarps + warp;
-    row_lse[r] = row < T ? lse[base + row] : 0.f;
-    row_delta[r] = row < T ? delta[base + row] : 0.f;
-    qseg[r] = row < T ? qs[base + row] : 0;
+    for (int r = 0; r < 2; ++r) {
+      const bool in = rows[r] < T;
+      const size_t at = base + (in ? rows[r] : 0);
+      const float* row = src + at * D + t;
 #pragma unroll
-    for (int c = 0; c < kDims; ++c) acc[r][c] = 0.f;
+      for (int kk = 0; kk < kSteps; ++kk) {
+        x[kk][r] = in ? __ldg(row + kk * 8) : 0.f;
+        x[kk][r + 2] = in ? __ldg(row + kk * 8 + 4) : 0.f;
+      }
+      qseg[r] = in ? qs[at] : 0;
+      row_lse[r] = in ? lse[at] : 0.f;
+      row_delta[r] = in ? delta[at] : 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) split_tf32(x[kk], a_hi[kk], a_lo[kk]);
   }
+  Walk walk;  // down from the diagonal, while its copy is in flight
+  walk.from = tile - 1, walk.to = 0, walk.dir = -1, walk.T = T, walk.lo = 0, walk.hi = -1;
+  walk.seg = ksb, walk.masks = masks;
+  if (tile > 0) seg_range(qs + base, q0, T, walk.lo, walk.hi);
+  int next = walk.next(tile - 1);
 
-  const int n_kv = (min(q0 + kTile, T) - 1) / kTile + 1;
-  unsigned live = 0;
-  for (int j = 0; j < n_kv; ++j) {
-    if (j % 32 == 0) live = live_tiles(ks + base, j, 0, n_kv - 1, T, q_lo, q_hi);
-    if (!((live >> (j % 32)) & 1u)) continue;
-    const int k0 = j * kTile;
+  float acc[kQuarter][4] = {};
+  int buf = 0, done = 0;
+  for (int j = tile; j >= 0;) {
+    cp_async_wait<0>();
+    // Tile j has landed for every thread, and every warp is done with the
+    // other stage and with the parts of the tile before.
     __syncthreads();
-    load_tile<D, LD>(sk, k + base * D, k0, T);
-    load_tile<D, LD>(sv, v + base * D, k0, T);
+    if (done == 0) MARK(blockIdx.x, 1);
+    if (next >= 0) stage(next, ring + (buf ^ 1) * kStage);
+    cp_async_commit();
+    const float* sk = ring + buf * kStage;
+    const float* sv = sk + kMma * LD;
+    const int* sid = reinterpret_cast<const int*>(sv + kMma * LD);
+    const int k0 = j * kMma;
+
+    // This warp's unit: q rows are rows, keys 8 * half_n.. columns.
+    {
+      const float* b_src = warp < 2 ? sk : sv;
+      float u3[3][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const float* br = b_src + (half_n * 8 + g) * LD + kk * 8 + t;
+        mma_3xtf32(u3, a_hi[kk], a_lo[kk], br[0], br[4]);
+      }
+      put_part(part, warp, lane, u3);
+    }
+    if (done == 0) MARK(blockIdx.x, 6);
     __syncthreads();
-    const int key = k0 + lane;
-    const int kseg = key < T ? ks[base + key] : 0;
+    if (done == 0) MARK(blockIdx.x, 7);
+    // P and dS, the same in all four warps.
+    float ds[2][4];
 #pragma unroll
-    for (int r = 0; r < kPerWarp; ++r) {
-      const int row = q0 + r * kWarps + warp;
-      if (row >= T || k0 > row) continue;
-      const int local = r * kWarps + warp;
-      const float s = dot<D>(sq + local * D, sk + lane * LD) * scale;
-      const bool valid = key <= row && kseg == qseg[r];
-      const float p = valid ? expf(s - row_lse[r]) : 0.f;
-      const float dp = dot<D>(sdo + local * D, sv + lane * LD);
-      const float ds = p * (dp - row_delta[r]) * scale;
-      const int n_keys = min(kTile, row - k0 + 1);
-      for (int jj = 0; jj < n_keys; ++jj) {
-        const float dsj = __shfl_sync(kAll, ds, jj);
+    for (int n = 0; n < 2; ++n) {
+      const float4 s4 = get_part(part, n, lane), d4 = get_part(part, n + 2, lane);
+      const float sn[4] = {s4.x, s4.y, s4.z, s4.w}, dn[4] = {d4.x, d4.y, d4.z, d4.w};
+      const int2 ids = *reinterpret_cast<const int2*>(sid + n * 8 + 2 * t);
 #pragma unroll
-        for (int c = 0; c < kDims; ++c) acc[r][c] = fmaf(dsj, sk[jj * LD + lane + 32 * c], acc[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, odd = e & 1;
+        const int key = k0 + n * 8 + 2 * t + odd;
+        const bool valid = key <= rows[r] && (odd ? ids.y : ids.x) == qseg[r];
+        const float p = valid ? expf(sn[e] * scale - row_lse[r]) : 0.f;
+        ds[n][e] = p * (dn[e] - row_delta[r]) * scale;
       }
     }
+    // dQ += dS K on this warp's columns: k step kk is keys 8kk.. in the
+    // order 2t, 2t + 1.
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float a[4] = {ds[kk][0], ds[kk][2], ds[kk][1], ds[kk][3]};
+      uint32_t d_hi[4], d_lo[4];
+      split_tf32(a, d_hi, d_lo);
+#pragma unroll
+      for (int nd = 0; nd < kQuarter; ++nd) {
+        const float* kr = sk + (kk * 8 + 2 * t) * LD + (warp * kQuarter + nd) * 8 + g;
+        mma_3xtf32(acc[nd], d_hi, d_lo, kr[0], kr[LD]);
+      }
+    }
+    if (done++ == 0) MARK(blockIdx.x, 2);
+    buf ^= 1;
+    j = next;
+    if (j >= 0) next = walk.next(j - 1);
   }
+  MARK(blockIdx.x, 3);
+  COUNT(blockIdx.x, done);
 
 #pragma unroll
-  for (int r = 0; r < kPerWarp; ++r) {
-    const int row = q0 + r * kWarps + warp;
-    if (row >= T) continue;
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    float* out = dq + (base + rows[r]) * D + warp * kQuarter * 8 + 2 * t;
 #pragma unroll
-    for (int c = 0; c < kDims; ++c) dq[(base + row) * D + lane + 32 * c] = acc[r][c];
+    for (int nd = 0; nd < kQuarter; ++nd)
+      *reinterpret_cast<float2*>(out + nd * 8) = make_float2(acc[nd][2 * r], acc[nd][2 * r + 1]);
   }
+  MARK(blockIdx.x, 4);
 }
 
 // K3c. One block per (bh, 16-key tile). Shared memory: K and V
@@ -688,7 +730,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   Walk walk;  // up from the diagonal, while its copy is in flight
   walk.from = tile + 1, walk.to = n_tiles - 1, walk.dir = 1, walk.T = T, walk.lo = 0;
   walk.hi = -1, walk.seg = qsb, walk.masks = masks;
-  if (tile < n_tiles - 1) seg_range<kMma>(ks + base, k0, T, walk.lo, walk.hi);
+  if (tile < n_tiles - 1) seg_range(ks + base, k0, T, walk.lo, walk.hi);
   int next = walk.next(tile + 1);
 
   float acc_k[kQuarter][4] = {}, acc_v[kQuarter][4] = {};
@@ -789,13 +831,12 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   MARK(blockIdx.x, 4);
 }
 
-// Dynamic shared memory of a block: K3a and K3c (above, with 4 warps'
-// partial 16 x 8 tiles and two passes of tile masks), K3b q and dO
-// [32][D], k and v [32][D + 4].
-constexpr size_t fwd_smem(int D) {
+// Dynamic shared memory of a block (as laid out above, with 4 warps'
+// partial 16 x 8 tiles and two passes of tile masks): K3a and K3b stage
+// K and V, K3c Q and dO beside its own K and V.
+constexpr size_t kv_smem(int D) {
   return sizeof(float) * (2 * (2 * kMma * (D + 4) + kMma) + kWarps * 32 * 4 + 2 * kWarps);
 }
-constexpr size_t bwd_smem(int D) { return sizeof(float) * kTile * (2 * D + 2 * (D + 4)); }
 constexpr size_t dkv_smem(int D) {
   return sizeof(float) * (2 * kMma * (D + 4) + 2 * (2 * kMma * (D + 4) + 3 * kMma) +
                           kWarps * 32 * 4 + 2 * kWarps);
@@ -823,16 +864,15 @@ int select_device(int device) {
   return static_cast<int>(err);
 }
 
-int n_tiles(int T) { return (T + kTile - 1) / kTile; }
 int mma_tiles(int T) { return (T + kMma - 1) / kMma; }
 
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, const int* qs, const int* ks,
                float* o, float* lse, int BH, int T, float scale, cudaStream_t s) {
   static bool done = false;
-  const int err = allow_smem(flash_fwd_kernel<D>, fwd_smem(D), &done);
+  const int err = allow_smem(flash_fwd_kernel<D>, kv_smem(D), &done);
   if (err != 0) return err;
-  flash_fwd_kernel<D><<<BH * mma_tiles(T), kThreads, fwd_smem(D), s>>>(
+  flash_fwd_kernel<D><<<BH * mma_tiles(T), kThreads, kv_smem(D), s>>>(
       q, k, v, qs, ks, o, lse, BH, T, mma_tiles(T), scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -842,10 +882,10 @@ int launch_dq(const float* q, const float* k, const float* v, const int* qs, con
               const float* dout, const float* lse, const float* delta, float* dq, int BH,
               int T, float scale, cudaStream_t s) {
   static bool done = false;
-  const int err = allow_smem(flash_dq_kernel<D>, bwd_smem(D), &done);
+  const int err = allow_smem(flash_dq_kernel<D>, kv_smem(D), &done);
   if (err != 0) return err;
-  flash_dq_kernel<D><<<BH * n_tiles(T), kThreads, bwd_smem(D), s>>>(
-      q, k, v, qs, ks, dout, lse, delta, dq, T, n_tiles(T), scale);
+  flash_dq_kernel<D><<<BH * mma_tiles(T), kThreads, kv_smem(D), s>>>(
+      q, k, v, qs, ks, dout, lse, delta, dq, BH, T, mma_tiles(T), scale);
   return static_cast<int>(cudaGetLastError());
 }
 

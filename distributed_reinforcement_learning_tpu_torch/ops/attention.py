@@ -109,18 +109,21 @@ def blockwise_attention(q, k, v, *, causal: bool = True, block_size: int = 512,
 
 def causal_attention(q, k, v, *, q_seg=None, k_seg=None) -> torch.Tensor:
     """Causal (optionally segment-masked) MHA with the JAX package's
-    shape rule: the flash route when T divides by a power-of-two block of
-    at least 8 (the CUDA kernels on CUDA tensors, their plain version on
-    CPU tensors), else dense softmax up to T = 1024 and the blockwise
-    online softmax above it."""
+    shape rule plus one of the port's own: the flash route when T divides
+    by a power-of-two block of at least 8 and the head dim is one the
+    flash kernels are built for (`HEAD_DIMS`; the CUDA kernels on CUDA
+    tensors, their plain version on CPU tensors), else dense softmax up
+    to T = 1024 and the blockwise online softmax above it. The rule looks
+    at shapes only, on every device: it never catches a failed build or
+    launch."""
     from distributed_reinforcement_learning_tpu_torch.ops.kernels.attention import (
-        flash_attention_bhtd, flash_blocks)
+        HEAD_DIMS, flash_attention_bhtd, flash_blocks)
 
     if (q_seg is None) != (k_seg is None):
         raise ValueError("q_seg and k_seg must be provided together")
     b, t, h, d = q.shape
     block = flash_blocks(t)
-    if block > 0:
+    if block > 0 and d in HEAD_DIMS:
         zeros = torch.zeros((b, t), dtype=torch.int32, device=q.device)
         qs = zeros if q_seg is None else q_seg.to(torch.int32)
         ks = zeros if k_seg is None else k_seg.to(torch.int32)

@@ -56,14 +56,16 @@ def _library_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing, all in parallel.
+def build_all(force: bool = False) -> dict[str, Path]:
+    """Compile every source whose library is missing (every source with
+    `force`, so that `build_logs` holds ptxas' report of each), all in
+    parallel.
 
     -> {source stem: library path}. Raises RuntimeError naming each
     source that failed, with nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {src.stem: _library_path(src) for src in sources()}
-    todo = {stem: lib for stem, lib in out.items() if not lib.exists()}
+    todo = {stem: lib for stem, lib in out.items() if force or not lib.exists()}
     if not todo:
         return out
     nvcc = nvcc_path()

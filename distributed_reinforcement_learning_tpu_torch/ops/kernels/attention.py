@@ -25,6 +25,8 @@ _BLOCK_Q = 128
 _BLOCK_KV = 128
 # Head dims the CUDA kernels are built for: 32 is the transformer
 # sections' (d_model 64 over 2 heads), 64 the longer-context shapes'.
+# `ops/attention.py:causal_attention` sends any other head dim to the
+# dense or blockwise path, on every device.
 HEAD_DIMS = (32, 64, 128)
 _TINY = torch.finfo(torch.float32).tiny
 

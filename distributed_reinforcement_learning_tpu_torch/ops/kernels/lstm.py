@@ -187,18 +187,27 @@ def max_hidden(sm_count: int) -> int:
     return H
 
 
+def check_hidden_size(H: int, sm_count: int) -> None:
+    """Raise unless both kernels take hidden size H on a card with
+    `sm_count` SMs (a multiple of 4, at most `max_hidden(sm_count)`)."""
+    limit = max_hidden(sm_count)
+    if H % 4 or H > limit:
+        raise ValueError(
+            f"LSTM kernels: hidden size {H} must be a multiple of 4 and at most {limit}: "
+            f"the persistent kernels keep Wh split across the {sm_count} SMs' shared memory "
+            f"({MAX_SMEM} bytes a block)")
+
+
 def lstm_plan(T: int, B: int, H: int, sm_count: int, backward: bool = False) -> LSTMPlan:
     """The launch plan of K2a (K2b with `backward`) for T steps, batch B
     and hidden size H on a card with `sm_count` SMs: one block per SM at
     most, so the grid is co-resident and its barrier cannot deadlock.
     Raises where Wh's slices do not fit the SMs' shared memory."""
-    limit = max_hidden(sm_count)
-    plan = _plan(T, B, H, sm_count, backward) if H % 4 == 0 and H <= limit else None
+    check_hidden_size(H, sm_count)
+    plan = _plan(T, B, H, sm_count, backward)
     if plan is None:
-        raise ValueError(
-            f"LSTM kernels: hidden size {H} must be a multiple of 4 and at most {limit}: "
-            f"the persistent kernels keep Wh split across the {sm_count} SMs' shared memory "
-            f"({MAX_SMEM} bytes a block)")
+        raise ValueError(f"LSTM kernels: no launch plan for T={T}, B={B}, H={H} on "
+                         f"{sm_count} SMs")
     return plan
 
 

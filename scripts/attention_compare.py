@@ -1,5 +1,5 @@
-"""K3a and K3c of this tree against other versions of `csrc/attention.cu`,
-timed in turns in one process on one card.
+"""K3a, K3b and K3c of this tree against other versions of
+`csrc/attention.cu`, timed in turns in one process on one card.
 
     python3 scripts/attention_compare.py runs/pr3/attention.cu [more.cu ...]
 
@@ -9,7 +9,8 @@ into a gitignored directory) must keep the C entry points. It builds with
 the package's nvcc flags into `csrc/build/` and runs through the same
 Python wrappers, so eager times carry the same host cost. Every version
 is first held to the plain versions' bars at chip_smoke's three
-attention shapes; then, per shape and kernel, all are timed eager and in
+attention shapes (dq, dk and dv from the same lse and delta); then, per
+shape and kernel, all are timed eager and in
 a CUDA graph in the order others, this, this, others reversed. Prints
 the card's name and power limit, then one JSON line per (shape, kernel)
 with each version's times in microseconds, keyed by file stem ("this"
@@ -35,9 +36,11 @@ from distributed_reinforcement_learning_tpu_torch.ops.kernels import _build  # n
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn  # noqa: E402
 
 
-def build_other(src: Path) -> ctypes.CDLL:
+def build_other(src: Path, declare=kattn._signature) -> ctypes.CDLL:
+    """Another version of a kernel source, built with the package's nvcc
+    flags; `declare` sets its entry points' argtypes."""
     digest = hashlib.sha1(src.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()
-    lib_path = _build.BUILD_DIR / f"attention_other-{digest[:16]}.so"
+    lib_path = _build.BUILD_DIR / f"{src.stem}_other-{digest[:16]}.so"
     if not lib_path.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path),
@@ -47,7 +50,7 @@ def build_other(src: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.drl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.drl_cuda_error_string.restype = ctypes.c_char_p
-    kattn._signature(lib)
+    declare(lib)
     return lib
 
 
@@ -66,17 +69,18 @@ def using(lib: ctypes.CDLL | None):
 
 
 def check(B, H, T, D, q, k, v, segs, do) -> tuple[torch.Tensor, torch.Tensor]:
-    """Hold the active version's K3a and K3c to the plain versions' bars."""
+    """Hold the active version's K3a, K3b and K3c to the plain versions'
+    bars."""
     blk = kattn.flash_blocks(T)
     o, lse = kattn.flash_fwd_cuda(q, k, v, segs, segs)
     want_o, want_lse = kattn.flash_fwd_plain(q, k, v, segs, segs, blk, blk)
     torch.testing.assert_close(o, want_o, atol=1e-5, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
     delta = (do * want_o).sum(-1)
+    dq = kattn.flash_dq_cuda(q, k, v, segs, segs, do, want_lse, delta)
     dk, dv = kattn.flash_dkv_cuda(q, k, v, segs, segs, do, want_lse, delta)
-    _, want_dk, want_dv = kattn.flash_bwd_plain(q, k, v, segs, segs, do, want_lse, delta,
-                                                blk, blk)
-    for a, b in ((dk, want_dk), (dv, want_dv)):
+    want = kattn.flash_bwd_plain(q, k, v, segs, segs, do, want_lse, delta, blk, blk)
+    for a, b in zip((dq, dk, dv), want):
         torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
     return want_lse, delta
 
@@ -102,6 +106,7 @@ def main() -> int:
         graph = dict(calls=5, replays=3) if big else dict(calls=50, replays=10)
         bwd_args = (q, k, v, segs, segs, do, lse, delta)
         for kind, fn in (("fwd", lambda: kattn.flash_fwd_cuda(q, k, v, segs, segs)),
+                         ("dq", lambda: kattn.flash_dq_cuda(*bwd_args)),
                          ("dkv", lambda: kattn.flash_dkv_cuda(*bwd_args))):
             runs = {name: [] for name, _ in order}
             for name, lib in order:

@@ -1,14 +1,15 @@
-"""Where a call of the flash kernels K3a and K3c spends its time, per warp, on one GPU.
+"""Where a call of the flash kernels K3a, K3b and K3c spends its time, per block, on one GPU.
 
     python3 scripts/attention_phase_profile.py [B,H,T,D ...]   # default: chip_smoke's shapes
 
 Builds `csrc/attention.cu` with -DDRL_FLASH_PHASES (into `csrc/build/`,
-which git ignores): each block of K3a and K3c (one per 16-row tile)
+which git ignores): each block of K3a, K3b and K3c (one per 16-row tile)
 writes the globaltimer (ns) when it starts, when its first tile has
 landed in shared memory, before and after the barrier that exchanges
-the warps' parts of that tile's S (S^T and dP^T), when that tile is
-computed, when its last tile is computed and when its outputs are
-stored, and the number of tiles it computed (warp 0's view). Prints, for each shape and kernel, the
+the warps' parts of that tile's S (S and dP in K3b, S^T and dP^T in
+K3c), when that tile is computed, when its last tile is computed and
+when its outputs are stored, and the number of tiles it computed (warp
+0's view). Prints, for each shape and kernel, the
 instrumented call's time in a CUDA graph, the span from the first
 block's start to the last block's end, the spread of the blocks' starts,
 and the median (and max) over blocks of each phase. The marks add a
@@ -64,9 +65,10 @@ def profile(lib: ctypes.CDLL, B: int, H: int, T: int, D: int) -> None:
     blocks = B * H * -(-T // 16)
     marks = torch.zeros(blocks * 8, dtype=torch.int64, device="cuda")
     with using(lib):
+        bwd_args = (q, k, v, segs, segs, do, lse, delta)
         for kind, fn in (("K3a", lambda: kattn.flash_fwd_cuda(q, k, v, segs, segs)),
-                         ("K3c", lambda: kattn.flash_dkv_cuda(q, k, v, segs, segs, do, lse,
-                                                              delta))):
+                         ("K3b", lambda: kattn.flash_dq_cuda(*bwd_args)),
+                         ("K3c", lambda: kattn.flash_dkv_cuda(*bwd_args))):
             if lib.drl_flash_set_marks(None) != 0:
                 raise SystemExit("cannot clear the marks buffer")
             graph_us = smoke.time_graph_ms([fn], calls=20, replays=5) * 1e3

@@ -134,14 +134,27 @@ def test_function_gradients_match_jax():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, err_msg=name)
 
 
+def _k3_launches():
+    return (kattn.flash_fwd_cuda.launches, kattn.flash_dq_cuda.launches,
+            kattn.flash_dkv_cuda.launches)
+
+
 @pytest.mark.parametrize("backend", ["pallas_interpret", "reference"])
-@pytest.mark.parametrize("T", [16, 32, 10])
-def test_causal_attention_matches_jax(T, backend):
-    """T = 16 and 32 take the flash route, T = 10 the dense one (in both
-    packages: flash_blocks(10) == 0)."""
-    B, H, D = 2, 2, 16
+@pytest.mark.parametrize("T,D", [(16, 32), (32, 32), (10, 16), (16, 16), (32, 16)])
+def test_causal_attention_matches_jax(T, D, backend, monkeypatch):
+    """T = 16 and 32 at D = 32 take the flash route, T = 10 the dense one
+    (in both packages: flash_blocks(10) == 0). At D = 16, which the flash
+    kernels are not built for, every T takes the dense route in the port
+    on every device, while the JAX package may take its flash route: the
+    two agree all the same."""
+    B, H = 2, 2
     q, k, v = _qkv(B, T, H, D, seed=T)
     segs = _segments(B, T, seed=T + 1)
+    flash_calls = []
+    flash = kattn.flash_attention_bhtd
+    monkeypatch.setattr(kattn, "flash_attention_bhtd",
+                        lambda *a, **kw: flash_calls.append(1) or flash(*a, **kw))
+    before = _k3_launches()
     want = jattn.causal_attention(q, k, v, q_seg=segs, k_seg=segs, backend=backend)
     got = attn.causal_attention(*_t(q, k, v), q_seg=torch.from_numpy(segs),
                                 k_seg=torch.from_numpy(segs))
@@ -149,6 +162,9 @@ def test_causal_attention_matches_jax(T, backend):
     plain = attn.causal_attention(*_t(q, k, v))
     np.testing.assert_allclose(plain.numpy(), np.asarray(jattn.dense_attention(q, k, v)),
                                atol=1e-5)
+    takes_flash = kattn.flash_blocks(T) > 0 and D in kattn.HEAD_DIMS
+    assert len(flash_calls) == (2 if takes_flash else 0)
+    assert _k3_launches() == before
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -185,8 +201,9 @@ def test_rejects_lone_segment_arg():
 @pytest.mark.parametrize("T", [16, 10])
 def test_no_attention_across_episodes(T):
     """Changing the keys and values of one episode leaves every other
-    episode's outputs as they were, on both routes."""
-    B, H, D = 2, 2, 16
+    episode's outputs as they were, on both routes (D = 32, so that T = 16
+    takes the flash route)."""
+    B, H, D = 2, 2, 32
     q, k, v = _qkv(B, T, H, D, seed=21)
     segs = np.zeros((B, T), np.int32)
     segs[:, T // 2:] = 1
@@ -275,6 +292,34 @@ def test_3xtf32_forward_holds_the_bar(B, H, T, D):
     err1 = _max_err(_forward(q, k, v, mask, _mm_tf32), want)
     assert err3 <= 1e-5, err3
     assert err1 >= 10 * err3, (err1, err3)
+
+
+def _dq(q, k, v, mask, do, lse, delta, mm):
+    """dq of the kernels' dq arithmetic (K3b) with products by `mm`."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.where(mask, torch.exp(mm(q, k.transpose(1, 2)) * scale - lse[..., None]), 0.0)
+    ds = p * (mm(do, v.transpose(1, 2)) - delta[..., None]) * scale
+    return mm(ds, k)
+
+
+@pytest.mark.parametrize("B,H,T,D", TF32_SHAPES)
+def test_3xtf32_dq_holds_the_bar(B, H, T, D):
+    """K3b's products in 3xTF32 hold dq to atol 1e-4 x max(1, max |ref|)
+    against float64, and one TF32 product errs at least 10x more (at
+    some of these shapes it stays just under the bar, so the bar alone
+    would not tell the two apart)."""
+    q, k, v, segs, do = _gpu_test_inputs(B, H, T, D, seed=T + D)
+    mask = _mask(segs)
+    q64, k64, v64, do64 = q.double(), k.double(), v.double(), do.double()
+    o64, lse64 = _forward(q64, k64, v64, mask, torch.matmul)
+    delta64 = (do64 * o64).sum(-1)
+    want = _dq(q64, k64, v64, mask, do64, lse64, delta64, torch.matmul)
+    lse, delta = lse64.float(), delta64.float()
+    bar = 1e-4 * max(1.0, float(want.abs().max()))
+    err3 = _max_err([_dq(q, k, v, mask, do, lse, delta, _mm_3xtf32)], [want])
+    err1 = _max_err([_dq(q, k, v, mask, do, lse, delta, _mm_tf32)], [want])
+    assert err3 <= bar, (err3, bar)
+    assert err1 >= 10 * err3, (err1, err3, bar)
 
 
 @pytest.mark.parametrize("B,H,T,D", TF32_SHAPES)

@@ -5,18 +5,21 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: V-trace atol 2e-6 on vs, as the JAX package's kernel tests;
-atol 1e-7 plus rtol 2e-7 on the clipped rhos (one to two ulps of expf).
-LSTM forward atol 1e-5 at H >= 256 (H-term float32 sums taken in another
+Tolerances: V-trace none: the kernel runs the plain version's operations
+in its order, each rounded on its own, so the two agree bit for bit,
+NaN and inf included (any NaN equal to any NaN). LSTM forward atol 1e-5 at H >= 256 (H-term float32 sums taken in another
 order than cuBLAS takes them) and 1e-6 at H <= 64; LSTM gradients atol
 5e-5. Flash attention: forward atol 1e-5 (o and lse), dq, dk and dv atol
 1e-4 x max(1, max |ref|), the JAX package's attention tolerances.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Config
 from distributed_reinforcement_learning_tpu_torch.ops.attention import dense_attention
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
@@ -36,9 +39,34 @@ def _inputs(T, B, seed):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
+def _bit_equal(a, b):
+    """The same bits everywhere, any NaN equal to any NaN."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.masked_fill(nan, 0).view(torch.int32),
+                            b.masked_fill(nan, 0).view(torch.int32)))
+
+
+def _special(args):
+    """NaN, +inf and -inf log-rhos spread over the columns."""
+    flat = args[0].view(-1)
+    flat[0::7] = float("nan")
+    flat[3::11] = float("inf")
+    flat[5::13] = float("-inf")
+    return args
+
+
+# (T, B): the impala path's shape and chip_smoke's larger ones; one step;
+# one column; a ragged last slab (33, 1000: B not a multiple of 32, and
+# 33 not of 4, so rows are not 16-byte aligned); T longer than one chunk
+# of 32 rows (70: two full chunks and a partial one).
+VTRACE_SHAPES = [(18, 32), (20, 256), (20, 65536), (1, 32), (1, 1), (18, 1), (20, 33),
+                 (20, 1000), (70, 1000), (70, 33), (64, 65536)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("clip_rho", [1.0, None])
-@pytest.mark.parametrize("T,B", [(18, 32), (20, 256), (20, 65536)])
+@pytest.mark.parametrize("T,B", VTRACE_SHAPES)
 def test_vtrace_kernel_matches_plain(T, B, clip_rho):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -48,8 +76,80 @@ def test_vtrace_kernel_matches_plain(T, B, clip_rho):
     torch.cuda.synchronize()
     assert kvt.vtrace_cuda.launches == before + 1
     want_vs, want_rhos = kvt.vtrace_plain(*args, clip_rho_threshold=clip_rho)
-    torch.testing.assert_close(vs, want_vs, atol=2e-6, rtol=0)
-    torch.testing.assert_close(rhos, want_rhos, atol=1e-7, rtol=2e-7)
+    assert _bit_equal(vs, want_vs) and _bit_equal(rhos, want_rhos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip_rho", [1.0, None])
+@pytest.mark.parametrize("T,B", [(18, 32), (20, 33), (70, 1000), (20, 65536)])
+def test_vtrace_kernel_propagates_nan_and_inf_as_plain(T, B, clip_rho):
+    """NaN, +inf and -inf log-rhos: the kernel's clips propagate a NaN rho
+    (as `torch.clamp` does, where `fminf` would return the bound), and
+    the kernel gives the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _special(_inputs(T, B, seed=T + B))
+    vs, rhos = kvt.vtrace_cuda(*args, clip_rho_threshold=clip_rho)
+    want_vs, want_rhos = kvt.vtrace_plain(*args, clip_rho_threshold=clip_rho)
+    assert torch.isnan(want_rhos).any() and torch.isnan(want_vs).any()
+    assert _bit_equal(vs, want_vs) and _bit_equal(rhos, want_rhos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B", [(18, 32), (70, 1000)])
+def test_vtrace_kernel_takes_unaligned_rows(T, B):
+    """Inputs that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies, with the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = []
+    for a in _inputs(T, B, seed=1):
+        buf = torch.empty(a.numel() + 1, device="cuda")[1:]
+        args.append(buf.view(a.shape).copy_(a))
+    assert args[0].data_ptr() % 16 == 4
+    got = kvt.vtrace_cuda(*args)
+    for a, b in zip(got, kvt.vtrace_plain(*args)):
+        assert _bit_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_vtrace_wrapper_call_is_one_device_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _inputs(18, 32, seed=0)
+    _one_kernel_per_call(lambda: kvt.vtrace_cuda(*args), "vtrace", "vtrace_kernel")
+
+
+def _device_kernels(fn, name, calls=3):
+    """{kernel: launches} of the device kernels whose names hold `name`
+    that `calls` synchronised calls of `fn` run, through torch.profiler,
+    each name cut to its function's name, and the number of kernel
+    launches the host made. The profiler drops a device record now and
+    then, so the host's count is the one to hold to `calls`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device: dict[str, int] = {}
+    api = 0
+    for e in prof.key_averages():  # a kernel's records may come in several groups
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if name in e.key:
+                kernel = re.search(r"\w+_kernel", e.key).group(0)
+                device[kernel] = device.get(kernel, 0) + e.count
+        elif e.key.startswith(("cudaLaunch", "cuLaunch")):
+            api += e.count
+    return device, api
+
+
+def _one_kernel_per_call(fn, name, kernel, calls=3):
+    device, api = _device_kernels(fn, name, calls)
+    assert api == calls, (api, device)
+    assert list(device) == [kernel] and 0 < device[kernel] <= calls, device
 
 
 @pytest.mark.gpu
@@ -347,10 +447,43 @@ def test_attention_kernels_segment_edges(B, H, T, D, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,T,D", [(16, 2, 16, 32), (1, 2, 1096, 64)])
+@pytest.mark.parametrize("B,H,T,D", ATTN_SHAPES)
+def test_attention_dq_kernel_matches_plain(B, H, T, D):
+    """K3b alone, through `flash_dq_cuda`: one launch, dq to the bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, segs, do = _attn_inputs(B, H, T, D, seed=T + D + 1)
+    blk = kattn.flash_blocks(T)
+    want_o, lse = kattn.flash_fwd_plain(q, k, v, segs, segs, blk, blk)
+    delta = (do * want_o).sum(-1)
+    before = kattn.flash_dq_cuda.launches
+    dq = kattn.flash_dq_cuda(q, k, v, segs, segs, do, lse, delta)
+    torch.cuda.synchronize()
+    assert kattn.flash_dq_cuda.launches == before + 1
+    want = kattn.flash_bwd_plain(q, k, v, segs, segs, do, lse, delta, blk, blk)[0]
+    _grad_close([dq], [want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
+def test_attention_wrapper_call_is_one_device_kernel(which):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, segs, do = _attn_inputs(16, 2, 16, 32, seed=0)
+    o, lse = kattn.flash_fwd_plain(q, k, v, segs, segs, 16, 16)
+    args = (q, k, v, segs, segs, do, lse, (do * o).sum(-1))
+    fn = {"fwd": lambda: kattn.flash_fwd_cuda(*args[:5]),
+          "dq": lambda: kattn.flash_dq_cuda(*args),
+          "dkv": lambda: kattn.flash_dkv_cuda(*args)}[which]
+    _one_kernel_per_call(fn, "flash", f"flash_{which}_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D", [(16, 2, 16, 32), (1, 2, 1096, 64), (2, 2, 200, 128)])
 def test_attention_kernels_are_bit_identical_across_calls(B, H, T, D):
-    """One writer per output and no atomics: two calls of K3a, and of K3c,
-    give equal bits."""
+    """One writer per output and no atomics: two calls of K3a, of K3b and
+    of K3c give equal bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, segs, do = _attn_inputs(B, H, T, D, seed=6)
@@ -358,14 +491,14 @@ def test_attention_kernels_are_bit_identical_across_calls(B, H, T, D):
     second = kattn.flash_fwd_cuda(q, k, v, segs, segs)
     lse, delta = first[1], (do * first[0]).sum(-1)
     bwd_args = (q, k, v, segs, segs, do, lse, delta)
-    first += kattn.flash_dkv_cuda(*bwd_args)
-    second += kattn.flash_dkv_cuda(*bwd_args)
+    first += (kattn.flash_dq_cuda(*bwd_args), *kattn.flash_dkv_cuda(*bwd_args))
+    second += (kattn.flash_dq_cuda(*bwd_args), *kattn.flash_dkv_cuda(*bwd_args))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,T,D", ATTN_SHAPES[:2])
+@pytest.mark.parametrize("B,H,T,D", ATTN_SHAPES[:3])
 def test_attention_function_gradients_match_dense_autograd(B, H, T, D):
     """`FlashAttentionFunction` (K3a + K3b + K3c) against autograd of the
     plain `dense_attention`, on the card."""
@@ -415,3 +548,20 @@ def test_attention_kernels_reject_unsupported_inputs():
         kattn.flash_fwd_cuda(q[:, :12].contiguous(), k[:, :12].contiguous(),
                              v[:, :12].contiguous(), segs[:, :12].contiguous(),
                              segs[:, :12].contiguous())
+
+
+@pytest.mark.gpu
+def test_r2d2_agent_refuses_a_hidden_size_the_kernels_cannot_take():
+    """An LSTM of 1100 units is past what the kernels take on an H100 (1056
+    on 132 SMs): building the agent on the card raises, naming the limit,
+    before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = klstm.max_hidden(sms)
+    assert limit < 1100
+    before = (klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches)
+    with pytest.raises(ValueError, match=f"at most {limit}"):
+        R2D2Agent(R2D2Config(lstm_size=1100), device="cuda")
+    assert (klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches) == before
+    R2D2Agent(R2D2Config(lstm_size=limit), device="cuda")

@@ -216,3 +216,15 @@ def test_launch_plan_refuses_what_does_not_fit(H):
         H = klstm.max_hidden(H100_SMS) + 4
     with pytest.raises(ValueError, match="multiple of 4 and at most"):
         klstm.lstm_plan(10, 32, H, H100_SMS)
+
+
+@pytest.mark.parametrize("H,fits", [(512, True), (1056, True), (1060, False)])
+def test_hidden_size_check_at_132_sms(H, fits):
+    """The check an R2D2 agent runs when it is built on a CUDA device
+    (`agents/r2d2.py`): 1056 is the largest H the kernels take on a
+    132-SM card."""
+    if fits:
+        klstm.check_hidden_size(H, H100_SMS)
+    else:
+        with pytest.raises(ValueError, match="at most 1056"):
+            klstm.check_hidden_size(H, H100_SMS)

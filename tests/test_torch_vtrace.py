@@ -51,6 +51,29 @@ def test_vtrace_matches_jax_kernel_and_reference(T, B, clip_rho):
                                    atol=1e-7)
 
 
+@pytest.mark.parametrize("clip_rho", [1.0, None])
+def test_vtrace_propagates_nan_and_inf_as_jax_kernel(clip_rho):
+    """NaN, +inf and -inf log-rhos: the port's `vtrace` (its plain version
+    on the CPU) gives what the Pallas kernel gives, NaN where it gives NaN.
+    A clip must propagate a NaN rho (`jnp.minimum`, `torch.clamp`), not
+    drop it as C's `fminf` does."""
+    T, B = 6, 8
+    args = _inputs(T, B, seed=4)
+    log_rhos = args[0].copy()
+    log_rhos[3, 1] = np.nan
+    log_rhos[2, 4] = np.inf
+    log_rhos[4, 6] = -np.inf
+    args = (log_rhos, *args[1:])
+    vs, rhos = kvt.vtrace(*map(torch.from_numpy, args), clip_rho_threshold=clip_rho)
+    want_vs, want_rhos = vtrace_pallas(*args, clip_rho_threshold=clip_rho, interpret=True)
+    np.testing.assert_allclose(vs.numpy(), np.asarray(want_vs), atol=2e-6, equal_nan=True)
+    np.testing.assert_allclose(rhos.numpy(), np.asarray(want_rhos), atol=1e-7, equal_nan=True)
+    assert np.isnan(rhos[3, 1].item()) and np.isnan(vs[:4, 1].numpy()).all()
+    assert np.isfinite(vs[4:, 1].numpy()).all()
+    assert rhos[4, 6].item() == 0.0
+    assert rhos[2, 4].item() == (np.inf if clip_rho is None else clip_rho)
+
+
 def test_vtrace_cuts_the_graph():
     """Outputs carry no gradient and the inputs are cut from the tape, as
     the reference's `back_prop=False`."""

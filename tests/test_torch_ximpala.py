@@ -48,7 +48,9 @@ from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightS
 from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
 
 CONFIG = Path(__file__).resolve().parents[1] / "config.json"
-SMALL = dict(obs_shape=(4,), num_actions=3, trajectory=16, d_model=32, num_heads=2,
+# Head dim 32, one the flash kernels take, so that T = 16 takes the flash
+# route in the port.
+SMALL = dict(obs_shape=(4,), num_actions=3, trajectory=16, d_model=64, num_heads=2,
              num_layers=2)
 
 
@@ -99,7 +101,8 @@ def test_transformer_net_matches_jax(head, T):
     variables = jmodel.init(jax.random.PRNGKey(0), obs, pa, done)
     want = jmodel.apply(variables, obs, pa, done)
 
-    model = net.TransformerQNet(num_actions=3, obs_shape=(4,), d_model=32, num_heads=2,
+    model = net.TransformerQNet(num_actions=3, obs_shape=(4,), d_model=kw["d_model"],
+                                num_heads=kw["num_heads"],
                                 num_layers=2, max_len=16, head=head)
     model.load_state_dict(transformer_params_from_jax(
         jax.tree.map(np.asarray, variables), head=head), strict=True)
