@@ -69,11 +69,32 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 10. Transformer-IMPALA device parity: one learn step from the same
    parameters on the same seeded batch on CUDA and on the CPU (TF32
    off): rtol 1e-4 on each loss term and the gradient norm.
-11. A `{"kernels": [...]}` line with each kernel's numbers.
+11. Multi-process IMPALA at full width: a learner process on CUDA
+   (`train_impala --mode learner --section impala --updates 8`: the
+   pinned prefetcher, async publication) fed over loopback TCP by 4 actor
+   processes (`--mode actor --task k --device cpu`, 5 Breakout-sim envs
+   each). Fails if any process exits non-zero, the learner does not take
+   exactly 8 steps with 16 V-trace launches in its own process, or an
+   actor never received a weight version above 0; logs the wall time per
+   update, learned frames/s, the learner's busy share, the env frames/s
+   the actors delivered, the H2D ms a batch, the publication latency,
+   the queue depth at each step and the peak memory.
+12. Multi-process `r2d2` and `ximpala`: one CUDA learner and one CPU actor
+   each, 3 updates; the r2d2 learner launches K2a twice per ingest and per
+   learn step and K2b once per learn step, the ximpala learner K3a, K3b,
+   K3c once per layer and K1 twice per learn step.
+13. Transport parity: a seeded `impala` batch through codec, server and
+   client arrives bit-identical; a learner fed through the prefetcher
+   matches the in-process learn step to rtol 1e-4; an async-published
+   snapshot equals its version's parameters bit for bit.
+14. `run_async` of each family in one process on CUDA, 3 updates.
+15. A `{"kernels": [...]}` line with each kernel's numbers.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6 and 9 are read net of it.
-12. The device line, then `{"ok": true, "device": {...}}` as the last line.
+logged, so that the peaks of phases 4, 6 and 9 are read net of it. Every
+child process runs in its own process group and is killed whole if its
+phase fails.
+16. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -1148,6 +1169,281 @@ def phase_ximpala_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
+# -- multi-process topology, transport parity, run_async -----------------------
+
+MP_UPDATES = 8  # the multi-process impala phase: 8 updates, 4 CPU actor processes
+MP_SMALL_UPDATES = 3  # the multi-process r2d2 and ximpala phases
+MP_TIMEOUT_S = 300
+PAGEABLE_H2D_MS = 2.49  # PR 4's reading of the impala batch's pageable copy
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def last_json(text: str) -> dict:
+    """The last line of a role's output that is a JSON object."""
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    raise RuntimeError(f"no JSON line in:\n{text[-3000:]}")
+
+
+def run_topology(algo: str, section: str, updates: int, actors: int) -> tuple[dict, list]:
+    """One learner process on CUDA and `actors` actor processes with
+    `--device cpu` (one torch thread each), over loopback TCP on a free
+    port. Every process runs in its own process group; on any failure or
+    timeout all of them are killed whole before this raises. -> (the
+    learner's summary, the actors' summaries)."""
+    import os
+    import signal
+
+    env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{free_port()}")
+    actor_env = dict(env, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", f"distributed_reinforcement_learning_tpu_torch.train_{algo}",
+            "--config", str(CONFIG), "--section", section]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+
+    def spawn(args, child_env, name):
+        f = open(out_dir / f"smoke_{section}_{name}.log", "w+")
+        proc = subprocess.Popen(base + args, cwd=ROOT, env=child_env, stdout=f,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        return proc, f
+
+    procs = [spawn(["--mode", "learner", "--updates", str(updates)], env, "learner")]
+    procs += [spawn(["--mode", "actor", "--task", str(k), "--device", "cpu",
+                     "--actor_grace", "3"], actor_env, f"actor{k}") for k in range(actors)]
+    try:
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        texts = []
+        for proc, f in procs:
+            f.seek(0)
+            texts.append(f.read())
+        bad = [(i, proc.returncode) for i, (proc, _) in enumerate(procs) if proc.returncode]
+        if bad:
+            raise RuntimeError(f"{section} topology: processes exited non-zero {bad}:\n"
+                               + "\n".join(t[-2000:] for t in texts))
+        return last_json(texts[0]), [last_json(t) for t in texts[1:]]
+    finally:
+        for proc, f in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+            f.close()
+
+
+def phase_multiprocess_impala() -> dict:
+    """The `impala` section at full width across processes: the learner on
+    CUDA (prefetcher, async publication), 4 actor processes of 5
+    Breakout-sim envs on the CPU, MP_UPDATES updates over loopback TCP."""
+    agent_cfg, rt = load_config(CONFIG, "impala")
+    t0 = time.perf_counter()
+    learner, actors = run_topology("impala", "impala", MP_UPDATES, rt.num_actors)
+    total = time.perf_counter() - t0
+    launches = learner["launches"]
+    if learner["train_steps"] != MP_UPDATES or launches["vtrace"] != 2 * MP_UPDATES:
+        raise RuntimeError(f"multi-process impala: {learner['train_steps']} steps, "
+                           f"launches {launches}; expected {MP_UPDATES} and "
+                           f"{2 * MP_UPDATES} V-trace launches")
+    if any(a["weight_version"] <= 0 for a in actors):
+        raise RuntimeError(f"an actor never received a weight version > 0: {actors}")
+    T = agent_cfg.trajectory
+    steps = learner["step_s"]
+    n = len(steps)
+    # Steps 2..n: the first pays the learner's one-off start-up (library
+    # loads, cuDNN's first calls) and starts on a queue the actors filled
+    # meanwhile; the last 4 start on a queue the learner has drained.
+    steady = (steps[-1] - steps[0]) / (n - 1)
+    tail = (steps[-1] - steps[-5]) / 4
+    stage = learner["stage_total_ms"]
+    steady_ms = (steps[-1] - steps[0]) * 1e3
+    busy = (stage["learn"] + stage.get("publish", 0.0)) / steady_ms
+    actor_rate = sum(a["frames"] / a["active_s"] for a in actors if a["active_s"] > 0)
+    result = {
+        "wall_per_update_ms": steady * 1e3, "tail_wall_per_update_ms": tail * 1e3,
+        "first_step_s": steps[0], "learned_frames_per_s": rt.batch_size * T / steady,
+        "busy_share": busy, "env_frames_per_s": actor_rate,
+        "h2d_ms": learner["h2d_ms_per_batch"], "publish_ms": learner["stage_ms"]["publish"],
+        "publish_land_ms": learner["publish_land_ms"], "peak_mib": learner["peak_device_mib"],
+        "launches": launches,
+    }
+    log(f"[multiproc] impala: {learner['train_steps']} updates, {learner['frames_learned']} "
+        f"frames learned; topology {total:.1f} s; learner loop {learner['wall_s']:.2f} s, "
+        f"steps done at {[round(t, 3) for t in steps]} s; first step at {steps[0]:.2f} s "
+        f"(start-up), then {steady * 1e3:.1f} ms wall per update = "
+        f"{result['learned_frames_per_s']:.0f} learned frames/s ({tail * 1e3:.1f} ms over the "
+        f"last 4); learner busy (learn + publish host time over steps "
+        f"2..{n}) {100 * busy:.1f}%; the 4 actors delivered {actor_rate:.0f} env frames/s "
+        f"(each actor's frames over its own active time, summed)")
+    log(f"[multiproc] impala stage ms (mean a call over steps 2..{n}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+        + "; the first step: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in learner["first_step_stage_ms"].items())
+        + f"; H2D of a batch {learner['h2d_ms_per_batch']:.3f} ms on the copy stream "
+        f"(each: {[round(x, 3) for x in learner['h2d_ms']]}; PR 4's pageable copy "
+        f"{PAGEABLE_H2D_MS} ms); "
+        f"publication lands {learner['publish_land_ms']:.2f} ms after its handoff "
+        f"({learner['publishes_landed']} landed); queue depth at each step "
+        f"{learner['queue_depth']}; {learner['transport']['bytes_received']} bytes received; "
+        f"peak device memory {learner['peak_device_mib']:.1f} MiB; launches {launches}")
+    for a in actors:
+        log(f"[multiproc] impala actor {a['task']}: {a['frames']} env frames in "
+            f"{a['active_s']:.2f} s, weight version {a['weight_version']}, {a['transport']}")
+    return result
+
+
+def phase_multiprocess_small() -> dict:
+    """The `r2d2` and `ximpala` sections across processes: one CUDA
+    learner and one CPU actor each, MP_SMALL_UPDATES updates."""
+    out = {}
+    lstm = klstm.lstm_fwd_cuda.launches
+    for algo in ("r2d2", "ximpala"):
+        agent_cfg, _ = load_config(CONFIG, algo)
+        learner, actors = run_topology(algo, algo, MP_SMALL_UPDATES, 1)
+        n, got = MP_SMALL_UPDATES, learner["launches"]
+        if algo == "r2d2":
+            ingests = learner["stage_calls"].get("ingest_td", 0)
+            want = {"lstm_fwd": 2 * ingests + 2 * n, "lstm_bwd": n, "vtrace": 0,
+                    "attention_fwd": 0, "attention_dq": 0, "attention_dkv": 0}
+        else:
+            layers = agent_cfg.num_layers
+            want = {"lstm_fwd": 0, "lstm_bwd": 0, "vtrace": 2 * n, "attention_fwd": n * layers,
+                    "attention_dq": n * layers, "attention_dkv": n * layers}
+        if learner["train_steps"] != n or got != want or (algo == "r2d2" and ingests == 0):
+            raise RuntimeError(f"multi-process {algo}: {learner['train_steps']} steps, launches "
+                               f"{got}, expected {want}; actor {actors[0]}")
+        steps = learner["step_s"]
+        log(f"[multiproc] {algo}: {n} updates in a {learner['wall_s']:.2f} s learner loop "
+            f"(first at {steps[0]:.2f} s), launches {got}, stage ms "
+            + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+            + f"; actor {actors[0]['frames']} env frames, weight version "
+            f"{actors[0]['weight_version']}; peak {learner['peak_device_mib']:.1f} MiB")
+        out[algo] = learner
+    if klstm.lstm_fwd_cuda.launches != lstm:
+        raise RuntimeError("a learner process's launches were counted in this process")
+    return out
+
+
+def phase_transport_parity() -> None:
+    """A seeded full-width `impala` batch through codec.encode -> a
+    TransportServer -> a TransportClient arrives bit-identical; a learner
+    that takes it through the CUDA prefetcher matches one given the batch
+    in process (rtol 1e-4, the learn-step bar); an async-published
+    snapshot equals the parameters of its own version bit for bit."""
+    from distributed_reinforcement_learning_tpu_torch.data import codec
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
+    from distributed_reinforcement_learning_tpu_torch.runtime.impala_runner import ImpalaLearner
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
+        TransportClient, TransportServer)
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    agent_cfg, rt = load_config(CONFIG, "impala")
+    batch = seeded_batch(agent_cfg, rt.batch_size, seed=9)
+    items = [type(batch)(*(x[i] for x in batch)) for i in range(rt.batch_size)]
+    queue, store = TrajectoryQueue(rt.queue_size), WeightStore()
+    port = free_port()
+    server = TransportServer(queue, store, host="127.0.0.1", port=port).start()
+    client = TransportClient("127.0.0.1", port)
+    try:
+        t0 = time.perf_counter()
+        sent = client.put_trajectories(items)
+        put_ms = (time.perf_counter() - t0) * 1e3
+        wire = [queue.get(timeout=10.0) for _ in range(sent)]
+    finally:
+        client.close()
+        server.stop()
+    nbytes = sum(len(codec.encode(it)) for it in items)
+    if sent != rt.batch_size or any(
+            w._fields != it._fields or any(a.dtype != b.dtype or a.tobytes() != b.tobytes()
+                                           for a, b in zip(w, it))
+            for w, it in zip(wire, items)):
+        raise RuntimeError("the impala batch did not arrive bit-identical over TCP")
+    log(f"[parity] {sent} impala trajectories ({nbytes} bytes of blobs) arrived bit-identical "
+        f"over loopback TCP in {put_ms:.1f} ms")
+
+    agent = ImpalaAgent(agent_cfg, device="cuda")
+    fed = TrajectoryQueue(rt.queue_size)
+    for w in wire:
+        fed.put(w)
+    through = ImpalaLearner(agent, fed, WeightStore(), rt.batch_size, seed=11, prefetch=True)
+    m_pre = through.step(timeout=30.0)
+    state = agent.init_state(seed=11)
+    _, m_in = agent.learn(state, batch)
+    got = {k: float(v) for k, v in m_pre.items()}
+    want = {k: float(v) for k, v in m_in.items()}
+    for k, v in want.items():
+        if not math.isclose(got[k], v, rel_tol=1e-4):
+            raise RuntimeError(f"prefetched vs in-process learn step: {k} {got[k]} vs {v}")
+    worst = 0.0
+    for k, p in state.params.items():
+        q = through.state.params[k].detach()
+        if not torch.allclose(q, p.detach(), rtol=1e-4, atol=1e-7):
+            raise RuntimeError(f"prefetched vs in-process parameters differ at {k}")
+        worst = max(worst, float((q - p.detach()).abs().max()))
+    log(f"[parity] the learner fed through the pinned prefetcher matches the in-process step "
+        f"(max |param diff| {worst:.2e}): {json.dumps(got)}")
+
+    # The learner published version 1 asynchronously after that step; the
+    # next step updates the parameters in place right behind the clone.
+    after_1 = {k: v.detach().clone() for k, v in through.state.params.items()}
+    for w in wire:
+        fed.put(w)
+    through.step(timeout=30.0)
+    if not through.weights.flush_async(timeout=30.0):
+        raise RuntimeError("async publication did not land")
+    snap, version = through.weights.get()
+    blob, blob_version = through.weights.get_blob()
+    host = codec.decode(blob, copy=True)
+    if version != 2 or blob_version != 2:
+        raise RuntimeError(f"published version {version}/{blob_version}, expected 2")
+    after_2 = {k: v.detach() for k, v in through.state.params.items()}
+    bad = [k for k, v in after_2.items()
+           if not (bit_equal(snap[k], v) and host[k].tobytes() == v.cpu().numpy().tobytes())]
+    moved = any(not torch.equal(after_1[k], after_2[k]) for k in after_2)
+    through.close()
+    if bad or not moved:
+        raise RuntimeError(f"async snapshot differs from its version's parameters: {bad}")
+    log(f"[parity] the async-published snapshot of version 2 (device tensors and blob) equals "
+        f"that version's parameters bit for bit; publication landed in "
+        f"{list(through.weights.land_ms)} ms")
+
+
+def phase_run_async() -> dict:
+    """`run_async` of each family in one process on CUDA for 3 updates
+    (actor threads act on the card beside the learner)."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import (
+        impala_runner, r2d2_runner, ximpala_runner)
+
+    runners = {"impala": impala_runner, "r2d2": r2d2_runner, "ximpala": ximpala_runner}
+    out = {}
+    for algo, runner in runners.items():
+        agent_cfg, rt = load_config(CONFIG, algo)
+        learner, actors, _ = build_local(agent_cfg, rt, seed=0, device="cuda")
+        before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+        t0 = time.perf_counter()
+        runner.run_async(learner, actors, 3, learner.queue)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = all(not torch.equal(learner.state.params[k].detach(), v) for k, v in before.items()
+                    if v.numel() > 1)
+        finite = all(torch.isfinite(p).all() for p in learner.state.params.values())
+        if learner.train_steps < 3 or not moved or not finite:
+            raise RuntimeError(f"run_async {algo}: {learner.train_steps} steps, moved {moved}, "
+                               f"finite {finite}")
+        log(f"[run_async] {algo}: {learner.train_steps} updates in {wall:.2f} s with "
+            f"{len(actors)} actor thread(s) on the card; weight version "
+            f"{learner.weights.version}")
+        out[algo] = wall
+    return out
+
+
 def attention_rows(k3: dict, ximpala: dict) -> list[dict]:
     """The K3a, K3b and K3c entries of the kernels line, at the main path's
     shape, with the other shapes beside."""
@@ -1198,6 +1494,13 @@ def main() -> int:
     ximpala = phase_ximpala(phase_memory("ximpala path"))
     phase_memory("ximpala parity")
     phase_ximpala_parity()
+    phase_memory("multi-process impala")
+    multiproc = phase_multiprocess_impala()
+    phase_multiprocess_small()
+    phase_memory("transport parity")
+    phase_transport_parity()
+    phase_memory("run_async")
+    phase_run_async()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -1222,7 +1525,9 @@ def main() -> int:
         f"ms, own peak {r2d2['peak_mib']:.1f} MiB, K2 device ms a learn step {r2d2['k2_ms']:.3f}; "
         f"ximpala learn_ms {ximpala['learn_ms']:.3f}, "
         f"wall per update {ximpala['wall_per_update_ms']:.1f} ms, own peak "
-        f"{ximpala['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
+        f"{ximpala['peak_mib']:.1f} MiB; multi-process impala {multiproc['wall_per_update_ms']:.1f} "
+        f"ms wall per update, H2D {multiproc['h2d_ms']:.3f} ms a batch, peak "
+        f"{multiproc['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,6 +22,7 @@ immutable). Whoever hands them to another thread must copy them first
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Iterable
 
 import numpy as np
@@ -56,6 +57,27 @@ class TargetTrainState:
         for k, p in self.params.items():
             self.target_params[k].copy_(p)
         return self
+
+
+class ThreadLocalModelMixin:
+    """`model`: the structure-only (meta-device) module that the agent's
+    calls run under explicit parameters, one per thread.
+    `torch.func.functional_call` swaps a module's parameters in and out
+    while it runs, so threads that share one agent (the learner and the
+    actor threads of `run_async`, the pipelined actor's act worker) must
+    not share the module. The host class provides `_build_model(None)`
+    and calls `_init_models()` in its constructor."""
+
+    def _init_models(self) -> None:
+        self._models = threading.local()
+        self.model  # noqa: B018 — build now, so a bad config raises here
+
+    @property
+    def model(self):
+        model = getattr(self._models, "model", None)
+        if model is None:
+            model = self._models.model = self._build_model(None).to("meta")
+        return model
 
 
 def polynomial_lr(start: float, end: float, transition_steps: int) -> Callable[[int], float]:

@@ -80,14 +80,14 @@ class ActOutput(NamedTuple):
     c: torch.Tensor
 
 
-class ImpalaAgent:
+class ImpalaAgent(common.ThreadLocalModelMixin):
     """Config + model + optimizer; `act` and `learn` on `device`."""
 
     def __init__(self, cfg: ImpalaConfig, device: str | torch.device | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         # Structure only: act/learn always run it under explicit params.
-        self.model = self._build_model(None).to("meta")
+        self._init_models()
         self._schedule = common.polynomial_lr(
             cfg.start_learning_rate, cfg.end_learning_rate, cfg.learning_frame)
         self.tx = common.RMSPropWithClip(self._schedule, cfg.gradient_clip_norm)

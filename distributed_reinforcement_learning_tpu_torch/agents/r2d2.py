@@ -70,7 +70,7 @@ class R2D2Batch(NamedTuple):
     initial_c: Any  # [B, H]
 
 
-class R2D2Agent(common.SequenceReplayLearnMixin):
+class R2D2Agent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin):
     """Config + model + optimizer; `act`, `td_error` and `learn` on `device`."""
 
     def __init__(self, cfg: R2D2Config, device: str | torch.device | None = None):
@@ -82,7 +82,7 @@ class R2D2Agent(common.SequenceReplayLearnMixin):
             check_hidden_size(cfg.lstm_size,
                               torch.cuda.get_device_properties(self.device).multi_processor_count)
         # Structure only: every call runs it under explicit params.
-        self.model = self._build_model(None).to("meta")
+        self._init_models()
         self.tx = common.AdamWithClip(cfg.learning_rate, clip_norm=cfg.gradient_clip_norm)
 
     def _build_model(self, generator: torch.Generator | None) -> R2D2Net:

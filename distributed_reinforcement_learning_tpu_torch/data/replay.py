@@ -8,8 +8,9 @@ IS weights `(N * p) ** -beta` normalised by the batch max; beta annealed
 0.4 -> 1.0 by 0.001 per `sample()`; `update_batch` re-prioritises every
 sampled index.
 
-Not ported: the C++ sum tree (`native`, `array`), the disk spill tier,
-snapshots and the telemetry counters.
+`snapshot`/`restore` carry the contents and priorities through a
+checkpoint (`utils/checkpoint.py`). Not ported: the C++ sum tree
+(`native`, `array`), the disk spill tier and the telemetry counters.
 """
 
 from __future__ import annotations
@@ -137,3 +138,22 @@ class PrioritizedReplay:
         """Re-prioritise every sampled index."""
         for idx, err in zip(idxs, errors):
             self.update(int(idx), float(err))
+
+    def snapshot(self) -> dict:
+        """Serializable state: the whole sum tree (inner sums included),
+        the filled payload slots, the write cursor, beta. `restore` of it
+        gives a replay that samples exactly as this one would."""
+        t = self.tree
+        return {"tree": t._tree.copy(), "items": t._data[:t._count], "write": t._write,
+                "count": t._count, "beta": float(self.beta)}
+
+    def restore(self, snap: dict) -> None:
+        """Rebuild from `snapshot()` of a replay of the same capacity."""
+        t = self.tree
+        if snap["tree"].shape != t._tree.shape:
+            raise ValueError(f"replay snapshot of capacity {(len(snap['tree']) + 1) // 2}, "
+                             f"this replay holds {t.capacity}")
+        t._tree[:] = snap["tree"]
+        t._data = list(snap["items"]) + [None] * (t.capacity - snap["count"])
+        t._write, t._count = int(snap["write"]), int(snap["count"])
+        self.beta = float(snap["beta"])

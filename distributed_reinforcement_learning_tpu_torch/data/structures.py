@@ -3,7 +3,8 @@
 Counterpart of the IMPALA, R2D2 and Transformer-IMPALA parts of the JAX package's
 `data/structures.py`: one accumulator holds a whole vectorized actor's
 unroll as a `[T]`-list of `[N, ...]` numpy arrays and emits one
-trajectory (or sequence) per env.
+trajectory (or sequence) per env; `SlicedAccumulators` keeps one per
+env slice of the pipelined actor.
 """
 
 from __future__ import annotations
@@ -43,6 +44,25 @@ class _StackedUnrollAccumulator:
         }
         n = next(iter(fields.values())).shape[0]
         return [cls(**{k: v[i] for k, v in fields.items()}) for i in range(n)]
+
+
+class SlicedAccumulators:
+    """k independent accumulators, one per env slice of the pipelined
+    actor (`runtime/actor_pipeline.py`), so a slice accumulates its own
+    unroll while another slice's act is in flight. Copy of the JAX
+    package's `SlicedAccumulators`."""
+
+    def __init__(self, make_accumulator, num_slices: int):
+        self._accs = [make_accumulator() for _ in range(num_slices)]
+
+    def reset_slice(self, index: int, *args) -> None:
+        self._accs[index].reset(*args)
+
+    def append_slice(self, index: int, **step_fields: np.ndarray) -> None:
+        self._accs[index].append(**step_fields)
+
+    def extract_slice(self, index: int) -> list:
+        return self._accs[index].extract()
 
 
 class ImpalaTrajectoryAccumulator(_StackedUnrollAccumulator):

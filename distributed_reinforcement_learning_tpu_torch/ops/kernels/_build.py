@@ -4,9 +4,17 @@ Every `csrc/*.cu` compiles, on first use, into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
 All sources compile at once, one nvcc process each. A library's file
 name carries a hash of its source and flags, so an edited source builds
-anew and a stale library is never loaded; each build writes a temporary
-file and renames it into place, so processes that build at the same time
-never load a half-written library.
+anew and a stale library is never loaded.
+
+Several processes may build and load at once (a learner and its tooling,
+or the tests): an exclusive `fcntl` lock on `csrc/build/.lock` serialises
+builds across processes (and a `threading.Lock` across threads, since
+the file lock belongs to the process). A process checks for each library
+only once it holds the lock, so one that waited behind another's build
+finds the library there and does not build it again. nvcc writes a
+temporary name that is renamed into place, so no process ever sees a
+half-written library under its final name. The kernel releases the lock
+of a process that dies mid-build.
 
 Nothing here falls back: a missing nvcc, a failed compile or a library
 that will not load raises.
@@ -14,7 +22,9 @@ that will not load raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -27,7 +37,8 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # the loaded-library table
+_build_thread_lock = threading.Lock()  # builds within this process
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's output (with `-Xptxas -v`: registers, shared memory and spills
 # per kernel) for each source built in this process.
@@ -56,14 +67,30 @@ def _library_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This thread holds the build lock of `BUILD_DIR`, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_thread_lock, open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+
+
 def build_all(force: bool = False) -> dict[str, Path]:
     """Compile every source whose library is missing (every source with
     `force`, so that `build_logs` holds ptxas' report of each), all in
-    parallel.
+    parallel, under the build lock.
 
     -> {source stem: library path}. Raises RuntimeError naming each
     source that failed, with nvcc's output."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        return _build_locked(force)
+
+
+def _build_locked(force: bool) -> dict[str, Path]:
     out = {src.stem: _library_path(src) for src in sources()}
     todo = {stem: lib for stem, lib in out.items() if force or not lib.exists()}
     if not todo:

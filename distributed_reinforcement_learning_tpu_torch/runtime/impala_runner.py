@@ -1,40 +1,44 @@
 """IMPALA actor/learner loops.
 
-Counterpart of the JAX package's `runtime/impala_runner.py`, sequential
-path only:
+Counterpart of the JAX package's `runtime/impala_runner.py`:
 
 - `ImpalaActor`: N batched envs, one act call per timestep for all of
   them, a weight pull per unroll, life-loss shaping, T-step unroll
-  accumulation, trajectory put with backpressure.
-- `ImpalaLearner`: drains a stacked batch from the queue, runs one learn
-  step, publishes versioned weights.
+  accumulation, trajectory put with backpressure; and the slice
+  protocol of the pipelined actor (`runtime/actor_pipeline.py`).
+- `ImpalaLearner`: drains a batch from the queue (through the device
+  prefetcher when `prefetch`), runs one learn step, publishes versioned
+  weights; stage timings, a profiler window, checkpoints.
 - `run_sync`: deterministic interleaved actor/learner stepping (tests,
-  single-process training).
+  single-process training). `run_async`: free-running actor threads and
+  the learner loop in one process; the multi-process topology goes
+  through `runtime/transport.py`.
+
+Not ported: `updates_per_call` (several learn steps a call), remote
+acting and the mesh.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
-from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent
+from distributed_reinforcement_learning_tpu_torch.agents.impala import ActOutput, ImpalaAgent
 from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue, put_round
 from distributed_reinforcement_learning_tpu_torch.data.structures import (
-    ImpalaTrajectoryAccumulator)
+    ImpalaTrajectoryAccumulator, SlicedAccumulators)
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
+from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
+from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
+    PipelineSlice, run_actor_thread, shape_life_loss, slice_seed, split_batched_env,
+    sync_slices_params)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
-
-
-def shape_life_loss(prev_lives: np.ndarray, reward: np.ndarray,
-                    done: np.ndarray, infos: dict):
-    """Life-loss shaping: a lost life is recorded as r=-1, done=True while
-    the env keeps running. -> (rec_reward, rec_done, new_prev_lives)."""
-    lives = infos.get("lives")
-    lost = (lives != prev_lives) & (prev_lives >= 0) & ~done
-    rec_reward = np.where(lost, -1.0, reward).astype(np.float32)
-    return rec_reward, done | lost, np.where(done, -1, lives)
+from distributed_reinforcement_learning_tpu_torch.utils.profiling import (
+    ProfilerSession, StageTimer)
 
 
 class ImpalaActor:
@@ -55,6 +59,7 @@ class ImpalaActor:
         self.available_action = available_action
         self.life_loss_shaping = life_loss_shaping
 
+        self._seed = seed  # slice seeds derive from it (actor_pipeline)
         self._generator = torch.Generator(device=agent.device).manual_seed(seed)
         self._obs = env.reset()
         n = self._obs.shape[0]
@@ -119,8 +124,77 @@ class ImpalaActor:
             for ret in completed_returns(infos, done):
                 self.episode_returns.append(float(ret))
 
-        put_round(self.queue, acc.extract())
+        with _OBS.span("actor_put"):
+            put_round(self.queue, acc.extract())
         return n * cfg.trajectory
+
+    # -- slice protocol (runtime/actor_pipeline.py) --------------------
+    # Each slice runs the sequential loop's per-step math over its own
+    # env subset, generator, carry and accumulator.
+
+    def pipeline_round_steps(self) -> int:
+        return self.agent.cfg.trajectory
+
+    def pipeline_make_slices(self, k: int) -> list[PipelineSlice]:
+        self._slice_accs = SlicedAccumulators(ImpalaTrajectoryAccumulator, k)
+        slices = []
+        lo = 0
+        for i, env in enumerate(split_batched_env(self.env, k)):
+            hi = lo + env.num_envs
+            seed = slice_seed(self._seed, i)
+            slices.append(PipelineSlice(
+                i, env, seed,
+                generator=torch.Generator(device=self.agent.device).manual_seed(seed),
+                obs=self._obs[lo:hi].copy(),
+                prev_action=np.zeros(env.num_envs, np.int32),
+                h=np.zeros((env.num_envs, self.agent.cfg.lstm_size), np.float32),
+                c=np.zeros((env.num_envs, self.agent.cfg.lstm_size), np.float32),
+                lives=np.full(env.num_envs, -1),
+            ))
+            lo = hi
+        return slices
+
+    # One weights pull per round, shared by all slices.
+    pipeline_sync_weights = sync_slices_params
+
+    def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
+        if sl.params is None:
+            raise RuntimeError("no weights published yet")
+        self._slice_accs.reset_slice(sl.index)
+
+    def slice_act(self, sl: PipelineSlice) -> ActOutput:
+        """Runs on the pipeline's act worker; returns host arrays."""
+        device = self.agent.device
+        out = self.agent.act(
+            sl.params, torch.as_tensor(sl.obs, device=device),
+            torch.as_tensor(sl.prev_action, device=device),
+            torch.as_tensor(sl.h, device=device), torch.as_tensor(sl.c, device=device),
+            sl.generator)
+        return ActOutput(out.action.cpu().numpy().astype(np.int32), out.policy.cpu().numpy(),
+                         out.h.cpu().numpy(), out.c.cpu().numpy())
+
+    def slice_step(self, sl: PipelineSlice, out: ActOutput) -> tuple:
+        actions = out.action
+        env_actions = actions % self.available_action if self.available_action else actions
+        next_obs, reward, done, infos = sl.env.step(env_actions)
+        rec_reward, rec_done = reward.astype(np.float32), done.copy()
+        if self.life_loss_shaping:
+            rec_reward, rec_done, sl.lives = shape_life_loss(sl.lives, reward, done, infos)
+        self._slice_accs.append_slice(
+            sl.index, state=sl.obs, reward=rec_reward, done=rec_done, action=actions,
+            behavior_policy=out.policy, previous_action=sl.prev_action,
+            initial_h=sl.h, initial_c=sl.c)
+        keep = (~done).astype(np.float32)[:, None]
+        sl.h = out.h * keep
+        sl.c = out.c * keep
+        sl.prev_action = np.where(done, 0, actions).astype(np.int32)
+        sl.obs = next_obs
+        for ret in completed_returns(infos, done):
+            sl.episode_returns.append(float(ret))
+        return ()
+
+    def slice_end_round(self, sl: PipelineSlice) -> tuple:
+        return (("round", self._slice_accs.extract_slice(sl.index)),)
 
 
 class ImpalaLearner(PublishCadenceMixin):
@@ -133,6 +207,7 @@ class ImpalaLearner(PublishCadenceMixin):
         logger: MetricsLogger | None = None,
         seed: int = 0,
         publish_interval: int = 1,
+        prefetch: bool = False,
     ):
         self.agent = agent
         self.queue = queue
@@ -140,25 +215,74 @@ class ImpalaLearner(PublishCadenceMixin):
         self.batch_size = batch_size
         self.logger = logger or MetricsLogger(None)
         self.publish_interval = max(1, publish_interval)
+        # Double-buffered host->device pipeline: batch k+1 is dequeued,
+        # stacked and copied while batch k trains. Off in run_sync (a
+        # background consumer would race the deterministic interleave).
+        self.prefetcher = None
+        if prefetch:
+            from distributed_reinforcement_learning_tpu_torch.data.prefetch import (
+                DevicePrefetcher)
+
+            self.prefetcher = DevicePrefetcher(queue, batch_size, agent.device)
         self.state = agent.init_state(seed)
         self.train_steps = 0
+        self.frames_learned = 0
+        self.timer = StageTimer(self.logger)
+        self._profiler = ProfilerSession.from_env()
         weights.publish(self.state.params, 0)
+
+    def save_checkpoint(self, ckpt) -> None:
+        """Persist the train state and the host counters."""
+        ckpt.save(self.train_steps, self.state,
+                  {"train_steps": self.train_steps, "frames_learned": self.frames_learned})
+
+    def restore_checkpoint(self, ckpt) -> bool:
+        """Resume from the latest checkpoint; republishes the restored
+        weights."""
+        got = ckpt.restore(self.state)
+        if got is None:
+            return False
+        self.state, extra, _ = got
+        self.train_steps = int(extra.get("train_steps", 0))
+        self.frames_learned = int(extra.get("frames_learned", 0))
+        self.weights.publish(self.state.params, self.train_steps)
+        self._last_publish_step = self.train_steps  # the line above IS a publish
+        return True
 
     def step(self, timeout: float | None = None) -> dict | None:
         """One train call: drain a batch, learn, publish. -> metrics (host
-        floats on publish steps, device tensors otherwise), or None when
-        no batch arrived within `timeout`."""
-        batch = self.queue.get_batch(self.batch_size, timeout=timeout)
+        floats on publish steps unless the metrics pump owns them, device
+        tensors otherwise), or None when no batch arrived within
+        `timeout`."""
+        with self.timer.stage("dequeue"):
+            if self.prefetcher is not None:
+                batch = self.prefetcher.get_batch(timeout=timeout)
+            else:
+                batch = self.queue.get_batch(self.batch_size, timeout=timeout)
         if batch is None:
             return None
-        self.state, metrics = self.agent.learn(self.state, batch)
+        with self.timer.stage("learn"):
+            self.state, metrics = self.agent.learn(self.state, batch)
+        frames = self.batch_size * self.agent.cfg.trajectory
         self.train_steps += 1
+        self.frames_learned += frames
+        if _OBS.enabled:
+            _OBS.count("learner/train_steps")
+            _OBS.count("learner/frames_learned", frames)
         if self.maybe_publish():
             metrics = self.log_step_metrics(metrics)
+        self.timer.step_done(self.train_steps)
+        self._profiler.on_step(self.train_steps)
         return metrics
 
     def close(self) -> None:
+        """Flush publication and metrics, stop the prefetch thread, close
+        an open profiler window. Called by every run path on exit."""
         self.flush_publish()
+        self.close_metrics()
+        if self.prefetcher is not None:
+            self.prefetcher.close()
+        self._profiler.close()
         self.logger.close()
 
 
@@ -173,6 +297,7 @@ def run_sync(
     The queue must absorb one full actor round past the batch size, or
     puts would block with no consumer running.
     """
+    learner.sync_publish = True  # deterministic staleness in the sync loop
     production_per_round = sum(a.env.num_envs for a in actors)
     need = learner.batch_size
     if learner.queue.capacity < need + production_per_round:
@@ -196,3 +321,28 @@ def run_sync(
     returns = [r for a in actors for r in a.episode_returns]
     metrics = {k: float(v) for k, v in metrics.items()}
     return {"frames": frames, "last_metrics": metrics, "episode_returns": returns}
+
+
+def run_async(learner: ImpalaLearner, actors: list[ImpalaActor], num_updates: int,
+              queue: TrajectoryQueue) -> dict:
+    """Free-running actor threads + the learner loop in one process. A
+    dying actor thread logs its traceback (`run_actor_thread`); once every
+    one has died, the learner raises instead of waiting for data forever."""
+    stop = threading.Event()
+    threads = [threading.Thread(target=run_actor_thread, args=(a, stop), daemon=True)
+               for a in actors]
+    for t in threads:
+        t.start()
+    try:
+        while learner.train_steps < num_updates:
+            if (learner.step(timeout=5.0) is None
+                    and not any(t.is_alive() for t in threads)):
+                raise RuntimeError("run_async: every actor thread died")
+    finally:
+        stop.set()
+        learner.close()
+        queue.close()
+        for t in threads:
+            t.join(timeout=5.0)
+    returns = [r for a in actors for r in a.episode_returns]
+    return {"last_metrics": {}, "episode_returns": returns}

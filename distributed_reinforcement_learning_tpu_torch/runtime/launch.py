@@ -1,14 +1,19 @@
-"""Build-and-run helpers for single-process training.
+"""Build-and-run helpers.
 
-Counterpart of `build_local` / `train_local` in the JAX package's
-`runtime/launch.py`, IMPALA, R2D2 and Transformer-IMPALA: resolve envs from the registry,
-build agent, queue, weight store, learner and actors from a config
-section (the agent config's type picks the family), and run the
-synchronous loop. Everything runs on CUDA unless the caller passes
-another `device`.
+Counterpart of `make_learner` / `make_actor` / `build_local` /
+`train_local` in the JAX package's `runtime/launch.py`, for IMPALA, R2D2
+and Transformer-IMPALA: resolve envs from the registry, build agent,
+queue, weight store, learner and actors from a config section (the
+agent config's type picks the family). `make_learner` and `make_actor`
+take any queue and weight store, the learner's own objects in one
+process or the transport's adapters across processes
+(`runtime/transport.py:run_role`). Everything runs on CUDA unless the
+caller passes another `device`.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
@@ -27,6 +32,18 @@ from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightS
 from distributed_reinforcement_learning_tpu_torch.utils.config import RuntimeConfig, load_config
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 
+_AGENT_CLS = {"impala": ImpalaAgent, "r2d2": R2D2Agent, "ximpala": XImpalaAgent}
+_RUNNER = {"impala": impala_runner, "r2d2": r2d2_runner, "ximpala": ximpala_runner}
+
+
+def algo_of(agent_cfg: ImpalaConfig | R2D2Config | XImpalaConfig) -> str:
+    """The family a loaded agent config belongs to."""
+    if isinstance(agent_cfg, R2D2Config):
+        return "r2d2"
+    if isinstance(agent_cfg, XImpalaConfig):
+        return "ximpala"
+    return "impala"
+
 
 def _make_batched_env(rt: RuntimeConfig, actor_index: int) -> BatchedEnv:
     name = rt.envs[actor_index % len(rt.envs)]
@@ -41,79 +58,102 @@ def _is_atari(rt: RuntimeConfig) -> bool:
     return any("v4" in e for e in rt.envs)
 
 
+def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
+                 logger: MetricsLogger | None = None, seed: int = 0,
+                 device: str | torch.device | None = None, agent=None,
+                 prefetch: bool = False):
+    """The learner of family `algo` over any queue and weight store.
+    `prefetch` (IMPALA families) overlaps batch k+1's H2D copy with step k."""
+    agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
+    if algo == "r2d2":
+        if prefetch:
+            raise ValueError("the R2D2 learner samples its batches from the replay; "
+                             "it has no queue prefetch")
+        return r2d2_runner.R2D2Learner(
+            agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
+            target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
+            publish_interval=rt.publish_interval)
+    cls = (ximpala_runner.XImpalaLearner if algo == "ximpala"
+           else impala_runner.ImpalaLearner)
+    return cls(agent, queue, weights, rt.batch_size, logger=logger, seed=seed,
+               publish_interval=rt.publish_interval, prefetch=prefetch)
+
+
+def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, weights,
+               seed: int = 0, device: str | torch.device | None = None, agent=None):
+    """Actor `task` of the topology over any queue and weight store. Pass
+    `agent` to share one agent between runners in a process."""
+    agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
+    env = _make_batched_env(rt, task)
+    # The 2-feature agents observe the CartPole POMDP view.
+    transform = pomdp_project if agent_cfg.obs_shape == (2,) else None
+    if algo == "r2d2":
+        floor = {} if rt.epsilon_floor is None else {"epsilon_floor": rt.epsilon_floor}
+        return r2d2_runner.R2D2Actor(agent, env, queue, weights, seed=seed,
+                                     obs_transform=transform, **floor)
+    available = rt.available_action[task % len(rt.available_action)]
+    if algo == "ximpala":
+        return ximpala_runner.XImpalaActor(
+            agent, env, queue, weights, seed=seed, available_action=available,
+            life_loss_shaping=_is_atari(rt), obs_transform=transform)
+    return impala_runner.ImpalaActor(agent, env, queue, weights, seed=seed,
+                                     available_action=available,
+                                     life_loss_shaping=_is_atari(rt))
+
+
 def build_local(agent_cfg: ImpalaConfig | R2D2Config | XImpalaConfig, rt: RuntimeConfig,
                 run_dir: str | None = None, seed: int = 0,
                 device: str | torch.device | None = None):
-    """-> (learner, actors, run_sync) for single-process training."""
+    """-> (learner, actors, run_sync) for single-process training; one
+    agent is shared by the learner and every actor."""
+    algo = algo_of(agent_cfg)
     queue = TrajectoryQueue(rt.queue_size)
     weights = WeightStore()
-    if isinstance(agent_cfg, R2D2Config):
-        return _build_r2d2(agent_cfg, rt, queue, weights, run_dir, seed, device)
-    if isinstance(agent_cfg, XImpalaConfig):
-        return _build_ximpala(agent_cfg, rt, queue, weights, run_dir, seed, device)
-    agent = ImpalaAgent(agent_cfg, device=device)
-    learner = impala_runner.ImpalaLearner(
-        agent, queue, weights, rt.batch_size, logger=MetricsLogger(run_dir), seed=seed,
-        publish_interval=rt.publish_interval)
-    actors = [
-        impala_runner.ImpalaActor(
-            agent, _make_batched_env(rt, i), queue, weights, seed=seed + 1 + i,
-            available_action=rt.available_action[i % len(rt.available_action)],
-            life_loss_shaping=_is_atari(rt))
-        for i in range(rt.num_actors)
-    ]
-    return learner, actors, impala_runner.run_sync
-
-
-def _build_r2d2(agent_cfg: R2D2Config, rt: RuntimeConfig, queue, weights, run_dir, seed,
-                device):
-    agent = R2D2Agent(agent_cfg, device=device)
-    learner = r2d2_runner.R2D2Learner(
-        agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
-        target_sync_interval=rt.target_sync_interval, logger=MetricsLogger(run_dir),
-        seed=seed, publish_interval=rt.publish_interval)
-    # The 2-feature agent observes the CartPole POMDP view.
-    transform = pomdp_project if agent_cfg.obs_shape == (2,) else None
-    floor = {} if rt.epsilon_floor is None else {"epsilon_floor": rt.epsilon_floor}
-    actors = [
-        r2d2_runner.R2D2Actor(
-            agent, _make_batched_env(rt, i), queue, weights, seed=seed + 1 + i,
-            obs_transform=transform, **floor)
-        for i in range(rt.num_actors)
-    ]
-    return learner, actors, r2d2_runner.run_sync
-
-
-def _build_ximpala(agent_cfg: XImpalaConfig, rt: RuntimeConfig, queue, weights, run_dir,
-                   seed, device):
-    agent = XImpalaAgent(agent_cfg, device=device)
-    learner = ximpala_runner.XImpalaLearner(
-        agent, queue, weights, rt.batch_size, logger=MetricsLogger(run_dir), seed=seed,
-        publish_interval=rt.publish_interval)
-    # The 2-feature agent observes the CartPole POMDP view.
-    transform = pomdp_project if agent_cfg.obs_shape == (2,) else None
-    actors = [
-        ximpala_runner.XImpalaActor(
-            agent, _make_batched_env(rt, i), queue, weights, seed=seed + 1 + i,
-            available_action=rt.available_action[i % len(rt.available_action)],
-            life_loss_shaping=_is_atari(rt), obs_transform=transform)
-        for i in range(rt.num_actors)
-    ]
-    return learner, actors, ximpala_runner.run_sync
+    agent = _AGENT_CLS[algo](agent_cfg, device=device)
+    learner = make_learner(algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir),
+                           seed=seed, agent=agent)
+    actors = [make_actor(algo, agent_cfg, rt, i, queue, weights, seed=seed + 1 + i, agent=agent)
+              for i in range(rt.num_actors)]
+    return learner, actors, _RUNNER[algo].run_sync
 
 
 def train_local(config_path: str, section: str, num_updates: int,
                 run_dir: str | None = None, seed: int = 0,
-                device: str | torch.device | None = None) -> dict:
+                device: str | torch.device | None = None,
+                checkpoint_dir: str | None = None, checkpoint_interval: int = 500) -> dict:
     """Train one config section for `num_updates` learner steps in one
-    process; -> frames, last metrics, episode returns."""
+    process; -> frames, last metrics, episode returns.
+
+    With `checkpoint_dir`, resumes from the latest checkpoint and saves
+    every `checkpoint_interval` updates, running the sync loop in chunks
+    (the loop targets absolute `learner.train_steps`, so chunks
+    compose)."""
     agent_cfg, rt = load_config(config_path, section)
     learner, actors, run_fn = build_local(agent_cfg, rt, run_dir=run_dir, seed=seed,
                                           device=device)
+    checkpoint_interval = max(1, int(checkpoint_interval))
+    ckpt = None
+    if checkpoint_dir:
+        from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(checkpoint_dir)
+        learner.restore_checkpoint(ckpt)
+    frames = 0
+    result: dict = {"frames": 0, "last_metrics": {}, "episode_returns": []}
+    if learner.train_steps >= num_updates:
+        result["skipped"] = (
+            f"checkpoint already at step {learner.train_steps} >= {num_updates}")
     try:
-        result = run_fn(learner, actors, num_updates, close_learner=False)
+        while learner.train_steps < num_updates:
+            target = (num_updates if ckpt is None
+                      else min(learner.train_steps + checkpoint_interval, num_updates))
+            result = run_fn(learner, actors, target, close_learner=False)
+            frames += result["frames"]
+            if ckpt is not None:
+                learner.save_checkpoint(ckpt)
     finally:
         learner.close()
+    result["frames"] = frames
     returns = result["episode_returns"]
     if returns:
         result["mean_return_last20"] = float(np.mean(returns[-20:]))

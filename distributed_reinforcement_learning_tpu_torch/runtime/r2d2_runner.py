@@ -11,10 +11,13 @@ path only:
   once 2 x batch sequences have arrived, re-prioritises every sampled
   index, syncs the target every `target_sync_interval` steps.
 - `run_sync`: deterministic interleaved stepping (tests, single-process
-  training).
+  training). `run_async`: free-running actor threads and the
+  ingest/train learner loop in one process.
 
-Not ported: the actor pipeline slices, `run_async`, `remote_act`,
-checkpoints, the recent-mix knob and the mesh.
+The actor has the pipeline's slice protocol; the learner has stage
+timings, a profiler window and checkpoints (with a replay snapshot).
+Not ported: `remote_act`, `timeout_nonterminal`, the recent-mix knob,
+sharded replay and the mesh.
 """
 
 from __future__ import annotations
@@ -26,11 +29,17 @@ from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent
 from distributed_reinforcement_learning_tpu_torch.data.fifo import (
     TrajectoryQueue, put_round, stack_pytrees)
 from distributed_reinforcement_learning_tpu_torch.data.replay import PrioritizedReplay
-from distributed_reinforcement_learning_tpu_torch.data.structures import R2D2SequenceAccumulator
+from distributed_reinforcement_learning_tpu_torch.data.structures import (
+    R2D2SequenceAccumulator, SlicedAccumulators)
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
+from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
+from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
+    PipelineSlice, run_async_loop, slice_seed, split_batched_env, sync_slices_params)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
+from distributed_reinforcement_learning_tpu_torch.utils.profiling import (
+    ProfilerSession, StageTimer)
 
 
 class R2D2Actor:
@@ -53,6 +62,7 @@ class R2D2Actor:
         self.epsilon_floor = epsilon_floor
         self.obs_transform = obs_transform or (lambda x: x)
 
+        self._seed = seed  # slice seeds derive from it (actor_pipeline)
         self._generator = torch.Generator(device=agent.device).manual_seed(seed)
         self._obs = self.obs_transform(env.reset())
         n = self._obs.shape[0]
@@ -108,8 +118,72 @@ class R2D2Actor:
             for ret in completed_returns(infos, done):
                 self.episode_returns.append(float(ret))
 
-        put_round(self.queue, acc.extract())
+        with _OBS.span("actor_put"):
+            put_round(self.queue, acc.extract())
         return n * cfg.seq_len
+
+    # -- slice protocol (runtime/actor_pipeline.py) --------------------
+    # The sequence-start LSTM state and the per-slice epsilon schedule
+    # mirror run_unroll over the slice's own envs and generator.
+
+    def pipeline_round_steps(self) -> int:
+        return self.agent.cfg.seq_len
+
+    def pipeline_make_slices(self, k: int) -> list[PipelineSlice]:
+        self._slice_accs = SlicedAccumulators(R2D2SequenceAccumulator, k)
+        h_size = self.agent.cfg.lstm_size
+        slices = []
+        lo = 0
+        for i, env in enumerate(split_batched_env(self.env, k)):
+            hi = lo + env.num_envs
+            seed = slice_seed(self._seed, i)
+            slices.append(PipelineSlice(
+                i, env, seed,
+                generator=torch.Generator(device=self.agent.device).manual_seed(seed),
+                obs=self._obs[lo:hi].copy(),
+                prev_action=np.zeros(env.num_envs, np.int32),
+                h=np.zeros((env.num_envs, h_size), np.float32),
+                c=np.zeros((env.num_envs, h_size), np.float32),
+                episodes=np.zeros(env.num_envs, np.int64),
+            ))
+            lo = hi
+        return slices
+
+    pipeline_sync_weights = sync_slices_params
+
+    def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
+        if sl.params is None:
+            raise RuntimeError("no weights published yet")
+        self._slice_accs.reset_slice(sl.index, sl.h, sl.c)
+
+    def slice_act(self, sl: PipelineSlice) -> tuple:
+        device = self.agent.device
+        epsilon = np.maximum(1.0 / (self.epsilon_decay * sl.episodes + 1.0), self.epsilon_floor)
+        action, _, h, c = self.agent.act(
+            sl.params, torch.as_tensor(sl.obs, device=device),
+            torch.as_tensor(sl.h, device=device), torch.as_tensor(sl.c, device=device),
+            torch.as_tensor(sl.prev_action, device=device),
+            torch.as_tensor(epsilon, dtype=torch.float32, device=device), sl.generator)
+        return (action.cpu().numpy().astype(np.int32), h.cpu().numpy(), c.cpu().numpy())
+
+    def slice_step(self, sl: PipelineSlice, out: tuple) -> tuple:
+        action, h, c = out
+        next_obs_raw, reward, done, infos = sl.env.step(action)
+        self._slice_accs.append_slice(
+            sl.index, state=sl.obs, previous_action=sl.prev_action, action=action,
+            reward=reward.astype(np.float32), done=done)
+        keep = (~done).astype(np.float32)[:, None]
+        sl.h = h * keep
+        sl.c = c * keep
+        sl.prev_action = np.where(done, 0, action).astype(np.int32)
+        sl.obs = self.obs_transform(next_obs_raw)
+        sl.episodes += done
+        for ret in completed_returns(infos, done):
+            sl.episode_returns.append(float(ret))
+        return ()
+
+    def slice_end_round(self, sl: PipelineSlice) -> tuple:
+        return (("round", self._slice_accs.extract_slice(sl.index)),)
 
 
 class R2D2Learner(PublishCadenceMixin):
@@ -138,17 +212,63 @@ class R2D2Learner(PublishCadenceMixin):
         self.publish_interval = max(1, publish_interval)
         self.ingested_sequences = 0
         self.train_steps = 0
+        self.timer = StageTimer(self.logger)
+        self._profiler = ProfilerSession.from_env()
         weights.publish(self.state.params, 0)
+
+    def save_checkpoint(self, ckpt) -> None:
+        """Persist the train state, the host counters (the sampling
+        stream's state among them) and a replay snapshot (gated by
+        `DRL_CKPT_REPLAY*`, utils/checkpoint.py)."""
+        from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
+            encode_replay_snapshot)
+
+        blob = encode_replay_snapshot(self.replay)
+        name, keys, pos, has_gauss, gauss = self._np_rng.get_state()
+        ckpt.save(self.train_steps, self.state, {
+            "train_steps": self.train_steps,
+            "replay_beta": float(self.replay.beta),
+            "ingested_sequences": self.ingested_sequences,
+            "last_target_sync": self._last_target_sync,
+            "np_rng": [name, keys.tolist(), int(pos), int(has_gauss), float(gauss)],
+        }, blobs={"replay": blob} if blob is not None else None)
+
+    def restore_checkpoint(self, ckpt) -> bool:
+        """Resume from the latest checkpoint (the replay too, when its
+        snapshot was kept); republishes the restored weights."""
+        from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
+            decode_replay_snapshot)
+
+        got = ckpt.restore(self.state)
+        if got is None:
+            return False
+        self.state, extra, step = got
+        self.train_steps = int(extra.get("train_steps", 0))
+        blob = ckpt.load_blob(step, "replay")
+        if blob is not None:
+            self.replay.restore(decode_replay_snapshot(blob))
+            self.ingested_sequences = int(extra.get("ingested_sequences", 0))
+        else:
+            self.ingested_sequences = 0  # the replay refills from live traffic
+        self.replay.beta = float(extra.get("replay_beta", self.replay.beta))
+        self._last_target_sync = int(extra.get("last_target_sync", self.train_steps))
+        if "np_rng" in extra:
+            name, keys, pos, has_gauss, gauss = extra["np_rng"]
+            self._np_rng.set_state((name, np.asarray(keys, np.uint32), pos, has_gauss, gauss))
+        self.weights.publish(self.state.params, self.train_steps)
+        self._last_publish_step = self.train_steps
+        return True
 
     def ingest_batch(self, timeout: float | None = 0.0) -> int:
         """Drain up to batch_size sequences and score them in ONE batched
         td_error call; -> how many were ingested."""
-        seqs = []
-        for _ in range(self.batch_size):
-            seq = self.queue.get(timeout=timeout)
-            if seq is None:
-                break
-            seqs.append(seq)
+        with self.timer.stage("ingest_dequeue"):
+            seqs = []
+            for _ in range(self.batch_size):
+                seq = self.queue.get(timeout=timeout)
+                if seq is None:
+                    break
+                seqs.append(seq)
         if not seqs:
             return 0
         # Pad the stack to the next power of two, capped at batch_size, so
@@ -160,16 +280,18 @@ class R2D2Learner(PublishCadenceMixin):
         while k < n:
             k *= 2
         k = min(k, self.batch_size)
-        batch = stack_pytrees(seqs + [seqs[0]] * (k - n))
-        # Deliberate sync: the priorities go into the host sum tree.
-        td = self.agent.td_error(self.state, batch).cpu().numpy()[:n]
-        self.replay.add_batch(td, seqs)
+        with self.timer.stage("ingest_td"):
+            batch = stack_pytrees(seqs + [seqs[0]] * (k - n))
+            # Deliberate sync: the priorities go into the host sum tree.
+            td = self.agent.td_error(self.state, batch).cpu().numpy()[:n]
+            self.replay.add_batch(td, seqs)
         self.ingested_sequences += n
         return n
 
     def train(self) -> dict | None:
-        """One prioritized train step over sequences once warm; -> host
-        float metrics, or None before warm-up."""
+        """One prioritized train step over sequences once warm; -> metrics
+        (host floats, or device tensors the metrics pump owns), or None
+        before warm-up."""
         if self.ingested_sequences < 2 * self.batch_size:
             return None
         metrics = self._train_once()
@@ -178,19 +300,26 @@ class R2D2Learner(PublishCadenceMixin):
         if self.train_steps - self._last_target_sync >= self.target_sync_interval:
             self._last_target_sync = self.train_steps
             self.state = self.agent.sync_target(self.state)
-        return self.log_step_metrics(metrics)
+        metrics = self.log_step_metrics(metrics)
+        self.timer.step_done(self.train_steps)
+        self._profiler.on_step(self.train_steps)
+        return metrics
 
     def _train_once(self) -> dict:
         """Sample -> learn -> re-prioritise."""
-        items, idxs, is_weight = self.replay.sample(self.batch_size, self._np_rng)
-        self.state, priorities, metrics = self.agent.learn(
-            self.state, stack_pytrees(items), is_weight)
-        # Deliberate sync: re-prioritisation targets the host sum tree.
-        self.replay.update_batch(idxs, priorities.cpu().numpy())
+        with self.timer.stage("sample"):
+            items, idxs, is_weight = self.replay.sample(self.batch_size, self._np_rng)
+            batch = stack_pytrees(items)
+        with self.timer.stage("learn"):
+            self.state, priorities, metrics = self.agent.learn(self.state, batch, is_weight)
+            # Deliberate sync: re-prioritisation targets the host sum tree.
+            self.replay.update_batch(idxs, priorities.cpu().numpy())
         return metrics
 
     def close(self) -> None:
         self.flush_publish()
+        self.close_metrics()
+        self._profiler.close()
         self.logger.close()
 
 
@@ -200,6 +329,7 @@ def run_sync(learner: R2D2Learner, actors: list[R2D2Actor], num_updates: int,
     trains once it is warm; until `num_updates` train steps."""
     metrics: dict = {}
     frames = 0
+    learner.sync_publish = True  # deterministic staleness in the sync loop
     try:
         while learner.train_steps < num_updates:
             for actor in actors:
@@ -212,4 +342,13 @@ def run_sync(learner: R2D2Learner, actors: list[R2D2Actor], num_updates: int,
         if close_learner:
             learner.close()
     returns = [r for a in actors for r in a.episode_returns]
+    metrics = {k: float(v) for k, v in metrics.items()}
     return {"frames": frames, "last_metrics": metrics, "episode_returns": returns}
+
+
+def run_async(learner: R2D2Learner, actors: list[R2D2Actor], num_updates: int,
+              queue: TrajectoryQueue) -> dict:
+    """Free-running actor threads + the ingest/train learner loop in one
+    process (`actor_pipeline.run_async_loop`)."""
+    return run_async_loop(learner, actors, num_updates, queue,
+                          ingest_fn=lambda ln: ln.ingest_batch(timeout=0.05))

@@ -1,14 +1,14 @@
 """Transformer-IMPALA actor/learner loops.
 
-Counterpart of the JAX package's `runtime/ximpala_runner.py`, sequential
-path only. The learner is the IMPALA learner (it only touches
-`agent.learn`, `agent.init_state` and stacked unrolls from the queue),
-and `run_sync` is topology only, so both are reused. Only the actor
-differs from `ImpalaActor`: instead of carrying (h, c) it keeps a window
-of the current unroll's steps and records the window-final softmax as
-the behavior policy.
+Counterpart of the JAX package's `runtime/ximpala_runner.py`. The
+learner is the IMPALA learner (it only touches `agent.learn`,
+`agent.init_state` and stacked unrolls from the queue), and `run_sync`
+and `run_async` are topology only, so all three are reused. Only the
+actor differs from `ImpalaActor`: instead of carrying (h, c) it keeps a
+window of the current unroll's steps and records the window-final
+softmax as the behavior policy; it has the pipeline's slice protocol.
 
-Not ported: the actor pipeline slices, `run_async`, `remote_act`.
+Not ported: `remote_act`.
 """
 
 from __future__ import annotations
@@ -19,24 +19,18 @@ import torch
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaAgent
 from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue, put_round
 from distributed_reinforcement_learning_tpu_torch.data.structures import (
-    XImpalaTrajectoryAccumulator)
+    SlicedAccumulators, XImpalaTrajectoryAccumulator)
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
-from distributed_reinforcement_learning_tpu_torch.runtime.impala_runner import (
+from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
+from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
+    PipelineSlice, push_window, shape_life_loss, slice_seed, split_batched_env,
+    sync_slices_params)
+from distributed_reinforcement_learning_tpu_torch.runtime.impala_runner import (  # noqa: F401
     ImpalaLearner,
-    run_sync,  # noqa: F401  (re-exported: topology only)
-    shape_life_loss,
+    run_async,  # re-exported: topology only
+    run_sync,  # re-exported: topology only
 )
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
-
-
-def push_window(win_obs: np.ndarray, win_pa: np.ndarray, win_done: np.ndarray,
-                obs: np.ndarray, prev_action: np.ndarray) -> None:
-    """Slide a transformer actor's window and append the CURRENT step
-    (its done not yet known: a False placeholder). Copy of
-    `runtime/actor_pipeline.py:push_window` of the JAX package."""
-    for arr, val in ((win_obs, obs), (win_pa, prev_action), (win_done, False)):
-        arr[:, :-1] = arr[:, 1:]
-        arr[:, -1] = val
 
 
 class XImpalaLearner(ImpalaLearner):
@@ -63,6 +57,7 @@ class XImpalaActor:
         self.life_loss_shaping = life_loss_shaping
         self.obs_transform = obs_transform or (lambda x: x)
 
+        self._seed = seed  # slice seeds derive from it (actor_pipeline)
         self._generator = torch.Generator(device=agent.device).manual_seed(seed)
         self._obs = self.obs_transform(env.reset())
         n = self._obs.shape[0]
@@ -137,5 +132,74 @@ class XImpalaActor:
             for ret in completed_returns(infos, done):
                 self.episode_returns.append(float(ret))
 
-        put_round(self.queue, acc.extract())
+        with _OBS.span("actor_put"):
+            put_round(self.queue, acc.extract())
         return n * cfg.trajectory
+
+    # -- slice protocol (runtime/actor_pipeline.py) --------------------
+
+    def pipeline_round_steps(self) -> int:
+        return self.agent.cfg.trajectory
+
+    def pipeline_make_slices(self, k: int) -> list[PipelineSlice]:
+        self._slice_accs = SlicedAccumulators(XImpalaTrajectoryAccumulator, k)
+        w = self.agent.cfg.trajectory
+        slices = []
+        lo = 0
+        for i, env in enumerate(split_batched_env(self.env, k)):
+            hi = lo + env.num_envs
+            n = env.num_envs
+            seed = slice_seed(self._seed, i)
+            obs = self._obs[lo:hi].copy()
+            slices.append(PipelineSlice(
+                i, env, seed,
+                generator=torch.Generator(device=self.agent.device).manual_seed(seed),
+                obs=obs,
+                win_obs=np.zeros((n, w, *obs.shape[1:]), obs.dtype),
+                win_pa=np.zeros((n, w), np.int32),
+                win_done=np.ones((n, w), bool),
+                prev_action=np.zeros(n, np.int32),
+                lives=np.full(n, -1),
+            ))
+            lo = hi
+        return slices
+
+    pipeline_sync_weights = sync_slices_params
+
+    def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
+        if sl.params is None:
+            raise RuntimeError("no weights published yet")
+        self._slice_accs.reset_slice(sl.index)
+        sl.win_obs[:] = 0
+        sl.win_pa[:] = 0
+        sl.win_done[:] = True
+
+    def slice_act(self, sl: PipelineSlice) -> tuple:
+        push_window(sl.win_obs, sl.win_pa, sl.win_done, sl.obs, sl.prev_action)
+        device = self.agent.device
+        out = self.agent.act(
+            sl.params, torch.as_tensor(sl.win_obs, device=device),
+            torch.as_tensor(sl.win_pa, device=device),
+            torch.as_tensor(sl.win_done, device=device), sl.generator)
+        return out.action.cpu().numpy().astype(np.int32), out.policy.cpu().numpy()
+
+    def slice_step(self, sl: PipelineSlice, out: tuple) -> tuple:
+        action, policy = out
+        env_actions = action % self.available_action if self.available_action else action
+        next_obs_raw, reward, done, infos = sl.env.step(env_actions)
+        next_obs = self.obs_transform(next_obs_raw)
+        rec_reward, rec_done = reward.astype(np.float32), done.copy()
+        if self.life_loss_shaping:
+            rec_reward, rec_done, sl.lives = shape_life_loss(sl.lives, reward, done, infos)
+        self._slice_accs.append_slice(
+            sl.index, state=sl.obs, reward=rec_reward, action=action, done=rec_done,
+            env_done=done, behavior_policy=policy, previous_action=sl.prev_action)
+        sl.win_done[:, -1] = done
+        sl.prev_action = np.where(done, 0, action).astype(np.int32)
+        sl.obs = next_obs
+        for ret in completed_returns(infos, done):
+            sl.episode_returns.append(float(ret))
+        return ()
+
+    def slice_end_round(self, sl: PipelineSlice) -> tuple:
+        return (("round", self._slice_accs.extract_slice(sl.index)),)

@@ -1,10 +1,18 @@
-"""Single-process IMPALA training with the PyTorch port.
+"""IMPALA training with the PyTorch port.
 
     python -m distributed_reinforcement_learning_tpu_torch.train_impala \\
         --section impala --updates 100 [--device cpu] [--run_dir runs/x]
 
-Runs on CUDA unless `--device` names another device. Prints the result
-(frames, last metrics, mean return of the last 20 episodes) as JSON.
+- `--mode local` (default): the single-process loop; prints the result
+  (frames, last metrics, mean return of the last 20 episodes) as JSON.
+- `--mode learner` / `--mode actor --task k`: one process of the
+  multi-process topology over the socket transport
+  (`runtime/transport.py:run_role`); the learner listens on the
+  section's `server_port` (or `DRL_LEARNER_ADDR`), actors connect to it.
+
+Every mode runs on CUDA unless `--device` names another device: start
+actors with `--device cpu` to keep them off the card. `--mode anakin`
+and `--mode inference` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -15,18 +23,37 @@ import json
 from distributed_reinforcement_learning_tpu_torch.runtime.launch import train_local
 
 
-def run_cli(doc: str, section: str, argv: list[str] | None) -> dict:
-    """The launchers' shared command line: train, print the summary."""
+def run_cli(doc: str, algo: str, section: str, argv: list[str] | None) -> dict:
+    """The launchers' shared command line: train in the chosen mode and
+    print the summary."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--config", default="config.json")
     ap.add_argument("--section", default=section)
+    ap.add_argument("--mode", default="local",
+                    choices=["local", "learner", "actor", "anakin", "inference"])
+    ap.add_argument("--task", type=int, default=-1, help="actor index (actor mode)")
     ap.add_argument("--updates", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--run_dir", default=None)
+    ap.add_argument("--checkpoint_dir", default=None,
+                    help="save and resume train-state checkpoints here (local, learner)")
+    ap.add_argument("--checkpoint_interval", type=int, default=500)
+    ap.add_argument("--actor_grace", type=float, default=120.0,
+                    help="actor mode: seconds to ride out a learner outage before exiting")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
+    if args.mode != "local":
+        from distributed_reinforcement_learning_tpu_torch.runtime.transport import run_role
+
+        return run_role(algo, args.config, args.section, args.mode, args.task,
+                        num_updates=args.updates, run_dir=args.run_dir, seed=args.seed,
+                        checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_interval=args.checkpoint_interval,
+                        actor_grace=args.actor_grace, device=args.device)
     result = train_local(args.config, args.section, args.updates, run_dir=args.run_dir,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, device=args.device,
+                         checkpoint_dir=args.checkpoint_dir,
+                         checkpoint_interval=args.checkpoint_interval)
     summary = {k: v for k, v in result.items() if k != "episode_returns"}
     summary["episodes"] = len(result["episode_returns"])
     print(json.dumps(summary))
@@ -34,7 +61,7 @@ def run_cli(doc: str, section: str, argv: list[str] | None) -> dict:
 
 
 def main(argv: list[str] | None = None) -> dict:
-    return run_cli(__doc__, "impala", argv)
+    return run_cli(__doc__, "impala", "impala", argv)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
-"""Single-process R2D2 training with the PyTorch port.
+"""R2D2 training with the PyTorch port.
 
     python -m distributed_reinforcement_learning_tpu_torch.train_r2d2 \\
         --section r2d2 --updates 100 [--device cpu] [--run_dir runs/x]
 
-Runs on CUDA unless `--device` names another device. Prints the result
-(frames, last metrics, mean return of the last 20 episodes) as JSON.
+The modes and options of `train_impala.py`: `--mode local` (default,
+one process; prints the result as JSON), `--mode learner`, `--mode actor
+--task k`. Every mode runs on CUDA unless `--device` names another
+device.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from distributed_reinforcement_learning_tpu_torch.train_impala import run_cli
 
 
 def main(argv: list[str] | None = None) -> dict:
-    return run_cli(__doc__, "r2d2", argv)
+    return run_cli(__doc__, "r2d2", "r2d2", argv)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,8 @@ from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaC
 class RuntimeConfig:
     """Topology and data-plane settings of one section."""
 
+    server_ip: str = "localhost"  # the learner's address, for actors
+    server_port: int = 8000
     num_actors: int = 1
     envs: tuple[str, ...] = ("CartPole-v0",)
     available_action: tuple[int, ...] = (2,)
@@ -60,6 +62,8 @@ def load_config(path: str | Path, section: str):
     if d.get("updates_per_call", 1) != 1:
         raise ValueError("updates_per_call > 1 is not ported")
     rt = RuntimeConfig(
+        server_ip=d.get("server_ip", "localhost"),
+        server_port=d.get("server_port", 8000),
         num_actors=d.get("num_actors", 1),
         envs=tuple(d.get("env", ("CartPole-v0",))),
         available_action=tuple(d.get("available_action", (d.get("model_output", 2),))),

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the multi-process data plane there (the pinned prefetch, async weight
+snapshots, a learner process started through `run_role`).
 
 Marked `gpu`: each test skips where no CUDA device is present. The file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -10,7 +12,8 @@ in its order, each rounded on its own, so the two agree bit for bit,
 NaN and inf included (any NaN equal to any NaN). LSTM forward atol 1e-5 at H >= 256 (H-term float32 sums taken in another
 order than cuBLAS takes them) and 1e-6 at H <= 64; LSTM gradients atol
 5e-5. Flash attention: forward atol 1e-5 (o and lse), dq, dk and dv atol
-1e-4 x max(1, max |ref|), the JAX package's attention tolerances.
+1e-4 x max(1, max |ref|), the JAX package's attention tolerances. The
+data plane: none, bit for bit.
 """
 
 import re
@@ -565,3 +568,126 @@ def test_r2d2_agent_refuses_a_hidden_size_the_kernels_cannot_take():
         R2D2Agent(R2D2Config(lstm_size=1100), device="cuda")
     assert (klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches) == before
     R2D2Agent(R2D2Config(lstm_size=limit), device="cuda")
+
+
+# -- the multi-process data plane on the card ----------------------------------
+
+def _impala_items(B: int, T: int, seed: int):
+    from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaBatch
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(B):
+        logits = rng.randn(T, 4)
+        out.append(ImpalaBatch(
+            state=rng.randint(0, 256, (T, 84, 84, 4)).astype(np.uint8),
+            reward=rng.randn(T).astype(np.float32), action=rng.randint(0, 4, T).astype(np.int32),
+            done=rng.rand(T) < 0.05,
+            behavior_policy=(np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+                             ).astype(np.float32),
+            previous_action=rng.randint(0, 4, T).astype(np.int32),
+            initial_h=rng.randn(T, 16).astype(np.float32),
+            initial_c=rng.randn(T, 16).astype(np.float32)))
+    return out
+
+
+@pytest.mark.gpu
+def test_pinned_prefetch_gives_the_pageable_copys_batch():
+    """The prefetcher's pinned buffers and copy stream give, field for
+    field and bit for bit, what a pageable `np.stack` + copy gives, for
+    more batches than it has buffers (their reuse included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.common import batch_to_device
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import (
+        TrajectoryQueue, stack_pytrees)
+    from distributed_reinforcement_learning_tpu_torch.data.prefetch import DevicePrefetcher
+
+    items = _impala_items(24, 20, seed=1)
+    queue = TrajectoryQueue(64)
+    for it in items:
+        queue.put(it)
+    pre = DevicePrefetcher(queue, batch_size=4, device=torch.device("cuda"))
+    try:
+        for i in range(6):
+            got = batch_to_device(pre.get_batch(timeout=30.0), torch.device("cuda"))
+            want = batch_to_device(stack_pytrees(items[4 * i: 4 * i + 4]), torch.device("cuda"))
+            for name, x, y in zip(got._fields, got, want):
+                assert x.is_cuda and x.dtype == y.dtype and torch.equal(x, y), name
+    finally:
+        pre.close()
+    assert len(pre.h2d_ms()) == 6
+
+
+@pytest.mark.gpu
+def test_async_snapshot_is_not_changed_by_the_next_learn_step():
+    """publish_async clones on the compute stream; the next CUDA learn step
+    updates the parameters in place right behind it. The landed snapshot
+    (device tensors and blob) holds the parameters of its own version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.impala import (
+        ImpalaAgent, ImpalaConfig)
+    from distributed_reinforcement_learning_tpu_torch.data import codec
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import stack_pytrees
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    agent = ImpalaAgent(ImpalaConfig(num_actions=4, lstm_size=16, trajectory=20),
+                        device="cuda")
+    state = agent.init_state(seed=0)
+    batch = stack_pytrees(_impala_items(8, 20, seed=2))
+    store = WeightStore()
+    agent.learn(state, batch)
+    want = {k: v.detach().clone() for k, v in state.params.items()}
+    store.publish_async(state.params, 1)
+    agent.learn(state, batch)  # in place, queued right behind the clone
+    assert store.flush_async(timeout=60.0)
+    got, version = store.get()
+    host = codec.decode(store.get_blob()[0], copy=True)
+    assert version == 1
+    assert any(not torch.equal(state.params[k].detach(), v) for k, v in want.items())
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+        assert host[k].tobytes() == v.cpu().numpy().tobytes(), k
+    store.close()
+
+
+@pytest.mark.gpu
+def test_run_role_learner_on_cuda_launches_vtrace_twice_a_step(tmp_path):
+    """A learner process started through run_role on the card, fed by one
+    CPU actor process over TCP: K1 launches twice per learn step in the
+    learner's own process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{port}")
+    base = [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.train_impala",
+            "--config", str(repo / "config.json"), "--section", "impala_cartpole"]
+    procs = [subprocess.Popen(base + args, cwd=repo, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+             for args, e in ((["--mode", "learner", "--updates", "4"], env),
+                             (["--mode", "actor", "--task", "0", "--device", "cpu",
+                               "--actor_grace", "2"], dict(env, CUDA_VISIBLE_DEVICES="")))]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate(timeout=10)
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(o[-2000:] for o in outs)
+    summary = json.loads(outs[0].strip().splitlines()[-1])
+    assert summary["device"].startswith("cuda") and summary["train_steps"] == 4
+    assert summary["launches"]["vtrace"] == 8
+    assert len(summary["h2d_ms"]) >= 4 and summary["h2d_ms_per_batch"] > 0
