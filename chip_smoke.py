@@ -8,7 +8,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 2. Build every CUDA source of the port with nvcc, anew even where a
    library is already there, so that ptxas reports on every kernel in
    this process; print the build time and ptxas' register /
-   shared-memory report.
+   shared-memory report. Beside them, g++ builds the port's native
+   data-plane library (`cpp/`: ring queue, sum tree, batch gather) anew.
 3. Hold each kernel against its plain PyTorch version on the card, at
    the main path's shape and larger ones, then time both (CUDA events
    over many eager calls, and per call inside a replayed CUDA graph,
@@ -42,7 +43,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    counts zeroed just before: exactly 2 K2a launches per ingest and 2
    K2a + 1 K2b per train step (22 and 3), finite loss and priorities,
    parameters that moved; then the synchronised learn step, a profiler
-   breakdown that names K2's device time, and peak memory.
+   breakdown that names K2's device time, and peak memory. The learner's
+   replay must be `ArrayPrioritizedReplay` (`make_replay("auto")`).
 7. R2D2 device parity: td_error and one learn step from the same
    parameters and seeded batch on CUDA and on the CPU (TF32 off): rtol
    1e-4 on loss, grad norm and priorities.
@@ -88,13 +90,44 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    matches the in-process learn step to rtol 1e-4; an async-published
    snapshot equals its version's parameters bit for bit.
 14. `run_async` of each family in one process on CUDA, 3 updates.
-15. A `{"kernels": [...]}` line with each kernel's numbers.
+15. The Ape-X path: the `apex` section at full width (Breakout frames
+   84x84x4, NatureConv, dueling towers 256-256, batch 32, unrolls of 32,
+   4 actors x 5 envs, replay 100,000) through build_local and run_sync
+   for 5 updates. Fails unless the learner took 5 steps on an
+   `ArrayPrioritizedReplay` over the port's native library built in
+   phase 2 from `distributed_reinforcement_learning_tpu_torch/cpp/`, the
+   replay holds at least 10 x 32 transitions, loss and TD are finite, the
+   parameters moved, and no kernel launched (the counts are zeroed just
+   before and read just after). Then the synchronised learn step, the TD
+   ingest per 32-transition unroll pipelined and not, the replay's add
+   and sample, a profiler breakdown of one learn step and the phase's
+   own peak memory.
+16. Ape-X device parity: `td_error` and one learn step from the same
+   parameters on one seeded full-width batch on CUDA and on the CPU (TF32
+   off): rtol 1e-4 on the loss, the grad norm, the gradients, the TD
+   vector and the parameters after the step (where the two gradients
+   agree to 0.1%; an element whose gradient sits at float32's noise
+   floor gets Adam's lr-sized step either way, and is held to that
+   bound).
+17. Multi-process Ape-X at full width: a CUDA learner (`train_apex --mode
+   learner --section apex --updates 5`) fed over loopback TCP by 2 actor
+   processes (`--mode actor --task k --device cpu`, 5 Breakout-sim envs
+   each; 2 of the section's 4, since each warm actor step puts 1.81 MB
+   and the actors share the learner's 8 cores). Fails if any process
+   exits non-zero, the learner does not take exactly 5 steps, its queue
+   is not `NativeTrajectoryQueue` or its replay not
+   `ArrayPrioritizedReplay`, or no weight version above 0 reaches a
+   client over TCP; logs the learner's unrolls ingested, MB received,
+   ingest ms, queue depth at each step, busy share and peak memory, and
+   the env frames/s the actors delivered.
+18. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   path launches none).
+19. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6 and 9 are read net of it. Every
-child process runs in its own process group and is killed whole if its
-phase fails.
-16. The device line, then `{"ok": true, "device": {...}}` as the last line.
+logged, so that the peaks of phases 4, 6, 9 and 15 are read net of it.
+Every child process runs in its own process group and is killed whole
+if its phase fails.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -117,7 +150,7 @@ from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAge
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Batch
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
     XImpalaAgent, XImpalaBatch)
-from distributed_reinforcement_learning_tpu_torch.data.fifo import stack_pytrees
+from distributed_reinforcement_learning_tpu_torch.data.fifo import tree_map
 from distributed_reinforcement_learning_tpu_torch.ops.attention import dense_attention
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import _build
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn
@@ -272,16 +305,39 @@ def phase_memory(name: str) -> int:
     return start
 
 
-def phase_build() -> None:
+def phase_build() -> Path:
+    """-> the native library built here (the Ape-X phases check that the
+    learners load it)."""
+    import threading
+
+    from distributed_reinforcement_learning_tpu_torch.data import native
+
     t0 = time.perf_counter()
+    built: dict = {}
+
+    def build_native():
+        try:
+            built["lib"] = native.build(force=True)
+        except RuntimeError as e:  # raised below, on the main thread
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    host = threading.Thread(target=build_native)
+    host.start()  # g++ beside the nvcc builds
     libs = _build.build_all(force=True)  # ptxas' report of every kernel, for the checks
     log(f"[build] {len(libs)} CUDA source(s) built in {time.perf_counter() - t0:.2f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
+    host.join()
+    if "error" in built:
+        raise built["error"]
+    log(f"[build] native data-plane library built by g++ in {built['s']:.2f} s: "
+        f"{built['lib'].relative_to(ROOT)}")
     for stem, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
             if "ptxas" in line and any(w in line for w in ("registers", "smem", "spill",
                                                             "Compiling", "Function")):
                 log(f"[build] {stem}: {line.strip()}")
+    return built["lib"]
 
 
 def ptxas_report(stem: str) -> dict[str, str]:
@@ -333,9 +389,13 @@ def check_one_kernel_per_call(fn, kernel: str, calls: int = 3) -> str:
     launches on the host, and the device runs `kernel` and nothing else.
     The device's records are counted too, but the profiler drops one now
     and then (its log shows an "Activity Buffer Request" then): a device
-    count below the host's is logged, never taken for a missing launch.
-    -> a line for the log."""
-    launched, api = launch_profile(fn, calls)
+    count below the host's is logged, never taken for a missing launch,
+    and a window in which it recorded no kernel at all is profiled again
+    (up to 3 windows). -> a line for the log."""
+    for _ in range(3):
+        launched, api = launch_profile(fn, calls)
+        if launched:
+            break
     names = list(launched)
     if api != calls or not names or any(kernel not in n for n in names):
         raise RuntimeError(f"{calls} calls made {api} kernel launches on the host and ran "
@@ -716,7 +776,10 @@ def phase_r2d2(mem_start: int) -> dict:
     if rounds != 8 or launches != want:
         raise RuntimeError(f"r2d2 path: {rounds} rounds, launches {launches}, expected 8 "
                            f"rounds and {want}")
-    priorities = learner.replay.tree._tree
+    if type(learner.replay).__name__ != "ArrayPrioritizedReplay":
+        raise RuntimeError(f"r2d2 learner replay is {type(learner.replay).__name__}, "
+                           "not ArrayPrioritizedReplay")
+    priorities = learner.replay.tree.export()[0]
     if (learner.train_steps != R2D2_UPDATES or not all(math.isfinite(v) for v in metrics.values())
             or not np.isfinite(priorities).all() or learner.replay.tree.total <= 0):
         raise RuntimeError(f"bad r2d2 result: steps {learner.train_steps}, {metrics}, "
@@ -728,9 +791,8 @@ def phase_r2d2(mem_start: int) -> dict:
 
     # Synchronised learn step and ingest scoring on replayed sequences.
     agent, state = learner.agent, learner.state
-    items, _, is_weight = learner.replay.sample(rt.batch_size, np.random.RandomState(0))
-    batch = stack_pytrees(items)
-    ingest = stack_pytrees(items[:16])
+    batch, _, is_weight = learner.replay.sample(rt.batch_size, np.random.RandomState(0))
+    ingest = tree_map(lambda x: x[:16], batch)
     for _ in range(2):
         agent.learn(state, batch, is_weight)
         agent.td_error(state, ingest)
@@ -1193,16 +1255,46 @@ def last_json(text: str) -> dict:
     raise RuntimeError(f"no JSON line in:\n{text[-3000:]}")
 
 
-def run_topology(algo: str, section: str, updates: int, actors: int) -> tuple[dict, list]:
+def probe_weights(port: int, stop, versions: list) -> None:
+    """A weight client of the learner on `port`: pulls every 0.1 s until
+    `stop` is set or the learner is gone, appending each new version and
+    its parameter count to `versions`."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
+        RemoteWeights, TransportClient, TransportError)
+
+    # Up to 60 s for the learner to listen; once it has answered, one
+    # reconnect attempt, so that the learner's exit ends the probe.
+    client = TransportClient("127.0.0.1", port, connect_retries=60)
+    weights, have = RemoteWeights(client, "cpu"), -1
+    try:
+        while not stop.is_set():
+            got = weights.get_if_newer(have)
+            client.connect_retries = 1
+            if got is not None:
+                params, have = got
+                versions.append((have, sum(p.numel() for p in params.values())))
+            stop.wait(0.1)
+    except (TransportError, OSError):
+        pass  # the learner has stopped serving
+    finally:
+        client.close()
+
+
+def run_topology(algo: str, section: str, updates: int, actors: int,
+                 versions: list | None = None) -> tuple[dict, list]:
     """One learner process on CUDA and `actors` actor processes with
     `--device cpu` (one torch thread each), over loopback TCP on a free
     port. Every process runs in its own process group; on any failure or
-    timeout all of them are killed whole before this raises. -> (the
-    learner's summary, the actors' summaries)."""
+    timeout all of them are killed whole before this raises. With
+    `versions`, a weight client in this process pulls from the learner
+    while it runs (`probe_weights`). -> (the learner's summary, the
+    actors' summaries)."""
     import os
     import signal
+    import threading
 
-    env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{free_port()}")
+    port = free_port()
+    env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{port}")
     actor_env = dict(env, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", f"distributed_reinforcement_learning_tpu_torch.train_{algo}",
             "--config", str(CONFIG), "--section", section]
@@ -1218,6 +1310,12 @@ def run_topology(algo: str, section: str, updates: int, actors: int) -> tuple[di
     procs = [spawn(["--mode", "learner", "--updates", str(updates)], env, "learner")]
     procs += [spawn(["--mode", "actor", "--task", str(k), "--device", "cpu",
                      "--actor_grace", "3"], actor_env, f"actor{k}") for k in range(actors)]
+    stop = threading.Event()
+    probe = None
+    if versions is not None:
+        probe = threading.Thread(target=probe_weights, args=(port, stop, versions),
+                                 daemon=True)
+        probe.start()
     try:
         deadline = time.monotonic() + MP_TIMEOUT_S
         for proc, _ in procs:
@@ -1232,6 +1330,9 @@ def run_topology(algo: str, section: str, updates: int, actors: int) -> tuple[di
                                + "\n".join(t[-2000:] for t in texts))
         return last_json(texts[0]), [last_json(t) for t in texts[1:]]
     finally:
+        stop.set()
+        if probe is not None:
+            probe.join(timeout=30)
         for proc, f in procs:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
@@ -1444,6 +1545,281 @@ def phase_run_async() -> dict:
     return out
 
 
+APEX_UPDATES = 5  # the warm-up gate needs 10 ingested unrolls: ~3 rounds of 8 steps
+APEX_MP_ACTORS = 2  # of the section's 4: each warm actor step puts 1.81 MB
+
+
+def all_launches() -> dict[str, int]:
+    return {"vtrace": kvt.vtrace_cuda.launches, "lstm_fwd": klstm.lstm_fwd_cuda.launches,
+            "lstm_bwd": klstm.lstm_bwd_cuda.launches,
+            "attention_fwd": kattn.flash_fwd_cuda.launches,
+            "attention_dq": kattn.flash_dq_cuda.launches,
+            "attention_dkv": kattn.flash_dkv_cuda.launches}
+
+
+def check_port_replay(replay, native_lib: Path) -> None:
+    """The replay is the array backend over the library phase 2 built from
+    the port's own `cpp/`."""
+    from distributed_reinforcement_learning_tpu_torch.data import native
+
+    name = type(replay).__name__
+    loaded = native.loaded_path()
+    port_build = ROOT / "distributed_reinforcement_learning_tpu_torch" / "cpp" / "build"
+    if name != "ArrayPrioritizedReplay" or loaded != native_lib or loaded.parent != port_build:
+        raise RuntimeError(f"replay {name} over {loaded}; expected ArrayPrioritizedReplay "
+                           f"over {native_lib}, built in this run")
+
+
+def apex_batch(cfg, B: int, seed: int):
+    """A seeded full-width transition batch (raw uint8 frames) and IS weights."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexBatch
+
+    rng = np.random.RandomState(seed)
+    A = cfg.num_actions
+    frames = lambda: rng.randint(0, 256, (B, *cfg.obs_shape)).astype(np.uint8)  # noqa: E731
+    batch = ApexBatch(state=frames(), next_state=frames(),
+                      previous_action=rng.randint(0, A, B).astype(np.int32),
+                      action=rng.randint(0, A, B).astype(np.int32),
+                      reward=rng.choice([0.0, 0.0, 1.0, 4.0, -1.0], B).astype(np.float32),
+                      done=rng.rand(B) < 0.1)
+    return batch, (0.3 + 0.7 * rng.rand(B)).astype(np.float32)
+
+
+def time_ingest_ms(learner, unrolls: list, pipelined: bool) -> float:
+    """ms per unroll of the learner's ingest (dequeue, TD forward, replay
+    add) over `unrolls`, synchronised at the end."""
+    learner.ingest_pipeline = pipelined
+    for u in unrolls:
+        learner.queue.put(u)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    while True:
+        got = learner.ingest_many(max_unrolls=1, timeout=0.0)
+        if not got:
+            break
+        n += got
+    torch.cuda.synchronize()
+    if n != len(unrolls):
+        raise RuntimeError(f"ingest took {n} of {len(unrolls)} unrolls")
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_apex(mem_start: int, native_lib: Path) -> dict:
+    """The `apex` section at full width through build_local and run_sync
+    for APEX_UPDATES updates."""
+    agent_cfg, rt = load_config(CONFIG, "apex")
+    learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
+    check_port_replay(learner.replay, native_lib)
+    n_params = sum(p.numel() for p in learner.state.params.values())
+    before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = run(learner, actors, APEX_UPDATES, close_learner=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+
+    peak = torch.cuda.max_memory_allocated()
+    metrics = result["last_metrics"]
+    rounds = result["frames"] // (sum(a.env.num_envs for a in actors) * 8)
+    log(f"[apex] {n_params:,} parameters; {learner.train_steps} updates in {rounds} rounds of "
+        f"8 steps, {result['frames']} env frames in {wall:.2f} s ({wall / rounds * 1e3:.1f} ms "
+        f"wall per round); {learner.ingested_unrolls} unrolls ingested, replay "
+        f"{len(learner.replay)} transitions ({type(learner.replay).__name__}); peak device "
+        f"memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the "
+        f"phase's own; launches {launches}")
+    log(f"[apex] last metrics {json.dumps(metrics)}")
+    if any(launches.values()):
+        raise RuntimeError(f"the Ape-X path launched kernels: {launches}")
+    if learner.train_steps != APEX_UPDATES or len(learner.replay) < 10 * 32:
+        raise RuntimeError(f"apex: {learner.train_steps} steps, replay {len(learner.replay)}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"apex metrics not finite: {metrics}")
+    still = [k for k, v in before.items()
+             if float((learner.state.params[k].detach() - v).abs().max()) == 0.0]
+    if still:
+        raise RuntimeError(f"apex parameters did not move: {still}")
+
+    agent, state = learner.agent, learner.state
+    batch, _, is_weight = learner.replay.sample(rt.batch_size, np.random.RandomState(0))
+    td = agent.td_error(state, batch)
+    if td.shape != (rt.batch_size,) or not bool(torch.isfinite(td).all()):
+        raise RuntimeError(f"apex td_error: shape {tuple(td.shape)}, finite "
+                           f"{bool(torch.isfinite(td).all())}")
+
+    # Synchronised learn step on a replay batch (its H2D copy included).
+    for _ in range(2):
+        agent.learn(state, batch, is_weight)
+    torch.cuda.synchronize()
+    steps = 10
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.learn(state, batch, is_weight)
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) / steps * 1e3
+
+    # Ingest per 32-transition unroll, plain and pipelined; then the
+    # replay's add of one unroll and its sample of one batch.
+    rng = np.random.RandomState(1)
+    unrolls = [learner.replay.sample(32, rng)[0] for _ in range(40)]
+    time_ingest_ms(learner, unrolls[:4], pipelined=False)  # warm
+    plain_ms = time_ingest_ms(learner, unrolls[:20], pipelined=False)
+    piped_ms = time_ingest_ms(learner, unrolls[20:], pipelined=True)
+    td_np = np.abs(rng.randn(32))
+    reps = 50
+    t0 = time.perf_counter()
+    for i in range(reps):
+        learner.replay.add_batch_stacked(td_np, unrolls[i % len(unrolls)])
+    add_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        learner.replay.sample(rt.batch_size, rng)
+    sample_ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"[apex] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}: main net over "
+        f"[s; s'] = {2 * rt.batch_size} frames, target over {rt.batch_size}): "
+        f"{rt.batch_size / (learn_ms / 1e3):.0f} learned transitions/s; TD ingest per "
+        f"32-transition unroll {plain_ms:.2f} ms plain, {piped_ms:.2f} ms pipelined; replay "
+        f"add of one unroll {add_ms:.3f} ms, sample of {rt.batch_size} {sample_ms:.3f} ms")
+    events = profile_breakdown("one apex learn step",
+                               lambda: agent.learn(state, batch, is_weight))
+    learner.close()
+    total_us = sum(device_us(e) for e in events)
+    return {"learn_ms": learn_ms, "ingest_ms": plain_ms, "ingest_pipelined_ms": piped_ms,
+            "replay_add_ms": add_ms, "replay_sample_ms": sample_ms,
+            "device_ms": total_us / 1e3, "wall_per_round_ms": wall / rounds * 1e3,
+            "peak_mib": (peak - mem_start) / 2**20, "params": n_params, "launches": launches}
+
+
+def adam_step_close(name: str, p_got, p_want, g_got, g_want, lr: float) -> int:
+    """Parameters after one Adam step on two devices, from their gradients.
+    The gradients must agree to float32 accuracy (rtol 1e-4, atol 1e-5 of
+    the tensor's largest). Where the two gradients agree to 0.1%, the step
+    is settled and the parameters must agree to rtol 1e-4 (atol 1% of lr);
+    elsewhere the gradient sits at float32's noise floor, Adam's first
+    step normalises it to up to lr either way, and the parameters must
+    differ by no more than the 2 lr that bounds it. -> the count of
+    unsettled elements."""
+    torch.testing.assert_close(g_got, g_want, rtol=1e-4, atol=1e-5 * float(g_want.abs().max()),
+                               msg=lambda m: f"{name} gradient: {m}")
+    settled = (g_got - g_want).abs() <= 1e-3 * g_want.abs()
+    torch.testing.assert_close(p_got[settled], p_want[settled], rtol=1e-4, atol=1e-2 * lr,
+                               msg=lambda m: f"{name} after the step: {m}")
+    worst = float((p_got - p_want).abs().max())
+    if worst > 2 * lr * (1 + 1e-5):
+        raise RuntimeError(f"{name} after the step differs by {worst}, beyond Adam's 2 lr")
+    return int((~settled).sum())
+
+
+def phase_apex_parity() -> None:
+    """td_error and one Ape-X learn step (`grads` then `apply_grads`, which
+    together are `learn`) from the same parameters (and a different target
+    network) on one seeded full-width batch on CUDA and on the CPU, TF32
+    off: rtol 1e-4 on the loss, the grad norm, the gradients, the TD vector
+    and the parameters after the step (`adam_step_close`)."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    agent_cfg, rt = load_config(CONFIG, "apex")
+    batch, is_weight = apex_batch(agent_cfg, rt.batch_size, seed=7)
+    results = {}
+    for device in ("cuda", "cpu"):
+        agent = ApexAgent(agent_cfg, device=device)
+        state = agent.init_state(seed=11)
+        for k, v in agent.init_state(seed=12).params.items():
+            state.target_params[k].copy_(v.detach())
+        td0 = agent.td_error(state, batch).cpu().numpy()
+        grads, td, loss = agent.grads(state, batch, is_weight)
+        host_grads = {k: v.cpu() for k, v in grads.items()}
+        _, metrics = agent.apply_grads(state, grads, loss)
+        results[device] = {"td0": td0, "td": td.cpu().numpy(), "grads": host_grads,
+                           "params": {k: v.detach().cpu() for k, v in state.params.items()},
+                           **{k: float(v) for k, v in metrics.items()}}
+    cu, cpu = results["cuda"], results["cpu"]
+    for k in ("loss", "grad_norm", "learning_rate"):
+        if not math.isclose(cu[k], cpu[k], rel_tol=1e-4):
+            raise RuntimeError(f"apex cuda vs cpu learn step: {k} {cu[k]} vs {cpu[k]}")
+    worst = max(abs(cu[k] / cpu[k] - 1) for k in ("loss", "grad_norm"))
+    for k in ("td0", "td"):
+        np.testing.assert_allclose(cu[k], cpu[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=f"apex cuda vs cpu {k}")
+        worst = max(worst, float(np.max(np.abs(cu[k] - cpu[k])
+                                        / np.maximum(np.abs(cpu[k]), 1e-6))))
+    lr = agent_cfg.start_learning_rate
+    unsettled = {k: adam_step_close(f"apex cuda vs cpu {k}", cu["params"][k], v,
+                                    cu["grads"][k], cpu["grads"][k], lr)
+                 for k, v in cpu["params"].items()}
+    worst_p = max(float((cu["params"][k] - v).abs().max()) for k, v in cpu["params"].items())
+    n = sum(v.numel() for v in cpu["params"].values())
+    log(f"[parity] apex cuda vs cpu td_error and learn step agree (worst rel diff {worst:.2e} "
+        f"on loss, grad norm and TD): loss {cu['loss']}, grad_norm {cu['grad_norm']}; "
+        f"parameters after the step within {worst_p:.2e} ({worst_p / lr:.1e} of the learning "
+        f"rate), {sum(unsettled.values())} of {n:,} elements at the gradients' noise floor "
+        f"({ {k: c for k, c in unsettled.items() if c} })")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_multiprocess_apex() -> dict:
+    """The `apex` section at full width across processes: the learner on
+    CUDA, APEX_MP_ACTORS actor processes of 5 Breakout-sim envs on the
+    CPU, APEX_UPDATES updates over loopback TCP."""
+    versions: list = []
+    t0 = time.perf_counter()
+    learner, actors = run_topology("apex", "apex", APEX_UPDATES, APEX_MP_ACTORS,
+                                   versions=versions)
+    total = time.perf_counter() - t0
+    launches = learner["launches"]
+    if (learner["train_steps"] != APEX_UPDATES or learner["queue"] != "NativeTrajectoryQueue"
+            or learner["replay"] != "ArrayPrioritizedReplay" or any(launches.values())):
+        raise RuntimeError(f"multi-process apex: {learner['train_steps']} steps, queue "
+                           f"{learner['queue']}, replay {learner['replay']}, launches {launches}")
+    if not any(v > 0 for v, _ in versions):
+        raise RuntimeError(f"no weight version above 0 reached a client over TCP: {versions}")
+    steps = learner["step_s"]
+    n = len(steps)
+    stage = learner["stage_total_ms"]
+    steady_ms = (steps[-1] - steps[0]) * 1e3
+    busy_keys = ("ingest_td", "ingest_td_sync", "ingest_replay_add", "replay_sample", "learn",
+                 "replay_update", "publish")
+    busy = sum(stage.get(k, 0.0) for k in busy_keys) / steady_ms if steady_ms > 0 else None
+    # An actor's steps over its stepping time (a round cut short by the
+    # learner's exit included; rounds of 64 steps are long beside 5 updates).
+    _, rt = load_config(CONFIG, "apex")
+    actor_rate = sum(a["env_steps"] * rt.envs_per_actor / a["stepping_s"] for a in actors
+                     if a["stepping_s"] > 0)
+    mb = learner["transport"]["bytes_received"] / 1e6
+    calls = learner["stage_calls"]
+    result = {"ingested_unrolls": learner["ingested_unrolls"], "mb_received": mb,
+              "ingest_td_ms": learner["stage_ms"].get("ingest_td"), "busy_share": busy,
+              "env_frames_per_s": actor_rate, "peak_mib": learner["peak_device_mib"],
+              "queue_depth": learner["queue_depth"], "first_step_s": steps[0]}
+    log(f"[multiproc] apex: {learner['train_steps']} updates, {learner['ingested_unrolls']} "
+        f"unrolls ingested ({learner['replay_size']} transitions in the "
+        f"{learner['replay']}), {mb:.1f} MB received over the {learner['queue']}; topology "
+        f"{total:.1f} s; learner loop {learner['wall_s']:.2f} s, steps done at "
+        f"{[round(t, 3) for t in steps]} s; learner busy (ingest, replay, learn and publish "
+        f"host time over steps 2..{n}) "
+        + ("n/a" if busy is None else f"{100 * busy:.1f}%")
+        + f"; the {len(actors)} actors delivered {actor_rate:.0f} env frames/s; queue depth at "
+        f"each step {learner['queue_depth']}; peak device memory "
+        f"{learner['peak_device_mib']:.1f} MiB; weight versions pulled by this process's "
+        f"client {[v for v, _ in versions]}; launches {launches}")
+    log(f"[multiproc] apex stage ms (mean a call over steps 2..{n}): "
+        + ", ".join(f"{k} {v:.2f} (x{calls.get(k, 0)})" for k, v in learner["stage_ms"].items())
+        + "; the first step: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in learner["first_step_stage_ms"].items()))
+    for a in actors:
+        log(f"[multiproc] apex actor {a['task']}: {a['env_steps']} steps of "
+            f"{rt.envs_per_actor} envs in {a['stepping_s']:.2f} s ({a['frames']} env frames in "
+            f"completed rounds), weight version {a['weight_version']}, {a['transport']}")
+    return result
+
+
 def attention_rows(k3: dict, ximpala: dict) -> list[dict]:
     """The K3a, K3b and K3c entries of the kernels line, at the main path's
     shape, with the other shapes beside."""
@@ -1478,7 +1854,7 @@ def main() -> int:
     log(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"nvidia-smi: {smi}")
     t_start = time.perf_counter()
-    phase_build()
+    native_lib = phase_build()
     phase_memory("vtrace")
     k1 = phase_vtrace()
     phase_memory("lstm")
@@ -1501,6 +1877,11 @@ def main() -> int:
     phase_transport_parity()
     phase_memory("run_async")
     phase_run_async()
+    apex = phase_apex(phase_memory("apex path"), native_lib)
+    phase_memory("apex parity")
+    phase_apex_parity()
+    phase_memory("multi-process apex")
+    apex_mp = phase_multiprocess_apex()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -1527,7 +1908,13 @@ def main() -> int:
         f"wall per update {ximpala['wall_per_update_ms']:.1f} ms, own peak "
         f"{ximpala['peak_mib']:.1f} MiB; multi-process impala {multiproc['wall_per_update_ms']:.1f} "
         f"ms wall per update, H2D {multiproc['h2d_ms']:.3f} ms a batch, peak "
-        f"{multiproc['peak_mib']:.1f} MiB; smoke took {time.perf_counter() - t_start:.1f} s")
+        f"{multiproc['peak_mib']:.1f} MiB; apex learn_ms {apex['learn_ms']:.3f}, ingest "
+        f"{apex['ingest_ms']:.2f} / {apex['ingest_pipelined_ms']:.2f} ms an unroll (plain / "
+        f"pipelined), own peak {apex['peak_mib']:.1f} MiB, launches "
+        f"{sum(apex['launches'].values())}; multi-process apex "
+        f"{apex_mp['env_frames_per_s']:.0f} env frames/s delivered, "
+        f"{apex_mp['ingested_unrolls']} unrolls ingested, peak {apex_mp['peak_mib']:.1f} MiB; "
+        f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -138,7 +138,9 @@ class AdamWithClip:
 
     optax's `chain(clip_by_global_norm, scale_by_adam, scale_by_learning_rate)`
     with b1 0.9, b2 0.999, eps 1e-8, eps_root 0; `clip_norm=None` is
-    R2D2's plain Adam. The update of each parameter at count n = step + 1:
+    R2D2's plain Adam. `lr` is a constant (R2D2) or a schedule of the
+    step (Ape-X's `polynomial_lr`). The update of each parameter at count
+    n = step + 1:
 
         mu <- (1 - b1) * g + b1 * mu,   nu <- (1 - b2) * g^2 + b2 * nu
         p  <- p + (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps) * (-lr)
@@ -146,7 +148,7 @@ class AdamWithClip:
     with the bias corrections taken in float32, as optax takes them.
     """
 
-    def __init__(self, lr: float, clip_norm: float | None = None,
+    def __init__(self, lr: float | Callable[[int], float], clip_norm: float | None = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.lr = lr
         self.clip_norm = clip_norm
@@ -165,6 +167,7 @@ class AdamWithClip:
         n = np.float32(state.step + 1)
         c1 = float(np.float32(1) - np.float32(self.b1) ** n)
         c2 = float(np.float32(1) - np.float32(self.b2) ** n)
+        lr = self.lr(state.step) if callable(self.lr) else self.lr
         for k, p in state.params.items():
             g = grads[k]
             if self.clip_norm is not None:
@@ -173,7 +176,7 @@ class AdamWithClip:
             nu = (1.0 - self.b2) * torch.square(g) + self.b2 * state.nu[k]
             state.mu[k].copy_(mu)
             state.nu[k].copy_(nu)
-            p.add_(mu / c1 / (torch.sqrt(nu / c2) + self.eps) * (-self.lr))
+            p.add_(mu / c1 / (torch.sqrt(nu / c2) + self.eps) * (-lr))
         return g_norm
 
 

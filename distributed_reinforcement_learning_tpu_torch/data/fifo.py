@@ -7,8 +7,9 @@ one call as stacked `[B, ...]` arrays (or, through `take`, as the list
 of items, which the device prefetcher stacks straight into pinned
 memory). `blob_ingest` feeds codec blobs from the wire into it.
 
-Not ported: the C++ ring-buffer backend (`data/native.py`) and the
-replay-shard ingest facade; a wire blob always takes the decode arm.
+The C++ ring-buffer backend is `data/native.py`'s `NativeTrajectoryQueue`
+(the learner server's queue wherever the library builds). Not ported:
+the replay-shard ingest facade.
 """
 
 from __future__ import annotations
@@ -36,17 +37,42 @@ def stack_pytrees(items: list[Any]) -> Any:
     return np.stack(items)
 
 
+def tree_map(fn, *trees):
+    """`fn` over the array leaves of NamedTuples, dicts and arrays (the
+    batches the queues and replays hold), keeping the structure."""
+    first = trees[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The array leaves of `tree`, in `tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def blob_ingest(queue: Any) -> tuple[Any, Any]:
     """-> (prepare, put) for feeding codec blobs into a trajectory queue.
 
-    The queue takes a decoded COPY: the blob's buffer may be reused by
-    the caller the moment `prepare` returns (the transport server's
-    per-connection receive buffer), and decode reconstructs a
-    dedup-packed blob bit-identically as part of that copy.
+    - A blob-native queue (`put_bytes`, the C++ backend) takes the raw
+      bytes, routed through `codec.unpack_blob` (after `strip_stamp`) so
+      that a dedup-packed blob reaches the queue in the plain layout its
+      batch gather assumes; `put_bytes` copies them before it returns.
+    - A pytree queue takes a decoded COPY: the blob's buffer may be
+      reused by the caller the moment `prepare` returns (the transport
+      server's per-connection receive buffer), and decode reconstructs
+      a dedup-packed blob bit-identically as part of that copy.
+
     `put(item, timeout=...)` follows the queue's blocking-put contract
     (False on timeout, RuntimeError once closed)."""
     from distributed_reinforcement_learning_tpu_torch.data import codec
 
+    if hasattr(queue, "put_bytes"):
+        return (lambda blob: codec.unpack_blob(codec.strip_stamp(blob))), queue.put_bytes
     return (lambda blob: codec.decode(blob, copy=True)), queue.put
 
 

@@ -4,8 +4,8 @@ The JAX package's parameter tree, as nested dicts of numpy arrays (for
 example `params/torso/conv0_kernel (8, 8, 4, 32)`,
 `params/lstm/gates_kernel (3648, 1024)`,
 `params/policy_head/Dense_2/kernel (256, 18)`), maps onto the port's
-module names and layouts (`ImpalaActorCritic`, `R2D2Net`) by one set of
-rules:
+module names and layouts (`ImpalaActorCritic`, `R2D2Net`, the Ape-X
+networks) by one set of rules:
 
 - conv kernels HWIO -> OIHW; Dense `[in, out]` -> Linear `[out, in]`;
 - `Dense_{i}` -> `layers.{i}`; `conv{i}_kernel` / `conv{i}_bias` ->
@@ -50,6 +50,15 @@ def r2d2_params_from_jax(tree) -> dict[str, torch.Tensor]:
     (`state_fc1/kernel` -> `state_fc1.weight`, `cell/gates_kernel` ->
     `cell.gates_kernel`, `torso/conv0_kernel` -> `torso.conv0.weight`)."""
     return _params_from_jax(tree, "R2D2")
+
+
+def apex_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """-> a state_dict for `DuelingQNetwork` or `SimpleQNetwork`
+    (`load_state_dict(strict=True)`): `torso/conv0_kernel` ->
+    `torso.conv0.weight`, `value/Dense_2/kernel` -> `value.layers.2.weight`,
+    `action_embed/Dense_1/bias` -> `action_embed.layers.1.bias`,
+    SimpleQNetwork's `Dense_3/kernel` -> `layers.3.weight`."""
+    return _params_from_jax(tree, "Ape-X")
 
 
 # Flax's automatic names in TransformerQNet -> the port's module names.

@@ -8,13 +8,13 @@ anew and a stale library is never loaded.
 
 Several processes may build and load at once (a learner and its tooling,
 or the tests): an exclusive `fcntl` lock on `csrc/build/.lock` serialises
-builds across processes (and a `threading.Lock` across threads, since
-the file lock belongs to the process). A process checks for each library
-only once it holds the lock, so one that waited behind another's build
-finds the library there and does not build it again. nvcc writes a
-temporary name that is renamed into place, so no process ever sees a
-half-written library under its final name. The kernel releases the lock
-of a process that dies mid-build.
+builds across processes (and a `threading.Lock` per build directory
+across threads, since the file lock belongs to the process). A process
+checks for each library only once it holds the lock, so one that waited
+behind another's build finds the library there and does not build it
+again. nvcc writes a temporary name that is renamed into place, so no
+process ever sees a half-written library under its final name. The
+kernel releases the lock of a process that dies mid-build.
 
 Nothing here falls back: a missing nvcc, a failed compile or a library
 that will not load raises.
@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()  # the loaded-library table
-_build_thread_lock = threading.Lock()  # builds within this process
+_dir_locks: dict[Path, threading.Lock] = {}  # builds within this process, by directory
+_dir_locks_guard = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's output (with `-Xptxas -v`: registers, shared memory and spills
 # per kernel) for each source built in this process.
@@ -68,10 +69,15 @@ def _library_path(src: Path) -> Path:
 
 
 @contextlib.contextmanager
-def _build_lock():
-    """This thread holds the build lock of `BUILD_DIR`, across processes."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with _build_thread_lock, open(BUILD_DIR / ".lock", "a") as f:
+def build_lock(directory: Path | None = None):
+    """This thread holds the build lock of `directory` (default
+    `BUILD_DIR`), across processes (`data/native.py` builds the host
+    library under the same pattern)."""
+    directory = BUILD_DIR if directory is None else directory
+    directory.mkdir(parents=True, exist_ok=True)
+    with _dir_locks_guard:
+        thread_lock = _dir_locks.setdefault(directory.resolve(), threading.Lock())
+    with thread_lock, open(directory / ".lock", "a") as f:
         fcntl.flock(f.fileno(), fcntl.LOCK_EX)
         try:
             yield
@@ -86,7 +92,7 @@ def build_all(force: bool = False) -> dict[str, Path]:
 
     -> {source stem: library path}. Raises RuntimeError naming each
     source that failed, with nvcc's output."""
-    with _build_lock():
+    with build_lock():
         return _build_locked(force)
 
 

@@ -1,8 +1,8 @@
 """Build-and-run helpers.
 
 Counterpart of `make_learner` / `make_actor` / `build_local` /
-`train_local` in the JAX package's `runtime/launch.py`, for IMPALA, R2D2
-and Transformer-IMPALA: resolve envs from the registry, build agent,
+`train_local` in the JAX package's `runtime/launch.py`, for IMPALA, Ape-X,
+R2D2 and Transformer-IMPALA: resolve envs from the registry, build agent,
 queue, weight store, learner and actors from a config section (the
 agent config's type picks the family). `make_learner` and `make_actor`
 take any queue and weight store, the learner's own objects in one
@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent, ApexConfig
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Config
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
@@ -27,17 +28,21 @@ from distributed_reinforcement_learning_tpu_torch.envs.batched import BatchedEnv
 from distributed_reinforcement_learning_tpu_torch.envs.cartpole import pomdp_project
 from distributed_reinforcement_learning_tpu_torch.envs.registry import make_env
 from distributed_reinforcement_learning_tpu_torch.runtime import (
-    impala_runner, r2d2_runner, ximpala_runner)
+    apex_runner, impala_runner, r2d2_runner, ximpala_runner)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.config import RuntimeConfig, load_config
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 
-_AGENT_CLS = {"impala": ImpalaAgent, "r2d2": R2D2Agent, "ximpala": XImpalaAgent}
-_RUNNER = {"impala": impala_runner, "r2d2": r2d2_runner, "ximpala": ximpala_runner}
+_AGENT_CLS = {"impala": ImpalaAgent, "apex": ApexAgent, "r2d2": R2D2Agent,
+              "ximpala": XImpalaAgent}
+_RUNNER = {"impala": impala_runner, "apex": apex_runner, "r2d2": r2d2_runner,
+           "ximpala": ximpala_runner}
 
 
-def algo_of(agent_cfg: ImpalaConfig | R2D2Config | XImpalaConfig) -> str:
+def algo_of(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XImpalaConfig) -> str:
     """The family a loaded agent config belongs to."""
+    if isinstance(agent_cfg, ApexConfig):
+        return "apex"
     if isinstance(agent_cfg, R2D2Config):
         return "r2d2"
     if isinstance(agent_cfg, XImpalaConfig):
@@ -65,10 +70,15 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
     """The learner of family `algo` over any queue and weight store.
     `prefetch` (IMPALA families) overlaps batch k+1's H2D copy with step k."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
+    if algo in ("apex", "r2d2") and prefetch:
+        raise ValueError(f"the {algo} learner samples its batches from the replay; "
+                         "it has no queue prefetch")
+    if algo == "apex":
+        return apex_runner.ApexLearner(
+            agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
+            target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
+            publish_interval=rt.publish_interval)
     if algo == "r2d2":
-        if prefetch:
-            raise ValueError("the R2D2 learner samples its batches from the replay; "
-                             "it has no queue prefetch")
         return r2d2_runner.R2D2Learner(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
             target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
@@ -85,6 +95,9 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
     `agent` to share one agent between runners in a process."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
     env = _make_batched_env(rt, task)
+    if algo == "apex":
+        return apex_runner.ApexActor(agent, env, queue, weights, seed=seed,
+                                     life_loss_shaping=_is_atari(rt))
     # The 2-feature agents observe the CartPole POMDP view.
     transform = pomdp_project if agent_cfg.obs_shape == (2,) else None
     if algo == "r2d2":
@@ -101,8 +114,8 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
                                      life_loss_shaping=_is_atari(rt))
 
 
-def build_local(agent_cfg: ImpalaConfig | R2D2Config | XImpalaConfig, rt: RuntimeConfig,
-                run_dir: str | None = None, seed: int = 0,
+def build_local(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XImpalaConfig,
+                rt: RuntimeConfig, run_dir: str | None = None, seed: int = 0,
                 device: str | torch.device | None = None):
     """-> (learner, actors, run_sync) for single-process training; one
     agent is shared by the learner and every actor."""

@@ -7,9 +7,12 @@ path only:
   per-env epsilon `max(1/(0.1*episode+1), floor)`, seq_len unrolls that
   carry the sequence-start LSTM state, a weight pull per unroll.
 - `R2D2Learner`: drains sequences and scores their priorities in one
-  `td_error` call (padded to a power of two), trains with IS weights
-  once 2 x batch sequences have arrived, re-prioritises every sampled
-  index, syncs the target every `target_sync_interval` steps.
+  `td_error` call (padded to a power of two), inserts them into the
+  replay of `make_replay(backend="auto")` (the array backend over the
+  native sum tree wherever it builds, as the JAX learner), trains with
+  IS weights once 2 x batch sequences have arrived, re-prioritises
+  every sampled index, and syncs the target every
+  `target_sync_interval` steps (`runtime/replay_train.py`).
 - `run_sync`: deterministic interleaved stepping (tests, single-process
   training). `run_async`: free-running actor threads and the
   ingest/train learner loop in one process.
@@ -22,13 +25,15 @@ sharded replay and the mesh.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent
 from distributed_reinforcement_learning_tpu_torch.data.fifo import (
-    TrajectoryQueue, put_round, stack_pytrees)
-from distributed_reinforcement_learning_tpu_torch.data.replay import PrioritizedReplay
+    TrajectoryQueue, put_round, stack_pytrees, tree_map)
+from distributed_reinforcement_learning_tpu_torch.data.replay import describe_replay, make_replay
 from distributed_reinforcement_learning_tpu_torch.data.structures import (
     R2D2SequenceAccumulator, SlicedAccumulators)
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
@@ -36,6 +41,7 @@ from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY
 from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
     PipelineSlice, run_async_loop, slice_seed, split_batched_env, sync_slices_params)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
+from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import ReplayTrainMixin
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 from distributed_reinforcement_learning_tpu_torch.utils.profiling import (
@@ -186,7 +192,7 @@ class R2D2Actor:
         return (("round", self._slice_accs.extract_slice(sl.index)),)
 
 
-class R2D2Learner(PublishCadenceMixin):
+class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
     def __init__(
         self,
         agent: R2D2Agent,
@@ -203,9 +209,11 @@ class R2D2Learner(PublishCadenceMixin):
         self.queue = queue
         self.weights = weights
         self.batch_size = batch_size
-        self.replay = PrioritizedReplay(replay_capacity)
+        self.replay = make_replay(replay_capacity)
+        print(f"[r2d2 learner] replay: {describe_replay(self.replay)}", file=sys.stderr,
+              flush=True)
         self.target_sync_interval = target_sync_interval
-        self._last_target_sync = 0
+        self._init_stride()
         self.logger = logger or MetricsLogger(None)
         self.state = agent.sync_target(agent.init_state(seed))
         self._np_rng = np.random.RandomState(seed)
@@ -224,13 +232,11 @@ class R2D2Learner(PublishCadenceMixin):
             encode_replay_snapshot)
 
         blob = encode_replay_snapshot(self.replay)
-        name, keys, pos, has_gauss, gauss = self._np_rng.get_state()
         ckpt.save(self.train_steps, self.state, {
             "train_steps": self.train_steps,
             "replay_beta": float(self.replay.beta),
             "ingested_sequences": self.ingested_sequences,
-            "last_target_sync": self._last_target_sync,
-            "np_rng": [name, keys.tolist(), int(pos), int(has_gauss), float(gauss)],
+            **self._cadence_extra(),
         }, blobs={"replay": blob} if blob is not None else None)
 
     def restore_checkpoint(self, ckpt) -> bool:
@@ -251,12 +257,8 @@ class R2D2Learner(PublishCadenceMixin):
         else:
             self.ingested_sequences = 0  # the replay refills from live traffic
         self.replay.beta = float(extra.get("replay_beta", self.replay.beta))
-        self._last_target_sync = int(extra.get("last_target_sync", self.train_steps))
-        if "np_rng" in extra:
-            name, keys, pos, has_gauss, gauss = extra["np_rng"]
-            self._np_rng.set_state((name, np.asarray(keys, np.uint32), pos, has_gauss, gauss))
         self.weights.publish(self.state.params, self.train_steps)
-        self._last_publish_step = self.train_steps
+        self._restore_cadence(extra)
         return True
 
     def ingest_batch(self, timeout: float | None = 0.0) -> int:
@@ -284,7 +286,11 @@ class R2D2Learner(PublishCadenceMixin):
             batch = stack_pytrees(seqs + [seqs[0]] * (k - n))
             # Deliberate sync: the priorities go into the host sum tree.
             td = self.agent.td_error(self.state, batch).cpu().numpy()[:n]
-            self.replay.add_batch(td, seqs)
+            if getattr(self.replay, "stacked_samples", False):
+                # One slice assignment per field.
+                self.replay.add_batch_stacked(td, tree_map(lambda x: x[:n], batch))
+            else:
+                self.replay.add_batch(td, seqs)
         self.ingested_sequences += n
         return n
 
@@ -294,26 +300,22 @@ class R2D2Learner(PublishCadenceMixin):
         before warm-up."""
         if self.ingested_sequences < 2 * self.batch_size:
             return None
-        metrics = self._train_once()
-        self.train_steps += 1
-        self.maybe_publish()
-        if self.train_steps - self._last_target_sync >= self.target_sync_interval:
-            self._last_target_sync = self.train_steps
-            self.state = self.agent.sync_target(self.state)
+        metrics = self._train_guarded(self._active_replay())
+        self._finish_train_call()
         metrics = self.log_step_metrics(metrics)
         self.timer.step_done(self.train_steps)
         self._profiler.on_step(self.train_steps)
         return metrics
 
-    def _train_once(self) -> dict:
+    def _train_once(self, replay) -> dict:
         """Sample -> learn -> re-prioritise."""
         with self.timer.stage("sample"):
-            items, idxs, is_weight = self.replay.sample(self.batch_size, self._np_rng)
-            batch = stack_pytrees(items)
+            items, idxs, is_weight = replay.sample(self.batch_size, self._np_rng)
+            batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
             self.state, priorities, metrics = self.agent.learn(self.state, batch, is_weight)
             # Deliberate sync: re-prioritisation targets the host sum tree.
-            self.replay.update_batch(idxs, priorities.cpu().numpy())
+            replay.update_batch(idxs, priorities.cpu().numpy())
         return metrics
 
     def close(self) -> None:

@@ -27,8 +27,9 @@ Left out, each refused with a ValueError that names its ROADMAP item:
 serving acts (`--serve_inference`, `--remote_act`, `--mode inference`;
 the server answers OP_ACT with ST_UNAVAILABLE), shm rings and the
 weight board, the learner tier and multi-host learners, replay shards
-and actor-side admission. The learner's queue is the Python
-`TrajectoryQueue`; the native ring queue comes with `data/native.py`.
+and actor-side admission. The learner's queue is `_make_queue`'s: the
+C++ ring queue (`data/native.py:NativeTrajectoryQueue`) wherever the
+native library builds, else the Python `TrajectoryQueue`.
 """
 
 from __future__ import annotations
@@ -748,11 +749,27 @@ def refuse_unported(mode: str, serve_inference: bool = False, remote_act: bool =
     # Sharded replay is on by default in the JAX package (its committed
     # verdict); the port has none, so only an explicit request raises.
     if os.environ.get("DRL_REPLAY_SHARDS", "").strip() not in ("", "0"):
-        raise ValueError("DRL_REPLAY_SHARDS: replay shards are not ported (ROADMAP item 9)")
+        raise ValueError("DRL_REPLAY_SHARDS: replay shards are not ported "
+                         "(ROADMAP item 9, the replay planes)")
     for name in ("DRL_ACTOR_PRIORITY", "DRL_ADMISSION"):
         if _truthy(name):
             raise ValueError(f"{name}: actor-side priorities and admission are not ported "
-                             f"(ROADMAP item 9)")
+                             f"(ROADMAP item 9, the replay planes)")
+
+
+def _make_queue(capacity: int):
+    """The learner server's queue: the C++ ring queue where the native
+    library builds, else the Python one."""
+    from distributed_reinforcement_learning_tpu_torch.data.native import native_available
+
+    if native_available():
+        from distributed_reinforcement_learning_tpu_torch.data.native import (
+            NativeTrajectoryQueue)
+
+        return NativeTrajectoryQueue(capacity)
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
+
+    return TrajectoryQueue(capacity)
 
 
 def _kernel_launches() -> dict[str, int]:
@@ -781,21 +798,24 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     steps, frames learned, the kernels' launches in its process, stage ms
     (the first step, which pays the start-up costs, apart from the mean
     over the rest), the prefetcher's H2D ms a batch, publication latency,
-    the queue depth and time at each step, bytes received and peak device
-    memory. An actor runs until the learner has been gone for
-    `actor_grace` seconds and then prints one JSON line (frames, seconds
-    from its first round's start to its last round's end, the newest
-    weight version it held). -> the printed dict."""
+    the queue depth and time at each step, bytes received, peak device
+    memory, the queue's and the replay's classes, and the sequences or
+    unrolls ingested. An Ape-X actor's round is 64 env steps, another
+    family's one unroll. An actor runs until the learner has been gone for
+    `actor_grace` seconds and then prints one JSON line (frames of its
+    completed rounds, seconds from its first round's start to its last
+    round's end, the env steps it took with a round cut short by the
+    learner's exit included and the seconds they took, the newest weight
+    version it held). -> the printed dict."""
     from distributed_reinforcement_learning_tpu_torch.runtime import fleet as fleet_mod
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
     from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
     from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
     from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 
-    if mode not in ("learner", "actor"):
-        refuse_unported(mode)
-        raise ValueError(f"unknown mode {mode!r}")
     refuse_unported(mode, serve_inference, remote_act)
+    if mode not in ("learner", "actor"):
+        raise ValueError(f"unknown mode {mode!r}")
     agent_cfg, rt = load_config(config_path, section)
     if launch.algo_of(agent_cfg) != algo:
         raise ValueError(f"section {section!r} is a {launch.algo_of(agent_cfg)} section, "
@@ -809,10 +829,9 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     host, port = resolve_learner_addr(rt)
 
     if mode == "learner":
-        from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
         from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 
-        queue = TrajectoryQueue(rt.queue_size)
+        queue = _make_queue(rt.queue_size)
         weights = WeightStore()
         learner = launch.make_learner(
             algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir), seed=seed,
@@ -837,8 +856,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 fleet_mod.register_supervisor_telemetry(supervisor)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        print(f"[learner] serving on :{port}; training {num_updates} updates on {device}",
-              flush=True)
+        print(f"[learner] serving on :{port}; training {num_updates} updates on {device}; "
+              f"queue {type(queue).__name__}", flush=True)
         steps: list[tuple[float, int]] = []
         first_step_ms: dict[str, float] = {}
         first_calls: dict[str, int] = {}
@@ -867,12 +886,17 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         calls = Counter(first_calls) + Counter(learner.timer.run_counts())
         prefetcher = getattr(learner, "prefetcher", None)
         h2d = prefetcher.h2d_ms() if prefetcher is not None else []
+        replay = getattr(learner, "replay", None)
         land = list(weights.land_ms)
         summary = {
             "role": "learner", "algo": algo, "device": str(device),
             "train_steps": learner.train_steps,
             "frames_learned": getattr(learner, "frames_learned", None),
             "ingested_sequences": getattr(learner, "ingested_sequences", None),
+            "ingested_unrolls": getattr(learner, "ingested_unrolls", None),
+            "queue": type(queue).__name__,
+            "replay": None if replay is None else type(replay).__name__,
+            "replay_size": None if replay is None else len(replay),
             "launches": _kernel_launches(), "wall_s": wall,
             "first_step_stage_ms": first_step_ms,
             "stage_ms": learner.timer.run_means_ms(),
@@ -929,20 +953,25 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     max_version = -1
     down_since: float | None = None
     first_round = last_round = None
+    # The first round's start; the end of the last round, or the failure
+    # that cut a round short (its steps count in the actor's `_steps`).
+    started = stopped = None
     try:
         while True:
             try:
                 t_round = time.perf_counter()
+                started = started or t_round
                 with _OBS.span("actor_round"):
-                    got = actor.run_unroll()
+                    got = _actor_round(algo, actor)
                 first_round = first_round or t_round
-                last_round = time.perf_counter()
+                last_round = stopped = time.perf_counter()
                 frames += got
-                max_version = max(max_version, getattr(actor, "_version", -1))
                 if _OBS.enabled:
                     _OBS.count("actor/env_frames", got)
                 down_since = None
             except (TransportError, OSError):
+                if down_since is None:
+                    stopped = time.perf_counter()
                 now = time.time()
                 down_since = down_since or now
                 if now - down_since > actor_grace:
@@ -950,6 +979,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                           f"frames; exiting", flush=True)
                     break
                 time.sleep(1.0)
+            finally:
+                max_version = max(max_version, getattr(actor, "_version", -1))
     finally:
         if heartbeats is not None:
             heartbeats.stop()
@@ -961,6 +992,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         _OBS.close()
     summary = {"role": "actor", "task": task, "device": str(device), "frames": frames,
                "active_s": (last_round - first_round) if first_round else 0.0,
+               "env_steps": getattr(actor, "_steps", None),
+               "stepping_s": (stopped - started) if started and stopped else 0.0,
                "weight_version": max_version, "transport": client.snapshot_stats()}
     print(json.dumps(summary), flush=True)
     return summary
@@ -984,6 +1017,16 @@ def _learner_loop(algo: str, learner, num_updates: int, ckpt=None,
         while learner.train_steps < num_updates:
             if learner.step(timeout=5.0) is not None:
                 after_step()
+    elif algo == "apex":
+        from distributed_reinforcement_learning_tpu_torch.runtime.apex_runner import (
+            drain_ingest)
+
+        while learner.train_steps < num_updates:
+            drained = drain_ingest(learner)
+            if learner.train() is not None:
+                after_step()
+            elif not drained:
+                time.sleep(0.05)
     elif algo == "r2d2":
         while learner.train_steps < num_updates:
             got = learner.ingest_batch(timeout=0.05)
@@ -993,3 +1036,10 @@ def _learner_loop(algo: str, learner, num_updates: int, ckpt=None,
                 time.sleep(0.05)
     else:
         raise ValueError(f"unknown algorithm {algo!r}")
+
+
+def _actor_round(algo: str, actor) -> int:
+    """One actor round: 64 env steps for Ape-X, one unroll otherwise."""
+    if algo == "apex":
+        return actor.run_steps(64)
+    return actor.run_unroll()

@@ -11,8 +11,9 @@
   section's `server_port` (or `DRL_LEARNER_ADDR`), actors connect to it.
 
 Every mode runs on CUDA unless `--device` names another device: start
-actors with `--device cpu` to keep them off the card. `--mode anakin`
-and `--mode inference` are not ported and raise.
+actors with `--device cpu` to keep them off the card. `--mode anakin`,
+`--mode inference`, `--serve_inference` and `--remote_act` are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -41,15 +42,20 @@ def run_cli(doc: str, algo: str, section: str, argv: list[str] | None) -> dict:
     ap.add_argument("--actor_grace", type=float, default=120.0,
                     help="actor mode: seconds to ride out a learner outage before exiting")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--serve_inference", action="store_true",
+                    help="learner mode: serve acts (not ported; raises)")
+    ap.add_argument("--remote_act", action="store_true",
+                    help="actor mode: act through the learner (not ported; raises)")
     args = ap.parse_args(argv)
-    if args.mode != "local":
+    if args.mode != "local" or args.serve_inference or args.remote_act:
         from distributed_reinforcement_learning_tpu_torch.runtime.transport import run_role
 
         return run_role(algo, args.config, args.section, args.mode, args.task,
                         num_updates=args.updates, run_dir=args.run_dir, seed=args.seed,
                         checkpoint_dir=args.checkpoint_dir,
                         checkpoint_interval=args.checkpoint_interval,
-                        actor_grace=args.actor_grace, device=args.device)
+                        actor_grace=args.actor_grace, device=args.device,
+                        serve_inference=args.serve_inference, remote_act=args.remote_act)
     result = train_local(args.config, args.section, args.updates, run_dir=args.run_dir,
                          seed=args.seed, device=args.device,
                          checkpoint_dir=args.checkpoint_dir,

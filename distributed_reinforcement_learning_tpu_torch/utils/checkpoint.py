@@ -6,7 +6,7 @@ in place of flax's msgpack:
 - the unit is the learner's whole train state (`agents/common.py`
   `TrainState` or `TargetTrainState`: every field, as a dict of
   tensors or an int), plus a JSON sidecar of host-side counters and
-  named auxiliary blobs (the R2D2 replay snapshot);
+  named auxiliary blobs (the replay learners' replay snapshot);
 - writes are atomic (temp file, fsync, `os.replace`); the payload
   `ckpt_{step:010d}.pt` is written last and is the commit marker; the
   newest `retain` checkpoints are kept;
@@ -35,16 +35,31 @@ _CKPT_RE = re.compile(r"^ckpt_(\d{10})\.pt$")
 def encode_replay_snapshot(replay) -> bytes | None:
     """Pickle a replay buffer's `snapshot()` for checkpointing, or None:
     disabled with `DRL_CKPT_REPLAY=0`, skipped (with a log line) above
-    `DRL_CKPT_REPLAY_MAX_MB` (default 512)."""
+    `DRL_CKPT_REPLAY_MAX_MB` (default 512; a full Atari replay at
+    capacity 1e5 is ~5.6 GB). Takes every backend's snapshot: the list
+    backends' `items` and the array backend's `stacked` payload, each
+    with its priorities and, where kept, the whole sum tree. A backend
+    that prices its snapshot (`approx_snapshot_nbytes`) is refused
+    before the snapshot is copied."""
     if os.environ.get("DRL_CKPT_REPLAY", "1") == "0":
         return None
     cap_mb = float(os.environ.get("DRL_CKPT_REPLAY_MAX_MB", "512"))
+
+    def over_cap(nbytes: int) -> bool:
+        if nbytes > cap_mb * 1e6:
+            print(f"[checkpoint] replay snapshot {nbytes / 1e6:.0f} MB exceeds "
+                  f"DRL_CKPT_REPLAY_MAX_MB={cap_mb:.0f}; skipping (set higher to keep it)",
+                  file=sys.stderr)
+            return True
+        return False
+
+    estimate = getattr(replay, "approx_snapshot_nbytes", None)
+    if estimate is not None and over_cap(estimate()):
+        return None
     snap = replay.snapshot()
-    nbytes = sum(x.nbytes for x in _iter_array_leaves(snap["items"])) + snap["tree"].nbytes
-    if nbytes > cap_mb * 1e6:
-        print(f"[checkpoint] replay snapshot {nbytes / 1e6:.0f} MB exceeds "
-              f"DRL_CKPT_REPLAY_MAX_MB={cap_mb:.0f}; skipping (set higher to keep it)",
-              file=sys.stderr)
+    nbytes = sum(x.nbytes for key in ("items", "stacked", "tree", "priorities")
+                 for x in _iter_array_leaves(snap.get(key)))
+    if over_cap(nbytes):
         return None
     return pickle.dumps(snap, protocol=pickle.HIGHEST_PROTOCOL)
 

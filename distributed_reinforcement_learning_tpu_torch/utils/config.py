@@ -1,8 +1,8 @@
-"""Config loading: the IMPALA, R2D2 and Transformer-IMPALA sections of
-the repo's `config.json`.
+"""Config loading: the IMPALA, Ape-X, R2D2 and Transformer-IMPALA
+sections of the repo's `config.json`.
 
-Counterpart of the JAX package's `utils/config.py`, IMPALA, R2D2 and
-ximpala branches. Loads one section into an agent config and a
+Counterpart of the JAX package's `utils/config.py`, IMPALA, Ape-X, R2D2
+and ximpala branches. Loads one section into an agent config and a
 `RuntimeConfig` and applies the same validation (actor, env and
 action-set counts agree). Keys that select what the port does not run
 yet (another algorithm, several optimizer steps per call, a non-dense
@@ -15,6 +15,7 @@ import dataclasses
 import json
 from pathlib import Path
 
+from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexConfig
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Config
 from distributed_reinforcement_learning_tpu_torch.agents.xformer import check_dense_body
@@ -52,13 +53,13 @@ def check_config(rt: RuntimeConfig, num_actions: int) -> None:
 
 
 def load_config(path: str | Path, section: str):
-    """One config section -> (ImpalaConfig, R2D2Config or XImpalaConfig,
-    RuntimeConfig)."""
+    """One config section -> (ImpalaConfig, ApexConfig, R2D2Config or
+    XImpalaConfig, RuntimeConfig)."""
     d = json.loads(Path(path).read_text())[section]
     algorithm = d.get("algorithm", section.split("_")[0])
-    if algorithm not in ("impala", "r2d2", "ximpala"):
-        raise ValueError(f"section {section!r} is {algorithm!r}; the PyTorch port "
-                         "runs the IMPALA, R2D2 and Transformer-IMPALA families only")
+    if algorithm not in ("impala", "apex", "r2d2", "ximpala"):
+        raise ValueError(f"section {section!r} is {algorithm!r}; the PyTorch port runs the "
+                         "IMPALA, Ape-X, R2D2 and Transformer-IMPALA families only")
     if d.get("updates_per_call", 1) != 1:
         raise ValueError("updates_per_call > 1 is not ported")
     rt = RuntimeConfig(
@@ -75,6 +76,20 @@ def load_config(path: str | Path, section: str):
         target_sync_interval=d.get("target_sync_interval", 100),
         epsilon_floor=d.get("epsilon_floor"),
     )
+    if algorithm == "apex":
+        agent_cfg = ApexConfig(
+            obs_shape=tuple(d["model_input"]),
+            num_actions=d["model_output"],
+            discount_factor=d.get("discount_factor", 0.99),
+            reward_clipping=d.get("reward_clipping", "abs_one"),
+            gradient_clip_norm=d.get("gradient_clip_norm", 40.0),
+            start_learning_rate=d.get("start_learning_rate", 1e-4),
+            end_learning_rate=d.get("end_learning_rate", 0.0),
+            learning_frame=int(d.get("learning_frame", 1e9)),
+            fold_normalize=d.get("fold_normalize", False),
+        )
+        check_config(rt, agent_cfg.num_actions)
+        return agent_cfg, rt
     if algorithm == "r2d2":
         agent_cfg = R2D2Config(
             obs_shape=tuple(d["model_input"]),

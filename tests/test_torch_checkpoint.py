@@ -1,7 +1,8 @@
 """Checkpoints of the port (`utils/checkpoint.py`, the learners' save and
 restore): save -> restore -> learn equals an uninterrupted learn bit for
-bit on the CPU for each family (R2D2 with its replay snapshot and its
-sampling stream); writes are atomic; the last 3 are kept; local-mode
+bit on the CPU for each family (R2D2 and Ape-X with their replay
+snapshots and sampling streams); writes are atomic; the last 3 are kept;
+an over-cap array replay is skipped before it is copied; local-mode
 training resumes from its checkpoint.
 """
 
@@ -178,3 +179,81 @@ def test_train_local_resumes_from_its_checkpoint(tmp_path):
                        checkpoint_dir=str(tmp_path))
     assert done["skipped"].startswith("checkpoint already at step 3")
     assert np.isfinite(list(again["last_metrics"].values())).all()
+
+
+def _apex_unrolls(n: int, seed: int) -> list:
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexBatch
+
+    rng = np.random.RandomState(seed)
+    return [ApexBatch(state=rng.randn(32, 4).astype(np.float32),
+                      next_state=rng.randn(32, 4).astype(np.float32),
+                      previous_action=rng.randint(0, 2, 32).astype(np.int32),
+                      action=rng.randint(0, 2, 32).astype(np.int32),
+                      reward=rng.randn(32).astype(np.float32), done=rng.rand(32) < 0.1)
+            for _ in range(n)]
+
+
+def _apex_learner():
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent, ApexConfig
+    from distributed_reinforcement_learning_tpu_torch.runtime.apex_runner import ApexLearner
+
+    agent = ApexAgent(ApexConfig(obs_shape=(4,), num_actions=2), device="cpu")
+    learner = ApexLearner(agent, TrajectoryQueue(64), WeightStore(), batch_size=8,
+                          replay_capacity=300, target_sync_interval=3, train_start_unrolls=2,
+                          seed=0)
+    learner.sync_publish = True
+    return learner
+
+
+def _apex_steps(learner, unrolls, n: int) -> list[dict]:
+    out = []
+    for u in unrolls[:n]:
+        learner.queue.put(u)
+        while learner.ingest_many(timeout=0.0):
+            pass
+        out.append({k: float(v) for k, v in learner.train().items()})
+    return out
+
+
+def test_apex_restore_then_learn_equals_an_uninterrupted_run(tmp_path):
+    """The Ape-X learner's checkpoint (train state, sampling stream, target
+    cadence, the array replay's exact snapshot): restore -> train equals
+    the run that never stopped, bit for bit."""
+    unrolls = _apex_unrolls(12, seed=0)
+    learner = _apex_learner()
+    for u in unrolls[:2]:
+        learner.queue.put(u)
+    assert _apex_steps(learner, unrolls[2:], 4)
+    learner.save_checkpoint(Checkpointer(tmp_path))
+    want = _apex_steps(learner, unrolls[6:], 4)
+
+    restored = _apex_learner()
+    assert restored.restore_checkpoint(Checkpointer(tmp_path))
+    assert restored.train_steps == 4 and restored.ingested_unrolls == 6
+    assert type(restored.replay).__name__ == "ArrayPrioritizedReplay"
+    assert _apex_steps(restored, unrolls[6:], 4) == want
+    for k, v in learner.state.params.items():
+        assert torch.equal(restored.state.params[k], v)
+        assert torch.equal(restored.state.target_params[k], learner.state.target_params[k])
+    assert restored.replay.snapshot()["tree"].tobytes() == \
+        learner.replay.snapshot()["tree"].tobytes()
+
+
+def test_an_over_cap_array_replay_is_skipped_before_its_snapshot(monkeypatch, capsys):
+    """The array backend prices its snapshot (`stacked` rings) without a
+    copy: over `DRL_CKPT_REPLAY_MAX_MB` the checkpoint skips it with a log
+    line and never calls `snapshot()`."""
+    from distributed_reinforcement_learning_tpu_torch.data.replay import ArrayPrioritizedReplay
+
+    replay = ArrayPrioritizedReplay(1000, seed=0)
+    batch = {"frame": np.zeros((500, 84, 84), np.uint8), "r": np.zeros(500, np.float32)}
+    replay.add_batch_stacked(np.ones(500), batch)
+    assert ckpt_mod.encode_replay_snapshot(replay) is not None  # 3.5 MB under 512 MB
+    monkeypatch.setenv("DRL_CKPT_REPLAY_MAX_MB", "1")
+
+    def no_snapshot():
+        raise AssertionError("snapshot() called on an over-cap replay")
+
+    monkeypatch.setattr(replay, "snapshot", no_snapshot)
+    assert ckpt_mod.encode_replay_snapshot(replay) is None
+    assert "exceeds DRL_CKPT_REPLAY_MAX_MB=1; skipping" in capsys.readouterr().err

@@ -58,7 +58,9 @@ def test_port_imports_with_jax_blocked():
     for name in ("ops.kernels.vtrace", "ops.kernels.lstm", "agents.r2d2", "data.replay",
                  "runtime.r2d2_runner", "train_r2d2", "ops.attention",
                  "ops.kernels.attention", "models.transformer_net", "agents.xformer",
-                 "agents.ximpala", "runtime.ximpala_runner", "train_ximpala"):
+                 "agents.ximpala", "runtime.ximpala_runner", "train_ximpala", "agents.apex",
+                 "models.apex_net", "data.native", "runtime.replay_train",
+                 "runtime.apex_runner", "train_apex"):
         assert f"distributed_reinforcement_learning_tpu_torch.{name}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,

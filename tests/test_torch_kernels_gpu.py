@@ -691,3 +691,66 @@ def test_run_role_learner_on_cuda_launches_vtrace_twice_a_step(tmp_path):
     assert summary["device"].startswith("cuda") and summary["train_steps"] == 4
     assert summary["launches"]["vtrace"] == 8
     assert len(summary["h2d_ms"]) >= 4 and summary["h2d_ms_per_batch"] > 0
+
+
+@pytest.mark.gpu
+def test_apex_learn_step_on_cuda_matches_the_cpu():
+    """`td_error` and one Ape-X learn step (`grads` then `apply_grads`,
+    which together are `learn`; 84x84x4 uint8 frames, folded /255, a
+    target network that differs from the main one) from the same
+    parameters on the card and on the CPU, TF32 off: rtol 1e-4 on the
+    loss, the grad norm, the gradients (atol 1e-5 of each tensor's
+    largest) and the TD vector. The parameters after the step: rtol 1e-4
+    (atol 1% of lr) where the two gradients agree to 0.1%; elsewhere a
+    gradient at float32's noise floor gets Adam's lr-sized step either
+    way, and the two may differ by the 2 lr that bounds it. The Ape-X
+    path launches no kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import (
+        ApexAgent, ApexBatch, ApexConfig)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = ApexConfig(fold_normalize=True)
+        lr = cfg.start_learning_rate
+        rng = np.random.RandomState(3)
+        B = 8
+        batch = ApexBatch(
+            state=rng.randint(0, 256, (B, 84, 84, 4)).astype(np.uint8),
+            next_state=rng.randint(0, 256, (B, 84, 84, 4)).astype(np.uint8),
+            previous_action=rng.randint(0, 4, B).astype(np.int32),
+            action=rng.randint(0, 4, B).astype(np.int32),
+            reward=rng.choice([0.0, 1.0, -2.0], B).astype(np.float32),
+            done=np.arange(B) % 3 == 1)
+        is_weight = np.linspace(0.3, 1.0, B).astype(np.float32)
+        launches = (kvt.vtrace_cuda.launches, klstm.lstm_fwd_cuda.launches,
+                    kattn.flash_fwd_cuda.launches)
+        out = {}
+        for device in ("cuda", "cpu"):
+            agent = ApexAgent(cfg, device=device)
+            state = agent.init_state(seed=1)
+            for k, v in agent.init_state(seed=2).params.items():
+                state.target_params[k].copy_(v)
+            td0 = agent.td_error(state, batch).cpu()
+            grads, td, loss = agent.grads(state, batch, is_weight)
+            host_grads = {k: v.cpu() for k, v in grads.items()}
+            _, metrics = agent.apply_grads(state, grads, loss)
+            out[device] = (td0, td.cpu(), {k: float(v) for k, v in metrics.items()}, host_grads,
+                           {k: v.detach().cpu() for k, v in state.params.items()})
+        assert (kvt.vtrace_cuda.launches, klstm.lstm_fwd_cuda.launches,
+                kattn.flash_fwd_cuda.launches) == launches
+        (td0_g, td_g, m_g, g_g, p_g), (td0_c, td_c, m_c, g_c, p_c) = out["cuda"], out["cpu"]
+        torch.testing.assert_close(td0_g, td0_c, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(td_g, td_c, rtol=1e-4, atol=1e-6)
+        for k in m_c:
+            assert m_g[k] == pytest.approx(m_c[k], rel=1e-4), k
+        for k, v in p_c.items():
+            torch.testing.assert_close(g_g[k], g_c[k], rtol=1e-4,
+                                       atol=1e-5 * float(g_c[k].abs().max()))
+            settled = (g_g[k] - g_c[k]).abs() <= 1e-3 * g_c[k].abs()
+            torch.testing.assert_close(p_g[k][settled], v[settled], rtol=1e-4, atol=1e-2 * lr)
+            assert float((p_g[k] - v).abs().max()) <= 2 * lr * (1 + 1e-5), k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32

@@ -1,7 +1,8 @@
 """The port's multi-process topology on the CPU: a learner process and an
 actor process over TCP (`runtime/transport.py:run_role` through
-`train_impala --mode learner|actor`), as tests/test_launch.py drives the
-JAX launcher; and the planes `run_role` refuses by name.
+`train_impala --mode learner|actor`, and `train_apex` on a CartPole Ape-X
+section), as tests/test_launch.py drives the JAX launcher; and the planes
+`run_role` refuses by name.
 
 Each child runs in its own process group and is killed whole on its own
 timeout; the learner binds a free port passed through
@@ -30,10 +31,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(args: list[str], env: dict) -> subprocess.Popen:
+def _spawn(args: list[str], env: dict, algo: str = "impala", config: Path = CONFIG,
+           section: str = "impala_cartpole") -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.train_impala",
-         "--config", str(CONFIG), "--section", "impala_cartpole", "--device", "cpu", *args],
+        [sys.executable, "-m", f"distributed_reinforcement_learning_tpu_torch.train_{algo}",
+         "--config", str(config), "--section", section, "--device", "cpu", *args],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
 
@@ -73,6 +75,42 @@ def test_learner_and_actor_processes_train_over_tcp(tmp_path):
     a_summary = json.loads(a_out.strip().splitlines()[-1])
     assert a_summary["weight_version"] > 0 and a_summary["frames"] > 0
     assert (tmp_path / "ckpt" / "ckpt_0000000006.pt").exists()
+
+
+# A CartPole Ape-X section (config.json has only the Breakout one).
+_APEX_CARTPOLE = {
+    "num_actors": 1, "env": ["CartPole-v0"], "available_action": [2], "envs_per_actor": 4,
+    "model_input": [4], "model_output": 2, "batch_size": 32, "queue_size": 32,
+    "replay_capacity": 2000, "target_sync_interval": 10, "start_learning_rate": 0.001,
+}
+
+
+def test_apex_learner_and_actor_processes_train_over_tcp(tmp_path):
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({"apex_cartpole": _APEX_CARTPOLE}))
+    env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{_free_port()}",
+               OMP_NUM_THREADS="2")
+    kw = dict(algo="apex", config=config, section="apex_cartpole")
+    learner = _spawn(["--mode", "learner", "--updates", "3"], env, **kw)
+    actor = _spawn(["--mode", "actor", "--task", "0", "--actor_grace", "1"], env, **kw)
+    try:
+        out, err = _finish(learner, timeout=150)
+        a_out, a_err = _finish(actor, timeout=60)
+    finally:
+        for p in (learner, actor):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+    assert learner.returncode == 0, out[-2000:] + err[-2000:]
+    assert actor.returncode == 0, a_out[-2000:] + a_err[-2000:]
+    assert "done: 3 updates" in out
+    assert "[apex learner] replay: ArrayPrioritizedReplay over" in err
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["train_steps"] == 3 and summary["ingested_unrolls"] >= 10
+    assert summary["queue"] == "NativeTrajectoryQueue"
+    assert summary["replay"] == "ArrayPrioritizedReplay" and summary["replay_size"] >= 320
+    assert set(summary["launches"].values()) == {0}
+    a_summary = json.loads(a_out.strip().splitlines()[-1])
+    assert a_summary["weight_version"] >= 0 and a_summary["frames"] > 0
 
 
 @pytest.mark.parametrize("mode, env, item", [

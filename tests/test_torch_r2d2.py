@@ -9,7 +9,9 @@
   priority modes and with the optional clip: loss, grad norm,
   priorities, updated parameters and Adam moments at rtol 1e-4.
 - `PrioritizedReplay` against the JAX python backend under one seed: the
-  same tree indices and totals, bit-equal IS weights.
+  same tree indices and totals, bit-equal IS weights. The learner's own
+  replay is `make_replay("auto")`'s array backend in both packages, and
+  from the same seed and inserts it samples the JAX learner's indices.
 - The sequence accumulator, the `r2d2` config sections, epsilon-greedy
   by distribution, the CUDA default of the entry points, and one
   full-width run of the `r2d2` section through the launcher.
@@ -233,6 +235,45 @@ def test_replay_matches_jax_python_backend(capacity, n_add):
         assert mine.tree.total == ref.tree.total
         np.testing.assert_array_equal(mine.tree._tree, ref.tree._tree)
     assert len(mine) == len(ref) == min(capacity, n_add)
+
+
+def test_learner_replay_is_the_jax_learners_backend():
+    """The learner builds `make_replay(backend="auto")`, as the JAX
+    learner does: the array backend over the native sum tree here. From
+    the same seed and inserts it samples the JAX learner's indices and
+    IS weights, through each learner's own sampling stream."""
+    from distributed_reinforcement_learning_tpu.data.fifo import TrajectoryQueue as JaxQueue
+    from distributed_reinforcement_learning_tpu.runtime.r2d2_runner import (
+        R2D2Learner as JaxLearner)
+    from distributed_reinforcement_learning_tpu.runtime.weights import WeightStore as JaxStore
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
+    from distributed_reinforcement_learning_tpu_torch.runtime.r2d2_runner import R2D2Learner
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    kw = dict(obs_shape=(2,), num_actions=2, seq_len=10, burn_in=5, lstm_size=16)
+    mine = R2D2Learner(R2D2Agent(R2D2Config(**kw), device="cpu"), TrajectoryQueue(8),
+                       WeightStore(), batch_size=8, replay_capacity=100, seed=3)
+    ref = JaxLearner(JaxAgent(JaxConfig(**kw)), JaxQueue(8), JaxStore(), batch_size=8,
+                     replay_capacity=100, seed=3)
+    assert type(mine.replay).__name__ == type(ref.replay).__name__ == "ArrayPrioritizedReplay"
+    rng = np.random.RandomState(8)
+    for _ in range(3):
+        batch = _seq_batch(B=40, T=10, H=16, seed=int(rng.randint(1 << 30)))
+        errors = rng.rand(40) * 2.0
+        mine.replay.add_batch_stacked(errors, R2D2Batch(**batch))
+        ref.replay.add_batch_stacked(errors, JaxBatch(**batch))
+    for _ in range(3):
+        got, idx, w = mine.replay.sample(8, mine._np_rng)
+        want, want_idx, want_w = ref.replay.sample(8, ref._np_rng)
+        np.testing.assert_array_equal(idx, want_idx)
+        np.testing.assert_array_equal(w, want_w)
+        assert isinstance(got, R2D2Batch)
+        for field in R2D2Batch._fields:
+            np.testing.assert_array_equal(getattr(got, field), np.asarray(getattr(want, field)))
+        new = rng.rand(8)
+        mine.replay.update_batch(idx, new)
+        ref.replay.update_batch(want_idx, new)
+    assert len(mine.replay) == len(ref.replay) == 100
 
 
 def test_sequence_accumulator_matches_jax():

@@ -8,7 +8,9 @@ whose learner steps on what arrives (equal to a step on the same
 trajectories in process), a port client feeds a JAX server, and the
 weight plane's fallbacks (a JAX actor's sharded pull demotes to whole
 blobs against a port learner; a port actor refuses a JAX learner's flax
-weights). Every server binds a free port.
+weights). An Ape-X unroll encodes to the same bytes in both codecs, and a
+port Ape-X learner behind the native queue ingests a JAX client's
+unrolls. Every server binds a free port.
 """
 
 import socket
@@ -303,3 +305,70 @@ def test_port_actor_refuses_a_jax_learners_weights():
     finally:
         client.close()
         server.stop()
+
+
+def _apex_unroll(module, seed: int, frames: bool = True):
+    """A re-sampled Ape-X unroll of 32 transitions as the actor puts it:
+    uint8 frames (or CartPole vectors), i32 actions, f32 rewards, dones."""
+    rng = np.random.RandomState(seed)
+    obs = ((32, 84, 84, 4), np.uint8) if frames else ((32, 4), np.float32)
+    make = ((lambda: rng.randint(0, 256, obs[0]).astype(obs[1])) if frames
+            else (lambda: rng.randn(*obs[0]).astype(obs[1])))
+    return module.ApexBatch(
+        state=make(), next_state=make(),
+        previous_action=rng.randint(0, 4, 32).astype(np.int32),
+        action=rng.randint(0, 4, 32).astype(np.int32),
+        reward=rng.choice([0.0, 1.0, -1.0], 32).astype(np.float32),
+        done=rng.rand(32) < 0.1)
+
+
+def test_apex_unroll_blobs_are_byte_identical():
+    from distributed_reinforcement_learning_tpu.agents import apex as jax_apex
+    from distributed_reinforcement_learning_tpu.data import codec as jax_codec
+    from distributed_reinforcement_learning_tpu_torch.agents import apex
+    from distributed_reinforcement_learning_tpu_torch.data import codec
+
+    ours, theirs = _apex_unroll(apex, seed=4), _apex_unroll(jax_apex, seed=4)
+    blob = codec.encode(ours)
+    assert bytes(blob) == bytes(jax_codec.encode(theirs))
+    back = codec.decode(jax_codec.encode(theirs), copy=True)
+    assert type(back).__name__ == "ApexBatch" and back._fields == apex.ApexBatch._fields
+    for x, y in zip(back, ours):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+def test_port_apex_learner_ingests_jax_encoded_unrolls():
+    """A JAX client puts Ape-X unrolls into a port server over the native
+    queue; the port learner ingests them: the replay holds the same
+    transitions, with the priorities of a TD pass on the same arrays in
+    process."""
+    from distributed_reinforcement_learning_tpu.agents import apex as jax_apex
+    from distributed_reinforcement_learning_tpu_torch.agents import apex
+    from distributed_reinforcement_learning_tpu_torch.data.native import NativeTrajectoryQueue
+    from distributed_reinforcement_learning_tpu_torch.runtime.apex_runner import ApexLearner
+
+    agent = apex.ApexAgent(apex.ApexConfig(obs_shape=(4,), num_actions=4), device="cpu")
+    queue, weights = NativeTrajectoryQueue(8), WeightStore()
+    learner = ApexLearner(agent, queue, weights, batch_size=8, replay_capacity=256, seed=0)
+    port = _free_port()
+    server = TransportServer(queue, weights, host="127.0.0.1", port=port).start()
+    client = jax_transport.TransportClient("127.0.0.1", port)
+    unrolls = [_apex_unroll(jax_apex, seed=s, frames=False) for s in (5, 6)]
+    try:
+        assert client.put_trajectories(unrolls) == 2
+        deadline = time.monotonic() + 5.0
+        while queue.size() < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        while learner.ingest_many(timeout=0.5):
+            pass
+    finally:
+        client.close()
+        server.stop()
+    assert learner.ingested_unrolls == 2 and len(learner.replay) == 64
+    snap = learner.replay.snapshot()
+    for field in apex.ApexBatch._fields:
+        want = np.concatenate([np.asarray(getattr(u, field)) for u in unrolls])
+        np.testing.assert_array_equal(getattr(snap["stacked"], field), want)
+    td = np.concatenate([agent.td_error(learner.state, apex.ApexBatch(*u)).numpy()
+                         for u in unrolls])
+    np.testing.assert_allclose(snap["priorities"], (np.abs(td) + 0.001) ** 0.6, rtol=1e-6)
