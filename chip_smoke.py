@@ -82,9 +82,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the actors delivered, the H2D ms a batch, the publication latency,
    the queue depth at each step and the peak memory.
 12. Multi-process `r2d2` and `ximpala`: one CUDA learner and one CPU actor
-   each, 3 updates; the r2d2 learner launches K2a twice per ingest and per
-   learn step and K2b once per learn step, the ximpala learner K3a, K3b,
-   K3c once per layer and K1 twice per learn step.
+   each, 3 updates; the r2d2 learner on its monolithic replay
+   (DRL_REPLAY_SHARDS=0, the sharded service's demotion target) launches
+   K2a twice per ingest and per learn step and K2b once per learn step,
+   the ximpala learner K3a, K3b, K3c once per layer and K1 twice per
+   learn step.
 13. Transport parity: a seeded `impala` batch through codec, server and
    client arrives bit-identical; a learner fed through the prefetcher
    matches the in-process learn step to rtol 1e-4; an async-published
@@ -109,7 +111,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    agree to 0.1%; an element whose gradient sits at float32's noise
    floor gets Adam's lr-sized step either way, and is held to that
    bound).
-17. Multi-process Ape-X at full width: a CUDA learner (`train_apex --mode
+17. Multi-process Ape-X at full width on the learner's monolithic replay
+   (DRL_REPLAY_SHARDS=0, the demotion target of the sharded service that
+   `run_role` builds by default): a CUDA learner (`train_apex --mode
    learner --section apex --updates 5`) fed over loopback TCP by 2 actor
    processes (`--mode actor --task k --device cpu`, 5 Breakout-sim envs
    each; 2 of the section's 4, since each warm actor step puts 1.81 MB
@@ -120,12 +124,40 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    client over TCP; logs the learner's unrolls ingested, MB received,
    ingest ms, queue depth at each step, busy share and peak memory, and
    the env frames/s the actors delivered.
-18. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   path launches none).
-19. The device line, then `{"ok": true, "device": {...}}` as the last line.
+18. The sharded replay in process, at the `apex` section's width: the
+   port's `ShardedReplayService` with 2 shards over the section's
+   capacity (100,000), the max scorer and the spill tier in a temporary
+   directory (16 MiB hot a shard, 128-transition segments of ~7 MB). 48
+   real unroll blobs of the section's 4 actors go in through the ingest
+   facade on two threads, a shard each; an `ApexLearner` on CUDA over the
+   service runs 5 K=1 and 2 K=4 train calls. Fails unless both shards
+   hold blobs, no shard demoted, segments spilled (> 0) and promoted
+   (>= 1) with no CRC drop, every call's metrics are finite and no kernel
+   launched; then one K=4 call (`learn_many`) on CUDA against the CPU,
+   TF32 off, at phase 16's bar at each of its 4 steps. Logs the ingest ms
+   a blob per shard, the gather-sample of 32, the update route, the
+   tier's counters (spilled, promoted, forced pads, CRC drops), the train
+   calls at K=1 and K=4 and the phase's own peak memory.
+19. Multi-process Ape-X with the learner `run_role` builds by default (no
+   DRL_REPLAY_SHARDS or DRL_REPLAY_SPILL set, phase 18's spill sizes): 2
+   actor processes, 5 updates. Fails unless the learner reports 2 shards
+   with the spill tier on and healthy; logs the unrolls each shard
+   ingested, the segments spilled, the learner's busy share, the env
+   frames/s, the first step's time and the learner's peak memory.
+20. Multi-process R2D2 with the default learner, from a temporary copy of
+   the `r2d2` section with `updates_per_call: 2`: 1 actor process, 3
+   train calls (6 learn steps). Fails unless the learner reports 2
+   shards with the spill tier on, launched exactly 2 K2a and 1 K2b per
+   learn step (12 and 6) and scored no ingest (so no K2a on ingest: the
+   shards take max priorities); logs the sequences each shard ingested.
+21. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K2a and K2b carry phase 20's launches beside phase
+   6's).
+22. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6, 9 and 15 are read net of it.
+logged, so that the peaks of phases 4, 6, 9, 15 and 18 are read net of
+it.
 Every child process runs in its own process group and is killed whole
 if its phase fails.
 
@@ -150,7 +182,8 @@ from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAge
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Batch
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
     XImpalaAgent, XImpalaBatch)
-from distributed_reinforcement_learning_tpu_torch.data.fifo import tree_map
+from distributed_reinforcement_learning_tpu_torch.data import replay_service
+from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue, tree_map
 from distributed_reinforcement_learning_tpu_torch.ops.attention import dense_attention
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import _build
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn
@@ -858,8 +891,10 @@ def phase_r2d2_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def lstm_rows(k2: dict, r2d2: dict) -> list[dict]:
-    """The K2a and K2b entries of the kernels line."""
+def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict) -> list[dict]:
+    """The K2a and K2b entries of the kernels line: `launches` from the
+    r2d2 path (phase 6), with the default multi-process r2d2 learner's
+    own count (phase 20, K=2 calls) beside it."""
     rows = []
     for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
         t = k2["timings"][LSTM_MAIN][tag]
@@ -868,6 +903,8 @@ def lstm_rows(k2: dict, r2d2: dict) -> list[dict]:
             "source": "distributed_reinforcement_learning_tpu_torch/csrc/lstm.cu",
             "replaces": f"distributed_reinforcement_learning_tpu/ops/pallas/lstm.py:{line}",
             "launches": r2d2["launches"][name], "max_abs_err": k2["max_abs_err"][tag],
+            "launches_by_path": {"r2d2": r2d2["launches"][name],
+                                 "multiprocess_r2d2_default": r2d2_default["launches"][name]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
@@ -1236,6 +1273,9 @@ def phase_ximpala_parity() -> None:
 MP_UPDATES = 8  # the multi-process impala phase: 8 updates, 4 CPU actor processes
 MP_SMALL_UPDATES = 3  # the multi-process r2d2 and ximpala phases
 MP_TIMEOUT_S = 300
+# The replay learners' monolithic replay, the demotion target of the
+# sharded service that `run_role` builds by default.
+MONOLITHIC = {"DRL_REPLAY_SHARDS": "0"}
 PAGEABLE_H2D_MS = 2.49  # PR 4's reading of the impala batch's pageable copy
 
 
@@ -1281,28 +1321,35 @@ def probe_weights(port: int, stop, versions: list) -> None:
 
 
 def run_topology(algo: str, section: str, updates: int, actors: int,
-                 versions: list | None = None) -> tuple[dict, list]:
+                 versions: list | None = None, env_set: dict | None = None,
+                 config: Path = CONFIG, tag: str = "") -> tuple[dict, list]:
     """One learner process on CUDA and `actors` actor processes with
     `--device cpu` (one torch thread each), over loopback TCP on a free
     port. Every process runs in its own process group; on any failure or
     timeout all of them are killed whole before this raises. With
     `versions`, a weight client in this process pulls from the learner
-    while it runs (`probe_weights`). -> (the learner's summary, the
-    actors' summaries)."""
+    while it runs (`probe_weights`). `env_set` sets (a value) or unsets
+    (None) variables in every process's environment. -> (the learner's
+    summary, the actors' summaries)."""
     import os
     import signal
     import threading
 
     port = free_port()
     env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{port}")
+    for key, value in (env_set or {}).items():
+        if value is None:
+            env.pop(key, None)
+        else:
+            env[key] = value
     actor_env = dict(env, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", f"distributed_reinforcement_learning_tpu_torch.train_{algo}",
-            "--config", str(CONFIG), "--section", section]
+            "--config", str(config), "--section", section]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
     def spawn(args, child_env, name):
-        f = open(out_dir / f"smoke_{section}_{name}.log", "w+")
+        f = open(out_dir / f"smoke_{section}{tag}_{name}.log", "w+")
         proc = subprocess.Popen(base + args, cwd=ROOT, env=child_env, stdout=f,
                                 stderr=subprocess.STDOUT, text=True, start_new_session=True)
         return proc, f
@@ -1402,12 +1449,16 @@ def phase_multiprocess_impala() -> dict:
 
 def phase_multiprocess_small() -> dict:
     """The `r2d2` and `ximpala` sections across processes: one CUDA
-    learner and one CPU actor each, MP_SMALL_UPDATES updates."""
+    learner and one CPU actor each, MP_SMALL_UPDATES updates. The r2d2
+    learner runs its monolithic replay (DRL_REPLAY_SHARDS=0, the sharded
+    service's demotion target), which scores every ingest with K2a;
+    phase 20 runs the default, sharded one."""
     out = {}
     lstm = klstm.lstm_fwd_cuda.launches
     for algo in ("r2d2", "ximpala"):
         agent_cfg, _ = load_config(CONFIG, algo)
-        learner, actors = run_topology(algo, algo, MP_SMALL_UPDATES, 1)
+        learner, actors = run_topology(algo, algo, MP_SMALL_UPDATES, 1,
+                                       env_set=MONOLITHIC if algo == "r2d2" else None)
         n, got = MP_SMALL_UPDATES, learner["launches"]
         if algo == "r2d2":
             ingests = learner["stage_calls"].get("ingest_td", 0)
@@ -1422,7 +1473,8 @@ def phase_multiprocess_small() -> dict:
                                f"{got}, expected {want}; actor {actors[0]}")
         steps = learner["step_s"]
         log(f"[multiproc] {algo}: {n} updates in a {learner['wall_s']:.2f} s learner loop "
-            f"(first at {steps[0]:.2f} s), launches {got}, stage ms "
+            + ("(DRL_REPLAY_SHARDS=0: the monolithic replay) " if algo == "r2d2" else "")
+            + f"(first at {steps[0]:.2f} s), launches {got}, stage ms "
             + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
             + f"; actor {actors[0]['frames']} env frames, weight version "
             f"{actors[0]['weight_version']}; peak {learner['peak_device_mib']:.1f} MiB")
@@ -1767,11 +1819,13 @@ def phase_apex_parity() -> None:
 def phase_multiprocess_apex() -> dict:
     """The `apex` section at full width across processes: the learner on
     CUDA, APEX_MP_ACTORS actor processes of 5 Breakout-sim envs on the
-    CPU, APEX_UPDATES updates over loopback TCP."""
+    CPU, APEX_UPDATES updates over loopback TCP; the learner's monolithic
+    replay (DRL_REPLAY_SHARDS=0), the demotion target of the sharded
+    service that phase 19 runs."""
     versions: list = []
     t0 = time.perf_counter()
     learner, actors = run_topology("apex", "apex", APEX_UPDATES, APEX_MP_ACTORS,
-                                   versions=versions)
+                                   versions=versions, env_set=MONOLITHIC)
     total = time.perf_counter() - t0
     launches = learner["launches"]
     if (learner["train_steps"] != APEX_UPDATES or learner["queue"] != "NativeTrajectoryQueue"
@@ -1798,7 +1852,9 @@ def phase_multiprocess_apex() -> dict:
               "ingest_td_ms": learner["stage_ms"].get("ingest_td"), "busy_share": busy,
               "env_frames_per_s": actor_rate, "peak_mib": learner["peak_device_mib"],
               "queue_depth": learner["queue_depth"], "first_step_s": steps[0]}
-    log(f"[multiproc] apex: {learner['train_steps']} updates, {learner['ingested_unrolls']} "
+    log(f"[multiproc] apex (DRL_REPLAY_SHARDS=0: the monolithic replay, the sharded "
+        f"service's demotion target): {learner['train_steps']} updates, "
+        f"{learner['ingested_unrolls']} "
         f"unrolls ingested ({learner['replay_size']} transitions in the "
         f"{learner['replay']}), {mb:.1f} MB received over the {learner['queue']}; topology "
         f"{total:.1f} s; learner loop {learner['wall_s']:.2f} s, steps done at "
@@ -1817,6 +1873,365 @@ def phase_multiprocess_apex() -> dict:
         log(f"[multiproc] apex actor {a['task']}: {a['env_steps']} steps of "
             f"{rt.envs_per_actor} envs in {a['stepping_s']:.2f} s ({a['frames']} env frames in "
             f"completed rounds), weight version {a['weight_version']}, {a['transport']}")
+    return result
+
+
+# The spill tier's sizes in phases 18 and 19: at ~56 KB a transition
+# (two uint8 84x84x4 frames), 128-transition segments of ~7 MB under a
+# 16 MiB hot budget a shard, so that a few dozen unrolls spill and
+# promote segments.
+SPILL_ENV = {"DRL_REPLAY_SPILL_HOT_MB": "16", "DRL_REPLAY_SPILL_SEG": "128"}
+SHARD_BLOBS = 48  # unrolls phase 18 ingests, half on each of 2 threads
+SHARD_K = 4  # phase 18's K-update calls
+
+
+def apex_unroll_blobs(agent_cfg, rt, learner, n: int) -> list[bytes]:
+    """At least `n` codec blobs of the unrolls the `apex` section's 4
+    actors put (acting on the card with `learner`'s published weights)."""
+    from distributed_reinforcement_learning_tpu_torch.data import codec
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+
+    queue = TrajectoryQueue(256)
+    actors = [launch.make_actor("apex", agent_cfg, rt, i, queue, learner.weights,
+                                seed=1 + i, agent=learner.agent)
+              for i in range(rt.num_actors)]
+    blobs: list[bytes] = []
+    while len(blobs) < n:
+        for actor in actors:
+            actor.run_steps(8)
+        while (item := queue.get(timeout=0.0)) is not None:
+            blobs.append(bytes(codec.encode(item)))
+    return blobs
+
+
+def ingest_on_threads(facade, blobs: list[bytes], threads: int) -> list[list[float]]:
+    """Each of `threads` threads puts its share of `blobs` through the
+    facade (a thread owns a shard); -> each thread's ms per blob."""
+    import threading
+
+    times: list[list[float]] = [[] for _ in range(threads)]
+    errors: list[BaseException] = []
+
+    def run(i: int) -> None:
+        try:
+            for blob in blobs[i::threads]:
+                t0 = time.perf_counter()
+                if not facade.ingest_blob(blob):
+                    raise RuntimeError("a facade ingest returned False")
+                times[i].append((time.perf_counter() - t0) * 1e3)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the phase's thread
+            errors.append(e)
+
+    workers = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+    if errors or any(w.is_alive() for w in workers):
+        raise RuntimeError(f"sharded ingest failed: {errors}")
+    return times
+
+
+def k_call_parity(svc, agent_cfg, rt) -> str:
+    """One K-update call (`learn_many`) on CUDA and on the CPU, TF32 off,
+    from the same parameters (and another target network) on the same
+    gathered [K, B] batch: phase 16's bar at every one of the K steps
+    (loss, grad norm, gradients, TD at rtol 1e-4); the parameters after
+    the call at rtol 1e-4 (atol K x 1% of lr) wherever the two devices'
+    gradients agree to 0.1% at all K steps, and within Adam's K x 2 lr
+    elsewhere. -> a log line."""
+    from distributed_reinforcement_learning_tpu_torch.agents import common
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
+    from distributed_reinforcement_learning_tpu_torch.data.device_path import gather_scan_batch
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stacked, weights, _ = gather_scan_batch(svc, rt.batch_size, SHARD_K,
+                                            np.random.RandomState(5))
+    results = {}
+    for device in ("cuda", "cpu"):
+        agent = ApexAgent(agent_cfg, device=device)
+        state = agent.init_state(seed=11)
+        for k, v in agent.init_state(seed=12).params.items():
+            state.target_params[k].copy_(v.detach())
+        grads_k: list[dict] = []
+
+        def recording_learn(st, batch, w, agent=agent, grads_k=grads_k):
+            grads, td, loss = agent.grads(st, batch, w)
+            grads_k.append({k: v.cpu() for k, v in grads.items()})
+            st, metrics = agent.apply_grads(st, grads, loss)
+            return st, td, metrics
+
+        state, prio, metrics = common.learn_many(recording_learn, state, stacked, weights,
+                                                 agent.device)
+        results[device] = {"prio": prio.cpu().numpy(), "grads": grads_k,
+                           "metrics": {k: v.cpu().numpy() for k, v in metrics.items()},
+                           "params": {k: v.detach().cpu() for k, v in state.params.items()}}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cu, cpu = results["cuda"], results["cpu"]
+    for key in ("loss", "grad_norm", "learning_rate"):
+        np.testing.assert_allclose(cu["metrics"][key], cpu["metrics"][key], rtol=1e-4,
+                                   err_msg=f"K-call cuda vs cpu {key}")
+    np.testing.assert_allclose(cu["prio"], cpu["prio"], rtol=1e-4, atol=1e-6,
+                               err_msg="K-call cuda vs cpu TD")
+    lr = agent_cfg.start_learning_rate
+    unsettled, worst = 0, 0.0
+    for name, want in cpu["params"].items():
+        settled = torch.ones_like(want, dtype=torch.bool)
+        for g_cu, g_cpu in zip(cu["grads"], cpu["grads"]):
+            a, b = g_cu[name], g_cpu[name]
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()),
+                                       msg=lambda m: f"K-call {name} gradient: {m}")
+            settled &= (a - b).abs() <= 1e-3 * b.abs()
+        got = cu["params"][name]
+        torch.testing.assert_close(got[settled], want[settled], rtol=1e-4,
+                                   atol=SHARD_K * 1e-2 * lr,
+                                   msg=lambda m: f"K-call {name} after the call: {m}")
+        diff = float((got - want).abs().max())
+        if diff > SHARD_K * 2 * lr * (1 + 1e-5):
+            raise RuntimeError(f"K-call {name} differs by {diff}, beyond Adam's K x 2 lr")
+        unsettled += int((~settled).sum())
+        worst = max(worst, diff)
+    n = sum(v.numel() for v in cpu["params"].values())
+    rel = float(np.max(np.abs(cu["prio"] - cpu["prio"]) / np.maximum(np.abs(cpu["prio"]), 1e-6)))
+    return (f"K={SHARD_K} call cuda vs cpu (TF32 off) within phase 16's bar: TD worst rel "
+            f"{rel:.2e}, losses {cu['metrics']['loss'].tolist()}; parameters within "
+            f"{worst:.2e} ({worst / lr:.1e} of lr), {unsettled} of {n:,} elements at the "
+            f"gradients' noise floor")
+
+
+def phase_apex_shards(native_lib: Path) -> dict:
+    """The `apex` section's learner over the sharded replay service, in
+    process: 2 shards over the section's capacity, the max scorer, the
+    spill tier in a temporary directory at SPILL_ENV's sizes. 48 real
+    unroll blobs of the section's actors go in on two threads (a shard
+    each); an ApexLearner on CUDA over the service then runs 5 K=1 calls
+    and 2 K=4 calls; one K=4 call is held against the CPU."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch, replay_shard
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    t_phase = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, "apex")
+    spill_dir = tempfile.mkdtemp(prefix="smoke_spill_")
+    saved = {k: os.environ.get(k) for k in (*SPILL_ENV, "DRL_REPLAY_SPILL_DIR")}
+    os.environ.update(SPILL_ENV, DRL_REPLAY_SPILL_DIR=spill_dir)
+    try:
+        cfg = replay_shard.spill_config()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    svc = replay_service.ShardedReplayService(2, rt.replay_capacity, mode="transition",
+                                              scorer="max", seed=0, spill=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start = torch.cuda.memory_allocated()
+    try:
+        queue = TrajectoryQueue(rt.queue_size)
+        learner = launch.make_learner("apex", agent_cfg, rt, queue, WeightStore(), seed=0,
+                                      device="cuda", replay_service=svc)
+        check_port_replay(learner.replay, native_lib)
+        learner4 = launch.make_learner(
+            "apex", agent_cfg, dataclasses.replace(rt, updates_per_call=SHARD_K), queue,
+            WeightStore(), seed=0, device="cuda", replay_service=svc)
+        blobs = apex_unroll_blobs(agent_cfg, rt, learner, SHARD_BLOBS)
+        facade = replay_shard.ReplayIngestFifo(svc, queue)
+        zero_launch_counts()
+        times = ingest_on_threads(facade, blobs, 2)
+        if not svc.flush_tier(timeout=60.0):
+            raise RuntimeError("the spill tier did not quiesce")
+        shard_stats = svc.shard_stats()
+        held = [s["ingested_blobs"] for s in shard_stats]
+        if sum(held) != len(blobs) or min(held) == 0 or facade.demoted:
+            raise RuntimeError(f"sharded ingest: {held} of {len(blobs)} blobs, demoted "
+                               f"{facade.demoted}")
+        spilled_at_ingest = sum(t["spilled_segments"] for t in svc.tier_stats())
+
+        calls = {1: [], SHARD_K: []}
+        for lrn, k, n in ((learner, 1, 5), (learner4, SHARD_K, 2)):
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = lrn.train()
+                torch.cuda.synchronize()
+                if metrics is None or not all(math.isfinite(float(v)) for v in metrics.values()):
+                    raise RuntimeError(f"sharded K={k} train call: {metrics}")
+                calls[k].append((time.perf_counter() - t0) * 1e3)
+        if learner.train_steps != 5 or learner4.train_steps != 2 * SHARD_K:
+            raise RuntimeError(f"train steps {learner.train_steps}, {learner4.train_steps}")
+        launches = all_launches()
+        if any(launches.values()):
+            raise RuntimeError(f"the sharded Ape-X path launched kernels: {launches}")
+
+        rng = np.random.RandomState(3)
+        sample_ms, route_ms = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            _, idxs, _ = svc.sample(rt.batch_size, rng)
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            svc.update_batch(idxs, np.abs(rng.randn(rt.batch_size)))
+            if not svc.flush_updates(timeout=30.0):
+                raise RuntimeError("routed priority updates did not land")
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+        if not svc.flush_tier(timeout=60.0):
+            raise RuntimeError("the spill tier did not quiesce")
+        tiers = svc.tier_stats()
+        spilled = sum(t["spilled_segments"] for t in tiers)
+        promoted = sum(t["promoted_segments"] for t in tiers)
+        pads = sum(t["forced_pads"] for t in tiers)
+        crc = sum(t["crc_dropped"] for t in tiers)
+        if spilled == 0 or promoted < 1 or crc:
+            raise RuntimeError(f"spill tier: {spilled} spilled, {promoted} promoted, {crc} "
+                               f"CRC drops; {tiers}")
+        peak = torch.cuda.max_memory_allocated()
+        parity = k_call_parity(svc, agent_cfg, rt)
+        stage = learner.timer.run_means_ms()
+        stage4 = learner4.timer.run_means_ms()
+        learner.close()
+        learner4.close()
+    finally:
+        svc.close()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    result = {
+        "ingest_ms_per_blob": [med(t) for t in times], "ingested_per_shard": held,
+        "sample_ms": med(sample_ms), "route_ms": med(route_ms),
+        "spilled_segments": spilled, "spilled_at_ingest": spilled_at_ingest,
+        "promoted_segments": promoted, "forced_pads": pads, "crc_dropped": crc,
+        "train_k1_ms": med(calls[1]), "train_k4_ms": med(calls[SHARD_K]),
+        "learn_k1_ms": stage.get("learn"), "learn_k4_ms": stage4.get("learn"),
+        "peak_mib": (peak - mem_start) / 2**20, "seconds": time.perf_counter() - t_phase}
+    log(f"[shards] apex, 2 shards over {rt.replay_capacity:,}, scorer max, spill tier in "
+        f"{cfg.directory} ({cfg.hot_bytes // 2**20} MiB hot, {cfg.seg_items}-transition "
+        f"segments): {len(blobs)} unroll blobs of the section's actors ({sum(map(len, blobs)) / 1e6:.1f} "
+        f"MB) on 2 threads, {held} a shard; ingest ms a blob (median per shard) "
+        f"{[round(x, 3) for x in result['ingest_ms_per_blob']]}; gather-sample of "
+        f"{rt.batch_size} {result['sample_ms']:.3f} ms; update route (enqueue + router "
+        f"apply) {result['route_ms']:.3f} ms; tier: {spilled} segments spilled "
+        f"({spilled_at_ingest} by the end of ingest), {promoted} promoted, {pads} forced "
+        f"pads, {crc} CRC drops")
+    log(f"[shards] apex train calls (synchronised): K=1 {result['train_k1_ms']:.2f} ms "
+        f"(learn stage {stage.get('learn', 0):.2f} ms), K={SHARD_K} "
+        f"{result['train_k4_ms']:.2f} ms a call (learn stage {stage4.get('learn', 0):.2f} "
+        f"ms); stages K=1 " + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+        + f"; K={SHARD_K} " + ", ".join(f"{k} {v:.2f}" for k, v in stage4.items())
+        + f"; the phase's own peak device memory {result['peak_mib']:.1f} MiB; "
+        f"launches {launches}; phase {result['seconds']:.1f} s")
+    log(f"[shards] {parity}")
+    return result
+
+
+def phase_multiprocess_apex_default() -> dict:
+    """The `apex` learner process as `run_role` builds it by default (no
+    DRL_REPLAY_SHARDS or DRL_REPLAY_SPILL set): 2 ingest shards with the
+    spill tier on, at phase 18's spill sizes; 2 CPU actor processes,
+    APEX_UPDATES updates."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    spill_dir = tempfile.mkdtemp(prefix="smoke_spill_")
+    try:
+        learner, actors = run_topology(
+            "apex", "apex", APEX_UPDATES, APEX_MP_ACTORS, tag="_default",
+            env_set={"DRL_REPLAY_SHARDS": None, "DRL_REPLAY_SPILL": None,
+                     "DRL_REPLAY_SPILL_DIR": spill_dir, **SPILL_ENV})
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    svc = learner["replay_service"]
+    launches = learner["launches"]
+    if (learner["train_steps"] != APEX_UPDATES or svc is None or svc["shards"] != 2
+            or not svc["spill"] or not svc["healthy"] or any(launches.values())):
+        raise RuntimeError(f"default apex learner: {learner['train_steps']} steps, replay "
+                           f"service {svc}, launches {launches}")
+    per_shard = [s["ingested_blobs"] for s in svc["shard_stats"]]
+    spilled = sum(t["spilled_segments"] for t in svc["tier_stats"])
+    steps = learner["step_s"]
+    stage = learner["stage_total_ms"]
+    steady_ms = (steps[-1] - steps[0]) * 1e3
+    busy_keys = ("ingest_td", "ingest_td_sync", "ingest_replay_add", "replay_sample", "learn",
+                 "replay_update", "publish")
+    busy = sum(stage.get(k, 0.0) for k in busy_keys) / steady_ms if steady_ms > 0 else None
+    _, rt = load_config(CONFIG, "apex")
+    actor_rate = sum(a["env_steps"] * rt.envs_per_actor / a["stepping_s"] for a in actors
+                     if a["stepping_s"] > 0)
+    result = {"ingested_per_shard": per_shard, "spilled_segments": spilled,
+              "busy_share": busy, "env_frames_per_s": actor_rate, "first_step_s": steps[0],
+              "peak_mib": learner["peak_device_mib"], "seconds": time.perf_counter() - t_phase}
+    log(f"[multiproc] apex default learner: sharded replay, {svc['shards']} shards, scorer "
+        f"{svc['scorer']}, spill tier {'on' if svc['spill'] else 'off'}; "
+        f"{learner['train_steps']} updates; unrolls ingested a shard {per_shard} (the server "
+        f"accepted {learner['transport']['unrolls_accepted']}); {spilled} segments spilled; "
+        f"learner busy (host time of its stages over steps 2..{len(steps)}) "
+        + ("n/a" if busy is None else f"{100 * busy:.1f}%")
+        + f"; the {len(actors)} actors delivered {actor_rate:.0f} env frames/s; first step "
+        f"{steps[0]:.2f} s into the loop, steps at {[round(t, 3) for t in steps]} s; stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+        + f"; peak device memory {learner['peak_device_mib']:.1f} MiB; tier "
+        f"{[{k: t[k] for k in ('spilled_segments', 'promoted_segments', 'forced_pads', 'crc_dropped')} for t in svc['tier_stats']]}; "
+        f"phase {result['seconds']:.1f} s")
+    return result
+
+
+R2D2_K = 2  # phase 20's updates_per_call
+R2D2_K_CALLS = 3
+
+
+def phase_multiprocess_r2d2_default() -> dict:
+    """The `r2d2` learner process as `run_role` builds it by default, from
+    a temporary copy of the section with `updates_per_call: 2`: 1 CPU
+    actor, 3 train calls. The sharded service scores at ingest with the
+    max scorer, so no K2a may launch on ingest; each of the 6 learn steps
+    launches 2 K2a and 1 K2b."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_r2d2_"))
+    try:
+        sections = json.loads(CONFIG.read_text())
+        config = tmp / "config.json"
+        config.write_text(json.dumps({"r2d2": {**sections["r2d2"],
+                                               "updates_per_call": R2D2_K}}))
+        steps_total = R2D2_K * R2D2_K_CALLS
+        learner, actors = run_topology(
+            "r2d2", "r2d2", steps_total, 1, config=config, tag="_default",
+            env_set={"DRL_REPLAY_SHARDS": None, "DRL_REPLAY_SPILL": None,
+                     "DRL_REPLAY_SPILL_DIR": str(tmp / "spill")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    svc = learner["replay_service"]
+    got = learner["launches"]
+    ingest_calls = learner["stage_calls"].get("ingest_td", 0)
+    want = {"lstm_fwd": 2 * steps_total, "lstm_bwd": steps_total, "vtrace": 0,
+            "attention_fwd": 0, "attention_dq": 0, "attention_dkv": 0}
+    if (learner["train_steps"] != steps_total or svc is None or svc["shards"] != 2
+            or not svc["spill"] or got != want or ingest_calls != 0):
+        raise RuntimeError(f"default r2d2 learner: {learner['train_steps']} steps, launches "
+                           f"{got} (expected {want}), {ingest_calls} ingest scorings, "
+                           f"service {svc}")
+    per_shard = [s["ingested_blobs"] for s in svc["shard_stats"]]
+    steps = learner["step_s"]
+    result = {"launches": got, "ingested_per_shard": per_shard, "first_step_s": steps[0],
+              "peak_mib": learner["peak_device_mib"], "seconds": time.perf_counter() - t_phase}
+    log(f"[multiproc] r2d2 default learner, updates_per_call {R2D2_K}: "
+        f"{learner['train_steps']} learn steps in {len(steps)} calls; launches in the learner "
+        f"{got} (K2a {got['lstm_fwd']}, K2b {got['lstm_bwd']}: 2 and 1 a learn step); "
+        f"{ingest_calls} ingest scorings, so no K2a on ingest; sequences ingested a shard "
+        f"{per_shard} (scorer {svc['scorer']}, spill tier {'on' if svc['spill'] else 'off'}); "
+        f"calls done at {[round(t, 3) for t in steps]} s; stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+        + f"; actor {actors[0]['frames']} env frames; peak {learner['peak_device_mib']:.1f} "
+        f"MiB; phase {result['seconds']:.1f} s")
     return result
 
 
@@ -1882,6 +2297,12 @@ def main() -> int:
     phase_apex_parity()
     phase_memory("multi-process apex")
     apex_mp = phase_multiprocess_apex()
+    phase_memory("apex shards")
+    shards = phase_apex_shards(native_lib)
+    phase_memory("multi-process apex, default replay")
+    apex_default = phase_multiprocess_apex_default()
+    phase_memory("multi-process r2d2, default replay")
+    r2d2_default = phase_multiprocess_r2d2_default()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -1899,7 +2320,7 @@ def main() -> int:
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }, *lstm_rows(k2, r2d2), *attention_rows(k3, ximpala)]
+    }, *lstm_rows(k2, r2d2, r2d2_default), *attention_rows(k3, ximpala)]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
@@ -1914,7 +2335,15 @@ def main() -> int:
         f"{sum(apex['launches'].values())}; multi-process apex "
         f"{apex_mp['env_frames_per_s']:.0f} env frames/s delivered, "
         f"{apex_mp['ingested_unrolls']} unrolls ingested, peak {apex_mp['peak_mib']:.1f} MiB; "
-        f"smoke took {time.perf_counter() - t_start:.1f} s")
+        f"apex shards: ingest {shards['ingest_ms_per_blob']} ms a blob, sample "
+        f"{shards['sample_ms']:.3f} ms, route {shards['route_ms']:.3f} ms, "
+        f"{shards['spilled_segments']} spilled / {shards['promoted_segments']} promoted, train "
+        f"call K=1 {shards['train_k1_ms']:.2f} / K={SHARD_K} {shards['train_k4_ms']:.2f} ms "
+        f"({shards['seconds']:.1f} s); default apex learner {apex_default['ingested_per_shard']} "
+        f"unrolls a shard, {apex_default['spilled_segments']} spilled "
+        f"({apex_default['seconds']:.1f} s); default r2d2 learner K2a/K2b "
+        f"{r2d2_default['launches']['lstm_fwd']}/{r2d2_default['launches']['lstm_bwd']} "
+        f"({r2d2_default['seconds']:.1f} s); smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,7 +16,8 @@ Counterpart of the JAX package's `agents/apex.py`:
 The main net runs over the stacked [s; s'] batch in one pass (one conv
 pass over 2B frames); the target net over s'. Parameters are explicit
 (dicts of tensors through `torch.func.functional_call`) and updated in
-place. `learn_many` (several updates a call) is not ported.
+place. `learn_many`: K `learn` steps over a `[K, B, ...]` batch in one
+call, with the K priority rows stacked (`common.learn_many`).
 """
 
 from __future__ import annotations
@@ -170,3 +171,8 @@ class ApexAgent(common.ThreadLocalModelMixin):
         grads, td, loss = self.grads(state, batch, is_weight)
         state, metrics = self.apply_grads(state, grads, loss)
         return state, td, metrics
+
+    def learn_many(self, state: common.TargetTrainState, batches: ApexBatch, is_weights):
+        """K `learn` steps over `[K, B, ...]` batches -> (state, |TD|
+        `[K, B]`, metrics stacked `[K]`), all device tensors."""
+        return common.learn_many(self.learn, state, batches, is_weights, self.device)

@@ -251,6 +251,27 @@ class SequenceReplayLearnMixin:
         return state, priorities, {"loss": loss.detach(), "grad_norm": grad_norm}
 
 
+def learn_many(learn, state, batches, is_weights, device: torch.device):
+    """K prioritized learn steps in a row, one per row of `[K, B, ...]`
+    batches and `[K, B]` IS weights (the JAX package's
+    `scan_learn_weighted`) -> (state, priorities `[K, B]`, metrics
+    stacked `[K]` each). `learn(state, batch, is_weight)` is the agent's
+    one step on `device`. The K batches go to the device in one copy; the
+    priorities stay a device tensor (the caller copies all K rows to the
+    host at once). Every batch was sampled before any of the K updates."""
+    batches = batch_to_device(batches, device)
+    is_weights = torch.as_tensor(is_weights, dtype=torch.float32).to(device)
+    k = len(is_weights)
+    priorities, metrics = [], []
+    for i in range(k):
+        state, prio, m = learn(state, type(batches)(*(x[i] for x in batches)), is_weights[i])
+        priorities.append(prio)
+        metrics.append(m)
+    stacked = {key: torch.stack([torch.as_tensor(m[key]) for m in metrics])
+               for key in metrics[0]}
+    return state, torch.stack(priorities), stacked
+
+
 _INDEX_FIELDS = ("action", "previous_action")
 
 

@@ -14,7 +14,8 @@ Counterpart of the JAX package's `agents/r2d2.py`:
 - Optimizer: plain Adam(1e-4), no clipping unless `gradient_clip_norm`.
 
 `act`, `td_error` and `learn` take parameters explicitly (dicts of
-tensors through `torch.func.functional_call`), as the IMPALA agent does.
+tensors through `torch.func.functional_call`), as the IMPALA agent does;
+`learn_many` runs K `learn` steps in one call (`common.learn_many`).
 """
 
 from __future__ import annotations
@@ -158,3 +159,9 @@ class R2D2Agent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin):
         batch = common.batch_to_device(batch, self.device)
         is_weight = torch.as_tensor(is_weight, dtype=torch.float32).to(self.device)
         return self._learn(state, batch, is_weight)
+
+    def learn_many(self, state: common.TargetTrainState, batches: R2D2Batch, is_weights):
+        """K `learn` steps over `[K, B, ...]` batches -> (state,
+        priorities `[K, B]`, metrics stacked `[K]`), all device tensors;
+        on CUDA each step runs the LSTM kernels."""
+        return common.learn_many(self.learn, state, batches, is_weights, self.device)

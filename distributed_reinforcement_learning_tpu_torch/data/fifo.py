@@ -8,8 +8,9 @@ of items, which the device prefetcher stacks straight into pinned
 memory). `blob_ingest` feeds codec blobs from the wire into it.
 
 The C++ ring-buffer backend is `data/native.py`'s `NativeTrajectoryQueue`
-(the learner server's queue wherever the library builds). Not ported:
-the replay-shard ingest facade.
+(the learner server's queue wherever the library builds); the replay
+learners' server feeds the replay-shard facade
+(`runtime/replay_shard.py`) through `blob_ingest` instead.
 """
 
 from __future__ import annotations
@@ -57,7 +58,12 @@ def tree_leaves(tree) -> list:
 
 def blob_ingest(queue: Any) -> tuple[Any, Any]:
     """-> (prepare, put) for feeding codec blobs into a trajectory queue.
+    Three queue shapes, most specific first:
 
+    - A replay-shard facade (`ingest_blob`,
+      `runtime/replay_shard.ReplayIngestFifo`) takes the RAW wire blob
+      untouched: the owning shard decodes it once, on the transport
+      thread, and reads its priority stamp if it carries one.
     - A blob-native queue (`put_bytes`, the C++ backend) takes the raw
       bytes, routed through `codec.unpack_blob` (after `strip_stamp`) so
       that a dedup-packed blob reaches the queue in the plain layout its
@@ -71,6 +77,8 @@ def blob_ingest(queue: Any) -> tuple[Any, Any]:
     (False on timeout, RuntimeError once closed)."""
     from distributed_reinforcement_learning_tpu_torch.data import codec
 
+    if hasattr(queue, "ingest_blob"):
+        return (lambda blob: blob), queue.ingest_blob
     if hasattr(queue, "put_bytes"):
         return (lambda blob: codec.unpack_blob(codec.strip_stamp(blob))), queue.put_bytes
     return (lambda blob: codec.decode(blob, copy=True)), queue.put

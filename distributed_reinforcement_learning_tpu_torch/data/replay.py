@@ -25,8 +25,10 @@ the contents and priorities through a checkpoint (`utils/checkpoint.py`);
 each backend's snapshot keeps the whole tree (inner sums included), so
 a restore samples bit for bit as the saved replay would, and `restore`
 also takes the JAX package's forms (`priorities` with `items` or
-`stacked`), which it rebuilds leaf by leaf. Not ported: the disk spill
-tier (`spill=`) and the telemetry counters.
+`stacked`), which it rebuilds leaf by leaf. `sample_with_priorities`
+draws a shard's slice for the sharded service (`data/replay_service.py`),
+and `make_replay(spill=...)` builds the tiered hot/cold store
+(`data/replay_spill.py`). Not ported: the telemetry counters.
 """
 
 from __future__ import annotations
@@ -113,6 +115,9 @@ class PrioritizedReplay:
     def _priority(self, error: float) -> float:
         return (abs(error) + self.EPS) ** self.ALPHA
 
+    def add(self, error: float, sample: Any) -> int:
+        return self.tree.add(self._priority(error), sample)
+
     def add_batch(self, errors: np.ndarray, samples: list[Any]) -> list[int]:
         return [self.tree.add(self._priority(e), s) for e, s in zip(errors, samples)]
 
@@ -150,6 +155,13 @@ class PrioritizedReplay:
         weights = np.power(len(self.tree) * probs, -self.beta)
         weights /= weights.max()
         return items, idxs, weights.astype(np.float32)
+
+    def sample_with_priorities(self, n: int, rng=None):
+        """(items, tree_idxs, RAW priorities): no IS weights, no beta
+        annealing. The sharded service (data/replay_service.py) gathers
+        slices from several backends and computes global IS weights with
+        its own annealed beta."""
+        return self._pick(n, rng or self._default_rng)
 
     def update(self, idx: int, error: float) -> None:
         self.tree.set_priority(int(idx), self._priority(error))
@@ -266,6 +278,9 @@ class NativePrioritizedReplay:
     def __len__(self) -> int:
         return len(self.tree)
 
+    def add(self, error: float, sample: Any) -> int:
+        return self.add_batch(np.array([error]), [sample])[0]
+
     def add_batch(self, errors: np.ndarray, samples: list[Any]) -> list[int]:
         with self._lock:
             slots = self.tree.add_batch(priority_transform(errors))
@@ -288,6 +303,11 @@ class NativePrioritizedReplay:
             items, idxs, priorities = self._pick_locked(n, rng)
             return items, idxs, _is_weights(priorities, self.tree.total, len(self.tree),
                                             self.beta)
+
+    def sample_with_priorities(self, n: int, rng=None):
+        """See `PrioritizedReplay.sample_with_priorities`."""
+        with self._lock:
+            return self._pick_locked(n, rng or self._default_rng)
 
     def update_batch(self, idxs: np.ndarray, errors: np.ndarray) -> None:
         self.tree.update_batch(np.asarray(idxs, np.int64), priority_transform(errors))
@@ -365,6 +385,10 @@ class ArrayPrioritizedReplay:
     def add_batch(self, errors: np.ndarray, samples: list[Any]) -> list[int]:
         return list(self.add_batch_stacked(errors, stack_pytrees(samples)))
 
+    def add(self, error: float, sample: Any) -> int:
+        return int(self.add_batch_stacked(
+            np.array([error]), tree_map(lambda x: np.asarray(x)[None], sample))[0])
+
     def _pick_locked(self, n: int, rng) -> tuple[Any, np.ndarray, np.ndarray]:
         count = len(self.tree)
         idxs, priorities = _stratified_pick(self.tree, count, n, rng,
@@ -380,6 +404,12 @@ class ArrayPrioritizedReplay:
             batch, idxs, priorities = self._pick_locked(n, rng)
             return batch, idxs, _is_weights(priorities, self.tree.total, len(self.tree),
                                             self.beta)
+
+    def sample_with_priorities(self, n: int, rng=None):
+        """See `PrioritizedReplay.sample_with_priorities` (the stacked
+        batch in place of an item list, as `sample`)."""
+        with self._lock:
+            return self._pick_locked(n, rng or self._default_rng)
 
     def update_batch(self, idxs: np.ndarray, errors: np.ndarray) -> None:
         self.tree.update_batch(np.asarray(idxs, np.int64), priority_transform(errors))
@@ -424,13 +454,18 @@ class ArrayPrioritizedReplay:
 
 
 def make_replay(capacity: int, beta: float = 0.4, backend: str = "auto", seed: int = 0,
-                spill=None):
+                spill=None, mode: str = "transition"):
     """The replay backend: `python`, `native`, `array`, or `auto` (the
     array backend where the native library builds, else `python`, as in
-    the JAX package). `seed` fixes the backend's own sampling stream."""
+    the JAX package). `seed` fixes the backend's own sampling stream. A
+    `spill` (a `replay_spill.SpillConfig`) overrides `backend` with the
+    tiered hot/cold store of items of `mode` (`transition` or
+    `sequence`): the disk tier is a storage property, orthogonal to the
+    sum-tree implementation."""
     if spill is not None:
-        raise ValueError("spill=: the tiered replay store is not ported "
-                         "(ROADMAP item 9, the replay planes)")
+        from distributed_reinforcement_learning_tpu_torch.data.replay_spill import TieredStore
+
+        return TieredStore(capacity, spill, mode=mode, beta=beta, seed=seed)
     if backend == "python":
         return PrioritizedReplay(capacity, beta, seed=seed)
     if backend == "native":

@@ -13,7 +13,12 @@ Counterpart of the JAX package's `runtime/apex_runner.py`:
   prioritized replay with its |TD|, trains with IS weights once
   `train_start_unrolls` unrolls arrived, re-prioritises every sampled
   index, and syncs the target every `target_sync_interval` steps
-  (`runtime/replay_train.py`). On CUDA the ingest is pipelined one
+  (`runtime/replay_train.py`). With a `replay_service` (the sharded
+  replay `run_role` builds by default) the transport's threads ingest
+  into its shards and the learner samples from it while it is healthy;
+  the monolithic replay is always built, as the demotion target.
+  `updates_per_call` K > 1 runs K updates a call
+  (`replay_train.prioritized_train_call`). On CUDA the ingest is pipelined one
   deep: unroll k's H2D copy and TD forward are enqueued, then k-1's TD
   is read back and added to the replay. Stage timings, a profiler
   window, checkpoints with a replay snapshot.
@@ -23,8 +28,7 @@ Counterpart of the JAX package's `runtime/apex_runner.py`:
   at most `DRAIN_CAP` ingest calls between train calls, where the JAX
   package's solo learner drains until the queue is empty.
 
-Not ported: remote acting, sharded replay, the mesh and
-`updates_per_call > 1`.
+Not ported: remote acting and the mesh.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY
 from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
     PipelineSlice, run_async_loop, shape_life_loss, slice_seed, split_batched_env)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
-from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import ReplayTrainMixin
+from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import (
+    ReplayTrainMixin, prioritized_train_call)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 from distributed_reinforcement_learning_tpu_torch.utils.profiling import (
@@ -271,12 +276,16 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         seed: int = 0,
         publish_interval: int = 1,
         updates_per_call: int = 1,
+        replay_service=None,
     ):
         self.agent = agent
         self.queue = queue
         self.weights = weights
         self.batch_size = batch_size
+        # The monolithic replay is always built: the normal path without
+        # shards, and the demotion target when the service loses them all.
         self.replay = make_replay(replay_capacity)
+        self.replay_service = replay_service
         print(f"[apex learner] replay: {describe_replay(self.replay)}", file=sys.stderr,
               flush=True)
         self.target_sync_interval = target_sync_interval
@@ -302,11 +311,21 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         self._profiler = ProfilerSession.from_env()
         weights.publish(self.state.params, 0)
 
+    def _warm_unrolls(self) -> int:
+        """Unrolls counted by the warm-up gate: the shards' ingest while
+        the service is healthy, or this learner's own queue-path ingest
+        (both feed training after a demotion)."""
+        svc = self.replay_service
+        shard_blobs = svc.ingested_blobs() if svc is not None and svc.healthy else 0
+        return max(self.ingested_unrolls, shard_blobs)
+
     def save_checkpoint(self, ckpt) -> None:
         """Persist the train state, the host counters (the sampling
         stream's state among them) and a replay snapshot (gated by
-        `DRL_CKPT_REPLAY*`, utils/checkpoint.py); unrolls still in the
-        ingest pipeline enter the replay first."""
+        `DRL_CKPT_REPLAY*`, utils/checkpoint.py): the active replay's,
+        which for the service is its merged shard state with the pending
+        priority updates applied. Unrolls still in the ingest pipeline
+        enter the replay first."""
         from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
             encode_replay_snapshot)
 
@@ -316,7 +335,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         ckpt.save(self.train_steps, self.state, {
             "train_steps": self.train_steps,
             "replay_beta": float(replay.beta),
-            "ingested_unrolls": self.ingested_unrolls,
+            "ingested_unrolls": self._warm_unrolls(),
             **self._cadence_extra(),
         }, blobs={"replay": blob} if blob is not None else None)
 
@@ -413,29 +432,38 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         return k
 
     def train(self) -> dict | None:
-        """One prioritized train step once `train_start_unrolls` unrolls
-        arrived; -> metrics (host floats, or device tensors the metrics
-        pump owns), or None before warm-up."""
-        if self.ingested_unrolls < self.train_start_unrolls:
+        """One prioritized train call (K updates with `updates_per_call`
+        K) once `train_start_unrolls` unrolls arrived; -> the last
+        step's metrics (host floats, or device tensors the metrics pump
+        owns), or None before warm-up and when the service lost its last
+        shard mid-call (the next call takes the monolithic path)."""
+        if self._warm_unrolls() < self.train_start_unrolls:
             return None
         replay = self._active_replay()
         if len(replay) == 0:
+            # A demotion raced the warm gate: the monolithic replay is
+            # still empty and refills through the demoted facade.
             return None
         metrics = self._train_guarded(replay)
+        if metrics is None:
+            return None
         self._finish_train_call()
         self.timer.step_done(self.train_steps)
         self._profiler.on_step(self.train_steps)
         return self.log_step_metrics(metrics)
 
     def _train_once(self, replay) -> dict:
-        """Sample -> learn -> re-prioritise."""
+        """Sample -> learn -> re-prioritise, against `replay`."""
+        if self.updates_per_call > 1:
+            return prioritized_train_call(self, self.updates_per_call, replay)
         with self.timer.stage("replay_sample"):
             items, idxs, is_weight = replay.sample(self.batch_size, self._np_rng)
             batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
             self.state, td, metrics = self.agent.learn(self.state, batch, is_weight)
         with self.timer.stage("replay_update"):
-            # Deliberate sync: re-prioritisation targets the host sum tree.
+            # Deliberate sync: re-prioritisation targets the host sum tree
+            # (the service only enqueues; its router thread applies it).
             replay.update_batch(idxs, td.cpu().numpy())
         return metrics
 

@@ -66,9 +66,11 @@ def _is_atari(rt: RuntimeConfig) -> bool:
 def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
                  logger: MetricsLogger | None = None, seed: int = 0,
                  device: str | torch.device | None = None, agent=None,
-                 prefetch: bool = False):
+                 prefetch: bool = False, replay_service=None):
     """The learner of family `algo` over any queue and weight store.
-    `prefetch` (IMPALA families) overlaps batch k+1's H2D copy with step k."""
+    `prefetch` (IMPALA families) overlaps batch k+1's H2D copy with step k;
+    `replay_service` (replay families) is the sharded replay the learner
+    samples while it is healthy (`runtime/replay_shard.build_service`)."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
     if algo in ("apex", "r2d2") and prefetch:
         raise ValueError(f"the {algo} learner samples its batches from the replay; "
@@ -77,12 +79,14 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
         return apex_runner.ApexLearner(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
             target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
-            publish_interval=rt.publish_interval)
+            publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
+            replay_service=replay_service)
     if algo == "r2d2":
         return r2d2_runner.R2D2Learner(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
             target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
-            publish_interval=rt.publish_interval)
+            publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
+            replay_service=replay_service)
     cls = (ximpala_runner.XImpalaLearner if algo == "ximpala"
            else impala_runner.ImpalaLearner)
     return cls(agent, queue, weights, rt.batch_size, logger=logger, seed=seed,

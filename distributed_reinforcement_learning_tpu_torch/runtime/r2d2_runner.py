@@ -12,19 +12,26 @@ path only:
   native sum tree wherever it builds, as the JAX learner), trains with
   IS weights once 2 x batch sequences have arrived, re-prioritises
   every sampled index, and syncs the target every
-  `target_sync_interval` steps (`runtime/replay_train.py`).
+  `target_sync_interval` steps (`runtime/replay_train.py`). With a
+  `replay_service` (the sharded replay `run_role` builds by default)
+  the transport's threads ingest into its shards, scored there, and the
+  learner samples from it while it is healthy; the monolithic replay
+  is always built, as the demotion target. `updates_per_call` K > 1
+  runs K updates a call (`replay_train.prioritized_train_call`).
 - `run_sync`: deterministic interleaved stepping (tests, single-process
   training). `run_async`: free-running actor threads and the
   ingest/train learner loop in one process.
 
 The actor has the pipeline's slice protocol; the learner has stage
 timings, a profiler window and checkpoints (with a replay snapshot).
-Not ported: `remote_act`, `timeout_nonterminal`, the recent-mix knob,
-sharded replay and the mesh.
+Not ported: `remote_act`, `timeout_nonterminal`, the recent-mix knob
+(`DRL_R2D2_RECENT_FRACTION`, which `run_role` refuses by name) and the
+mesh.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -41,7 +48,8 @@ from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY
 from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
     PipelineSlice, run_async_loop, slice_seed, split_batched_env, sync_slices_params)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
-from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import ReplayTrainMixin
+from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import (
+    ReplayTrainMixin, prioritized_train_call)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 from distributed_reinforcement_learning_tpu_torch.utils.profiling import (
@@ -204,16 +212,26 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         logger: MetricsLogger | None = None,
         seed: int = 0,
         publish_interval: int = 1,
+        updates_per_call: int = 1,
+        replay_service=None,
     ):
+        # The JAX learner refuses its recent-mix knob with shards and with
+        # K > 1; the port has no recent mix at all.
+        if float(os.environ.get("DRL_R2D2_RECENT_FRACTION", "0") or 0) > 0:
+            raise ValueError("DRL_R2D2_RECENT_FRACTION: the recent-mix knob is not ported "
+                             "(ROADMAP item 15)")
         self.agent = agent
         self.queue = queue
         self.weights = weights
         self.batch_size = batch_size
+        # The monolithic replay is always built: the normal path without
+        # shards, and the demotion target when the service loses them all.
         self.replay = make_replay(replay_capacity)
+        self.replay_service = replay_service
         print(f"[r2d2 learner] replay: {describe_replay(self.replay)}", file=sys.stderr,
               flush=True)
         self.target_sync_interval = target_sync_interval
-        self._init_stride()
+        self._init_stride(updates_per_call)
         self.logger = logger or MetricsLogger(None)
         self.state = agent.sync_target(agent.init_state(seed))
         self._np_rng = np.random.RandomState(seed)
@@ -224,18 +242,28 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         self._profiler = ProfilerSession.from_env()
         weights.publish(self.state.params, 0)
 
+    def _warm_sequences(self) -> int:
+        """Sequences counted by the warm-up gate: the shards' ingest while
+        the service is healthy, or this learner's own queue-path ingest."""
+        svc = self.replay_service
+        shard_blobs = svc.ingested_blobs() if svc is not None and svc.healthy else 0
+        return max(self.ingested_sequences, shard_blobs)
+
     def save_checkpoint(self, ckpt) -> None:
         """Persist the train state, the host counters (the sampling
         stream's state among them) and a replay snapshot (gated by
-        `DRL_CKPT_REPLAY*`, utils/checkpoint.py)."""
+        `DRL_CKPT_REPLAY*`, utils/checkpoint.py): the active replay's,
+        which for the service is its merged shard state with the pending
+        priority updates applied."""
         from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
             encode_replay_snapshot)
 
-        blob = encode_replay_snapshot(self.replay)
+        replay = self._active_replay()
+        blob = encode_replay_snapshot(replay)
         ckpt.save(self.train_steps, self.state, {
             "train_steps": self.train_steps,
-            "replay_beta": float(self.replay.beta),
-            "ingested_sequences": self.ingested_sequences,
+            "replay_beta": float(replay.beta),
+            "ingested_sequences": self._warm_sequences(),
             **self._cadence_extra(),
         }, blobs={"replay": blob} if blob is not None else None)
 
@@ -250,13 +278,14 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
             return False
         self.state, extra, step = got
         self.train_steps = int(extra.get("train_steps", 0))
+        replay = self._active_replay()
         blob = ckpt.load_blob(step, "replay")
         if blob is not None:
-            self.replay.restore(decode_replay_snapshot(blob))
+            replay.restore(decode_replay_snapshot(blob))
             self.ingested_sequences = int(extra.get("ingested_sequences", 0))
         else:
             self.ingested_sequences = 0  # the replay refills from live traffic
-        self.replay.beta = float(extra.get("replay_beta", self.replay.beta))
+        replay.beta = float(extra.get("replay_beta", replay.beta))
         self.weights.publish(self.state.params, self.train_steps)
         self._restore_cadence(extra)
         return True
@@ -295,12 +324,20 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         return n
 
     def train(self) -> dict | None:
-        """One prioritized train step over sequences once warm; -> metrics
-        (host floats, or device tensors the metrics pump owns), or None
-        before warm-up."""
-        if self.ingested_sequences < 2 * self.batch_size:
+        """One prioritized train call over sequences (K updates with
+        `updates_per_call` K) once warm; -> the last step's metrics (host
+        floats, or device tensors the metrics pump owns), or None before
+        warm-up and when the service lost its last shard mid-call."""
+        if self._warm_sequences() < 2 * self.batch_size:
             return None
-        metrics = self._train_guarded(self._active_replay())
+        replay = self._active_replay()
+        if len(replay) == 0:
+            # A demotion raced the warm gate: the monolithic replay is
+            # still empty and refills through the demoted facade.
+            return None
+        metrics = self._train_guarded(replay)
+        if metrics is None:
+            return None
         self._finish_train_call()
         metrics = self.log_step_metrics(metrics)
         self.timer.step_done(self.train_steps)
@@ -308,13 +345,16 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         return metrics
 
     def _train_once(self, replay) -> dict:
-        """Sample -> learn -> re-prioritise."""
+        """Sample -> learn -> re-prioritise, against `replay`."""
+        if self.updates_per_call > 1:
+            return prioritized_train_call(self, self.updates_per_call, replay)
         with self.timer.stage("sample"):
             items, idxs, is_weight = replay.sample(self.batch_size, self._np_rng)
             batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
             self.state, priorities, metrics = self.agent.learn(self.state, batch, is_weight)
-            # Deliberate sync: re-prioritisation targets the host sum tree.
+            # Deliberate sync: re-prioritisation targets the host sum tree
+            # (the service only enqueues; its router thread applies it).
             replay.update_batch(idxs, priorities.cpu().numpy())
         return metrics
 

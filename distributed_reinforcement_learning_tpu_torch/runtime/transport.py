@@ -26,10 +26,17 @@ store are `RemoteQueue` / `RemoteWeights` over one `TransportClient`).
 Left out, each refused with a ValueError that names its ROADMAP item:
 serving acts (`--serve_inference`, `--remote_act`, `--mode inference`;
 the server answers OP_ACT with ST_UNAVAILABLE), shm rings and the
-weight board, the learner tier and multi-host learners, replay shards
-and actor-side admission. The learner's queue is `_make_queue`'s: the
-C++ ring queue (`data/native.py:NativeTrajectoryQueue`) wherever the
-native library builds, else the Python `TrajectoryQueue`.
+weight board, the learner tier and multi-host learners, and the fused
+device sample path (`DRL_DEVICE_PATH`). The learner's queue is
+`_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
+wherever the native library builds, else the Python `TrajectoryQueue`.
+A replay learner (Ape-X, R2D2) serves, as the JAX package's does by
+default, a `runtime/replay_shard.ReplayIngestFifo` in front of that
+queue: each serve thread ingests into its own shard of the sharded
+replay service (with the spill tier), and the queue stays the demotion
+target. Its PUT replies carry the ingest pressure that drives an
+actor's admission controller (`data/admission.py`), which the client
+consults before each PUT when actor-side priorities are on.
 """
 
 from __future__ import annotations
@@ -346,8 +353,16 @@ class TransportServer(_LockedStatsMixin):
             _OBS.count(f"staleness_bucket/{stale_bucket(staleness)}", accepted)
 
     def _pressure_permille(self) -> int:
-        """Queue fill, 0..1000, carried on PUT replies."""
-        return int(min(1.0, self.queue.size() / self.queue.capacity) * 1000)
+        """Learner ingest pressure, 0..1000, carried on PUT replies: a
+        replay-shard facade's own meter (its busy fraction: its depth is
+        always 0), else the bounded queue's fill."""
+        meter = getattr(self.queue, "ingest_pressure", None)
+        if meter is not None:
+            return max(0, min(1000, int(meter())))
+        capacity = getattr(self.queue, "capacity", 0)
+        if capacity:
+            return int(min(1.0, self.queue.size() / capacity) * 1000)
+        return 0
 
     def _serve_inner(self, conn: socket.socket) -> None:
         rbuf = _ConnRecvBuf()
@@ -432,6 +447,10 @@ class TransportClient(_LockedStatsMixin):
     serialises each request/reply exchange, reconnects included."""
 
     _GUARDED_BY = {"_sock": "_lock", "stats": "_stats_lock"}
+    _NOT_GUARDED = {
+        "_admission": "set once by the actor's runner (set_admission) before "
+                      "any PUT; the controller locks itself",
+    }
 
     def __init__(self, host: str, port: int, connect_retries: int = 60,
                  retry_interval: float = 1.0, busy_timeout: float = 90.0,
@@ -443,8 +462,10 @@ class TransportClient(_LockedStatsMixin):
         self._sock: socket.socket | None = None
         self._lock = threading.Lock()
         self.stats = {"unrolls_sent": 0, "busy_waits": 0, "partial_accepts": 0,
-                      "weight_pulls": 0, "weight_bytes_received": 0}
+                      "weight_pulls": 0, "weight_bytes_received": 0,
+                      "unrolls_admission_dropped": 0}
         self._stats_lock = threading.Lock()
+        self._admission = None  # data/admission.AdmissionController
         if connect:
             self._connect_locked()
 
@@ -495,19 +516,45 @@ class TransportClient(_LockedStatsMixin):
             raise TransportError(f"op {op} failed on the learner side")
         return resp
 
+    def set_admission(self, controller) -> None:
+        """Attach an actor-side admission controller
+        (`data/admission.AdmissionController`): the PUT paths score and
+        stamp each unroll, and feed each reply's pressure back to it.
+        Call before the first PUT."""
+        self._admission = controller
+
     def put_trajectory(self, tree: Any) -> bool:
         """Ship one trajectory; retries while the learner's queue is full
         (ST_BUSY), up to `busy_timeout`. At-most-once: a connection that
-        drops mid-request loses the unroll (False), never duplicates it."""
-        payload = codec.encode(tree, dedup=codec.obs_dedup_enabled())
+        drops mid-request loses the unroll (False), never duplicates it.
+        With an admission controller the unroll goes stamped (the stamp
+        frame as its own send part, the blob untouched), thinned, or not
+        at all (True: dropped at the source by design)."""
+        ctrl = self._admission
+        payload: Any
+        if ctrl is not None:
+            decision = ctrl.admit(tree)
+            if not decision.send:  # dropped at the source; its mass folds
+                self._bump("unrolls_admission_dropped")  # into the next stamp
+                return True
+            if decision.tree is not None:
+                tree = decision.tree
+            payload = [codec.stamp_frame(decision.stamp),
+                       codec.encode(tree, dedup=codec.obs_dedup_enabled())]
+            ctrl.note_wire(len(payload[0]) + len(payload[1]), decision)
+        else:
+            payload = codec.encode(tree, dedup=codec.obs_dedup_enabled())
         busy_since: float | None = None
         while True:
             try:
-                status, _ = self._exchange(OP_PUT_TRAJ, payload, retry=True, resend=False)
+                status, resp = self._exchange(OP_PUT_TRAJ, payload, retry=True, resend=False)
             except TransportError:
                 if self._is_down():
                     raise
                 return False
+            if ctrl is not None and len(resp) >= _U16.size:
+                # The ingest pressure rides every PUT reply (ST_BUSY too).
+                ctrl.observe_pressure(_U16.unpack_from(resp, 0)[0])
             if status == ST_OK:
                 self._bump("unrolls_sent")
                 return True
@@ -526,9 +573,28 @@ class TransportClient(_LockedStatsMixin):
         """Ship K trajectories in one round trip (OP_PUT_TRAJ_N); -> how
         many the learner accepted. A partial accept (the bounded queue
         refused the tail) resends the tail until accepted or
-        `busy_timeout` passes without progress."""
+        `busy_timeout` passes without progress. Unrolls the admission
+        controller drops at the source count as accepted."""
+        ctrl = self._admission
         dedup = codec.obs_dedup_enabled()
-        blobs = [codec.encode(t, dedup=dedup) for t in trees]
+        dropped = 0
+        if ctrl is not None:
+            blobs = []
+            for t in trees:
+                decision = ctrl.admit(t)
+                if not decision.send:
+                    dropped += 1
+                    continue
+                sent_tree = t if decision.tree is None else decision.tree
+                # One buffer an unroll: pack_batch frames each blob by
+                # its length, stamp included.
+                blob = codec.stamp_blob(codec.encode(sent_tree, dedup=dedup), decision.stamp)
+                ctrl.note_wire(len(blob), decision)
+                blobs.append(blob)
+            if dropped:
+                self._bump("unrolls_admission_dropped", dropped)
+        else:
+            blobs = [codec.encode(t, dedup=dedup) for t in trees]
         sent = 0
         busy_since: float | None = None
         while sent < len(blobs):
@@ -544,6 +610,8 @@ class TransportClient(_LockedStatsMixin):
             if status != ST_OK:
                 raise TransportError("put_trajectories failed on the learner side")
             accepted = _I64.unpack_from(resp, 0)[0]
+            if ctrl is not None and len(resp) >= _I64.size + _U16.size:
+                ctrl.observe_pressure(_U16.unpack_from(resp, _I64.size)[0])
             sent += accepted
             self._bump("unrolls_sent", accepted)
             if sent < len(blobs):
@@ -554,7 +622,7 @@ class TransportClient(_LockedStatsMixin):
                     raise TransportError(f"learner queue busy for >{self.busy_timeout:.0f}s")
                 if accepted:
                     busy_since = now  # progress resets the wedge clock
-        return sent
+        return sent + dropped
 
     def get_weights_if_newer(self, have_version: int) -> tuple[Any, int] | None:
         """(decoded tree, version), or None when the learner's version is
@@ -641,6 +709,10 @@ class RemoteQueue:
 
     def __init__(self, client: TransportClient):
         self._client = client
+
+    def set_admission(self, controller) -> None:
+        """The client's PUT paths own scoring and stamping."""
+        self._client.set_admission(controller)
 
     def put(self, item: Any, timeout: float | None = None) -> bool:
         return self._client.put_trajectory(item)  # False = dropped (at-most-once)
@@ -746,15 +818,9 @@ def refuse_unported(mode: str, serve_inference: bool = False, remote_act: bool =
             or os.environ.get("DRL_COORDINATOR", "").strip()):
         raise ValueError("the learner tier (DRL_LEARNER_SEATS) and multi-host learners "
                          "(DRL_COORDINATOR) are not ported (ROADMAP item 13)")
-    # Sharded replay is on by default in the JAX package (its committed
-    # verdict); the port has none, so only an explicit request raises.
-    if os.environ.get("DRL_REPLAY_SHARDS", "").strip() not in ("", "0"):
-        raise ValueError("DRL_REPLAY_SHARDS: replay shards are not ported "
-                         "(ROADMAP item 9, the replay planes)")
-    for name in ("DRL_ACTOR_PRIORITY", "DRL_ADMISSION"):
-        if _truthy(name):
-            raise ValueError(f"{name}: actor-side priorities and admission are not ported "
-                             f"(ROADMAP item 9, the replay planes)")
+    if os.environ.get("DRL_DEVICE_PATH", "").strip() not in ("", "0"):
+        raise ValueError("DRL_DEVICE_PATH: the fused device sample path is not ported "
+                         "(ROADMAP item 16)")
 
 
 def _make_queue(capacity: int):
@@ -799,8 +865,10 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     (the first step, which pays the start-up costs, apart from the mean
     over the rest), the prefetcher's H2D ms a batch, publication latency,
     the queue depth and time at each step, bytes received, peak device
-    memory, the queue's and the replay's classes, and the sequences or
-    unrolls ingested. An Ape-X actor's round is 64 env steps, another
+    memory, the queue's and the replay's classes, the sequences or
+    unrolls ingested, and for a replay learner its sharded replay (shards,
+    scorer, spill tier on or off, each shard's counts, the tier's
+    counters, whether it demoted). An Ape-X actor's round is 64 env steps, another
     family's one unroll. An actor runs until the learner has been gone for
     `actor_grace` seconds and then prints one JSON line (frames of its
     completed rounds, seconds from its first round's start to its last
@@ -831,11 +899,30 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     if mode == "learner":
         from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 
+        from distributed_reinforcement_learning_tpu_torch.runtime import replay_shard
+
         queue = _make_queue(rt.queue_size)
         weights = WeightStore()
-        learner = launch.make_learner(
-            algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir), seed=seed,
-            device=device, prefetch=algo in ("impala", "ximpala"))
+        # The sharded replay with ingest-time priorities (on by default,
+        # as in the JAX package): each serve thread decodes, scores and
+        # inserts into its own shard through the facade; the real queue
+        # stays built as the demotion target (the learner keeps draining
+        # it, normally idle). The spill tier anchors its segments beside
+        # the checkpoints, so a restarted learner recovers them.
+        spill_dir = os.path.join(checkpoint_dir, "replay_spill") if checkpoint_dir else None
+        replay_service = replay_shard.build_service(algo, rt, seed=seed, spill_dir=spill_dir)
+        ingest_queue: Any = queue
+        if replay_service is not None:
+            ingest_queue = replay_shard.ReplayIngestFifo(replay_service, queue)
+        try:
+            learner = launch.make_learner(
+                algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir), seed=seed,
+                device=device, prefetch=algo in ("impala", "ximpala"),
+                replay_service=replay_service)
+        except BaseException:
+            if replay_service is not None:
+                replay_service.close()
+            raise
         ckpt = None
         if checkpoint_dir is not None:
             from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
@@ -845,7 +932,9 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             if learner.restore_checkpoint(ckpt):
                 print(f"[learner] resumed from step {learner.train_steps}", flush=True)
         supervisor = fleet_mod.FleetSupervisor().start() if fleet_mod.fleet_enabled() else None
-        server = TransportServer(queue, weights, host="0.0.0.0", port=port,
+        if supervisor is not None and replay_service is not None:
+            supervisor.watch(ingest_queue)  # revives dead shards on its sweep
+        server = TransportServer(ingest_queue, weights, host="0.0.0.0", port=port,
                                  fleet=supervisor).start()
         if maybe_configure("learner", 0, run_dir):
             _OBS.sample("transport/queue_depth", queue.size)
@@ -854,10 +943,12 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 _OBS.sample(f"transport/{key}", lambda k=key: server.stat(k), kind="counter")
             if supervisor is not None:
                 fleet_mod.register_supervisor_telemetry(supervisor)
+            if replay_service is not None:
+                replay_shard.register_telemetry(replay_service)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         print(f"[learner] serving on :{port}; training {num_updates} updates on {device}; "
-              f"queue {type(queue).__name__}", flush=True)
+              f"queue {type(queue).__name__}; {_describe_service(replay_service)}", flush=True)
         steps: list[tuple[float, int]] = []
         first_step_ms: dict[str, float] = {}
         first_calls: dict[str, int] = {}
@@ -879,6 +970,9 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             learner.close()  # flush publication, stop the prefetch thread
             queue.close()
             server.stop()
+            replay_stats = _service_summary(replay_service, ingest_queue)
+            if replay_service is not None:
+                replay_service.close()  # stop the update-router thread
             if supervisor is not None:
                 supervisor.stop()
             _OBS.close()
@@ -897,6 +991,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "queue": type(queue).__name__,
             "replay": None if replay is None else type(replay).__name__,
             "replay_size": None if replay is None else len(replay),
+            "replay_service": replay_stats,
             "launches": _kernel_launches(), "wall_s": wall,
             "first_step_stage_ms": first_step_ms,
             "stage_ms": learner.timer.run_means_ms(),
@@ -918,8 +1013,19 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     # -- actor ---------------------------------------------------------
     if task < 0:
         raise ValueError("actor mode needs --task k")
+    from distributed_reinforcement_learning_tpu_torch.data import admission
+
     client = TransportClient(host, port)
     queue = RemoteQueue(client)
+    # Sample-at-source (off by default, as in the JAX package): score and
+    # stamp initial priorities here, and thin low-priority unrolls under
+    # the learner's ingest pressure. One controller an actor, shared
+    # with the publisher's queue below (one mass ledger, one pressure).
+    admission_ctrl = admission.configure(queue, algo, seed=seed + 1 + task)
+    if admission_ctrl is not None:
+        print(f"[actor {task}] actor-side priority stamping on "
+              f"(scorer={admission_ctrl.scorer_name}, "
+              f"admission={'on' if admission.admission_enabled() else 'off'})", flush=True)
     weights = ShardedRemoteWeights(client, device)
     actor = launch.make_actor(algo, agent_cfg, rt, task, queue, weights, seed=seed + 1 + task,
                               device=device)
@@ -930,8 +1036,11 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         # The publisher gets its own connection: the shared client's
         # request/reply lock would serialise its PUTs with weight pulls.
         pub_client = TransportClient(host, port)
+        pub_queue = RemoteQueue(pub_client)
+        if admission_ctrl is not None:
+            pub_queue.set_admission(admission_ctrl)
         actor = actor_pipeline.maybe_wrap(actor, label=f"actor {task}",
-                                          publisher_queue=RemoteQueue(pub_client))
+                                          publisher_queue=pub_queue)
         if not isinstance(actor, actor_pipeline.ActorPipeline):
             pub_client.close()
             pub_client = None
@@ -994,9 +1103,30 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                "active_s": (last_round - first_round) if first_round else 0.0,
                "env_steps": getattr(actor, "_steps", None),
                "stepping_s": (stopped - started) if started and stopped else 0.0,
-               "weight_version": max_version, "transport": client.snapshot_stats()}
+               "weight_version": max_version, "transport": client.snapshot_stats(),
+               "admission": None if admission_ctrl is None else admission_ctrl.snapshot()}
     print(json.dumps(summary), flush=True)
     return summary
+
+
+def _describe_service(service) -> str:
+    """The learner's start-line words for its replay."""
+    if service is None:
+        return "replay monolithic"
+    tier = "on" if service.tier_stats() is not None else "off"
+    return (f"sharded replay: {len(service.shards)} shard(s), scorer {service.scorer_name}, "
+            f"spill tier {tier}")
+
+
+def _service_summary(service, facade) -> dict | None:
+    """The learner's final-JSON view of its sharded replay."""
+    if service is None:
+        return None
+    return {"shards": len(service.shards), "scorer": service.scorer_name,
+            "spill": service.tier_stats() is not None, "healthy": service.healthy,
+            "demoted": facade.demoted, "shard_stats": service.shard_stats(),
+            "tier_stats": service.tier_stats(), "admission": facade.admission_stats(),
+            "updates_dropped": service.updates_dropped}
 
 
 def _learner_loop(algo: str, learner, num_updates: int, ckpt=None,

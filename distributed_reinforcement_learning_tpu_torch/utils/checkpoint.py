@@ -18,6 +18,7 @@ in place of flax's msgpack:
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import pickle
@@ -38,9 +39,15 @@ def encode_replay_snapshot(replay) -> bytes | None:
     `DRL_CKPT_REPLAY_MAX_MB` (default 512; a full Atari replay at
     capacity 1e5 is ~5.6 GB). Takes every backend's snapshot: the list
     backends' `items` and the array backend's `stacked` payload, each
-    with its priorities and, where kept, the whole sum tree. A backend
-    that prices its snapshot (`approx_snapshot_nbytes`) is refused
-    before the snapshot is copied."""
+    with its priorities and, where kept, the whole sum tree, and the
+    sharded service's merged shard state. A backend that prices its
+    snapshot (`approx_snapshot_nbytes`) is refused before the snapshot
+    is copied.
+
+    Items decoded from the wire are namedtuples that `codec.decode`
+    rebuilt by name, classes no module holds, so plain pickle refuses
+    them; they are pickled by name and fields instead
+    (`_rebuild_namedtuple`), and unpickle as the codec's own classes."""
     if os.environ.get("DRL_CKPT_REPLAY", "1") == "0":
         return None
     cap_mb = float(os.environ.get("DRL_CKPT_REPLAY_MAX_MB", "512"))
@@ -61,7 +68,28 @@ def encode_replay_snapshot(replay) -> bytes | None:
                  for x in _iter_array_leaves(snap.get(key)))
     if over_cap(nbytes):
         return None
-    return pickle.dumps(snap, protocol=pickle.HIGHEST_PROTOCOL)
+    buf = io.BytesIO()
+    _SnapshotPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(snap)
+    return buf.getvalue()
+
+
+def _rebuild_namedtuple(name: str, fields: tuple, values: tuple):
+    from distributed_reinforcement_learning_tpu_torch.data.codec import _namedtuple_cls
+
+    return _namedtuple_cls(name, fields)(*values)
+
+
+class _SnapshotPickler(pickle.Pickler):
+    """Pickles a namedtuple whose class no module holds (a codec-rebuilt
+    one) by name, fields and values."""
+
+    def reducer_override(self, obj):
+        cls = type(obj)
+        if isinstance(obj, tuple) and hasattr(cls, "_fields"):
+            module = sys.modules.get(cls.__module__)
+            if getattr(module, cls.__qualname__, None) is not cls:
+                return _rebuild_namedtuple, (cls.__name__, tuple(cls._fields), tuple(obj))
+        return NotImplemented
 
 
 def decode_replay_snapshot(data: bytes) -> dict:

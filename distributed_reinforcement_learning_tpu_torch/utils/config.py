@@ -5,8 +5,8 @@ Counterpart of the JAX package's `utils/config.py`, IMPALA, Ape-X, R2D2
 and ximpala branches. Loads one section into an agent config and a
 `RuntimeConfig` and applies the same validation (actor, env and
 action-set counts agree). Keys that select what the port does not run
-yet (another algorithm, several optimizer steps per call, a non-dense
-transformer body) raise instead of being ignored.
+yet (another algorithm, several optimizer steps per call for the IMPALA
+families, a non-dense transformer body) raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ class RuntimeConfig:
     publish_interval: int = 1
     replay_capacity: int = 100_000
     target_sync_interval: int = 100
+    # Prioritized updates per train call (the replay families).
+    updates_per_call: int = 1
     # r2d2 actors: residual exploration floor (None = the actor's own
     # default, 0.0: reference parity).
     epsilon_floor: float | None = None
@@ -60,8 +62,9 @@ def load_config(path: str | Path, section: str):
     if algorithm not in ("impala", "apex", "r2d2", "ximpala"):
         raise ValueError(f"section {section!r} is {algorithm!r}; the PyTorch port runs the "
                          "IMPALA, Ape-X, R2D2 and Transformer-IMPALA families only")
-    if d.get("updates_per_call", 1) != 1:
-        raise ValueError("updates_per_call > 1 is not ported")
+    if d.get("updates_per_call", 1) != 1 and algorithm not in ("apex", "r2d2"):
+        raise ValueError("updates_per_call > 1 for the IMPALA families (scan_learn) is "
+                         "not ported (ROADMAP item 15)")
     rt = RuntimeConfig(
         server_ip=d.get("server_ip", "localhost"),
         server_port=d.get("server_port", 8000),
@@ -74,6 +77,7 @@ def load_config(path: str | Path, section: str):
         publish_interval=d.get("publish_interval", 1),
         replay_capacity=int(d.get("replay_capacity", 1e5)),
         target_sync_interval=d.get("target_sync_interval", 100),
+        updates_per_call=d.get("updates_per_call", 1),
         epsilon_floor=d.get("epsilon_floor"),
     )
     if algorithm == "apex":

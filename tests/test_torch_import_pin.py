@@ -60,7 +60,9 @@ def test_port_imports_with_jax_blocked():
                  "ops.kernels.attention", "models.transformer_net", "agents.xformer",
                  "agents.ximpala", "runtime.ximpala_runner", "train_ximpala", "agents.apex",
                  "models.apex_net", "data.native", "runtime.replay_train",
-                 "runtime.apex_runner", "train_apex"):
+                 "runtime.apex_runner", "train_apex", "data.replay_service",
+                 "data.replay_spill", "data.admission", "data.device_path",
+                 "runtime.replay_shard"):
         assert f"distributed_reinforcement_learning_tpu_torch.{name}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,

@@ -694,6 +694,43 @@ def test_run_role_learner_on_cuda_launches_vtrace_twice_a_step(tmp_path):
 
 
 @pytest.mark.gpu
+def test_r2d2_learn_many_on_cuda_runs_the_lstm_kernels_each_step():
+    """`learn_many` over K = 2 batches on the card: K2a twice and K2b once
+    a step, and the priorities and losses of K `learn` calls on the same
+    batches (rtol 1e-5: the gather's backward on CUDA adds with atomics,
+    in no fixed order); the parameters within Adam's bound of 2 lr a
+    step, which a gradient at float32's noise floor can take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import (
+        R2D2Agent, R2D2Batch, R2D2Config)
+    from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
+
+    agent = R2D2Agent(R2D2Config(lstm_size=64), device="cuda")
+    rng = np.random.RandomState(0)
+    K, B, T = 2, 8, 10
+    batches = R2D2Batch(
+        state=rng.randint(0, 255, (K, B, T, 2)).astype(np.int32),
+        previous_action=rng.randint(0, 2, (K, B, T)).astype(np.int32),
+        action=rng.randint(0, 2, (K, B, T)).astype(np.int32),
+        reward=rng.randn(K, B, T).astype(np.float32), done=rng.rand(K, B, T) < 0.1,
+        initial_h=rng.randn(K, B, 64).astype(np.float32),
+        initial_c=rng.randn(K, B, 64).astype(np.float32))
+    weights = rng.rand(K, B).astype(np.float32)
+    a, b = agent.init_state(0), agent.init_state(0)
+    fwd, bwd = klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches
+    a, prio, metrics = agent.learn_many(a, batches, weights)
+    assert (klstm.lstm_fwd_cuda.launches - fwd, klstm.lstm_bwd_cuda.launches - bwd) == (2 * K, K)
+    for i in range(K):
+        b, p, m = agent.learn(b, R2D2Batch(*(x[i] for x in batches)), weights[i])
+        torch.testing.assert_close(prio[i], p, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(metrics["loss"][i], m["loss"], rtol=1e-5, atol=1e-6)
+    lr = agent.cfg.learning_rate
+    for key in a.params:
+        torch.testing.assert_close(a.params[key], b.params[key], rtol=1e-5, atol=K * 2 * lr)
+
+
+@pytest.mark.gpu
 def test_apex_learn_step_on_cuda_matches_the_cpu():
     """`td_error` and one Ape-X learn step (`grads` then `apply_grads`,
     which together are `learn`; 84x84x4 uint8 frames, folded /255, a

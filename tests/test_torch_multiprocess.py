@@ -86,10 +86,12 @@ _APEX_CARTPOLE = {
 
 
 def test_apex_learner_and_actor_processes_train_over_tcp(tmp_path):
+    """The monolithic replay, forced with DRL_REPLAY_SHARDS=0 (the demotion
+    target of the default sharded service)."""
     config = tmp_path / "config.json"
     config.write_text(json.dumps({"apex_cartpole": _APEX_CARTPOLE}))
     env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{_free_port()}",
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS="2", DRL_REPLAY_SHARDS="0")
     kw = dict(algo="apex", config=config, section="apex_cartpole")
     learner = _spawn(["--mode", "learner", "--updates", "3"], env, **kw)
     actor = _spawn(["--mode", "actor", "--task", "0", "--actor_grace", "1"], env, **kw)
@@ -111,6 +113,48 @@ def test_apex_learner_and_actor_processes_train_over_tcp(tmp_path):
     assert set(summary["launches"].values()) == {0}
     a_summary = json.loads(a_out.strip().splitlines()[-1])
     assert a_summary["weight_version"] >= 0 and a_summary["frames"] > 0
+    assert summary["replay_service"] is None
+
+
+@pytest.mark.parametrize("algo, section, blob", [
+    ("apex", "apex_cartpole", "unrolls"), ("r2d2", "r2d2", "sequences")])
+def test_replay_learner_defaults_to_the_sharded_service_over_tcp(algo, section, blob, tmp_path):
+    """With no DRL_REPLAY_* set, a replay learner runs the JAX package's
+    default: 2 ingest shards with the spill tier on. The shards hold
+    exactly what the learner's server accepted, and the learner trains
+    from them (its own queue stays empty)."""
+    config = tmp_path / "config.json"
+    sections = json.loads(CONFIG.read_text())
+    config.write_text(json.dumps({"apex_cartpole": _APEX_CARTPOLE,
+                                  "r2d2": {**sections["r2d2"], "lstm_size": 32}}))
+    replay_knobs = ("DRL_REPLAY_SHARDS", "DRL_REPLAY_SCORER", "DRL_REPLAY_SPILL",
+                    "DRL_REPLAY_SPILL_DIR", "DRL_REPLAY_SPILL_HOT_MB", "DRL_REPLAY_SPILL_SEG")
+    env = {k: v for k, v in os.environ.items() if k not in replay_knobs}
+    env.update(DRL_LEARNER_ADDR=f"127.0.0.1:{_free_port()}", OMP_NUM_THREADS="2",
+               TMPDIR=str(tmp_path))  # the spill tier's default directory
+    kw = dict(algo=algo, config=config, section=section)
+    learner = _spawn(["--mode", "learner", "--updates", "3"], env, **kw)
+    actor = _spawn(["--mode", "actor", "--task", "0", "--actor_grace", "1"], env, **kw)
+    try:
+        out, err = _finish(learner, timeout=150)
+        a_out, a_err = _finish(actor, timeout=60)
+    finally:
+        for p in (learner, actor):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+    assert learner.returncode == 0, out[-2000:] + err[-2000:]
+    assert actor.returncode == 0, a_out[-2000:] + a_err[-2000:]
+    assert "sharded replay: 2 shard(s), scorer max, spill tier on" in out
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["train_steps"] == 3
+    svc = summary["replay_service"]
+    assert svc["shards"] == 2 and svc["spill"] and svc["healthy"] and not svc["demoted"]
+    ingested = sum(s["ingested_blobs"] for s in svc["shard_stats"])
+    assert ingested == summary["transport"]["unrolls_accepted"] > 0
+    assert summary[f"ingested_{blob}"] == 0 and summary["replay_size"] == 0
+    assert svc["admission"]["scored_blobs"] == ingested
+    spill_dirs = list(tmp_path.glob("drl_replay_spill_*/shard_001"))
+    assert len(spill_dirs) == 1
 
 
 @pytest.mark.parametrize("mode, env, item", [
@@ -120,8 +164,8 @@ def test_apex_learner_and_actor_processes_train_over_tcp(tmp_path):
     ("actor", {"DRL_SHM_WEIGHTS_NAME": "board0"}, "item 12"),
     ("learner", {"DRL_LEARNER_SEATS": "2"}, "item 13"),
     ("learner", {"DRL_COORDINATOR": "localhost:1234"}, "item 13"),
-    ("learner", {"DRL_REPLAY_SHARDS": "2"}, "item 9"),
-    ("actor", {"DRL_ADMISSION": "1"}, "item 9"),
+    ("learner", {"DRL_DEVICE_PATH": "1"}, "item 16"),
+    ("learner", {"DRL_WEIGHTS_SHARDED": "1"}, "item 12"),
 ])
 def test_unported_planes_are_refused_by_name(mode, env, item, monkeypatch):
     for k, v in env.items():

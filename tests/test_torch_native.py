@@ -224,13 +224,17 @@ def test_trajectory_queue_blocks_producers_until_the_learner_drains():
     assert not t.is_alive() and q.size() == 2
 
 
-def test_make_replay_switch(monkeypatch):
+def test_make_replay_switch(monkeypatch, tmp_path):
+    from distributed_reinforcement_learning_tpu_torch.data.replay_spill import (
+        SpillConfig, TieredStore)
+
     assert type(replay.make_replay(8, backend="python")) is replay.PrioritizedReplay
     assert type(replay.make_replay(8, backend="native")) is replay.NativePrioritizedReplay
     assert type(replay.make_replay(8, backend="array")) is replay.ArrayPrioritizedReplay
     assert type(replay.make_replay(8)) is replay.ArrayPrioritizedReplay
-    with pytest.raises(ValueError, match="item 9"):
-        replay.make_replay(8, spill=object())
+    # A spill config overrides the backend with the tiered store, as in the JAX package.
+    tiered = replay.make_replay(8, backend="python", spill=SpillConfig(str(tmp_path)))
+    assert type(tiered) is TieredStore and tiered.mode == "transition"
     with pytest.raises(ValueError, match="unknown replay backend"):
         replay.make_replay(8, backend="disk")
     monkeypatch.setattr(native, "native_available", lambda: False)
