@@ -150,14 +150,47 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    shards with the spill tier on, launched exactly 2 K2a and 1 K2b per
    learn step (12 and 6) and scored no ingest (so no K2a on ingest: the
    shards take max priorities); logs the sequences each shard ingested.
-21. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+21. The Transformer-R2D2 path: the `xformer` section at full width
+   (CartPole-POMDP, d_model 64, 2 heads, 2 layers, seq_len 10, burn-in
+   5, batch 32, 3 actors x 4 envs) through build_local and run_sync for 3
+   train steps (8 rounds). At seq_len 10 attention takes the dense
+   route, so with the counts zeroed just before no kernel may launch;
+   finite loss and priorities, parameters that moved, the learner's
+   replay `ArrayPrioritizedReplay`; then the synchronised learn step
+   and td_error, a profiler breakdown, the wall per round and the
+   phase's own peak memory.
+22. Transformer-R2D2 device parity, for `xformer` and `xformer_moe`:
+   td_error and one learn step from the same parameters on one seeded
+   full-width batch on CUDA and on the CPU (TF32 off). With experts,
+   every routing call must first send every token to the same experts
+   and slots on both devices; then rtol 1e-4 on loss, grad norm, TD and
+   priorities, and the parameters after the step held as in phase 16.
+23. Long context on K3: the `xformer` section's agent at seq_len 32
+   (head dim 32: the flash route), remat off and then on: a learner on
+   CUDA scores 64 seeded sequences and takes 3 train steps, then one
+   td_error and one act on 12 windows of 32. With the counts zeroed
+   before each: 4 K3a a td_error, 2 an act, and a learn step 4 K3a (6
+   with remat, the recompute), 2 K3b and 2 K3c; no K1 or K2. The remat
+   and plain gradients must agree on the card, and one learn step on
+   CUDA and the CPU at phase 22's bar.
+24. The `xformer_moe` section (4 experts, top-2, aux weight 0.01) as
+   phase 21; the MoE aux term must be finite and above 0, and is logged
+   beside the TD loss.
+25. Multi-process Transformer-R2D2 with the learner `run_role` builds by
+   default (no DRL_REPLAY_SHARDS or DRL_REPLAY_SPILL set): a CUDA learner
+   (`train_xformer --mode learner --section xformer --updates 3`) and one
+   CPU actor process. Fails unless the learner reports 2 shards with the
+   spill tier on, takes 3 steps with no launch, and the actor held a
+   weight version above 0; logs the sequences each shard ingested, the
+   first step's time and the learner's peak memory.
+26. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
    paths launch none; K2a and K2b carry phase 20's launches beside phase
-   6's).
-22. The device line, then `{"ok": true, "device": {...}}` as the last line.
+   6's; K3a, K3b and K3c phase 23's beside phase 9's).
+27. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6, 9, 15 and 18 are read net of
-it.
+logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23 and 24 are
+read net of it.
 Every child process runs in its own process group and is killed whole
 if its phase fails.
 
@@ -180,6 +213,8 @@ import torch
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Batch
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+    XformerAgent, XformerBatch)
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
     XImpalaAgent, XImpalaBatch)
 from distributed_reinforcement_learning_tpu_torch.data import replay_service
@@ -2235,9 +2270,377 @@ def phase_multiprocess_r2d2_default() -> dict:
     return result
 
 
-def attention_rows(k3: dict, ximpala: dict) -> list[dict]:
+# -- Transformer-R2D2 (phases 21-25) --------------------------------------------
+
+XFORMER_UPDATES = 3  # 8 rounds of 12 sequences: the warm-up gate needs 64
+XFORMER_LONG_T = 32  # phase 23's seq_len: the flash route at head dim 32
+
+
+def xformer_batch(cfg, B: int, seed: int) -> tuple[XformerBatch, np.ndarray]:
+    """A seeded full-width sequence batch (CartPole-POMDP observations,
+    quantised x255 as the actors send them) and IS weights."""
+    rng = np.random.RandomState(seed)
+    T = cfg.seq_len
+    batch = XformerBatch(
+        state=(rng.randn(B, T, 2) * 0.2 * 255).astype(np.int32),
+        previous_action=rng.randint(0, cfg.num_actions, (B, T)).astype(np.int32),
+        action=rng.randint(0, cfg.num_actions, (B, T)).astype(np.int32),
+        reward=np.ones((B, T), np.float32),
+        done=rng.rand(B, T) < 0.1,
+    )
+    return batch, (0.5 + 0.5 * rng.rand(B)).astype(np.float32)
+
+
+def td_and_aux(agent, state, batch, is_weight) -> tuple[float, float]:
+    """(the IS-weighted TD loss, the MoE aux term) of one batch, without a
+    step: the two parts of the loss `learn` reports."""
+    from distributed_reinforcement_learning_tpu_torch.agents import common
+
+    dev = common.batch_to_device(batch, agent.device)
+    w = torch.as_tensor(is_weight, dtype=torch.float32, device=agent.device)
+    with torch.no_grad():
+        tv, sav, aux = agent._sequence_td(state.params, state.target_params, dev)
+        td = torch.mean(torch.mean(torch.square(tv - sav), dim=1) * w)
+    return float(td), float(aux)
+
+
+def phase_xformer(mem_start: int, section: str) -> dict:
+    """A Transformer-R2D2 section at full width (CartPole-POMDP, d_model
+    64, 2 heads, 2 layers, seq_len 10, batch 32, 3 actors x 4 envs)
+    through build_local and run_sync for XFORMER_UPDATES train steps. At
+    seq_len 10 attention takes the dense route: no kernel may launch."""
+    agent_cfg, rt = load_config(CONFIG, section)
+    t_phase = time.perf_counter()
+    learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in learner.state.params.values())
+    before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = run(learner, actors, XFORMER_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+
+    peak = torch.cuda.max_memory_allocated()
+    per_round = sum(a.env.num_envs for a in actors) * agent_cfg.seq_len
+    rounds = result["frames"] // per_round
+    metrics = result["last_metrics"]
+    log(f"[{section}] {n_params:,} parameters; {XFORMER_UPDATES} train steps in {rounds} "
+        f"rounds, {result['frames']} env frames in {wall:.2f} s ({wall / rounds * 1e3:.1f} ms "
+        f"wall per round, {result['frames'] / wall:.0f} env frames/s end to end); peak device "
+        f"memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the "
+        f"phase's own; launches {launches}")
+    log(f"[{section}] last metrics {json.dumps(metrics)}")
+    if rounds != 8 or any(launches.values()):
+        raise RuntimeError(f"{section} path: {rounds} rounds, launches {launches}, expected 8 "
+                           "rounds and no launch (seq_len 10 takes the dense route)")
+    if type(learner.replay).__name__ != "ArrayPrioritizedReplay":
+        raise RuntimeError(f"{section} learner replay is {type(learner.replay).__name__}, "
+                           "not ArrayPrioritizedReplay")
+    priorities = learner.replay.tree.export()[0]
+    if (learner.train_steps != XFORMER_UPDATES
+            or not all(math.isfinite(v) for v in metrics.values())
+            or not np.isfinite(priorities).all() or learner.replay.tree.total <= 0):
+        raise RuntimeError(f"bad {section} result: steps {learner.train_steps}, {metrics}, "
+                           f"priority total {learner.replay.tree.total}")
+    still = [k for k, v in before.items()
+             if float((learner.state.params[k].detach() - v).abs().max()) == 0.0]
+    if still:
+        raise RuntimeError(f"{section} parameters did not move: {still}")
+
+    agent, state = learner.agent, learner.state
+    batch, _, is_weight = learner.replay.sample(rt.batch_size, np.random.RandomState(0))
+    td_loss, aux = td_and_aux(agent, state, batch, is_weight)
+    log(f"[{section}] on a replayed batch: TD loss {td_loss:.6f}, MoE aux term {aux:.6f} "
+        f"(moe_aux_weight {agent_cfg.moe_aux_weight} x the layers' router terms)")
+    if agent_cfg.num_experts and not (math.isfinite(aux) and aux > 0):
+        raise RuntimeError(f"{section}: the MoE aux term is {aux}")
+    ingest = tree_map(lambda x: x[:16], batch)
+    for _ in range(2):
+        agent.learn(state, batch, is_weight)
+        agent.td_error(state, ingest)
+    torch.cuda.synchronize()
+    steps = 10
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.learn(state, batch, is_weight)
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.td_error(state, ingest)
+    torch.cuda.synchronize()
+    td_ms = (time.perf_counter() - t0) / steps * 1e3
+    frames_per_s = rt.batch_size * agent_cfg.seq_len / (learn_ms / 1e3)
+    log(f"[{section}] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}, "
+        f"T={agent_cfg.seq_len}): {frames_per_s:.0f} learned frames/s; ingest td_error "
+        f"(B=16) {td_ms:.2f} ms")
+    profile_breakdown(f"one {section} learn step", lambda: agent.learn(state, batch, is_weight))
+    return {"launches": launches, "learn_ms": learn_ms, "td_ms": td_ms,
+            "wall_per_round_ms": wall / rounds * 1e3, "frames": result["frames"],
+            "peak_mib": (peak - mem_start) / 2**20, "params": n_params, "td_loss": td_loss,
+            "aux": aux, "seconds": time.perf_counter() - t_phase}
+
+
+class RouteRecorder:
+    """Records the dispatch tensor of every MoE routing call
+    (`ops/moe.py:_dispatch_combine`) while it is entered."""
+
+    def __init__(self):
+        self.dispatch: list[torch.Tensor] = []
+
+    def __enter__(self):
+        from distributed_reinforcement_learning_tpu_torch.ops import moe as moe_ops
+
+        self._moe, self._orig = moe_ops, moe_ops._dispatch_combine
+
+        def recording(probs, top_k, capacity):
+            out = self._orig(probs, top_k, capacity)
+            self.dispatch.append(out[0].detach().cpu())
+            return out
+
+        moe_ops._dispatch_combine = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._dispatch_combine = self._orig
+
+
+def xformer_device_parity(agent_cfg, B: int, label: str) -> str:
+    """`td_error` and one learn step from the same parameters (another
+    target network) on one seeded batch, on CUDA and on the CPU with TF32
+    off: with experts, first the same experts and slots for every token
+    of every routing call; then rtol 1e-4 on loss, grad norm, TD and
+    priorities, and the parameters after the step by `adam_step_close`
+    (each device's gradient read off Adam's first moment, g = mu / 0.1).
+    -> a log line."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        batch, is_weight = xformer_batch(agent_cfg, B, seed=7)
+        results = {}
+        for device in ("cuda", "cpu"):
+            agent = XformerAgent(agent_cfg, device=device)
+            state = agent.init_state(seed=11)
+            for k, v in agent.init_state(seed=12).params.items():
+                state.target_params[k].copy_(v.detach())
+            with RouteRecorder() as routes:
+                td = agent.td_error(state, batch).cpu().numpy()
+                _, prio, metrics = agent.learn(state, batch, is_weight)
+            results[device] = {
+                "td": td, "prio": prio.cpu().numpy(), "routes": routes.dispatch,
+                "params": {k: v.detach().cpu() for k, v in state.params.items()},
+                "grads": {k: v.cpu() / 0.1 for k, v in state.mu.items()},
+                **{k: float(v) for k, v in metrics.items()}}
+        got, want = results["cuda"], results["cpu"]
+        if len(got["routes"]) != len(want["routes"]):
+            raise RuntimeError(f"{label}: {len(got['routes'])} routing calls on CUDA, "
+                               f"{len(want['routes'])} on the CPU")
+        flipped = [i for i, (a, b) in enumerate(zip(got["routes"], want["routes"]))
+                   if not torch.equal(a, b)]
+        if flipped:
+            # A near-tie in the router probabilities that rounds the other
+            # way on one device: a finding, not a reason to loosen the bar.
+            raise RuntimeError(f"{label}: routing calls {flipped} sent a token to another "
+                               "expert or slot on CUDA than on the CPU")
+        for k in ("loss", "grad_norm"):
+            if not math.isclose(got[k], want[k], rel_tol=1e-4):
+                raise RuntimeError(f"{label} cuda vs cpu learn step: {k} {got[k]} vs {want[k]}")
+        for k in ("td", "prio"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=f"{label} cuda vs cpu {k}")
+        unsettled = sum(adam_step_close(f"{label} {k}", got["params"][k], want["params"][k],
+                                        got["grads"][k], want["grads"][k],
+                                        agent_cfg.learning_rate) for k in want["params"])
+        worst = max(abs(got[k] / want[k] - 1) for k in ("loss", "grad_norm"))
+        worst_p = max(float((got["params"][k] - want["params"][k]).abs().max())
+                      for k in want["params"]) / agent_cfg.learning_rate
+        return (f"[parity] {label} cuda vs cpu agrees: {len(got['routes'])} routing calls "
+                f"identical, loss {got['loss']:.6f}, grad_norm {got['grad_norm']:.6f} (worst "
+                f"rel diff {worst:.2e}), TD and priorities within rtol 1e-4, parameters "
+                f"within {100 * worst_p:.2f}% of lr ({unsettled} noise-floor elements)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_xformer_parity() -> float:
+    """Device parity of the `xformer` and `xformer_moe` sections at full
+    width (batch 32 x 10). -> the phase's seconds."""
+    t0 = time.perf_counter()
+    for section in ("xformer", "xformer_moe"):
+        agent_cfg, rt = load_config(CONFIG, section)
+        log(xformer_device_parity(agent_cfg, rt.batch_size, section))
+    return time.perf_counter() - t0
+
+
+def phase_xformer_long(mem_start: int) -> dict:
+    """The `xformer` section's agent at seq_len 32 (built directly, not a
+    config section): the flash route in the learn step, td_error and act.
+    For remat off and on, a learner on CUDA scores 64 seeded sequences
+    (2 ingest td_error calls) and takes XFORMER_UPDATES train steps; then
+    one td_error and one act call on 12 windows of 32. The counts, zeroed
+    before each, must be exact: 4 K3a a td_error (2 layers, online and
+    target), 2 an act, and a learn step 4 K3a (+2 with remat, the
+    recompute), 2 K3b and 2 K3c; no K1 or K2. Then the remat and plain
+    gradients on the card, and CUDA vs CPU at phase 22's bar."""
+    import dataclasses
+
+    from distributed_reinforcement_learning_tpu_torch.runtime import xformer_runner
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    t_phase = time.perf_counter()
+    base_cfg, rt = load_config(CONFIG, "xformer")
+    cfg = dataclasses.replace(base_cfg, seq_len=XFORMER_LONG_T)
+    layers = cfg.num_layers
+    seqs, _ = xformer_batch(cfg, 2 * rt.batch_size, seed=3)
+    win, _ = xformer_batch(cfg, 12, seed=4)
+    out: dict = {"launches": {}}
+    grads = {}
+    torch.cuda.reset_peak_memory_stats()
+    for remat in (False, True):
+        agent = XformerAgent(dataclasses.replace(cfg, remat=remat), device="cuda")
+        learner = xformer_runner.XformerLearner(
+            agent, TrajectoryQueue(rt.queue_size), WeightStore(), batch_size=rt.batch_size,
+            replay_capacity=rt.replay_capacity, target_sync_interval=rt.target_sync_interval,
+            seed=0)
+        for i in range(len(seqs.reward)):
+            learner.queue.put(XformerBatch(*(x[i] for x in seqs)))
+        zero_launch_counts()
+        ingested = learner.ingest_batch() + learner.ingest_batch()
+        torch.cuda.synchronize()
+        counts = {"ingest (2 td_error calls)": all_launches()}
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(XFORMER_UPDATES):
+            metrics = learner.train()
+            if metrics is None or not all(math.isfinite(float(v)) for v in metrics.values()):
+                raise RuntimeError(f"seq_len {XFORMER_LONG_T} train call: {metrics}")
+        torch.cuda.synchronize()
+        train_ms = (time.perf_counter() - t0) / XFORMER_UPDATES * 1e3
+        counts[f"{XFORMER_UPDATES} learn steps"] = all_launches()
+        zero_launch_counts()
+        agent.td_error(learner.state, tree_map(lambda x: x[:rt.batch_size], seqs))
+        counts["1 td_error"] = all_launches()
+        zero_launch_counts()
+        dev = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device="cuda")  # noqa: E731
+        agent.act(learner.state.params, dev(win.state), dev(win.previous_action),
+                  dev(win.done), dev(np.full(12, 0.1, np.float32)),
+                  torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        counts["1 act"] = all_launches()
+        n = XFORMER_UPDATES
+        want = {
+            "ingest (2 td_error calls)": (2 * 2 * layers, 0, 0),
+            f"{XFORMER_UPDATES} learn steps": (n * (2 + remat) * layers, n * layers, n * layers),
+            "1 td_error": (2 * layers, 0, 0),
+            "1 act": (layers, 0, 0)}
+        for what, got in counts.items():
+            k3 = (got["attention_fwd"], got["attention_dq"], got["attention_dkv"])
+            k12 = got["vtrace"] + got["lstm_fwd"] + got["lstm_bwd"]
+            if k3 != want[what] or k12:
+                raise RuntimeError(f"seq_len {XFORMER_LONG_T}, remat {remat}: {what} launched "
+                                   f"{got}, expected K3a/K3b/K3c {want[what]} and no K1 or K2")
+        if ingested != 2 * rt.batch_size or learner.train_steps != n:
+            raise RuntimeError(f"seq_len {XFORMER_LONG_T}: {ingested} ingested, "
+                               f"{learner.train_steps} steps")
+        label = f"remat_{'on' if remat else 'off'}"
+        out["launches"][label] = {what: {k: v for k, v in got.items() if v}
+                                  for what, got in counts.items()}
+        batch, is_weight = xformer_batch(cfg, rt.batch_size, seed=5)
+        for _ in range(2):
+            agent.learn(learner.state, batch, is_weight)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            agent.learn(learner.state, batch, is_weight)
+        torch.cuda.synchronize()
+        out[f"learn_ms_{label}"] = (time.perf_counter() - t0) / 10 * 1e3
+        out[f"train_call_ms_{label}"] = train_ms
+        log(f"[xformer seq_len {XFORMER_LONG_T}] remat {'on' if remat else 'off'}: launches "
+            f"{json.dumps(out['launches'][label])}; train call {train_ms:.2f} ms, learn step "
+            f"{out[f'learn_ms_{label}']:.2f} ms synchronised (B={rt.batch_size}, "
+            f"T={XFORMER_LONG_T})")
+        # The gradients of one loss from one set of parameters, remat off and on.
+        from distributed_reinforcement_learning_tpu_torch.agents import common
+
+        state = agent.init_state(seed=21)
+        for k, v in agent.init_state(seed=22).params.items():
+            state.target_params[k].copy_(v.detach())
+        loss, _ = agent._loss(state.params, state.target_params,
+                              common.batch_to_device(batch, agent.device),
+                              torch.as_tensor(is_weight, device="cuda"))
+        names = list(state.params)
+        grads[remat] = dict(zip(names, torch.autograd.grad(loss, [state.params[k]
+                                                                  for k in names])))
+    worst = 0.0
+    for k, g in grads[False].items():
+        scale = float(g.abs().max())
+        torch.testing.assert_close(grads[True][k], g, rtol=1e-5, atol=1e-6 * scale,
+                                   msg=lambda m, k=k: f"remat vs plain gradient {k}: {m}")
+        worst = max(worst, float((grads[True][k] - g).abs().max()) / max(scale, 1e-30))
+    log(f"[xformer seq_len {XFORMER_LONG_T}] remat and plain gradients agree on the card "
+        f"(worst difference {worst:.2e} of a tensor's largest gradient)")
+    out["remat_grad_worst"] = worst
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - mem_start) / 2**20
+    log(xformer_device_parity(cfg, rt.batch_size, f"xformer seq_len {XFORMER_LONG_T}"))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[xformer seq_len {XFORMER_LONG_T}] the phase's own peak {out['peak_mib']:.1f} MiB; "
+        f"phase {out['seconds']:.1f} s")
+    return out
+
+
+def phase_multiprocess_xformer_default() -> dict:
+    """The `xformer` learner process as `run_role` builds it by default (no
+    DRL_REPLAY_SHARDS or DRL_REPLAY_SPILL set: 2 shards, max scorer,
+    spill tier on) on CUDA, one CPU actor process, 3 updates. Fails unless
+    the learner reports 2 shards with the spill tier on, takes 3 steps
+    with no kernel launch (seq_len 10) and the actor held a weight version
+    above 0."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_xformer_"))
+    try:
+        learner, actors = run_topology(
+            "xformer", "xformer", XFORMER_UPDATES, 1, tag="_default",
+            env_set={"DRL_REPLAY_SHARDS": None, "DRL_REPLAY_SPILL": None,
+                     "DRL_REPLAY_SPILL_DIR": str(tmp / "spill")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    svc = learner["replay_service"]
+    got = learner["launches"]
+    if (learner["train_steps"] != XFORMER_UPDATES or svc is None or svc["shards"] != 2
+            or not svc["spill"] or any(got.values()) or actors[0]["weight_version"] <= 0):
+        raise RuntimeError(f"default xformer learner: {learner['train_steps']} steps, launches "
+                           f"{got}, service {svc}, actor {actors[0]}")
+    per_shard = [s["ingested_blobs"] for s in svc["shard_stats"]]
+    steps = learner["step_s"]
+    result = {"ingested_per_shard": per_shard, "first_step_s": steps[0],
+              "peak_mib": learner["peak_device_mib"],
+              "weight_version": actors[0]["weight_version"],
+              "seconds": time.perf_counter() - t_phase}
+    log(f"[multiproc] xformer default learner: sharded replay, {svc['shards']} shards, scorer "
+        f"{svc['scorer']}, spill tier {'on' if svc['spill'] else 'off'}; "
+        f"{learner['train_steps']} updates, launches {got}; sequences ingested a shard "
+        f"{per_shard} (the server accepted {learner['transport']['unrolls_accepted']}); first "
+        f"step {steps[0]:.2f} s into the loop, steps at {[round(t, 3) for t in steps]} s; "
+        f"stage ms " + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+        + f"; actor {actors[0]['frames']} env frames, weight version "
+        f"{actors[0]['weight_version']}; peak device memory "
+        f"{learner['peak_device_mib']:.1f} MiB; phase {result['seconds']:.1f} s")
+    return result
+
+
+def attention_rows(k3: dict, ximpala: dict, xformer_long: dict) -> list[dict]:
     """The K3a, K3b and K3c entries of the kernels line, at the main path's
-    shape, with the other shapes beside."""
+    shape, with the other shapes beside. `launches` is the ximpala path's
+    (phase 9); the Transformer-R2D2 path at seq_len 32 (phase 23, remat
+    off and on) is beside it."""
     rows = []
     for kind, line in (("fwd", 59), ("dq", 108), ("dkv", 152)):
         name = f"attention_{kind}"
@@ -2247,6 +2650,11 @@ def attention_rows(k3: dict, ximpala: dict) -> list[dict]:
             "source": "distributed_reinforcement_learning_tpu_torch/csrc/attention.cu",
             "replaces": f"distributed_reinforcement_learning_tpu/ops/pallas/attention.py:{line}",
             "launches": ximpala["launches"][name], "max_abs_err": k3["max_abs_err"][kind],
+            "launches_by_path": {
+                "ximpala": ximpala["launches"][name],
+                **{f"xformer_seq{XFORMER_LONG_T}_{label}": {
+                    what: got.get(name, 0) for what, got in by_call.items()}
+                   for label, by_call in xformer_long["launches"].items()}},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_call": ("scaled_dot_product_attention, causal & same-segment mask"
@@ -2303,6 +2711,13 @@ def main() -> int:
     apex_default = phase_multiprocess_apex_default()
     phase_memory("multi-process r2d2, default replay")
     r2d2_default = phase_multiprocess_r2d2_default()
+    xformer = phase_xformer(phase_memory("xformer path"), "xformer")
+    phase_memory("xformer parity")
+    xformer_parity_s = phase_xformer_parity()
+    xformer_long = phase_xformer_long(phase_memory("xformer seq_len 32"))
+    xformer_moe = phase_xformer(phase_memory("xformer_moe path"), "xformer_moe")
+    phase_memory("multi-process xformer, default replay")
+    xformer_mp = phase_multiprocess_xformer_default()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -2320,7 +2735,7 @@ def main() -> int:
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }, *lstm_rows(k2, r2d2, r2d2_default), *attention_rows(k3, ximpala)]
+    }, *lstm_rows(k2, r2d2, r2d2_default), *attention_rows(k3, ximpala, xformer_long)]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
@@ -2343,7 +2758,17 @@ def main() -> int:
         f"unrolls a shard, {apex_default['spilled_segments']} spilled "
         f"({apex_default['seconds']:.1f} s); default r2d2 learner K2a/K2b "
         f"{r2d2_default['launches']['lstm_fwd']}/{r2d2_default['launches']['lstm_bwd']} "
-        f"({r2d2_default['seconds']:.1f} s); smoke took {time.perf_counter() - t_start:.1f} s")
+        f"({r2d2_default['seconds']:.1f} s); xformer learn_ms {xformer['learn_ms']:.3f}, wall "
+        f"per round {xformer['wall_per_round_ms']:.1f} ms, own peak {xformer['peak_mib']:.1f} "
+        f"MiB ({xformer['seconds']:.1f} s); xformer parity ({xformer_parity_s:.1f} s); seq_len "
+        f"{XFORMER_LONG_T} learn_ms {xformer_long['learn_ms_remat_off']:.3f} / "
+        f"{xformer_long['learn_ms_remat_on']:.3f} (remat off / on), own peak "
+        f"{xformer_long['peak_mib']:.1f} MiB ({xformer_long['seconds']:.1f} s); xformer_moe "
+        f"learn_ms {xformer_moe['learn_ms']:.3f}, TD loss {xformer_moe['td_loss']:.5f}, aux "
+        f"{xformer_moe['aux']:.5f} ({xformer_moe['seconds']:.1f} s); multi-process xformer "
+        f"{xformer_mp['ingested_per_shard']} sequences a shard, first step "
+        f"{xformer_mp['first_step_s']:.2f} s, peak {xformer_mp['peak_mib']:.1f} MiB "
+        f"({xformer_mp['seconds']:.1f} s); smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -214,10 +214,11 @@ def sequence_double_q_td(main_q, target_q, action, reward, discounts, *, burn_in
 class SequenceReplayLearnMixin:
     """td_error / loss / learn of the sequence-replay agents.
 
-    The host class provides `cfg`, `tx` (an `AdamWithClip`) and
-    `_sequence_td(params, target_params, batch)` -> (target value, Q(s, a)).
-    Loss: IS-weighted mean over sequences of the mean over time of the
-    squared TD. Priority: the reference's |mean_t TD| by default; with
+    The host class provides `cfg`, `device`, `tx` (an `AdamWithClip`) and
+    `_sequence_td(params, target_params, batch)` -> (target value, Q(s, a))
+    or (target value, Q(s, a), aux), aux a model term added to the loss as
+    it is (the MoE routers' load-balancing term). Loss: IS-weighted mean
+    over sequences of the mean over time of the squared TD. Priority: the reference's |mean_t TD| by default; with
     `cfg.priority_eta` the R2D2 paper's eta * max_t|TD| + (1 - eta) *
     mean_t|TD|.
     """
@@ -232,12 +233,16 @@ class SequenceReplayLearnMixin:
 
     @torch.no_grad()
     def _td_error(self, state: TargetTrainState, batch) -> torch.Tensor:
-        return self._seq_priority(*self._sequence_td(state.params, state.target_params, batch))
+        tv, sav = self._sequence_td(state.params, state.target_params, batch)[:2]
+        return self._seq_priority(tv, sav)
 
     def _loss(self, params, target_params, batch, is_weight: torch.Tensor):
-        tv, sav = self._sequence_td(params, target_params, batch)
+        out = self._sequence_td(params, target_params, batch)
+        tv, sav = out[:2]
         per_seq = torch.mean(torch.square(tv - sav), dim=1)
         loss = torch.mean(per_seq * is_weight)
+        if len(out) > 2:
+            loss = loss + out[2]
         return loss, self._seq_priority(tv, sav).detach()
 
     def _learn(self, state: TargetTrainState, batch, is_weight: torch.Tensor):
@@ -249,6 +254,36 @@ class SequenceReplayLearnMixin:
         grad_norm = self.tx.apply(state, dict(zip(names, grads)))
         state.step += 1
         return state, priorities, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    # -- the public calls, on the host class's `device` -------------------
+    def state_from_params(self, params: dict[str, torch.Tensor]) -> TargetTrainState:
+        """A train state over a copy of `params` (for example a converted
+        JAX checkpoint): target = params, fresh Adam moments, step 0."""
+        own = {k: v.detach().to(self.device, torch.float32, copy=True).requires_grad_(True)
+               for k, v in params.items()}
+        target = {k: v.detach().clone() for k, v in own.items()}
+        mu, nu = self.tx.init(own)
+        return TargetTrainState(params=own, target_params=target, mu=mu, nu=nu)
+
+    def sync_target(self, state: TargetTrainState) -> TargetTrainState:
+        return state.sync_target()
+
+    def td_error(self, state: TargetTrainState, batch) -> torch.Tensor:
+        """Per-sequence priorities `[B]` (device tensor) under the current
+        main and target networks."""
+        return self._td_error(state, batch_to_device(batch, self.device))
+
+    def learn(self, state: TargetTrainState, batch, is_weight):
+        """One Adam step in place -> (state, priorities `[B]`, metrics);
+        priorities and metrics are device tensors (no host sync)."""
+        batch = batch_to_device(batch, self.device)
+        is_weight = torch.as_tensor(is_weight, dtype=torch.float32).to(self.device)
+        return self._learn(state, batch, is_weight)
+
+    def learn_many(self, state: TargetTrainState, batches, is_weights):
+        """K `learn` steps over `[K, B, ...]` batches -> (state, priorities
+        `[K, B]`, metrics stacked `[K]`), all device tensors."""
+        return learn_many(self.learn, state, batches, is_weights, self.device)
 
 
 def learn_many(learn, state, batches, is_weights, device: torch.device):

@@ -147,7 +147,9 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
     def loss(self, params: dict[str, torch.Tensor], batch: ImpalaBatch):
         """-> (total loss, metrics) for a batch of tensors on the device."""
         cfg = self.cfg
-        policy, value = self._forward(params, batch)
+        # A third element is a model term added to the loss as it is (the
+        # transformer's MoE load-balancing term).
+        policy, value, *aux = self._forward(params, batch)
 
         clipped_r = common.clip_rewards(batch.reward, cfg.reward_clipping)
         discounts = (~batch.done).to(torch.float32) * cfg.discount_factor
@@ -172,6 +174,8 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
         v_loss = vtrace.baseline_loss(vs, first_v)
         ent_loss = vtrace.entropy_loss(first_p)
         total = pi_loss + cfg.baseline_loss_coef * v_loss + cfg.entropy_coef * ent_loss
+        if aux:
+            total = total + aux[0]
         metrics = {
             "pi_loss": pi_loss.detach(),
             "baseline_loss": v_loss.detach(),

@@ -16,6 +16,9 @@ Counterpart of the JAX package's `agents/r2d2.py`:
 `act`, `td_error` and `learn` take parameters explicitly (dicts of
 tensors through `torch.func.functional_call`), as the IMPALA agent does;
 `learn_many` runs K `learn` steps in one call (`common.learn_many`).
+`state_from_params`, `td_error`, `learn` and `learn_many` come from
+`common.SequenceReplayLearnMixin`; on CUDA each learn step runs the LSTM
+kernels.
 """
 
 from __future__ import annotations
@@ -100,18 +103,6 @@ class R2D2Agent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin):
         return self.state_from_params(
             self._build_model(torch.Generator().manual_seed(seed)).state_dict())
 
-    def state_from_params(self, params: dict[str, torch.Tensor]) -> common.TargetTrainState:
-        """A train state over a copy of `params` (for example a converted
-        JAX checkpoint): target = params, fresh Adam moments, step 0."""
-        own = {k: v.detach().to(self.device, torch.float32, copy=True).requires_grad_(True)
-               for k, v in params.items()}
-        target = {k: v.detach().clone() for k, v in own.items()}
-        mu, nu = self.tx.init(own)
-        return common.TargetTrainState(params=own, target_params=target, mu=mu, nu=nu)
-
-    def sync_target(self, state: common.TargetTrainState) -> common.TargetTrainState:
-        return state.sync_target()
-
     def initial_lstm_state(self, batch_size: int) -> tuple[torch.Tensor, torch.Tensor]:
         z = torch.zeros(batch_size, self.cfg.lstm_size, device=self.device)
         return z, z.clone()
@@ -148,20 +139,3 @@ class R2D2Agent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin):
             main_q, target_q, batch.action, batch.reward, discounts,
             burn_in=cfg.burn_in, rescale_eps=cfg.rescale_eps)
 
-    def td_error(self, state: common.TargetTrainState, batch: R2D2Batch) -> torch.Tensor:
-        """Per-sequence priorities `[B]` (device tensor) under the current
-        main and target networks."""
-        return self._td_error(state, common.batch_to_device(batch, self.device))
-
-    def learn(self, state: common.TargetTrainState, batch: R2D2Batch, is_weight):
-        """One Adam step in place -> (state, priorities `[B]`, metrics);
-        priorities and metrics are device tensors (no host sync)."""
-        batch = common.batch_to_device(batch, self.device)
-        is_weight = torch.as_tensor(is_weight, dtype=torch.float32).to(self.device)
-        return self._learn(state, batch, is_weight)
-
-    def learn_many(self, state: common.TargetTrainState, batches: R2D2Batch, is_weights):
-        """K `learn` steps over `[K, B, ...]` batches -> (state,
-        priorities `[K, B]`, metrics stacked `[K]`), all device tensors;
-        on CUDA each step runs the LSTM kernels."""
-        return common.learn_many(self.learn, state, batches, is_weights, self.device)

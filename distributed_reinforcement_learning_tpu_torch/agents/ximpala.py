@@ -12,7 +12,8 @@ episode-segment masking stands in for done-masked state resets.
   window of the current unroll's steps (the behavior policy).
 - `loss` builds the attention segments from `env_done` (true episode
   ends) and the V-trace discounts from `done` (recorded, possibly
-  life-loss shaped).
+  life-loss shaped), and adds the MoE routers' load-balancing term
+  (`moe_aux_weight` x the sum over layers) when `num_experts > 0`.
 
 Parameters are explicit tensors run through `torch.func.functional_call`
 on a meta-device model, as in `agents/impala.py`. On CUDA tensors every
@@ -31,15 +32,15 @@ from torch.func import functional_call
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent
 from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
-    build_transformer_models, init_transformer_params)
+    build_transformer_models, init_transformer_params, moe_aux_term)
 
 
 @dataclasses.dataclass(frozen=True)
 class XImpalaConfig:
     """IMPALA hyperparameters + transformer body knobs, mirroring the
-    `ximpala` block of `config.json`. Only the dense body is ported: the
-    body knobs exist so that a section loads as in the JAX package, and
-    any non-dense setting raises."""
+    `ximpala` block of `config.json`. Mixture of experts, remat and the
+    stacked layout are ported; sequence-parallel attention and the
+    pipeline need a mesh and raise (ROADMAP item 13)."""
 
     obs_shape: tuple[int, ...] = (2,)
     num_actions: int = 2
@@ -116,10 +117,13 @@ class XImpalaAgent(ImpalaAgent):
         return XImpalaActOutput(action, policy)
 
     def _forward(self, params: dict[str, torch.Tensor], batch: XImpalaBatch):
-        """-> (policy, value) of one `[B, T]` forward. Attention segments
-        come from env_done, not the shaped done: the context follows true
-        episode boundaries (see XImpalaBatch)."""
-        return functional_call(
-            self.model, params,
-            (common.normalize_obs(batch.state), batch.previous_action, batch.env_done),
-            tie_weights=False)
+        """-> (policy, value) of one `[B, T]` forward, and the MoE aux term
+        third when `num_experts > 0`. Attention segments come from
+        env_done, not the shaped done: the context follows true episode
+        boundaries (see XImpalaBatch)."""
+        args = (common.normalize_obs(batch.state), batch.previous_action, batch.env_done)
+        if not self.cfg.num_experts:
+            return functional_call(self.model, params, args, tie_weights=False)
+        (policy, value), aux = functional_call(self.model, params, args,
+                                               {"return_aux": True}, tie_weights=False)
+        return policy, value, moe_aux_term(self.cfg, aux)

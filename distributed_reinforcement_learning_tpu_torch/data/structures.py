@@ -1,10 +1,10 @@
 """Client-side trajectory accumulators.
 
-Counterpart of the IMPALA, R2D2 and Transformer-IMPALA parts of the JAX package's
-`data/structures.py`: one accumulator holds a whole vectorized actor's
-unroll as a `[T]`-list of `[N, ...]` numpy arrays and emits one
-trajectory (or sequence) per env; `SlicedAccumulators` keeps one per
-env slice of the pipelined actor.
+Counterpart of the IMPALA, R2D2, Transformer-R2D2 and Transformer-IMPALA
+parts of the JAX package's `data/structures.py`: one accumulator holds a
+whole vectorized actor's unroll as a `[T]`-list of `[N, ...]` numpy
+arrays and emits one trajectory (or sequence) per env;
+`SlicedAccumulators` keeps one per env slice of the pipelined actor.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Batch
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import XformerBatch
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaBatch
 
 
@@ -98,3 +99,12 @@ class R2D2SequenceAccumulator(_StackedUnrollAccumulator):
         return [R2D2Batch(**{k: v[i] for k, v in fields.items()},
                           initial_h=self._initial_h[i], initial_c=self._initial_c[i])
                 for i in range(self._initial_h.shape[0])]
+
+
+class XformerSequenceAccumulator(_StackedUnrollAccumulator):
+    """seq_len steps of an `[N]`-env actor -> N `XformerBatch`es: the R2D2
+    payload minus the stored LSTM state, since the transformer re-attends
+    over the stored sequence (the sequence is its own state)."""
+
+    def _batch_cls(self):
+        return XformerBatch

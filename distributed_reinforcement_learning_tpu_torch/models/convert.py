@@ -18,7 +18,9 @@ torsos flatten NHWC, as the JAX torsos do.
 
 `TransformerQNet` takes flax's automatic names through a table instead
 (`transformer_params_from_jax`), and LayerNorm's `scale` becomes
-`weight` with no transpose.
+`weight` with no transpose. Its `moe` groups and `blocks_stacked` keep
+their names and layouts (the port computes the same einsums and
+products).
 """
 
 from __future__ import annotations
@@ -75,7 +77,10 @@ def transformer_params_from_jax(tree, head: str = "dueling_q") -> dict[str, torc
     """-> a state_dict for `TransformerQNet(head=head).load_state_dict(strict=True)`
     (`SelfAttentionBlock_1/Dense_0/kernel` -> `blocks.1.qkv.weight`,
     `ActionEmbedding_0/Dense_1/bias` -> `action_embed.layers.1.bias`,
-    `LayerNorm_0/scale` -> `final_ln.weight`)."""
+    `LayerNorm_0/scale` -> `final_ln.weight`,
+    `SelfAttentionBlock_0/moe/moe_w1` -> `blocks.0.moe.moe_w1`,
+    `blocks_stacked/qkv_kernel` -> `blocks_stacked.qkv_kernel`). Remat
+    leaves flax's names as they are, so one table serves both."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     top = {**_XF_TOP, **_XF_HEADS[head]}
@@ -84,6 +89,10 @@ def transformer_params_from_jax(tree, head: str = "dueling_q") -> dict[str, torc
         arr = np.asarray(arr, np.float32)
         *scope, leaf = path
         block = _XF_BLOCK_NAME.match(scope[0])
+        if (block and scope[1:] == ["moe"]) or scope == ["blocks_stacked"]:
+            names = ["blocks", block.group(1), "moe"] if block else ["blocks_stacked"]
+            out[".".join(names + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
+            continue
         if block and len(scope) == 2 and scope[1] in _XF_BLOCK:
             names = ["blocks", block.group(1), _XF_BLOCK[scope[1]]]
         elif scope[0] == "ActionEmbedding_0" and len(scope) == 2 and _DENSE.match(scope[1]):

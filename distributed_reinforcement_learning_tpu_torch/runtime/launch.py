@@ -2,9 +2,9 @@
 
 Counterpart of `make_learner` / `make_actor` / `build_local` /
 `train_local` in the JAX package's `runtime/launch.py`, for IMPALA, Ape-X,
-R2D2 and Transformer-IMPALA: resolve envs from the registry, build agent,
-queue, weight store, learner and actors from a config section (the
-agent config's type picks the family). `make_learner` and `make_actor`
+R2D2, Transformer-R2D2 and Transformer-IMPALA: resolve envs from the
+registry, build agent, queue, weight store, learner and actors from a
+config section (the agent config's type picks the family). `make_learner` and `make_actor`
 take any queue and weight store, the learner's own objects in one
 process or the transport's adapters across processes
 (`runtime/transport.py:run_role`). Everything runs on CUDA unless the
@@ -21,6 +21,8 @@ import torch
 from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent, ApexConfig
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Config
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+    XformerAgent, XformerConfig)
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
     XImpalaAgent, XImpalaConfig)
 from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
@@ -28,23 +30,28 @@ from distributed_reinforcement_learning_tpu_torch.envs.batched import BatchedEnv
 from distributed_reinforcement_learning_tpu_torch.envs.cartpole import pomdp_project
 from distributed_reinforcement_learning_tpu_torch.envs.registry import make_env
 from distributed_reinforcement_learning_tpu_torch.runtime import (
-    apex_runner, impala_runner, r2d2_runner, ximpala_runner)
+    apex_runner, impala_runner, r2d2_runner, xformer_runner, ximpala_runner)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.config import RuntimeConfig, load_config
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 
 _AGENT_CLS = {"impala": ImpalaAgent, "apex": ApexAgent, "r2d2": R2D2Agent,
-              "ximpala": XImpalaAgent}
+              "xformer": XformerAgent, "ximpala": XImpalaAgent}
 _RUNNER = {"impala": impala_runner, "apex": apex_runner, "r2d2": r2d2_runner,
-           "ximpala": ximpala_runner}
+           "xformer": xformer_runner, "ximpala": ximpala_runner}
+# The prioritized sequence-replay families: the R2D2 learner and its loop.
+SEQUENCE_REPLAY = ("r2d2", "xformer")
 
 
-def algo_of(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XImpalaConfig) -> str:
+def algo_of(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XformerConfig
+            | XImpalaConfig) -> str:
     """The family a loaded agent config belongs to."""
     if isinstance(agent_cfg, ApexConfig):
         return "apex"
     if isinstance(agent_cfg, R2D2Config):
         return "r2d2"
+    if isinstance(agent_cfg, XformerConfig):
+        return "xformer"
     if isinstance(agent_cfg, XImpalaConfig):
         return "ximpala"
     return "impala"
@@ -72,7 +79,7 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
     `replay_service` (replay families) is the sharded replay the learner
     samples while it is healthy (`runtime/replay_shard.build_service`)."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
-    if algo in ("apex", "r2d2") and prefetch:
+    if algo in ("apex", *SEQUENCE_REPLAY) and prefetch:
         raise ValueError(f"the {algo} learner samples its batches from the replay; "
                          "it has no queue prefetch")
     if algo == "apex":
@@ -81,8 +88,9 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
             target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
             publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
             replay_service=replay_service)
-    if algo == "r2d2":
-        return r2d2_runner.R2D2Learner(
+    if algo in SEQUENCE_REPLAY:
+        cls = xformer_runner.XformerLearner if algo == "xformer" else r2d2_runner.R2D2Learner
+        return cls(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
             target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
             publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
@@ -104,10 +112,11 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
                                      life_loss_shaping=_is_atari(rt))
     # The 2-feature agents observe the CartPole POMDP view.
     transform = pomdp_project if agent_cfg.obs_shape == (2,) else None
-    if algo == "r2d2":
+    if algo in SEQUENCE_REPLAY:
+        # None keeps the actor's own floor (r2d2 0.0, xformer 0.15).
         floor = {} if rt.epsilon_floor is None else {"epsilon_floor": rt.epsilon_floor}
-        return r2d2_runner.R2D2Actor(agent, env, queue, weights, seed=seed,
-                                     obs_transform=transform, **floor)
+        cls = xformer_runner.XformerActor if algo == "xformer" else r2d2_runner.R2D2Actor
+        return cls(agent, env, queue, weights, seed=seed, obs_transform=transform, **floor)
     available = rt.available_action[task % len(rt.available_action)]
     if algo == "ximpala":
         return ximpala_runner.XImpalaActor(
@@ -118,8 +127,8 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
                                      life_loss_shaping=_is_atari(rt))
 
 
-def build_local(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XImpalaConfig,
-                rt: RuntimeConfig, run_dir: str | None = None, seed: int = 0,
+def build_local(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XformerConfig
+                | XImpalaConfig, rt: RuntimeConfig, run_dir: str | None = None, seed: int = 0,
                 device: str | torch.device | None = None):
     """-> (learner, actors, run_sync) for single-process training; one
     agent is shared by the learner and every actor."""

@@ -6,10 +6,15 @@ path only:
 - `R2D2Actor`: N batched envs (CartPole-POMDP through `obs_transform`),
   per-env epsilon `max(1/(0.1*episode+1), floor)`, seq_len unrolls that
   carry the sequence-start LSTM state, a weight pull per unroll.
-- `R2D2Learner`: drains sequences and scores their priorities in one
-  `td_error` call (padded to a power of two), inserts them into the
-  replay of `make_replay(backend="auto")` (the array backend over the
-  native sum tree wherever it builds, as the JAX learner), trains with
+- `R2D2Learner`: family-neutral over the sequence-replay agents (the
+  R2D2 agent, and the transformer agent through
+  `runtime/xformer_runner.py`): it only calls the agent's `init_state`,
+  `td_error`, `learn`, `learn_many` and `sync_target` and stacks
+  whatever sequence tuples arrive. It drains sequences and scores their
+  priorities in one `td_error` call (padded to a power of two), inserts
+  them into the replay of `make_replay(backend="auto")` (the array
+  backend over the native sum tree wherever it builds, as the JAX
+  learner), trains with
   IS weights once 2 x batch sequences have arrived, re-prioritises
   every sampled index, and syncs the target every
   `target_sync_interval` steps (`runtime/replay_train.py`). With a
@@ -203,7 +208,7 @@ class R2D2Actor:
 class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
     def __init__(
         self,
-        agent: R2D2Agent,
+        agent,  # R2D2Agent or XformerAgent
         queue: TrajectoryQueue,
         weights: WeightStore,
         batch_size: int = 32,
@@ -365,7 +370,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         self.logger.close()
 
 
-def run_sync(learner: R2D2Learner, actors: list[R2D2Actor], num_updates: int,
+def run_sync(learner: R2D2Learner, actors: list, num_updates: int,
              close_learner: bool = True) -> dict:
     """Rounds of: every actor unrolls once, the learner ingests, then
     trains once it is warm; until `num_updates` train steps."""
@@ -388,7 +393,7 @@ def run_sync(learner: R2D2Learner, actors: list[R2D2Actor], num_updates: int,
     return {"frames": frames, "last_metrics": metrics, "episode_returns": returns}
 
 
-def run_async(learner: R2D2Learner, actors: list[R2D2Actor], num_updates: int,
+def run_async(learner: R2D2Learner, actors: list, num_updates: int,
               queue: TrajectoryQueue) -> dict:
     """Free-running actor threads + the ingest/train learner loop in one
     process (`actor_pipeline.run_async_loop`)."""

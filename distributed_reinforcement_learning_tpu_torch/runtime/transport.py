@@ -1133,6 +1133,8 @@ def _learner_loop(algo: str, learner, num_updates: int, ckpt=None,
                   checkpoint_interval: int = 500, on_step=None) -> None:
     """Train until `num_updates`, checkpointing every `checkpoint_interval`
     steps; `on_step()` runs after each train step."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import SEQUENCE_REPLAY
+
     last_saved = learner.train_steps
 
     def after_step() -> None:
@@ -1157,7 +1159,7 @@ def _learner_loop(algo: str, learner, num_updates: int, ckpt=None,
                 after_step()
             elif not drained:
                 time.sleep(0.05)
-    elif algo == "r2d2":
+    elif algo in SEQUENCE_REPLAY:
         while learner.train_steps < num_updates:
             got = learner.ingest_batch(timeout=0.05)
             if learner.train() is not None:

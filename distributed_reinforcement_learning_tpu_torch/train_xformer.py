@@ -1,0 +1,23 @@
+"""Transformer-R2D2 training with the PyTorch port.
+
+    python -m distributed_reinforcement_learning_tpu_torch.train_xformer \\
+        --section xformer --updates 600 [--device cpu] [--run_dir runs/x]
+
+The modes and options of `train_impala.py`: `--mode local` (default,
+one process; prints the result as JSON), `--mode learner`, `--mode actor
+--task k`. Every mode runs on CUDA unless `--device` names another
+device. The `xformer_moe` section runs the same family with routed
+experts.
+"""
+
+from __future__ import annotations
+
+from distributed_reinforcement_learning_tpu_torch.train_impala import run_cli
+
+
+def main(argv: list[str] | None = None) -> dict:
+    return run_cli(__doc__, "xformer", "xformer", argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,13 @@
-"""Config loading: the IMPALA, Ape-X, R2D2 and Transformer-IMPALA
-sections of the repo's `config.json`.
+"""Config loading: every algorithm section of the repo's `config.json`
+(IMPALA, Ape-X, R2D2, Transformer-R2D2, Transformer-IMPALA).
 
-Counterpart of the JAX package's `utils/config.py`, IMPALA, Ape-X, R2D2
-and ximpala branches. Loads one section into an agent config and a
-`RuntimeConfig` and applies the same validation (actor, env and
-action-set counts agree). Keys that select what the port does not run
-yet (another algorithm, several optimizer steps per call for the IMPALA
-families, a non-dense transformer body) raise instead of being ignored.
+Counterpart of the JAX package's `utils/config.py`. Loads one section
+into an agent config and a `RuntimeConfig` and applies the same
+validation (actor, env and action-set counts agree). Keys that select
+what the port does not run yet raise instead of being ignored: several
+optimizer steps per call for the IMPALA families (ROADMAP item 15), and
+the transformer features that need a mesh (sequence-parallel attention,
+the pipeline, `seq_parallel` or `expert_parallel` > 1: item 13).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from pathlib import Path
 from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexConfig
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Config
-from distributed_reinforcement_learning_tpu_torch.agents.xformer import check_dense_body
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+    XformerConfig, check_dense_body)
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaConfig
 
 
@@ -39,8 +41,12 @@ class RuntimeConfig:
     target_sync_interval: int = 100
     # Prioritized updates per train call (the replay families).
     updates_per_call: int = 1
-    # r2d2 actors: residual exploration floor (None = the actor's own
-    # default, 0.0: reference parity).
+    # Devices on a mesh's `seq` and `expert` axes (transformer families):
+    # 1 on one device; more raises (ROADMAP item 13).
+    seq_parallel: int = 1
+    expert_parallel: int = 1
+    # r2d2 / xformer actors: residual exploration floor (None = the
+    # actor's own default: r2d2 0.0, reference parity; xformer 0.15).
     epsilon_floor: float | None = None
 
 
@@ -55,16 +61,19 @@ def check_config(rt: RuntimeConfig, num_actions: int) -> None:
 
 
 def load_config(path: str | Path, section: str):
-    """One config section -> (ImpalaConfig, ApexConfig, R2D2Config or
-    XImpalaConfig, RuntimeConfig)."""
+    """One config section -> (ImpalaConfig, ApexConfig, R2D2Config,
+    XformerConfig or XImpalaConfig, RuntimeConfig)."""
     d = json.loads(Path(path).read_text())[section]
     algorithm = d.get("algorithm", section.split("_")[0])
-    if algorithm not in ("impala", "apex", "r2d2", "ximpala"):
-        raise ValueError(f"section {section!r} is {algorithm!r}; the PyTorch port runs the "
-                         "IMPALA, Ape-X, R2D2 and Transformer-IMPALA families only")
-    if d.get("updates_per_call", 1) != 1 and algorithm not in ("apex", "r2d2"):
+    if algorithm not in ("impala", "apex", "r2d2", "xformer", "ximpala"):
+        raise ValueError(f"unknown algorithm {algorithm!r} in section {section!r}")
+    if d.get("updates_per_call", 1) != 1 and algorithm not in ("apex", "r2d2", "xformer"):
         raise ValueError("updates_per_call > 1 for the IMPALA families (scan_learn) is "
                          "not ported (ROADMAP item 15)")
+    for key in ("seq_parallel", "expert_parallel"):
+        if d.get(key, 1) > 1:
+            raise ValueError(f"{key}={d[key]} needs a mesh, which is not ported "
+                             "(ROADMAP item 13)")
     rt = RuntimeConfig(
         server_ip=d.get("server_ip", "localhost"),
         server_port=d.get("server_port", 8000),
@@ -78,6 +87,8 @@ def load_config(path: str | Path, section: str):
         replay_capacity=int(d.get("replay_capacity", 1e5)),
         target_sync_interval=d.get("target_sync_interval", 100),
         updates_per_call=d.get("updates_per_call", 1),
+        seq_parallel=d.get("seq_parallel", 1),
+        expert_parallel=d.get("expert_parallel", 1),
         epsilon_floor=d.get("epsilon_floor"),
     )
     if algorithm == "apex":
@@ -114,6 +125,10 @@ def load_config(path: str | Path, section: str):
         )
         check_config(rt, agent_cfg.num_actions)
         return agent_cfg, rt
+    if algorithm == "xformer":
+        agent_cfg = _xformer_config(d)
+        check_config(rt, agent_cfg.num_actions)
+        return agent_cfg, rt
     if algorithm == "ximpala":
         agent_cfg = _ximpala_config(d)
         check_config(rt, agent_cfg.num_actions)
@@ -139,10 +154,40 @@ def load_config(path: str | Path, section: str):
     return agent_cfg, rt
 
 
+def _xformer_config(d: dict) -> XformerConfig:
+    """The xformer branch, with the JAX package's keys and defaults
+    (d_model 128 and 4 heads where the section names none). The body
+    knobs that need a mesh raise (`check_dense_body`)."""
+    cfg = XformerConfig(
+        obs_shape=tuple(d["model_input"]),
+        num_actions=d["model_output"],
+        seq_len=d.get("seq_len", 10),
+        burn_in=d.get("burn_in", 5),
+        d_model=d.get("d_model", 128),
+        num_heads=d.get("num_heads", 4),
+        num_layers=d.get("num_layers", 2),
+        discount_factor=d.get("discount_factor", 0.997),
+        learning_rate=d.get("start_learning_rate", 1e-4),
+        attention=d.get("attention", "dense"),
+        num_experts=d.get("num_experts", 0),
+        moe_top_k=d.get("moe_top_k", 2),
+        moe_capacity_factor=d.get("moe_capacity_factor", 2.0),
+        moe_aux_weight=d.get("moe_aux_weight", 1e-2),
+        pipeline=d.get("pipeline", False),
+        pipeline_microbatches=d.get("pipeline_microbatches", 2),
+        pipeline_stages=d.get("pipeline_stages", 0),
+        remat=d.get("remat", False),
+        priority_eta=d.get("priority_eta", None),
+        # As for r2d2: the distinct `adam_clip_norm` key opts in to a clip.
+        gradient_clip_norm=d.get("adam_clip_norm", None),
+    )
+    check_dense_body(cfg)
+    return cfg
+
+
 def _ximpala_config(d: dict) -> XImpalaConfig:
     """The ximpala branch, with the JAX package's keys and defaults. The
-    body knobs that need what is not ported (sequence-parallel attention,
-    experts, pipelined, stacked or rematerialised layers) raise."""
+    body knobs that need a mesh raise (`check_dense_body`)."""
     cfg = XImpalaConfig(
         obs_shape=tuple(d["model_input"]),
         num_actions=d["model_output"],

@@ -18,6 +18,8 @@ import torch
 from distributed_reinforcement_learning_tpu_torch.agents.impala import (
     ImpalaAgent, ImpalaBatch, ImpalaConfig)
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Config
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+    XformerAgent, XformerConfig)
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import (
     XImpalaAgent, XImpalaConfig)
 from distributed_reinforcement_learning_tpu_torch.data import codec
@@ -28,7 +30,7 @@ from distributed_reinforcement_learning_tpu_torch.envs.cartpole import (
     VectorCartPole, pomdp_project)
 from distributed_reinforcement_learning_tpu_torch.envs.registry import make_env
 from distributed_reinforcement_learning_tpu_torch.runtime import (
-    actor_pipeline, impala_runner, r2d2_runner, ximpala_runner)
+    actor_pipeline, impala_runner, r2d2_runner, xformer_runner, ximpala_runner)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 
 
@@ -209,7 +211,23 @@ def test_run_async_r2d2():
     assert queue.closed
 
 
-@pytest.mark.parametrize("family", ["impala", "ximpala", "r2d2"])
+def test_run_async_xformer():
+    cfg = XformerConfig(obs_shape=(2,), num_actions=2, seq_len=6, burn_in=2, d_model=16,
+                        num_heads=2, num_layers=1)
+    agent = XformerAgent(cfg, device="cpu")
+    queue, store = TrajectoryQueue(64), WeightStore()
+    learner = xformer_runner.XformerLearner(agent, queue, store, batch_size=8,
+                                            replay_capacity=500, target_sync_interval=2, seed=0)
+    actors = [xformer_runner.XformerActor(agent, VectorCartPole(num_envs=4, seed=i), queue,
+                                          store, seed=1 + i, obs_transform=pomdp_project)
+              for i in range(2)]
+    result = xformer_runner.run_async(learner, actors, 3, queue)
+    _assert_ran(learner, result, 3)
+    assert learner.ingested_sequences >= 16
+    assert queue.closed
+
+
+@pytest.mark.parametrize("family", ["impala", "ximpala", "r2d2", "xformer"])
 def test_pipelined_actor_slices_fill_the_queue(family, monkeypatch):
     """`DRL_ACTOR_PIPE=1` wraps each family's actor in the pipeline: two
     slices of the envs, one round of unrolls per slice env."""
@@ -221,6 +239,11 @@ def test_pipelined_actor_slices_fill_the_queue(family, monkeypatch):
                                      lstm_size=8), device="cpu")
         actor = r2d2_runner.R2D2Actor(agent, env, queue, store, seed=1,
                                       obs_transform=pomdp_project)
+    elif family == "xformer":
+        agent = XformerAgent(XformerConfig(obs_shape=(2,), num_actions=2, seq_len=5, burn_in=1,
+                                           d_model=8, num_heads=2, num_layers=1), device="cpu")
+        actor = xformer_runner.XformerActor(agent, env, queue, store, seed=1,
+                                            obs_transform=pomdp_project)
     elif family == "ximpala":
         agent = XImpalaAgent(XImpalaConfig(obs_shape=(4,), num_actions=2, trajectory=5,
                                            d_model=8, num_heads=2, num_layers=1), device="cpu")

@@ -50,6 +50,7 @@ _ACCUMULATORS = {
     "ximpala": ("XImpalaTrajectoryAccumulator", ()),
     "r2d2": ("R2D2SequenceAccumulator", (np.ones((N, H), np.float32),
                                          np.full((N, H), -0.5, np.float32))),
+    "xformer": ("XformerSequenceAccumulator", ()),
 }
 
 
@@ -71,7 +72,7 @@ def _assert_same_tree(a, b):
         assert x.tobytes() == y.tobytes()
 
 
-@pytest.mark.parametrize("family", ["impala", "ximpala", "r2d2"])
+@pytest.mark.parametrize("family", ["impala", "ximpala", "r2d2", "xformer"])
 def test_trajectory_blobs_are_byte_identical_and_cross_decode(family):
     steps = _steps(family, seed=3)
     ours = _trajectories(structures, family, steps)

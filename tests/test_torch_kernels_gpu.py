@@ -13,7 +13,10 @@ NaN and inf included (any NaN equal to any NaN). LSTM forward atol 1e-5 at H >= 
 order than cuBLAS takes them) and 1e-6 at H <= 64; LSTM gradients atol
 5e-5. Flash attention: forward atol 1e-5 (o and lse), dq, dk and dv atol
 1e-4 x max(1, max |ref|), the JAX package's attention tolerances. The
-data plane: none, bit for bit.
+data plane: none, bit for bit. Transformer-R2D2: the flash launches of
+its act, td_error and learn step at seq_len 32 (remat off and on), and
+its learn step against the CPU at rtol 1e-4 (Adam's noise-floor
+elements within 2 lr).
 """
 
 import re
@@ -781,6 +784,103 @@ def test_apex_learn_step_on_cuda_matches_the_cpu():
         (td0_g, td_g, m_g, g_g, p_g), (td0_c, td_c, m_c, g_c, p_c) = out["cuda"], out["cpu"]
         torch.testing.assert_close(td0_g, td0_c, rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(td_g, td_c, rtol=1e-4, atol=1e-6)
+        for k in m_c:
+            assert m_g[k] == pytest.approx(m_c[k], rel=1e-4), k
+        for k, v in p_c.items():
+            torch.testing.assert_close(g_g[k], g_c[k], rtol=1e-4,
+                                       atol=1e-5 * float(g_c[k].abs().max()))
+            settled = (g_g[k] - g_c[k]).abs() <= 1e-3 * g_c[k].abs()
+            torch.testing.assert_close(p_g[k][settled], v[settled], rtol=1e-4, atol=1e-2 * lr)
+            assert float((p_g[k] - v).abs().max()) <= 2 * lr * (1 + 1e-5), k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _xformer_batch(B: int, T: int, seed: int):
+    from distributed_reinforcement_learning_tpu_torch.agents.xformer import XformerBatch
+
+    rng = np.random.RandomState(seed)
+    batch = XformerBatch(
+        state=rng.randint(-80, 80, (B, T, 2)).astype(np.int32),
+        previous_action=rng.randint(0, 2, (B, T)).astype(np.int32),
+        action=rng.randint(0, 2, (B, T)).astype(np.int32),
+        reward=rng.choice([0.0, 1.0], (B, T)).astype(np.float32), done=rng.rand(B, T) < 0.1)
+    return batch, (0.5 + 0.5 * rng.rand(B)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_xformer_runs_the_flash_kernels_at_seq_len_32(remat):
+    """Transformer-R2D2 at the `xformer` section's width (d_model 64, 2
+    heads: head dim 32) and seq_len 32 on the card: an act call launches
+    K3a once a layer, a td_error twice a layer (online and target), a
+    learn step K3a twice a layer (three times with remat: the recompute)
+    and K3b and K3c once a layer; no V-trace or LSTM kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+        XformerAgent, XformerConfig)
+
+    agent = XformerAgent(XformerConfig(seq_len=32, d_model=64, num_heads=2, remat=remat),
+                         device="cuda")
+    state = agent.init_state(seed=0)
+    batch, w = _xformer_batch(8, 32, seed=1)
+
+    def launches():
+        return (kattn.flash_fwd_cuda.launches, kattn.flash_dq_cuda.launches,
+                kattn.flash_dkv_cuda.launches, kvt.vtrace_cuda.launches,
+                klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches)
+
+    def delta(fn):
+        before = launches()
+        fn()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(launches(), before))
+
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in batch._asdict().items()}
+    assert delta(lambda: agent.act(state.params, dev["state"], dev["previous_action"],
+                                   dev["done"], 0.1, torch.Generator(device="cuda").manual_seed(0))
+                 ) == (2, 0, 0, 0, 0, 0)
+    assert delta(lambda: agent.td_error(state, batch)) == (4, 0, 0, 0, 0, 0)
+    assert delta(lambda: agent.learn(state, batch, w)) == (4 + 2 * remat, 2, 2, 0, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{"seq_len": 32}, {"seq_len": 10, "num_experts": 4}],
+                         ids=["flash", "moe"])
+def test_xformer_learn_step_on_cuda_matches_the_cpu(kw):
+    """td_error and one Transformer-R2D2 learn step from the same
+    parameters (a target network that differs) on the card and on the
+    CPU, TF32 off: at seq_len 32 on the flash kernels, and with experts
+    (every token routed to the same experts and slots on both devices,
+    or the losses could not agree). rtol 1e-4 on loss, grad norm, TD and
+    priorities; the parameters held as in the Ape-X case above, each
+    device's gradient read off Adam's first moment (g = mu / 0.1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+        XformerAgent, XformerConfig)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = XformerConfig(d_model=64, num_heads=2, learning_rate=1e-3, **kw)
+        lr = cfg.learning_rate
+        batch, w = _xformer_batch(16, cfg.seq_len, seed=2)
+        out = {}
+        for device in ("cuda", "cpu"):
+            agent = XformerAgent(cfg, device=device)
+            state = agent.init_state(seed=1)
+            for k, v in agent.init_state(seed=2).params.items():
+                state.target_params[k].copy_(v)
+            td = agent.td_error(state, batch).cpu()
+            _, prio, metrics = agent.learn(state, batch, w)
+            out[device] = (td, prio.cpu(), {k: float(v) for k, v in metrics.items()},
+                           {k: v.cpu() / 0.1 for k, v in state.mu.items()},
+                           {k: v.detach().cpu() for k, v in state.params.items()})
+        (td_g, pr_g, m_g, g_g, p_g), (td_c, pr_c, m_c, g_c, p_c) = out["cuda"], out["cpu"]
+        torch.testing.assert_close(td_g, td_c, rtol=1e-4, atol=1e-7)
+        torch.testing.assert_close(pr_g, pr_c, rtol=1e-4, atol=1e-7)
         for k in m_c:
             assert m_g[k] == pytest.approx(m_c[k], rel=1e-4), k
         for k, v in p_c.items():

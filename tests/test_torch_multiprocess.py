@@ -1,8 +1,9 @@
 """The port's multi-process topology on the CPU: a learner process and an
 actor process over TCP (`runtime/transport.py:run_role` through
-`train_impala --mode learner|actor`, and `train_apex` on a CartPole Ape-X
-section), as tests/test_launch.py drives the JAX launcher; and the planes
-`run_role` refuses by name.
+`train_impala --mode learner|actor`, `train_apex` on a CartPole Ape-X
+section, and the replay learners of `train_r2d2` and `train_xformer` on
+the default sharded service), as tests/test_launch.py drives the JAX
+launcher; and the planes `run_role` refuses by name.
 
 Each child runs in its own process group and is killed whole on its own
 timeout; the learner binds a free port passed through
@@ -117,16 +118,19 @@ def test_apex_learner_and_actor_processes_train_over_tcp(tmp_path):
 
 
 @pytest.mark.parametrize("algo, section, blob", [
-    ("apex", "apex_cartpole", "unrolls"), ("r2d2", "r2d2", "sequences")])
+    ("apex", "apex_cartpole", "unrolls"), ("r2d2", "r2d2", "sequences"),
+    ("xformer", "xformer", "sequences")])
 def test_replay_learner_defaults_to_the_sharded_service_over_tcp(algo, section, blob, tmp_path):
     """With no DRL_REPLAY_* set, a replay learner runs the JAX package's
     default: 2 ingest shards with the spill tier on. The shards hold
     exactly what the learner's server accepted, and the learner trains
-    from them (its own queue stays empty)."""
+    from them (its own queue stays empty). The xformer learner runs the
+    section at full width."""
     config = tmp_path / "config.json"
     sections = json.loads(CONFIG.read_text())
     config.write_text(json.dumps({"apex_cartpole": _APEX_CARTPOLE,
-                                  "r2d2": {**sections["r2d2"], "lstm_size": 32}}))
+                                  "r2d2": {**sections["r2d2"], "lstm_size": 32},
+                                  "xformer": sections["xformer"]}))
     replay_knobs = ("DRL_REPLAY_SHARDS", "DRL_REPLAY_SCORER", "DRL_REPLAY_SPILL",
                     "DRL_REPLAY_SPILL_DIR", "DRL_REPLAY_SPILL_HOT_MB", "DRL_REPLAY_SPILL_SEG")
     env = {k: v for k, v in os.environ.items() if k not in replay_knobs}

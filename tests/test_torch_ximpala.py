@@ -14,7 +14,9 @@
 - The actor's window: reset at each unroll start, pad slots marked
   done, the true done written into the window's last slot.
 - The `ximpala` section loads as in the JAX package; the body knobs that
-  are not ported raise; one full-width update runs through the launcher.
+  need a mesh raise and name ROADMAP item 13, mixture of experts, remat
+  and the stacked layout load and learn (the MoE aux term in the total
+  loss); one full-width update runs through the launcher.
 """
 
 import dataclasses
@@ -283,16 +285,48 @@ def test_load_config_matches_jax():
     assert (rt.batch_size, rt.num_actors, rt.envs_per_actor) == (16, 1, 16)
 
 
-@pytest.mark.parametrize("knob", [{"attention": "ring"}, {"num_experts": 4},
-                                  {"pipeline": True}, {"remat": True}, {"stacked": True}])
+@pytest.mark.parametrize("knob", [{"attention": "ring"}, {"pipeline": True},
+                                  {"seq_parallel": 2}, {"expert_parallel": 2}])
 def test_unported_body_knobs_raise(tmp_path, knob):
+    """The body features that need a mesh raise and name ROADMAP item 13:
+    in the config, and (the agent config's own knobs) in the agent."""
     section = {**json.loads(CONFIG.read_text())["ximpala"], **knob}
     path = tmp_path / "config.json"
     path.write_text(json.dumps({"ximpala": section}))
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="not ported .ROADMAP item 13"):
         load_config(path, "ximpala")
-    with pytest.raises(ValueError, match="not ported"):
-        XImpalaAgent(XImpalaConfig(**{**SMALL, **knob}), device="cpu")
+    if set(knob) <= {f.name for f in dataclasses.fields(XImpalaConfig)}:
+        with pytest.raises(ValueError, match="not ported .ROADMAP item 13"):
+            XImpalaAgent(XImpalaConfig(**{**SMALL, **knob}), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [{"num_experts": 4}, {"remat": True}, {"stacked": True}])
+def test_moe_remat_and_stacked_knobs_run(tmp_path, knob):
+    """Mixture of experts, remat and the stacked layout load and train
+    (one learn step at the SMALL width); with experts the routers'
+    load-balancing term is in the total loss."""
+    section = {**json.loads(CONFIG.read_text())["ximpala"], **knob}
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps({"ximpala": section}))
+    cfg, _ = load_config(path, "ximpala")
+    jcfg, _ = jax_load_config(path, "ximpala")
+    # The JAX loader reads no `stacked` key (its XImpalaConfig has the field).
+    assert {k: v for k, v in dataclasses.asdict(cfg).items() if k != "stacked"} == {
+        k: v for k, v in dataclasses.asdict(jcfg).items() if k not in ("dtype", "stacked")}
+    agent = XImpalaAgent(XImpalaConfig(**{**SMALL, **knob}), device="cpu")
+    state = agent.init_state(seed=0)
+    batch = common.batch_to_device(XImpalaBatch(**_batch(4, 16, 3, seed=6)),
+                                   torch.device("cpu"))
+    out = agent._forward(state.params, batch)
+    assert len(out) == (3 if "num_experts" in knob else 2)
+    state, metrics = agent.learn(state, batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and state.step == 1
+    if "num_experts" in knob:
+        c = agent.cfg
+        parts = (metrics["pi_loss"] + c.baseline_loss_coef * metrics["baseline_loss"]
+                 + c.entropy_coef * metrics["entropy"])
+        assert float(metrics["total_loss"] - parts) == pytest.approx(float(out[2].detach()),
+                                                                    rel=1e-4)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
