@@ -20,13 +20,16 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    no other kernel, and ptxas may report no stack or spills for it.
    The LSTM forward and backward (K2a,
    K2b) at (T, B, H) = (10, 32, 512) and (10, 16, 512) (the r2d2 learn
-   step and ingest), (20, 32, 256) (the r2d2_pixel shape) and
-   (20, 256, 512), with ~15% dones, each kernel against its plain
+   step and ingest), (20, 32, 256) and (20, 16, 256) (the r2d2_pixel
+   learn step and ingest), (20, 256, 512) and (30, 32, 256), with ~15%
+   dones, each kernel against its plain
    version and the gradients through `LSTMFunction` against autograd of
    the plain loop; the profiler may record no more than one device
    kernel per LSTM call (the persistent kernels), and the log gives each
    kernel's launch plan, ptxas' registers and spills, and its time a
-   step.
+   step. Then K1 and K2a/K2b fed bfloat16 through their wrappers (the
+   cast to float32 the JAX kernels make): V-trace bit for bit, the LSTM
+   pair at the r2d2_pixel shape at the tolerances above.
 4. The IMPALA path: the `impala` section of config.json at full width
    (Breakout frames 84x84x4, NatureConv, LSTM 256, 18 actions, batch
    32 x 20, 4 actors x 5 envs), 3 learner updates on random seeded
@@ -183,14 +186,36 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    spill tier on, takes 3 steps with no launch, and the actor held a
    weight version above 0; logs the sequences each shard ingested, the
    first step's time and the learner's peak memory.
-26. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K2a and K2b carry phase 20's launches beside phase
-   6's; K3a, K3b and K3c phase 23's beside phase 9's).
-27. The device line, then `{"ok": true, "device": {...}}` as the last line.
+26. The `r2d2_pixel` path: the section at full width (Breakout-sim
+   84x84x4 uint8, Nature torso with fold_normalize, LSTM 256, batch 32 x
+   seq_len 20 with a burn-in of 10 inside, replay 2,560, 3 actors x 4
+   envs) through build_local and run_sync for 3 train steps (8 rounds):
+   2 K2a per ingest and 2 K2a + 1 K2b per learn step at H 256 behind the
+   conv torso (22 and 3), finite loss and priorities, parameters that
+   moved; the learner's seeding (parameters from init_seed, the replay
+   from RandomState(0), as the JAX launcher's) in its line; then the
+   synchronised learn step and td_error, K2's device time and the peak.
+27-29. `impala_atari_mix` (Breakout and Pong sims, 2 actors x 4 envs,
+   batch 8), `impala_invaders` (SpaceInvaders sim, 6 actions, 4 actors x
+   5 envs, batch 32), each 3 updates, and `impala_cartpole_scan` (K = 4:
+   2 calls, 8 steps) through build_local and run_sync: exactly 2 K1
+   launches a step and no other kernel, finite metrics, parameters that
+   moved; each logs its actors' envs, the wall a call, the synchronised
+   learn step (K-step call) and its own peak.
+30. IMPALA options on the `impala` section's agent at full width: 3 learn
+   steps each in float32, with `dtype=bfloat16` and with `remat=True` (2
+   K1 launches a step, finite metrics), the synchronised step and the
+   steps' own peak for each, and remat's gradients against the plain
+   ones (within 1e-4 of each tensor's largest).
+31. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-30's launches beside phase
+   4's; K2a and K2b phase 20's and 26's beside phase 6's; K3a, K3b and
+   K3c phase 23's beside phase 9's).
+32. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23 and 24 are
-read net of it.
+logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24 and
+26-29 are read net of it.
 Every child process runs in its own process group and is killed whole
 if its phase fails.
 
@@ -199,6 +224,7 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -211,6 +237,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from distributed_reinforcement_learning_tpu_torch.agents.common import batch_to_device
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Batch
 from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
@@ -237,15 +264,21 @@ SHAPES = [MAIN_SHAPE, (20, 256), (20, 65536)]
 UPDATES = 3
 R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 # LSTM (T, B, H): the r2d2 learn step and ingest (12 sequences padded to
-# 16), the r2d2_pixel section's shape, and a larger batch.
+# 16), the r2d2_pixel section's learn step (T is seq_len 20, the burn-in
+# of 10 inside) and ingest, a larger batch, and T 30 (a burn-in of 10 on
+# top of seq_len 20).
 LSTM_MAIN = (10, 32, 512)
 LSTM_INGEST = (10, 16, 512)
-LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, (20, 32, 256), (20, 256, 512)]
+LSTM_PIXEL = (20, 32, 256)
+LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, LSTM_PIXEL, (20, 16, 256), (20, 256, 512),
+               (30, 32, 256)]
 # Flash attention (B, H, T, D): the ximpala section's act and learn
 # shape, bench.py's ximpala_learn shape, and a long sequence.
 ATTN_MAIN = (16, 2, 16, 32)
 ATTN_SHAPES = [ATTN_MAIN, (64, 4, 32, 64), (1, 4, 8192, 64)]
 XIMPALA_UPDATES = 3
+IMPALA_OPTION_STEPS = 3
+SCAN_UPDATES = 8  # impala_cartpole_scan: 2 calls of K = 4
 
 
 def log(msg: str) -> None:
@@ -659,6 +692,47 @@ def phase_lstm() -> dict:
     return {"max_abs_err": err, "timings": timings}
 
 
+def phase_bf16_wrappers() -> dict:
+    """K1 and K2a/K2b fed bfloat16 through their wrappers (the cast to
+    float32 the JAX kernels make at their inputs): V-trace at the main
+    shape bit for bit against the plain version of the cast inputs, the
+    LSTM pair at the r2d2_pixel shape against theirs at phase 3's
+    tolerances; each call one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.to(torch.bfloat16) for a in vtrace_inputs(*MAIN_SHAPE, seed=1, device="cuda")]
+    before = kvt.vtrace_cuda.launches
+    got = kvt.vtrace(*args)
+    want = kvt.vtrace_plain(*(a.float() for a in args))
+    torch.cuda.synchronize()
+    if kvt.vtrace_cuda.launches != before + 1 or not all(
+            g.dtype == torch.float32 and bit_equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("V-trace fed bfloat16 disagrees with its plain version")
+    T, B, H = LSTM_PIXEL
+    xg, wh, keep, h0, c0 = lstm_inputs(T, B, H, seed=2, device="cuda")
+    xg16, keep16 = xg.to(torch.bfloat16), keep.to(torch.bfloat16)
+    before = (klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches)
+    got = klstm.lstm_fwd(xg16, wh, keep16, h0, c0)
+    want = klstm.lstm_fwd_plain(xg16.float(), wh, keep16.float(), h0, c0)
+    rng = np.random.RandomState(3)
+    grads = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+             for shape in ((T, B, H), (B, H), (B, H))]
+    got_b = klstm.lstm_bwd(xg16, wh, keep16, h0, c0, want[0], want[1], *grads)
+    want_b = klstm.lstm_bwd_plain(xg16.float(), wh, keep16.float(), h0, c0, want[0], want[1],
+                                  *grads)
+    torch.cuda.synchronize()
+    fwd_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    bwd_err = max(float((g - w).abs().max()) for g, w in zip(got_b, want_b))
+    if ((klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches)
+            != (before[0] + 1, before[1] + 1) or fwd_err > 1e-5 or bwd_err > 5e-5
+            or any(g.dtype != torch.float32 for g in (*got, *got_b))):
+        raise RuntimeError(f"LSTM kernels fed bfloat16: forward {fwd_err:.3e}, backward "
+                           f"{bwd_err:.3e}")
+    log(f"[bf16] V-trace fed bfloat16 at {MAIN_SHAPE}: bit for bit the plain version of the "
+        f"cast inputs; K2a/K2b fed a bfloat16 xg and keep at {LSTM_PIXEL}: max |kernel - plain| "
+        f"forward {fwd_err:.3e}, backward {bwd_err:.3e}")
+    return {"lstm_fwd": fwd_err, "lstm_bwd": bwd_err}
+
+
 def seeded_batch(cfg, B: int, seed: int) -> ImpalaBatch:
     rng = np.random.RandomState(seed)
     T, A, H = cfg.trajectory, cfg.num_actions, cfg.lstm_size
@@ -838,7 +912,7 @@ def phase_r2d2(mem_start: int) -> dict:
         f"{result['frames']} env frames in {wall:.2f} s ({wall / rounds * 1e3:.1f} ms wall "
         f"per round, {result['frames'] / wall:.0f} env frames/s end to end); peak device "
         f"memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the "
-        f"phase's own; launches {launches}")
+        f"phase's own; launches {launches}; {seeding(learner)}")
     log(f"[r2d2] last metrics {json.dumps(metrics)}")
     want = {"lstm_fwd": 2 * rounds + 2 * R2D2_UPDATES, "lstm_bwd": R2D2_UPDATES, "vtrace": 0}
     if rounds != 8 or launches != want:
@@ -926,10 +1000,11 @@ def phase_r2d2_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict) -> list[dict]:
+def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict) -> list[dict]:
     """The K2a and K2b entries of the kernels line: `launches` from the
     r2d2 path (phase 6), with the default multi-process r2d2 learner's
-    own count (phase 20, K=2 calls) beside it."""
+    own count (phase 20, K=2 calls) and the r2d2_pixel path's (phase 26)
+    beside it."""
     rows = []
     for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
         t = k2["timings"][LSTM_MAIN][tag]
@@ -939,7 +1014,8 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict) -> list[dict]:
             "replaces": f"distributed_reinforcement_learning_tpu/ops/pallas/lstm.py:{line}",
             "launches": r2d2["launches"][name], "max_abs_err": k2["max_abs_err"][tag],
             "launches_by_path": {"r2d2": r2d2["launches"][name],
-                                 "multiprocess_r2d2_default": r2d2_default["launches"][name]},
+                                 "multiprocess_r2d2_default": r2d2_default["launches"][name],
+                                 "r2d2_pixel": r2d2_pixel["launches"][name]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
@@ -1636,6 +1712,12 @@ APEX_UPDATES = 5  # the warm-up gate needs 10 ingested unrolls: ~3 rounds of 8 s
 APEX_MP_ACTORS = 2  # of the section's 4: each warm actor step puts 1.81 MB
 
 
+def seeding(learner) -> str:
+    """A replay learner's seeds, for its phase's line."""
+    return (f"seeding: parameters from init_seed {learner.init_seed}, replay "
+            f"RandomState({learner.replay_seed}) (as the JAX launcher)")
+
+
 def all_launches() -> dict[str, int]:
     return {"vtrace": kvt.vtrace_cuda.launches, "lstm_fwd": klstm.lstm_fwd_cuda.launches,
             "lstm_bwd": klstm.lstm_bwd_cuda.launches,
@@ -1718,7 +1800,7 @@ def phase_apex(mem_start: int, native_lib: Path) -> dict:
         f"wall per round); {learner.ingested_unrolls} unrolls ingested, replay "
         f"{len(learner.replay)} transitions ({type(learner.replay).__name__}); peak device "
         f"memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the "
-        f"phase's own; launches {launches}")
+        f"phase's own; launches {launches}; {seeding(learner)}")
     log(f"[apex] last metrics {json.dumps(metrics)}")
     if any(launches.values()):
         raise RuntimeError(f"the Ape-X path launched kernels: {launches}")
@@ -1781,23 +1863,36 @@ def phase_apex(mem_start: int, native_lib: Path) -> dict:
             "peak_mib": (peak - mem_start) / 2**20, "params": n_params, "launches": launches}
 
 
-def adam_step_close(name: str, p_got, p_want, g_got, g_want, lr: float) -> int:
-    """Parameters after one Adam step on two devices, from their gradients.
-    The gradients must agree to float32 accuracy (rtol 1e-4, atol 1e-5 of
-    the tensor's largest). Where the two gradients agree to 0.1%, the step
-    is settled and the parameters must agree to rtol 1e-4 (atol 1% of lr);
-    elsewhere the gradient sits at float32's noise floor, Adam's first
-    step normalises it to up to lr either way, and the parameters must
-    differ by no more than the 2 lr that bounds it. -> the count of
-    unsettled elements."""
+def adam_ratio_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most |mu_hat| / sqrt(nu_hat) can reach at Adam's step t, whatever
+    the gradients (Cauchy-Schwarz over the bias-corrected weights of the t
+    gradients): 1 at the first step, 1.007 at the fourth for the default
+    b1 and b2. An Adam step moves a parameter by at most this times lr."""
+    i = np.arange(1, t + 1)
+    a = (1 - b1) * b1 ** (t - i) / (1 - b1 ** t)
+    w = (1 - b2) * b2 ** (t - i) / (1 - b2 ** t)
+    return float(np.sqrt(np.sum(a * a / w)))
+
+
+def adam_step_close(name: str, p_got, p_want, g_got, g_want, lr: float, t: int = 1) -> int:
+    """Parameters after Adam's step t on two devices, from the same state
+    and their gradients. The gradients must agree to float32 accuracy
+    (rtol 1e-4, atol 1e-5 of the tensor's largest). Where the two
+    gradients agree to 0.1%, the step is settled and the parameters must
+    agree to rtol 1e-4 (atol 1% of lr); elsewhere the gradient sits at
+    float32's noise floor, Adam normalises it to up to lr either way (up
+    to `adam_ratio_bound(t)` lr after the first step), and the parameters
+    must differ by no more than twice that. -> the count of unsettled
+    elements."""
     torch.testing.assert_close(g_got, g_want, rtol=1e-4, atol=1e-5 * float(g_want.abs().max()),
                                msg=lambda m: f"{name} gradient: {m}")
     settled = (g_got - g_want).abs() <= 1e-3 * g_want.abs()
     torch.testing.assert_close(p_got[settled], p_want[settled], rtol=1e-4, atol=1e-2 * lr,
                                msg=lambda m: f"{name} after the step: {m}")
     worst = float((p_got - p_want).abs().max())
-    if worst > 2 * lr * (1 + 1e-5):
-        raise RuntimeError(f"{name} after the step differs by {worst}, beyond Adam's 2 lr")
+    bound = 2 * adam_ratio_bound(t) * lr
+    if worst > bound * (1 + 1e-5):
+        raise RuntimeError(f"{name} after step {t} differs by {worst}, beyond Adam's {bound}")
     return int((~settled).sum())
 
 
@@ -1970,14 +2065,24 @@ def ingest_on_threads(facade, blobs: list[bytes], threads: int) -> list[list[flo
 def k_call_parity(svc, agent_cfg, rt) -> str:
     """One K-update call (`learn_many`) on CUDA and on the CPU, TF32 off,
     from the same parameters (and another target network) on the same
-    gathered [K, B] batch: phase 16's bar at every one of the K steps
-    (loss, grad norm, gradients, TD at rtol 1e-4); the parameters after
-    the call at rtol 1e-4 (atol K x 1% of lr) wherever the two devices'
-    gradients agree to 0.1% at all K steps, and within Adam's K x 2 lr
-    elsewhere. -> a log line."""
+    gathered [K, B] batch. Each of the K CUDA steps is taken again on the
+    CPU from the state it started from (parameters, target, Adam moments,
+    step) on its row of the batch, and held to phase 16's bar: loss, grad
+    norm, learning rate, TD and gradients at rtol 1e-4, the parameters
+    after it by `adam_step_close`. The call's stacked priorities and
+    metrics must be its steps' own. The CPU's own K-call then ends within
+    rtol 1e-4 (atol K x 1% of lr) of the CUDA call's parameters wherever
+    the two calls' gradients agree to 0.1% at all K steps, and within the
+    sum of Adam's K step bounds elsewhere. (A step of the two calls starts
+    from parameters that earlier steps left apart at the gradients' noise
+    floor, so their gradients are held to each other only through the
+    parameters.) -> a log line."""
     from distributed_reinforcement_learning_tpu_torch.agents import common
     from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
     from distributed_reinforcement_learning_tpu_torch.data.device_path import gather_scan_batch
+
+    def host(tensors: dict) -> dict:
+        return {k: v.detach().cpu().clone() for k, v in tensors.items()}
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1990,50 +2095,85 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
         state = agent.init_state(seed=11)
         for k, v in agent.init_state(seed=12).params.items():
             state.target_params[k].copy_(v.detach())
-        grads_k: list[dict] = []
+        steps: list[dict] = []
 
-        def recording_learn(st, batch, w, agent=agent, grads_k=grads_k):
+        def recording_learn(st, batch, w, agent=agent, steps=steps):
+            before = {"params": host(st.params), "target": host(st.target_params),
+                      "mu": host(st.mu), "nu": host(st.nu), "step": st.step,
+                      "batch": type(batch)(*(x.cpu() for x in batch)), "w": w.cpu()}
             grads, td, loss = agent.grads(st, batch, w)
-            grads_k.append({k: v.cpu() for k, v in grads.items()})
             st, metrics = agent.apply_grads(st, grads, loss)
+            steps.append({"before": before, "grads": host(grads), "td": td.cpu(),
+                          "metrics": {k: float(torch.as_tensor(v)) for k, v in metrics.items()},
+                          "params": host(st.params)})
             return st, td, metrics
 
         state, prio, metrics = common.learn_many(recording_learn, state, stacked, weights,
                                                  agent.device)
-        results[device] = {"prio": prio.cpu().numpy(), "grads": grads_k,
+        results[device] = {"prio": prio.cpu(), "steps": steps,
                            "metrics": {k: v.cpu().numpy() for k, v in metrics.items()},
-                           "params": {k: v.detach().cpu() for k, v in state.params.items()}}
+                           "params": host(state.params)}
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
     cu, cpu = results["cuda"], results["cpu"]
-    for key in ("loss", "grad_norm", "learning_rate"):
-        np.testing.assert_allclose(cu["metrics"][key], cpu["metrics"][key], rtol=1e-4,
-                                   err_msg=f"K-call cuda vs cpu {key}")
-    np.testing.assert_allclose(cu["prio"], cpu["prio"], rtol=1e-4, atol=1e-6,
-                               err_msg="K-call cuda vs cpu TD")
+    for i, s in enumerate(cu["steps"]):
+        if not torch.equal(cu["prio"][i], s["td"]) or any(
+                float(cu["metrics"][k][i]) != v for k, v in s["metrics"].items()):
+            raise RuntimeError(f"K-call step {i}: stacked priorities or metrics are not the "
+                               f"step's own")
+    replay = ApexAgent(agent_cfg, device="cpu")
+    worst_rel, grad_margin, unsettled_steps = 0.0, 0.0, 0
+    for i, s in enumerate(cu["steps"]):
+        b = s["before"]
+        st = replay.state_from_params(b["params"])
+        for name in st.params:
+            st.target_params[name].copy_(b["target"][name])
+            st.mu[name].copy_(b["mu"][name])
+            st.nu[name].copy_(b["nu"][name])
+        st.step = b["step"]
+        grads, td, loss = replay.grads(st, b["batch"], b["w"])
+        st, m = replay.apply_grads(st, grads, loss)
+        for key in ("loss", "grad_norm", "learning_rate"):
+            if not math.isclose(s["metrics"][key], float(m[key]), rel_tol=1e-4):
+                raise RuntimeError(f"K-call step {i} cuda vs cpu {key}: "
+                                   f"{s['metrics'][key]} vs {float(m[key])}")
+        np.testing.assert_allclose(s["td"].numpy(), td.numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=f"K-call step {i} cuda vs cpu TD")
+        worst_rel = max(worst_rel, float(np.max(np.abs(s["td"].numpy() - td.numpy())
+                                                / np.maximum(np.abs(td.numpy()), 1e-6))))
+        lr_i = float(m["learning_rate"])
+        for name, g in grads.items():
+            err = (s["grads"][name] - g).abs() / (1e-5 * g.abs().max() + 1e-4 * g.abs())
+            grad_margin = max(grad_margin, float(err.max()))
+        unsettled_steps += sum(
+            adam_step_close(f"K-call step {i} {name}", s["params"][name], p.detach(),
+                            s["grads"][name], grads[name], lr_i, t=b["step"] + 1)
+            for name, p in st.params.items())
+
     lr = agent_cfg.start_learning_rate
+    bound = sum(2 * adam_ratio_bound(t) for t in range(1, SHARD_K + 1)) * lr
     unsettled, worst = 0, 0.0
     for name, want in cpu["params"].items():
         settled = torch.ones_like(want, dtype=torch.bool)
-        for g_cu, g_cpu in zip(cu["grads"], cpu["grads"]):
-            a, b = g_cu[name], g_cpu[name]
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()),
-                                       msg=lambda m: f"K-call {name} gradient: {m}")
+        for s_cu, s_cpu in zip(cu["steps"], cpu["steps"]):
+            a, b = s_cu["grads"][name], s_cpu["grads"][name]
             settled &= (a - b).abs() <= 1e-3 * b.abs()
         got = cu["params"][name]
         torch.testing.assert_close(got[settled], want[settled], rtol=1e-4,
                                    atol=SHARD_K * 1e-2 * lr,
                                    msg=lambda m: f"K-call {name} after the call: {m}")
         diff = float((got - want).abs().max())
-        if diff > SHARD_K * 2 * lr * (1 + 1e-5):
-            raise RuntimeError(f"K-call {name} differs by {diff}, beyond Adam's K x 2 lr")
+        if diff > bound * (1 + 1e-5):
+            raise RuntimeError(f"K-call {name} differs by {diff}, beyond Adam's {bound}")
         unsettled += int((~settled).sum())
         worst = max(worst, diff)
     n = sum(v.numel() for v in cpu["params"].values())
-    rel = float(np.max(np.abs(cu["prio"] - cpu["prio"]) / np.maximum(np.abs(cpu["prio"]), 1e-6)))
-    return (f"K={SHARD_K} call cuda vs cpu (TF32 off) within phase 16's bar: TD worst rel "
-            f"{rel:.2e}, losses {cu['metrics']['loss'].tolist()}; parameters within "
+    return (f"K={SHARD_K} call cuda vs cpu (TF32 off): each step within phase 16's bar from "
+            f"the state it started from (TD worst rel {worst_rel:.2e}, "
+            f"gradients at {grad_margin:.2f} of their bar, {unsettled_steps} element-steps at the gradients' noise floor), losses "
+            f"{[s['metrics']['loss'] for s in cu['steps']]}; the two calls' parameters within "
             f"{worst:.2e} ({worst / lr:.1e} of lr), {unsettled} of {n:,} elements at the "
-            f"gradients' noise floor")
+            f"noise floor")
 
 
 def phase_apex_shards(native_lib: Path) -> dict:
@@ -2332,7 +2472,7 @@ def phase_xformer(mem_start: int, section: str) -> dict:
         f"rounds, {result['frames']} env frames in {wall:.2f} s ({wall / rounds * 1e3:.1f} ms "
         f"wall per round, {result['frames'] / wall:.0f} env frames/s end to end); peak device "
         f"memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the "
-        f"phase's own; launches {launches}")
+        f"phase's own; launches {launches}; {seeding(learner)}")
     log(f"[{section}] last metrics {json.dumps(metrics)}")
     if rounds != 8 or any(launches.values()):
         raise RuntimeError(f"{section} path: {rounds} rounds, launches {launches}, expected 8 "
@@ -2636,6 +2776,208 @@ def phase_multiprocess_xformer_default() -> dict:
     return result
 
 
+def phase_r2d2_pixel(mem_start: int) -> dict:
+    """The `r2d2_pixel` section at full width (Breakout-sim 84x84x4 uint8,
+    Nature torso with fold_normalize, LSTM 256, dueling head, batch 32 x
+    seq_len 20 with a burn-in of 10 inside, replay 2,560, 3 actors x 4
+    envs) through build_local and run_sync for R2D2_UPDATES train steps:
+    K2a and K2b at H 256 behind the conv torso."""
+    t_phase = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, "r2d2_pixel")
+    learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in learner.state.params.values())
+    before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = run(learner, actors, R2D2_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    seqs_per_round = sum(a.env.num_envs for a in actors)
+    rounds = result["frames"] // (seqs_per_round * agent_cfg.seq_len)
+    # Warm once 2 x batch sequences are in: then one train step a round.
+    want_rounds = -(-2 * rt.batch_size // seqs_per_round) + R2D2_UPDATES - 1
+    metrics = result["last_metrics"]
+    log(f"[r2d2_pixel] {n_params:,} parameters; {R2D2_UPDATES} train steps in {rounds} rounds, "
+        f"{result['frames']} env frames in {wall:.2f} s ({wall / rounds * 1e3:.1f} ms wall per "
+        f"round); peak device memory {peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} "
+        f"MiB of it the phase's own; launches {launches}; {seeding(learner)}")
+    log(f"[r2d2_pixel] last metrics {json.dumps(metrics)}")
+    want = {"vtrace": 0, "lstm_fwd": 2 * rounds + 2 * R2D2_UPDATES, "lstm_bwd": R2D2_UPDATES,
+            "attention_fwd": 0, "attention_dq": 0, "attention_dkv": 0}
+    envs = {type(a.env.envs[0].env).__name__ for a in actors}
+    if rounds != want_rounds or launches != want or envs != {"BreakoutSimRaw"}:
+        raise RuntimeError(f"r2d2_pixel path: {rounds} rounds, launches {launches}, envs {envs}; "
+                           f"expected {want_rounds} rounds, {want} and BreakoutSimRaw")
+    priorities = learner.replay.tree.export()[0]
+    if (learner.train_steps != R2D2_UPDATES or not all(math.isfinite(v) for v in metrics.values())
+            or not np.isfinite(priorities).all()
+            or len(learner.replay) != seqs_per_round * rounds):
+        raise RuntimeError(f"bad r2d2_pixel result: steps {learner.train_steps}, {metrics}, "
+                           f"replay {len(learner.replay)}")
+    still = [k for k, v in before.items()
+             if float((learner.state.params[k].detach() - v).abs().max()) == 0.0]
+    if still:
+        raise RuntimeError(f"r2d2_pixel parameters did not move: {still}")
+
+    agent, state = learner.agent, learner.state
+    batch, _, is_weight = learner.replay.sample(rt.batch_size, np.random.RandomState(0))
+    ingest = tree_map(lambda x: x[:16], batch)
+    for _ in range(2):
+        agent.learn(state, batch, is_weight)
+        agent.td_error(state, ingest)
+    torch.cuda.synchronize()
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.learn(state, batch, is_weight)
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        agent.td_error(state, ingest)
+    torch.cuda.synchronize()
+    td_ms = (time.perf_counter() - t0) / steps * 1e3
+    events = profile_breakdown("one r2d2_pixel learn step",
+                               lambda: agent.learn(state, batch, is_weight))
+    k2_us = sum(device_us(e) for e in events if "lstm" in e.key)
+    log(f"[r2d2_pixel] learn step {learn_ms:.2f} ms synchronised (B={rt.batch_size}, "
+        f"T={agent_cfg.seq_len}, H={agent_cfg.lstm_size}); ingest td_error (B=16) {td_ms:.2f} "
+        f"ms; K2 {k2_us / 1e3:.3f} ms of device time a learn step "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return {"launches": launches, "learn_ms": learn_ms, "td_ms": td_ms, "k2_ms": k2_us / 1e3,
+            "wall_per_round_ms": wall / rounds * 1e3, "peak_mib": (peak - mem_start) / 2**20,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def phase_impala_section(mem_start: int, section: str, updates: int) -> dict:
+    """An IMPALA section at full width through build_local and run_sync for
+    `updates` learner steps (with `updates_per_call` K, updates / K
+    calls): 2 K1 launches a step, finite metrics, parameters that moved,
+    each actor on its section's env; then the synchronised learn step (or
+    K-step call) on a seeded full-width batch."""
+    t_phase = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, section)
+    learner, actors, run = build_local(agent_cfg, rt, seed=0, device="cuda")
+    before = {k: v.detach().clone() for k, v in learner.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = run(learner, actors, updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = result["last_metrics"]
+    k = rt.updates_per_call
+    envs = [type(getattr(a.env.envs[0], "env", a.env.envs[0])).__name__ for a in actors]
+    want = {"vtrace": 2 * updates, "lstm_fwd": 0, "lstm_bwd": 0, "attention_fwd": 0,
+            "attention_dq": 0, "attention_dkv": 0}
+    if (launches != want or learner.train_steps != updates
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise RuntimeError(f"{section}: steps {learner.train_steps}, launches {launches} "
+                           f"(expected {want}), metrics {metrics}")
+    still = [n for n, v in before.items()
+             if float((learner.state.params[n].detach() - v).abs().max()) == 0.0]
+    if still:
+        raise RuntimeError(f"{section} parameters did not move: {still}")
+    if len(agent_cfg.obs_shape) == 3:
+        batch = seeded_batch(agent_cfg, rt.batch_size, seed=5)
+    else:
+        batch = vector_batch(agent_cfg, rt.batch_size, seed=5)
+    agent, state = learner.agent, learner.state
+    if k > 1:
+        batch = type(batch)(*(np.stack([x] * k) for x in batch))
+    step = (lambda: agent.learn_many(state, batch)) if k > 1 else (lambda: agent.learn(state, batch))
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    calls = 5
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        step()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / calls * 1e3
+    calls_run = updates // k
+    log(f"[{section}] {updates} steps in {calls_run} call(s) of K={k}, {result['frames']} env "
+        f"frames in {wall:.2f} s ({wall / calls_run * 1e3:.1f} ms wall a call); actors' envs "
+        f"{envs} (available actions {list(rt.available_action)}); launches {launches}; "
+        f"learn {call_ms:.2f} ms a call synchronised ({call_ms / k:.2f} ms a step, "
+        f"B={rt.batch_size}, T={agent_cfg.trajectory}); peak device memory "
+        f"{peak / 2**20:.1f} MiB, {(peak - mem_start) / 2**20:.1f} MiB of it the phase's own; "
+        f"last metrics {json.dumps(metrics)} ({time.perf_counter() - t_phase:.1f} s)")
+    return {"launches": launches, "call_ms": call_ms, "learn_ms": call_ms / k,
+            "wall_per_call_ms": wall / calls_run * 1e3, "envs": envs,
+            "peak_mib": (peak - mem_start) / 2**20, "seconds": time.perf_counter() - t_phase}
+
+
+def vector_batch(cfg, B: int, seed: int) -> ImpalaBatch:
+    """`seeded_batch` for vector observations (CartPole)."""
+    batch = seeded_batch(dataclasses.replace(cfg, obs_shape=(1,)), B, seed)
+    rng = np.random.RandomState(seed + 1)
+    return batch._replace(state=rng.randn(B, cfg.trajectory, *cfg.obs_shape).astype(np.float32))
+
+
+def phase_impala_options(mem_start: int) -> dict:
+    """The `impala` section's agent at full width with `dtype=bfloat16`
+    and with `remat=True`, against float32 without remat on one seeded
+    batch: IMPALA_OPTION_STEPS learn steps each (2 K1 launches a step),
+    finite metrics, the synchronised step and the phase's peak for each;
+    remat's gradients against the plain ones on the card."""
+    t_phase = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, "impala")
+    batch = seeded_batch(agent_cfg, rt.batch_size, seed=13)
+    out: dict = {"launches": {}, "learn_ms": {}, "peak_mib": {}}
+    grads = {}
+    for label, cfg in (("float32", agent_cfg),
+                       ("bfloat16", dataclasses.replace(agent_cfg, dtype=torch.bfloat16)),
+                       ("remat", dataclasses.replace(agent_cfg, remat=True))):
+        agent = ImpalaAgent(cfg, device="cuda")
+        state = agent.init_state(seed=3)
+        if label != "bfloat16":
+            loss, _ = agent.loss(state.params, batch_to_device(batch, agent.device))
+            grads[label] = torch.autograd.grad(loss, list(state.params.values()))
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        for _ in range(IMPALA_OPTION_STEPS):
+            state, metrics = agent.learn(state, batch)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if (launches["vtrace"] != 2 * IMPALA_OPTION_STEPS
+                or sum(launches.values()) != launches["vtrace"]
+                or not all(math.isfinite(v) for v in metrics.values())):
+            raise RuntimeError(f"impala {label}: launches {launches}, metrics {metrics}")
+        out["peak_mib"][label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        t0 = time.perf_counter()
+        for _ in range(IMPALA_OPTION_STEPS):
+            state, _ = agent.learn(state, batch)
+        torch.cuda.synchronize()
+        out["learn_ms"][label] = (time.perf_counter() - t0) / IMPALA_OPTION_STEPS * 1e3
+        out["launches"][label] = launches["vtrace"]
+        log(f"[impala options] {label}: {IMPALA_OPTION_STEPS} learn steps, launches {launches}, "
+            f"{out['learn_ms'][label]:.2f} ms a step synchronised, the steps' own peak "
+            f"{out['peak_mib'][label]:.1f} MiB; last metrics {json.dumps(metrics)}")
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+                for a, b in zip(grads["remat"], grads["float32"]))
+    if worst > 1e-4:
+        raise RuntimeError(f"impala remat gradients differ from the plain ones by {worst:.2e} "
+                           "of a tensor's largest")
+    log(f"[impala options] remat vs plain gradients: worst {worst:.2e} of a tensor's largest "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    out["remat_grad_diff"] = worst
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def attention_rows(k3: dict, ximpala: dict, xformer_long: dict) -> list[dict]:
     """The K3a, K3b and K3c entries of the kernels line, at the main path's
     shape, with the other shapes beside. `launches` is the ximpala path's
@@ -2682,6 +3024,7 @@ def main() -> int:
     k1 = phase_vtrace()
     phase_memory("lstm")
     k2 = phase_lstm()
+    phase_bf16_wrappers()
     main_path = phase_main_path(phase_memory("impala path"))
     phase_memory("impala parity")
     phase_device_parity()
@@ -2718,6 +3061,12 @@ def main() -> int:
     xformer_moe = phase_xformer(phase_memory("xformer_moe path"), "xformer_moe")
     phase_memory("multi-process xformer, default replay")
     xformer_mp = phase_multiprocess_xformer_default()
+    r2d2_pixel = phase_r2d2_pixel(phase_memory("r2d2_pixel path"))
+    sections = {name: phase_impala_section(phase_memory(f"{name} path"), name, updates)
+                for name, updates in (("impala_atari_mix", UPDATES),
+                                      ("impala_invaders", UPDATES),
+                                      ("impala_cartpole_scan", SCAN_UPDATES))}
+    options = phase_impala_options(phase_memory("impala options"))
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -2730,12 +3079,17 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "launches_by_path": {"impala": main_path["launches"]["vtrace"],
+                             **{name: got["launches"]["vtrace"] for name, got in sections.items()},
+                             **{f"impala_{label}": n
+                                for label, n in options["launches"].items()}},
         "shape": list(MAIN_SHAPE), "graph_ms": t["graph_ms"],
         "plain_graph_ms": t["plain_graph_ms"],
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }, *lstm_rows(k2, r2d2, r2d2_default), *attention_rows(k3, ximpala, xformer_long)]
+    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel),
+        *attention_rows(k3, ximpala, xformer_long)]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
@@ -2768,7 +3122,16 @@ def main() -> int:
         f"{xformer_moe['aux']:.5f} ({xformer_moe['seconds']:.1f} s); multi-process xformer "
         f"{xformer_mp['ingested_per_shard']} sequences a shard, first step "
         f"{xformer_mp['first_step_s']:.2f} s, peak {xformer_mp['peak_mib']:.1f} MiB "
-        f"({xformer_mp['seconds']:.1f} s); smoke took {time.perf_counter() - t_start:.1f} s")
+        f"({xformer_mp['seconds']:.1f} s); r2d2_pixel learn_ms {r2d2_pixel['learn_ms']:.3f}, "
+        f"wall per round {r2d2_pixel['wall_per_round_ms']:.1f} ms, K2 {r2d2_pixel['k2_ms']:.3f} "
+        f"ms a learn step, own peak {r2d2_pixel['peak_mib']:.1f} MiB "
+        f"({r2d2_pixel['seconds']:.1f} s); "
+        + "; ".join(f"{name} learn_ms {got['learn_ms']:.3f}, wall per call "
+                    f"{got['wall_per_call_ms']:.1f} ms, own peak {got['peak_mib']:.1f} MiB "
+                    f"({got['seconds']:.1f} s)" for name, got in sections.items())
+        + "; impala learn_ms " + ", ".join(f"{label} {ms:.3f}"
+                                             for label, ms in options["learn_ms"].items())
+        + f" ({options['seconds']:.1f} s); smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -302,9 +302,26 @@ def learn_many(learn, state, batches, is_weights, device: torch.device):
         state, prio, m = learn(state, type(batches)(*(x[i] for x in batches)), is_weights[i])
         priorities.append(prio)
         metrics.append(m)
-    stacked = {key: torch.stack([torch.as_tensor(m[key]) for m in metrics])
-               for key in metrics[0]}
-    return state, torch.stack(priorities), stacked
+    return state, torch.stack(priorities), _stack_metrics(metrics)
+
+
+def learn_many_unweighted(learn, state, batches, device: torch.device):
+    """K optimizer steps in a row, one per row of `[K, B, ...]` batches
+    (the JAX package's `scan_learn`) -> (state, metrics stacked `[K]`
+    each). `learn(state, batch)` is the agent's one step on `device`; the
+    step counter, learning-rate schedule and optimizer state advance
+    between the K steps as over K `learn` calls. The K batches go to the
+    device in one copy."""
+    batches = batch_to_device(batches, device)
+    metrics = []
+    for i in range(len(batches[0])):
+        state, m = learn(state, type(batches)(*(x[i] for x in batches)))
+        metrics.append(m)
+    return state, _stack_metrics(metrics)
+
+
+def _stack_metrics(metrics: list[dict]) -> dict:
+    return {key: torch.stack([torch.as_tensor(m[key]) for m in metrics]) for key in metrics[0]}
 
 
 _INDEX_FIELDS = ("action", "previous_action")
@@ -336,8 +353,9 @@ def clip_rewards(rewards: torch.Tensor, mode: str) -> torch.Tensor:
     raise ValueError(f"unknown reward_clipping mode: {mode!r}")
 
 
-def normalize_obs(obs: torch.Tensor) -> torch.Tensor:
-    """Integer frames -> float32 in [0, 1]; float observations cast through."""
+def normalize_obs(obs: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Integer frames -> `dtype` in [0, 1] (the scale in `dtype`, as the
+    JAX package's); float observations cast through."""
     if obs.dtype.is_floating_point:
-        return obs.to(torch.float32)
-    return obs.to(torch.float32) * (1.0 / 255.0)
+        return obs.to(dtype)
+    return obs.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype)

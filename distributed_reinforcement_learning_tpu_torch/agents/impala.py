@@ -6,7 +6,8 @@ Counterpart of the JAX package's `agents/impala.py`:
   action per env (the actor hot path).
 - `learn`: stored-state batched forward over `[B, T]`, double V-trace
   over the first/middle time views, sum-reduced losses, global-norm
-  clip, RMSProp and a polynomial learning rate.
+  clip, RMSProp and a polynomial learning rate; `learn_many`: K such
+  steps over a `[K, B, T, ...]` stack.
 
 Loss math:
     vs, rho     = vtrace(first view; next_values = middle values)
@@ -26,6 +27,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.models.impala_net import (
@@ -50,6 +52,13 @@ class ImpalaConfig:
     start_learning_rate: float = 6e-4
     end_learning_rate: float = 0.0
     learning_frame: int = 1_000_000_000
+    # Compute type of the torso, embedding and heads (the LSTM stays
+    # float32); parameters, optimizer and losses stay float32.
+    dtype: torch.dtype = torch.float32
+    # Recompute the [B*T] stored-state forward in the backward pass
+    # (`torch.utils.checkpoint`): about one more forward of work for not
+    # holding the activations of B*T frames.
+    remat: bool = False
     # Fold the /255 frame normalisation into conv0's kernel: integer
     # frames feed the model raw. No-op for vector observations.
     fold_normalize: bool = False
@@ -97,7 +106,7 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
         return ImpalaActorCritic(
             num_actions=cfg.num_actions, obs_shape=cfg.obs_shape, lstm_size=cfg.lstm_size,
             fold_normalize=cfg.fold_normalize, torso=cfg.torso,
-            torso_width=cfg.torso_width, generator=generator)
+            torso_width=cfg.torso_width, generator=generator, dtype=cfg.dtype)
 
     # -- init ------------------------------------------------------------
     def init_state(self, seed: int = 0) -> common.TrainState:
@@ -123,7 +132,7 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
         if (self.cfg.fold_normalize and len(self.cfg.obs_shape) == 3
                 and not obs.dtype.is_floating_point):
             return obs
-        return common.normalize_obs(obs)
+        return common.normalize_obs(obs, self.cfg.dtype)
 
     # -- act -------------------------------------------------------------
     @torch.no_grad()
@@ -139,10 +148,20 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
     # -- learn -----------------------------------------------------------
     def _forward(self, params: dict[str, torch.Tensor], batch: ImpalaBatch):
         """-> (policy [B, T, A], value [B, T]), each step seeded from its
-        actor-recorded LSTM state."""
-        return apply_stored_state(
-            self.model, params, self._prep_obs(batch.state), batch.previous_action,
-            batch.initial_h, batch.initial_c)
+        actor-recorded LSTM state. With `remat` (where autograd records)
+        the forward runs under a non-reentrant checkpoint that takes the
+        parameters as inputs: its recompute in the backward pass runs
+        after `functional_call` has put the module's own tensors back."""
+        args = (self._prep_obs(batch.state), batch.previous_action, batch.initial_h,
+                batch.initial_c)
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return apply_stored_state(self.model, params, *args)
+        names = list(params)
+
+        def run(*tensors):
+            return apply_stored_state(self.model, dict(zip(names, tensors[4:])), *tensors[:4])
+
+        return checkpoint(run, *args, *(params[k] for k in names), use_reentrant=False)
 
     def loss(self, params: dict[str, torch.Tensor], batch: ImpalaBatch):
         """-> (total loss, metrics) for a batch of tensors on the device."""
@@ -198,3 +217,9 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
         metrics["learning_rate"] = self._schedule(state.step)
         state.step += 1
         return state, metrics
+
+    def learn_many(self, state: common.TrainState, batches: ImpalaBatch):
+        """K optimizer steps over a `[K, B, T, ...]` stack, in place ->
+        (state, metrics stacked `[K]`): the JAX agent's
+        `jit(scan_learn(_learn))`."""
+        return common.learn_many_unweighted(self.learn, state, batches, self.device)

@@ -59,6 +59,9 @@ class R2D2Config:
     torso_width: int = 1
     # Fold /255 into conv0 (conv torsos): integer frames feed the model raw.
     fold_normalize: bool = False
+    # Compute type of every layer but the LSTM; parameters, optimizer and
+    # losses stay float32 (bfloat16 compute, as the JAX agent's `dtype`).
+    dtype: torch.dtype = torch.float32
 
 
 class R2D2Batch(NamedTuple):
@@ -93,7 +96,8 @@ class R2D2Agent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin):
         cfg = self.cfg
         return R2D2Net(cfg.num_actions, cfg.obs_shape, lstm_size=cfg.lstm_size,
                        torso=cfg.torso, torso_width=cfg.torso_width,
-                       fold_normalize=cfg.fold_normalize, generator=generator)
+                       fold_normalize=cfg.fold_normalize, generator=generator,
+                       dtype=cfg.dtype)
 
     # -- init ------------------------------------------------------------
     def init_state(self, seed: int = 0) -> common.TargetTrainState:
@@ -113,7 +117,7 @@ class R2D2Agent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin):
         if (self.cfg.fold_normalize and len(self.cfg.obs_shape) == 3
                 and not obs.dtype.is_floating_point):
             return obs
-        return common.normalize_obs(obs)
+        return common.normalize_obs(obs, self.cfg.dtype)
 
     # -- act -------------------------------------------------------------
     @torch.no_grad()

@@ -19,10 +19,19 @@ while batch k trains:
   the learn step then sees exactly what `TrajectoryQueue.get_batch`
   would have given it.
 
+`stack_calls` K > 1 (the K-update learners' `updates_per_call`) makes
+each `get_batch` a `[K, B, ...]` stack of K dequeued batches, stacked on
+the background thread with `np.stack` and copied from pageable memory:
+as in the JAX package, the pinned pool serves only K == 1, since a stack
+holds K batches alive at once. `reconfigure` changes K later: the live
+setting is one `(K, epoch)` tuple swapped by the controlling thread and
+read once a round by the prefetch thread; batches stacked under an older
+epoch are dropped at `get_batch` (counted in `dropped_batches`), so a
+changed K never hands the learner a stack of the old shape.
+
 `h2d_ms()` reads the device time of the copies (CUDA events on the copy
 stream around each batch's copies, after its device buffers are
-allocated). Not ported: `stack_calls` (several batches a call) and
-`reconfigure`; they come with `updates_per_call`.
+allocated).
 """
 
 from __future__ import annotations
@@ -76,10 +85,13 @@ class DevicePrefetcher:
     timeout, the queue's own surface, so a learner can swap it in.
     """
 
-    def __init__(self, source: Any, batch_size: int, device: torch.device):
+    def __init__(self, source: Any, batch_size: int, device: torch.device,
+                 stack_calls: int = 1):
         self.source = source  # TrajectoryQueue-like: take(batch_size, timeout), closed
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self._cfg: tuple[int, int] = (max(1, int(stack_calls)), 0)  # (K, epoch)
+        self.dropped_batches = 0  # dequeued but never trained
         self._cuda = self.device.type == "cuda"
         self._out: _queue.Queue = _queue.Queue(maxsize=1)
         self._slots = [_PinnedSlot(), _PinnedSlot()] if self._cuda else []
@@ -90,6 +102,20 @@ class DevicePrefetcher:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True, name="device-prefetch")
         self._thread.start()
+
+    @property
+    def stack_calls(self) -> int:
+        return self._cfg[0]
+
+    def reconfigure(self, stack_calls: int) -> None:
+        """Change the stack depth K: the next round stacks at the new K,
+        and batches already stacked at the old one are dropped at
+        `get_batch`. Called from the learner's controlling thread (one
+        reference swap, which the prefetch thread reads once a round)."""
+        k = max(1, int(stack_calls))
+        cur, epoch = self._cfg
+        if k != cur:
+            self._cfg = (k, epoch + 1)
 
     def _loop(self) -> None:
         try:
@@ -139,16 +165,45 @@ class DevicePrefetcher:
         batch = type(first)(**dev) if hasattr(first, "_fields") else dev
         return batch, done
 
+    def _stack_to_device(self, parts: list[list]):
+        """`[K, B, ...]`-stack K dequeued batches (pageable) and enqueue
+        their H2D copy on the copy stream -> (device batch, copy-done
+        event)."""
+        stacked = stack_pytrees([stack_pytrees(items) for items in parts])
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in _fields(stacked).items()}
+        with torch.cuda.stream(self._stream):
+            dev = {k: torch.empty_like(h, device=self.device) for k, h in host.items()}
+            start.record(self._stream)
+            for k, t in dev.items():
+                t.copy_(host[k])
+            done.record(self._stream)
+        self._timing.append((start, done))
+        batch = type(stacked)(**dev) if hasattr(stacked, "_fields") else dev
+        return batch, done
+
     def _loop_inner(self) -> None:
         n = 0
         while not self._stop.is_set():
-            items = self._take()
-            if items is None:
-                return
-            if self._cuda:
-                out = self._to_device(items, self._slots[n % len(self._slots)])
+            # One read a round: a reconfigure lands at the next round.
+            k, epoch = self._cfg
+            parts = []
+            while len(parts) < k:
+                items = self._take()
+                if items is None:
+                    self.dropped_batches += len(parts)  # stopped mid-stack
+                    return
+                parts.append(items)
+            if k > 1:
+                out = (self._stack_to_device(parts) if self._cuda
+                       else (stack_pytrees([stack_pytrees(p) for p in parts]), None))
+            elif self._cuda:
+                out = self._to_device(parts[0], self._slots[n % len(self._slots)])
             else:
-                out = (stack_pytrees(items), None)
+                out = (stack_pytrees(parts[0]), None)
+            out = (*out, k, epoch)
             n += 1
             while True:
                 try:
@@ -166,7 +221,10 @@ class DevicePrefetcher:
         while True:
             wait = 0.2 if deadline is None else max(0.0, min(0.2, deadline - time.monotonic()))
             try:
-                batch, done = self._out.get(timeout=wait)
+                batch, done, k, epoch = self._out.get(timeout=wait)
+                if epoch != self._cfg[1]:
+                    self.dropped_batches += k  # stacked at a depth since changed
+                    continue
                 break
             except _queue.Empty:
                 if self._error is not None:

@@ -1,8 +1,8 @@
 """Breakout simulator: game dynamics at ALE specs, in numpy.
 
-Copy of the JAX package's `envs/breakout_sim.py` without its gymnasium
-registration: the port's registry wraps `BreakoutSimRaw` directly in the
-Atari preprocessing pipeline.
+Copy of the JAX package's `envs/breakout_sim.py`. Its gymnasium
+registration uses the `drl_torch/` namespace, so that the JAX package's
+registrations in the same process stay its own.
 
 Fidelity targets (vs ALE Breakout):
 - 210x160x3 uint8 frames; gray walls, black background, the six brick
@@ -210,3 +210,52 @@ class BreakoutSimRaw:
 
     def lives(self) -> int:
         return self._core.lives
+
+
+_GYM_REGISTERED = False
+
+
+def register_gymnasium() -> bool:
+    """Register `drl_torch/BreakoutSim-v0` with gymnasium (idempotent);
+    returns whether the registration is usable. Routing the simulator
+    through a real `gymnasium.make` means `GymnasiumRawFrames`, the
+    adapter a real ALE install would use, is the code under test."""
+    global _GYM_REGISTERED
+    try:
+        import gymnasium
+        from gymnasium import spaces
+    except ImportError:
+        return False
+    if _GYM_REGISTERED:
+        return True
+
+    class _GymBreakoutSim(gymnasium.Env):
+        metadata = {"render_modes": []}
+
+        def __init__(self, max_frames: int = 10_000, frameskip: int = 1):
+            self._max_frames = max_frames
+            self._frameskip = frameskip
+            self._core: BreakoutCore | None = None
+            self.action_space = spaces.Discrete(BreakoutCore.num_actions)
+            self.observation_space = spaces.Box(0, 255, (H, W, 3), np.uint8)
+
+        def reset(self, *, seed=None, options=None):
+            super().reset(seed=seed)
+            if self._core is None or seed is not None:
+                self._core = BreakoutCore(seed=seed or 0, max_frames=self._max_frames,
+                                          frameskip=self._frameskip)
+            obs = self._core.reset()
+            return obs, {"lives": self._core.lives}
+
+        def step(self, action):
+            obs, reward, done, info = self._core.step(int(action))
+            return obs, reward, done, False, info
+
+    # Mirror ALE's registrations: the Deterministic id bakes in the
+    # emulator frameskip of 4, NoFrameskip/plain = 1.
+    gymnasium.register(id="drl_torch/BreakoutSim-v0", entry_point=lambda **kw: _GymBreakoutSim(**kw))
+    gymnasium.register(
+        id="drl_torch/BreakoutSimDeterministic-v0",
+        entry_point=lambda **kw: _GymBreakoutSim(**{"frameskip": 4, **kw}))
+    _GYM_REGISTERED = True
+    return True

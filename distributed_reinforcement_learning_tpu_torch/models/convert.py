@@ -16,6 +16,11 @@ networks) by one set of rules:
 The feature order after a flatten needs no permutation: the port's
 torsos flatten NHWC, as the JAX torsos do.
 
+`upgrade_nature_conv_params` is the JAX package's map from the old
+NatureConv nesting (`Conv_{i}/{kernel, bias}`) to the explicit leaves:
+the converters apply it, and `utils/checkpoint.py` retries a failed
+restore through its form over dotted names.
+
 `TransformerQNet` takes flax's automatic names through a table instead
 (`transformer_params_from_jax`), and LayerNorm's `scale` becomes
 `weight` with no transpose. Its `moe` groups and `blocks_stacked` keep
@@ -32,6 +37,7 @@ import torch
 
 _CONV_LEAF = re.compile(r"conv(\d+)_(kernel|bias)$")
 _DENSE = re.compile(r"Dense_(\d+)$")
+_OLD_CONV_NAME = re.compile(r"(^|\.)Conv_(\d+)\.(weight|bias)$")
 
 
 def _flatten(tree, prefix=()):
@@ -112,9 +118,36 @@ def transformer_params_from_jax(tree, head: str = "dueling_q") -> dict[str, torc
     return out
 
 
+def upgrade_nature_conv_params(tree):
+    """The JAX package's `models/torso.py:upgrade_nature_conv_params`:
+    rewrite the old NatureConv nesting `Conv_{i}: {kernel, bias}` (flax
+    `nn.Conv`) to the explicit `conv{i}_kernel` / `conv{i}_bias` leaves,
+    at any depth. Returns a new tree; other subtrees pass through."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for key, val in tree.items():
+        if key.startswith("Conv_") and isinstance(val, dict) and set(val) <= {"kernel", "bias"}:
+            i = key.split("_", 1)[1]
+            for pname, pval in val.items():
+                out[f"conv{i}_{pname}"] = pval
+        else:
+            out[key] = upgrade_nature_conv_params(val)
+    return out
+
+
+def upgrade_nature_conv_names(flat: dict) -> dict:
+    """`upgrade_nature_conv_params` over a state_dict's dotted names: an
+    old-layout tree converted by the rules above names its convs
+    `torso.Conv_{i}.weight` / `.bias`; they become `torso.conv{i}.weight`
+    / `.bias`. Other names pass through."""
+    return {_OLD_CONV_NAME.sub(r"\1conv\2.\3", k): v for k, v in flat.items()}
+
+
 def _params_from_jax(tree, family: str) -> dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
+    tree = upgrade_nature_conv_params(tree)  # trees saved with the old conv nesting
     out = {}
     for path, arr in _flatten(tree):
         arr = np.asarray(arr, np.float32)

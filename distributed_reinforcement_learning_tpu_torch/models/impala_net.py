@@ -35,35 +35,40 @@ class ImpalaActorCritic(nn.Module):
     `fold_normalize` folds the /255 frame normalisation into the first
     conv kernel for integer frames. `torso` is "nature" (reference parity)
     or "resnet" (the IMPALA paper's deep torso, `torso_width` channels).
+    `dtype` is the compute type of the torso, embedding and heads (the
+    LSTM stays float32, see `models/recurrent.py`); policy and value come
+    out float32.
     """
 
     def __init__(self, num_actions: int, obs_shape: tuple[int, ...], lstm_size: int = 256,
                  fold_normalize: bool = False, torso: str = "nature", torso_width: int = 1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fold_normalize = fold_normalize
+        self.dtype = dtype
         if len(obs_shape) == 1:
-            self.torso = MLP(obs_shape[0], [256], 256, final_activation=F.relu)
+            self.torso = MLP(obs_shape[0], [256], 256, final_activation=F.relu, dtype=dtype)
             feat = 256
         elif torso == "resnet":
-            self.torso = ResNetTorso(obs_shape[2], obs_shape[0], obs_shape[1], torso_width)
+            self.torso = ResNetTorso(obs_shape[2], obs_shape[0], obs_shape[1], torso_width,
+                                     dtype=dtype)
             feat = 256
         elif torso == "nature":
-            self.torso = NatureConv(obs_shape[2])
+            self.torso = NatureConv(obs_shape[2], dtype=dtype)
             feat = NatureConv.output_size(obs_shape[0], obs_shape[1])
         else:
             raise ValueError(f"unknown torso {torso!r}")
-        self.action_embed = ActionEmbedding(num_actions)
+        self.action_embed = ActionEmbedding(num_actions, dtype=dtype)
         self.lstm = LSTMCell(feat + 256, lstm_size)
-        self.policy_head = MLP(lstm_size, [256, 256], num_actions)
-        self.value_head = MLP(lstm_size, [256, 256], 1)
+        self.policy_head = MLP(lstm_size, [256, 256], num_actions, dtype=dtype)
+        self.value_head = MLP(lstm_size, [256, 256], 1, dtype=dtype)
         init_glorot_(self, generator)
         self.lstm.reset_parameters(generator)
 
     def forward(self, obs: torch.Tensor, prev_action: torch.Tensor,
                 h: torch.Tensor, c: torch.Tensor) -> ImpalaOutput:
         if obs.dim() == 2:  # vector observations (CartPole-class envs)
-            img = self.torso(obs.to(torch.float32))
+            img = self.torso(obs.to(self.dtype))
         else:
             integer = not (obs.dtype.is_floating_point or obs.dtype.is_complex)
             scale = 1.0 / 255.0 if self.fold_normalize and integer else None
@@ -71,7 +76,7 @@ class ImpalaActorCritic(nn.Module):
         z = torch.cat([img, self.action_embed(prev_action)], dim=-1)
         new_h, new_c = self.lstm(z, h, c)
         policy = torch.softmax(self.policy_head(new_h).to(torch.float32), dim=-1)
-        value = self.value_head(new_h)[..., 0]
+        value = self.value_head(new_h)[..., 0].to(torch.float32)
         return ImpalaOutput(policy, value, new_h, new_c)
 
 

@@ -12,6 +12,8 @@ once around `LSTMCell.unroll`.
 "resnet" are the conv torsos of the pixel sections. Parameter names
 follow the flax module's (`state_fc1`, `torso`, `action_embed`, `cell`,
 `head_fc`, `value`, `mean`), so `models/convert.py` maps them by rule.
+`dtype` is the compute type of every layer but the LSTM (float32, see
+`models/recurrent.py`); Q-values come out float32.
 """
 
 from __future__ import annotations
@@ -22,29 +24,31 @@ from torch import nn
 
 from distributed_reinforcement_learning_tpu_torch.models.recurrent import LSTMCell
 from distributed_reinforcement_learning_tpu_torch.models.torso import (
-    ActionEmbedding, NatureConv, ResNetTorso, init_glorot_)
+    ActionEmbedding, NatureConv, ResNetTorso, init_glorot_, linear)
 
 
 class R2D2Net(nn.Module):
     def __init__(self, num_actions: int, obs_shape: tuple[int, ...], lstm_size: int = 512,
                  torso: str = "mlp", torso_width: int = 1, fold_normalize: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.torso_kind = torso
         self.fold_normalize = fold_normalize
+        self.dtype = dtype
         if torso == "mlp":
             self.state_fc1 = nn.Linear(obs_shape[-1], 256)
             self.state_fc2 = nn.Linear(256, 256)
             feat = 256
         elif torso == "resnet":
-            self.torso = ResNetTorso(obs_shape[2], obs_shape[0], obs_shape[1], torso_width)
+            self.torso = ResNetTorso(obs_shape[2], obs_shape[0], obs_shape[1], torso_width,
+                                     dtype=dtype)
             feat = 256
         elif torso == "nature":
-            self.torso = NatureConv(obs_shape[2])
+            self.torso = NatureConv(obs_shape[2], dtype=dtype)
             feat = NatureConv.output_size(obs_shape[0], obs_shape[1])
         else:
             raise ValueError(f"unknown torso {torso!r}")
-        self.action_embed = ActionEmbedding(num_actions)
+        self.action_embed = ActionEmbedding(num_actions, dtype=dtype)
         self.cell = LSTMCell(feat + 256, lstm_size)
         self.head_fc = nn.Linear(lstm_size, 128)
         self.value = nn.Linear(128, num_actions)
@@ -55,7 +59,8 @@ class R2D2Net(nn.Module):
     def _features(self, obs: torch.Tensor) -> torch.Tensor:
         """`[N, ...obs]` -> `[N, F]`."""
         if self.torso_kind == "mlp":
-            return F.relu(self.state_fc2(F.relu(self.state_fc1(obs.to(torch.float32)))))
+            x = F.relu(linear(self.state_fc1, obs, self.dtype))
+            return F.relu(linear(self.state_fc2, x, self.dtype))
         integer = not obs.dtype.is_floating_point
         if self.fold_normalize and not integer:
             raise ValueError("fold_normalize expects raw integer frames; got "
@@ -63,8 +68,9 @@ class R2D2Net(nn.Module):
         return self.torso(obs, 1.0 / 255.0 if self.fold_normalize else None)
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
-        q = F.relu(self.head_fc(h))
-        return self.value(q) - self.mean(q)
+        dt = self.dtype
+        q = F.relu(linear(self.head_fc, h, dt))
+        return (linear(self.value, q, dt) - linear(self.mean, q, dt)).to(torch.float32)
 
     def step(self, obs: torch.Tensor, prev_action: torch.Tensor, h: torch.Tensor,
              c: torch.Tensor):

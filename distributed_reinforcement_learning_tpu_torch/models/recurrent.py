@@ -14,6 +14,11 @@ biases and no forget bias, so it is not used.
   input half of the kernel projects all steps in one product, and only
   the recurrent half enters the recursion (`ops/lstm.py:lstm_scan`, the
   CUDA kernels on the card).
+
+Under a bfloat16 model (`dtype`) the cell's input arrives in bfloat16 and
+is promoted to the float32 kernel's type before the input projection, as
+the JAX cell's `jnp.dot(bf16, f32)` promotes: the gates, the carry and
+the recursion stay float32.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ class LSTMCell(nn.Module):
         The same sums as the JAX cell: the input projection plus bias
         first, then the recurrent projection."""
         feat = x.shape[-1]
-        xg = x @ self.gates_kernel[:feat] + self.gates_bias
+        xg = x.to(self.gates_kernel.dtype) @ self.gates_kernel[:feat] + self.gates_bias
         return lstm_step(xg + h @ self.gates_kernel[feat:], c)
 
     def unroll(self, z_seq: torch.Tensor, done_seq: torch.Tensor, h: torch.Tensor,
@@ -53,6 +58,6 @@ class LSTMCell(nn.Module):
         state -> (h_all `[B, T, hidden]` pre-mask outputs, (hT, cT) masked
         carry). (h, c) are zeroed AFTER any step where done is set."""
         feat = z_seq.shape[-1]
-        xg = z_seq @ self.gates_kernel[:feat] + self.gates_bias
+        xg = z_seq.to(self.gates_kernel.dtype) @ self.gates_kernel[:feat] + self.gates_bias
         keep = 1.0 - done_seq.to(xg.dtype)
         return lstm_scan(xg, self.gates_kernel[feat:], keep, h, c)

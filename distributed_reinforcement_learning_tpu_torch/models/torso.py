@@ -6,6 +6,11 @@ NHWC, as there; the convolutions run NCHW inside and the feature maps are
 put back to NHWC before they are flattened, so the first layer after a
 flatten sees the JAX package's feature order. Kernels start Glorot-uniform
 and biases at zero, drawn from an explicit `torch.Generator`.
+
+`dtype` is the compute type, as the flax modules' `dtype`: parameters stay
+float32, and each layer casts its input, kernel and bias to `dtype`
+(bfloat16 compute with float32 parameters). At float32 every cast is a
+no-op.
 """
 
 from __future__ import annotations
@@ -46,15 +51,32 @@ def _nhwc_flatten(x: torch.Tensor) -> torch.Tensor:
 
 def _scaled(weight: torch.Tensor, input_scale: float | None) -> torch.Tensor:
     """conv(x * s) == conv_{k*s}(x): the frame normalisation folded into
-    the first kernel, so integer frames can enter raw."""
-    return weight if input_scale is None else weight * input_scale
+    the first kernel (in the kernel's type, as the JAX torso scales its
+    cast kernel), so integer frames can enter raw."""
+    if input_scale is None:
+        return weight
+    return weight * torch.tensor(input_scale, dtype=weight.dtype)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`layer(x)` computed in `dtype` (flax `Dense(dtype=...)`)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
+         input_scale: float | None = None) -> torch.Tensor:
+    """`layer(x)` on NCHW `x` computed in `dtype`, the kernel scaled by
+    `input_scale` after its cast."""
+    return F.conv2d(x, _scaled(layer.weight.to(dtype), input_scale), layer.bias.to(dtype),
+                    stride=layer.stride, padding=layer.padding)
 
 
 class NatureConv(nn.Module):
     """Nature-DQN conv torso: 8x8/4 x32, 4x4/2 x64, 3x3/1 x64, flatten."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = nn.Conv2d(in_channels, 32, 8, stride=4)
         self.conv1 = nn.Conv2d(32, 64, 4, stride=2)
         self.conv2 = nn.Conv2d(64, 64, 3, stride=1)
@@ -66,10 +88,11 @@ class NatureConv(nn.Module):
         return height * width * 64
 
     def forward(self, x: torch.Tensor, input_scale: float | None = None) -> torch.Tensor:
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
-        x = F.relu(F.conv2d(x, _scaled(self.conv0.weight, input_scale), self.conv0.bias, stride=4))
-        x = F.relu(self.conv1(x))
-        x = F.relu(self.conv2(x))
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        x = F.relu(conv(self.conv0, x, dt, input_scale))
+        x = F.relu(conv(self.conv1, x, dt))
+        x = F.relu(conv(self.conv2, x, dt))
         return _nhwc_flatten(x)
 
 
@@ -88,8 +111,10 @@ class ResNetTorso(nn.Module):
     conv3x3 -> maxpool3x3/2 -> 2 residual blocks, then relu, flatten and
     Dense 256. `width` multiplies the paper's (16, 32, 32) channels."""
 
-    def __init__(self, in_channels: int, height: int, width_px: int, width: int = 1):
+    def __init__(self, in_channels: int, height: int, width_px: int, width: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         chans = [base * width for base in (16, 32, 32)]
         self.conv0 = nn.Conv2d(in_channels, chans[0], 3, padding=1)
         for s in (1, 2):
@@ -103,33 +128,35 @@ class ResNetTorso(nn.Module):
         self.trunk_out = nn.Linear(height * width_px * chans[2], 256)
 
     def forward(self, x: torch.Tensor, input_scale: float | None = None) -> torch.Tensor:
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
         for s in range(3):
             if s == 0:
-                x = F.conv2d(x, _scaled(self.conv0.weight, input_scale), self.conv0.bias, padding=1)
+                x = conv(self.conv0, x, dt, input_scale)
             else:
-                x = getattr(self, f"section{s}_conv")(x)
+                x = conv(getattr(self, f"section{s}_conv"), x, dt)
             x = _max_pool_same(x)
             for r in range(2):
-                y = getattr(self, f"section{s}_res{r}_conv0")(F.relu(x))
-                y = getattr(self, f"section{s}_res{r}_conv1")(F.relu(y))
+                y = conv(getattr(self, f"section{s}_res{r}_conv0"), F.relu(x), dt)
+                y = conv(getattr(self, f"section{s}_res{r}_conv1"), F.relu(y), dt)
                 x = x + y
         x = _nhwc_flatten(F.relu(x))
-        return F.relu(self.trunk_out(x))
+        return F.relu(linear(self.trunk_out, x, dt))
 
 
 class ActionEmbedding(nn.Module):
     """One-hot previous action -> Dense 256 relu -> Dense 256 relu."""
 
-    def __init__(self, num_actions: int, width: int = 256):
+    def __init__(self, num_actions: int, width: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_actions = num_actions
+        self.dtype = dtype
         self.layers = nn.ModuleList([nn.Linear(num_actions, width), nn.Linear(width, width)])
 
     def forward(self, action: torch.Tensor) -> torch.Tensor:
-        x = F.one_hot(action.long(), self.num_actions).to(torch.float32)
+        x = F.one_hot(action.long(), self.num_actions).to(self.dtype)
         for layer in self.layers:
-            x = F.relu(layer(x))
+            x = F.relu(linear(layer, x, self.dtype))
         return x
 
 
@@ -137,16 +164,18 @@ class MLP(nn.Module):
     """relu MLP over `hidden_sizes` with a linear `output_size` head."""
 
     def __init__(self, input_size: int, hidden_sizes: Sequence[int], output_size: int,
-                 final_activation: Callable[[torch.Tensor], torch.Tensor] | None = None):
+                 final_activation: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         sizes = [input_size, *hidden_sizes, output_size]
         self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
         self.final_activation = final_activation
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers[:-1]:
-            x = F.relu(layer(x))
-        x = self.layers[-1](x)
+            x = F.relu(linear(layer, x, self.dtype))
+        x = linear(self.layers[-1], x, self.dtype)
         if self.final_activation is not None:
             x = self.final_activation(x)
         return x

@@ -15,6 +15,12 @@ masked final carry `hT`, `cT`; the backward takes the gradients of
 `h_all`, `hT`, `cT` and returns those of `xg`, `h0`, `c0`. `dWh` is one
 batched product over the emitted `dxg`, outside the kernels, as in the
 JAX package.
+
+A bfloat16 `xg` (and `keep`, which the JAX package casts to xg's type)
+is taken too: the wrappers cast it to float32 before the kernel or the
+plain version sees it, where the Pallas kernel adds the bfloat16 `xg` to
+its float32 `h @ Wh` (`ops/pallas/lstm.py:91`). Everything else, and
+every output, is float32.
 """
 
 from __future__ import annotations
@@ -42,6 +48,11 @@ def _check_inputs(xg, wh, keep, h0, c0) -> None:
     for t in (xg, wh, keep, h0, c0):
         if t.dtype != torch.float32:
             raise TypeError(f"the LSTM kernels take float32 tensors, got {t.dtype}")
+
+
+def _as_float32(xg, keep) -> tuple[torch.Tensor, torch.Tensor]:
+    """The announced cast: a bfloat16 `xg` or `keep` becomes float32."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in (xg, keep))
 
 
 def lstm_fwd_plain(xg, wh, keep, h0, c0):
@@ -246,8 +257,10 @@ def _plan_args(plan: LSTMPlan) -> tuple[int, ...]:
 def lstm_fwd_cuda(xg, wh, keep, h0, c0):
     """K2a: one cooperative launch on the current stream of the tensors'
     device -> (h_all, c_all, hT, cT). Takes contiguous float32 CUDA
-    tensors only; raises on anything else, on a hidden size past the
-    plan's limit, on a failed build and on a refused launch."""
+    tensors only (a bfloat16 `xg` or `keep` is cast to float32 here);
+    raises on anything else, on a hidden size past the plan's limit, on a
+    failed build and on a refused launch."""
+    xg, keep = _as_float32(xg, keep)
     tensors = (xg, wh, keep, h0, c0)
     _check_inputs(*tensors)
     lib, plan = _load_for(tensors, "lstm_fwd_cuda", backward=False)
@@ -271,6 +284,7 @@ lstm_fwd_cuda.launches = 0
 def lstm_bwd_cuda(xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT):
     """K2b: one cooperative launch on the current stream -> (dxg, dh0,
     dc0). Same contract as `lstm_fwd_cuda`."""
+    xg, keep = _as_float32(xg, keep)
     tensors = (xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT)
     _check_inputs(*tensors[:5])
     T, B, G = xg.shape
@@ -303,6 +317,7 @@ def lstm_fwd(xg, wh, keep, h0, c0):
     """K2a for CUDA tensors, the plain version for CPU tensors."""
     if on_cuda(xg, wh, keep, h0, c0):
         return lstm_fwd_cuda(xg, wh, keep, h0, c0)
+    xg, keep = _as_float32(xg, keep)
     _check_inputs(xg, wh, keep, h0, c0)
     return lstm_fwd_plain(xg, wh, keep, h0, c0)
 
@@ -312,8 +327,9 @@ def lstm_bwd(xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT):
     args = (xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT)
     if on_cuda(*args):
         return lstm_bwd_cuda(*args)
-    _check_inputs(*args[:5])
-    return lstm_bwd_plain(*args)
+    xg, keep = _as_float32(xg, keep)
+    _check_inputs(xg, wh, keep, h0, c0)
+    return lstm_bwd_plain(xg, wh, keep, h0, c0, h_all, c_all, dh_all, dhT, dcT)
 
 
 class LSTMFunction(torch.autograd.Function):
@@ -333,7 +349,7 @@ class LSTMFunction(torch.autograd.Function):
                                  dhT.contiguous(), dcT.contiguous())
         # dWh: each step's input h against its dgates, one [H, T*B] x
         # [T*B, 4H] product.
-        h_prev = torch.cat([h0[None], h_all[:-1] * keep[:-1, :, None]])
+        h_prev = torch.cat([h0[None], h_all[:-1] * keep[:-1, :, None].float()])
         H = h0.shape[1]
         dwh = h_prev.reshape(-1, H).T @ dxg.reshape(-1, 4 * H)
         dkeep = torch.zeros_like(keep) if ctx.needs_input_grad[2] else None

@@ -1,8 +1,10 @@
 """V-trace recursion: the CUDA kernel (`csrc/vtrace.cu`) and its plain version.
 
 Replaces `ops/pallas/vtrace.py` of the JAX package. Time-major `[T, B]`
-float32 inputs and a `[B]` bootstrap value; returns `(vs, clipped_rhos)`,
-both `[T, B]`. The caller stops gradients at both ends
+inputs and a `[B]` bootstrap value; returns `(vs, clipped_rhos)`, both
+`[T, B]` float32. The kernel computes in float32: bfloat16 inputs are
+cast to float32 by the wrappers before the kernel or the plain version
+sees them, where `vtrace_pallas` casts its inputs (`astype(float32)`). The caller stops gradients at both ends
 (`ops/vtrace.py:from_importance_weights`), so there is no backward.
 """
 
@@ -28,6 +30,12 @@ def _check_inputs(log_rhos, discounts, rewards, values, bootstrap_value) -> None
     for t in (log_rhos, discounts, rewards, values, bootstrap_value):
         if t.dtype != torch.float32:
             raise TypeError(f"V-trace takes float32 tensors, got {t.dtype}")
+
+
+def _as_float32(*tensors) -> tuple[torch.Tensor, ...]:
+    """The announced cast: bfloat16 inputs become float32 (the kernel's
+    type, as the JAX wrapper casts); other types pass to the checks."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in tensors)
 
 
 def vtrace_plain(log_rhos, discounts, rewards, values, bootstrap_value,
@@ -59,9 +67,11 @@ def vtrace_cuda(log_rhos, discounts, rewards, values, bootstrap_value,
                 clip_c_threshold: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream of the tensors' device.
 
-    Takes contiguous float32 CUDA tensors only; raises on anything else,
-    on a failed build and on a refused launch."""
-    tensors = (log_rhos, discounts, rewards, values, bootstrap_value)
+    Takes contiguous float32 (or bfloat16, cast to float32 here) CUDA
+    tensors only; raises on anything else, on a failed build and on a
+    refused launch."""
+    tensors = _as_float32(log_rhos, discounts, rewards, values, bootstrap_value)
+    log_rhos, discounts, rewards, values, bootstrap_value = tensors
     _check_inputs(*tensors)
     if not on_cuda(*tensors):
         raise ValueError("vtrace_cuda takes CUDA tensors")
@@ -97,5 +107,6 @@ def vtrace(log_rhos, discounts, rewards, values, bootstrap_value,
             clip_rho_threshold, clip_c_threshold)
     if on_cuda(*args[:5]):
         return vtrace_cuda(*args)
-    _check_inputs(*args[:5])
-    return vtrace_plain(*args)
+    tensors = _as_float32(*args[:5])
+    _check_inputs(*tensors)
+    return vtrace_plain(*tensors, clip_rho_threshold, clip_c_threshold)

@@ -277,7 +277,11 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         publish_interval: int = 1,
         updates_per_call: int = 1,
         replay_service=None,
+        init_seed: int = 0,
     ):
+        """`init_seed` seeds the initial parameters (the JAX learner's
+        `rng`, default `PRNGKey(0)`); `seed` seeds only the replay's
+        sampling stream `RandomState(seed)`, as the JAX learner's does."""
         self.agent = agent
         self.queue = queue
         self.weights = weights
@@ -292,7 +296,8 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         self._init_stride(updates_per_call)
         self.train_start_unrolls = train_start_unrolls
         self.logger = logger or MetricsLogger(None)
-        self.state = agent.sync_target(agent.init_state(seed))
+        self.init_seed, self.replay_seed = init_seed, seed  # logged by the runs
+        self.state = agent.sync_target(agent.init_state(init_seed))
         self._np_rng = np.random.RandomState(seed)
         self.publish_interval = max(1, publish_interval)
         self.ingested_unrolls = 0

@@ -8,25 +8,28 @@ Counterpart of the JAX package's `runtime/impala_runner.py`:
   protocol of the pipelined actor (`runtime/actor_pipeline.py`).
 - `ImpalaLearner`: drains a batch from the queue (through the device
   prefetcher when `prefetch`), runs one learn step, publishes versioned
-  weights; stage timings, a profiler window, checkpoints.
+  weights; stage timings, a profiler window, checkpoints. With
+  `updates_per_call` K > 1 a call drains K batches and runs them as one
+  `learn_many` (a partial drain trains its batches one by one).
 - `run_sync`: deterministic interleaved actor/learner stepping (tests,
   single-process training). `run_async`: free-running actor threads and
   the learner loop in one process; the multi-process topology goes
   through `runtime/transport.py`.
 
-Not ported: `updates_per_call` (several learn steps a call), remote
-acting and the mesh.
+Not ported: remote acting (ROADMAP item 12) and the mesh (item 13).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ActOutput, ImpalaAgent
-from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue, put_round
+from distributed_reinforcement_learning_tpu_torch.data.fifo import (
+    TrajectoryQueue, put_round, stack_pytrees, tree_map)
 from distributed_reinforcement_learning_tpu_torch.data.structures import (
     ImpalaTrajectoryAccumulator, SlicedAccumulators)
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
@@ -208,22 +211,30 @@ class ImpalaLearner(PublishCadenceMixin):
         seed: int = 0,
         publish_interval: int = 1,
         prefetch: bool = False,
+        updates_per_call: int = 1,
     ):
+        """`seed` seeds the initial parameters (the JAX learner's `rng`;
+        this learner has no replay). `updates_per_call` K > 1 runs K
+        optimizer steps a call, with weights published at K-step
+        granularity."""
         self.agent = agent
         self.queue = queue
         self.weights = weights
         self.batch_size = batch_size
+        self.updates_per_call = max(1, int(updates_per_call))
         self.logger = logger or MetricsLogger(None)
         self.publish_interval = max(1, publish_interval)
         # Double-buffered host->device pipeline: batch k+1 is dequeued,
-        # stacked and copied while batch k trains. Off in run_sync (a
+        # stacked and copied while batch k trains (with K > 1 the K
+        # batches of the next call, as one stack). Off in run_sync (a
         # background consumer would race the deterministic interleave).
         self.prefetcher = None
         if prefetch:
             from distributed_reinforcement_learning_tpu_torch.data.prefetch import (
                 DevicePrefetcher)
 
-            self.prefetcher = DevicePrefetcher(queue, batch_size, agent.device)
+            self.prefetcher = DevicePrefetcher(queue, batch_size, agent.device,
+                                               stack_calls=self.updates_per_call)
         self.state = agent.init_state(seed)
         self.train_steps = 0
         self.frames_learned = 0
@@ -250,24 +261,47 @@ class ImpalaLearner(PublishCadenceMixin):
         return True
 
     def step(self, timeout: float | None = None) -> dict | None:
-        """One train call: drain a batch, learn, publish. -> metrics (host
-        floats on publish steps unless the metrics pump owns them, device
-        tensors otherwise), or None when no batch arrived within
-        `timeout`."""
+        """One train call: drain a batch (K batches with `updates_per_call`
+        K), learn, publish. -> the last step's metrics (host floats on
+        publish steps unless the metrics pump owns them, device tensors
+        otherwise), or None when no batch arrived within `timeout`.
+
+        With K > 1 one deadline bounds the K dequeues; a full drain runs
+        as one `learn_many`, a partial one trains its batches one by one
+        (never dropped), and `train_steps` counts the steps taken."""
+        k = self.updates_per_call
+        parts: list = []
         with self.timer.stage("dequeue"):
             if self.prefetcher is not None:
                 batch = self.prefetcher.get_batch(timeout=timeout)
+            elif k > 1:
+                deadline = None if timeout is None else time.monotonic() + timeout
+                while len(parts) < k:
+                    left = None if deadline is None else max(0.0, deadline - time.monotonic())
+                    b = self.queue.get_batch(self.batch_size, timeout=left)
+                    if b is None:
+                        break
+                    parts.append(b)
+                batch = stack_pytrees(parts) if len(parts) == k else None
             else:
                 batch = self.queue.get_batch(self.batch_size, timeout=timeout)
-        if batch is None:
+        if batch is None and not parts:
             return None
+        steps_done = k if batch is not None else len(parts)
         with self.timer.stage("learn"):
-            self.state, metrics = self.agent.learn(self.state, batch)
-        frames = self.batch_size * self.agent.cfg.trajectory
-        self.train_steps += 1
+            if k > 1 and batch is not None:
+                self.state, stacked = self.agent.learn_many(self.state, batch)
+                metrics = tree_map(lambda x: x[-1], stacked)
+            elif k > 1:
+                for b in parts:
+                    self.state, metrics = self.agent.learn(self.state, b)
+            else:
+                self.state, metrics = self.agent.learn(self.state, batch)
+        frames = steps_done * self.batch_size * self.agent.cfg.trajectory
+        self.train_steps += steps_done
         self.frames_learned += frames
         if _OBS.enabled:
-            _OBS.count("learner/train_steps")
+            _OBS.count("learner/train_steps", steps_done)
             _OBS.count("learner/frames_learned", frames)
         if self.maybe_publish():
             metrics = self.log_step_metrics(metrics)
@@ -299,10 +333,12 @@ def run_sync(
     """
     learner.sync_publish = True  # deterministic staleness in the sync loop
     production_per_round = sum(a.env.num_envs for a in actors)
-    need = learner.batch_size
+    # A learner draining K batches a call (`updates_per_call`) needs K
+    # full batches queued before its step can complete.
+    need = learner.batch_size * learner.updates_per_call
     if learner.queue.capacity < need + production_per_round:
         raise ValueError(
-            "sync mode needs queue capacity >= batch_size "
+            "sync mode needs queue capacity >= batch_size*updates_per_call "
             f"+ one actor round ({need} + {production_per_round})"
         )
     frames = 0

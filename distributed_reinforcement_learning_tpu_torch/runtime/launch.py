@@ -57,11 +57,11 @@ def algo_of(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XformerConfig
     return "impala"
 
 
-def _make_batched_env(rt: RuntimeConfig, actor_index: int) -> BatchedEnv:
+def _make_batched_env(rt: RuntimeConfig, actor_index: int, num_actions: int) -> BatchedEnv:
     name = rt.envs[actor_index % len(rt.envs)]
     n = rt.envs_per_actor
     return BatchedEnv([
-        (lambda s=seed: make_env(name, seed=s))
+        (lambda s=seed: make_env(name, seed=s, num_actions=num_actions))
         for seed in range(actor_index * n, actor_index * n + n)
     ])
 
@@ -77,7 +77,10 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
     """The learner of family `algo` over any queue and weight store.
     `prefetch` (IMPALA families) overlaps batch k+1's H2D copy with step k;
     `replay_service` (replay families) is the sharded replay the learner
-    samples while it is healthy (`runtime/replay_shard.build_service`)."""
+    samples while it is healthy (`runtime/replay_shard.build_service`).
+    `seed` seeds the initial parameters, as the JAX launcher's
+    `rng=PRNGKey(seed)` does; the replay learners keep their sampling
+    stream at `RandomState(0)`, the JAX learners' default."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
     if algo in ("apex", *SEQUENCE_REPLAY) and prefetch:
         raise ValueError(f"the {algo} learner samples its batches from the replay; "
@@ -85,20 +88,21 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
     if algo == "apex":
         return apex_runner.ApexLearner(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
-            target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
+            target_sync_interval=rt.target_sync_interval, logger=logger, init_seed=seed,
             publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
             replay_service=replay_service)
     if algo in SEQUENCE_REPLAY:
         cls = xformer_runner.XformerLearner if algo == "xformer" else r2d2_runner.R2D2Learner
         return cls(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
-            target_sync_interval=rt.target_sync_interval, logger=logger, seed=seed,
+            target_sync_interval=rt.target_sync_interval, logger=logger, init_seed=seed,
             publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
             replay_service=replay_service)
     cls = (ximpala_runner.XImpalaLearner if algo == "ximpala"
            else impala_runner.ImpalaLearner)
     return cls(agent, queue, weights, rt.batch_size, logger=logger, seed=seed,
-               publish_interval=rt.publish_interval, prefetch=prefetch)
+               publish_interval=rt.publish_interval, prefetch=prefetch,
+               updates_per_call=rt.updates_per_call)
 
 
 def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, weights,
@@ -106,7 +110,7 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
     """Actor `task` of the topology over any queue and weight store. Pass
     `agent` to share one agent between runners in a process."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
-    env = _make_batched_env(rt, task)
+    env = _make_batched_env(rt, task, agent_cfg.num_actions)
     if algo == "apex":
         return apex_runner.ApexActor(agent, env, queue, weights, seed=seed,
                                      life_loss_shaping=_is_atari(rt))
@@ -116,7 +120,8 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
         # None keeps the actor's own floor (r2d2 0.0, xformer 0.15).
         floor = {} if rt.epsilon_floor is None else {"epsilon_floor": rt.epsilon_floor}
         cls = xformer_runner.XformerActor if algo == "xformer" else r2d2_runner.R2D2Actor
-        return cls(agent, env, queue, weights, seed=seed, obs_transform=transform, **floor)
+        return cls(agent, env, queue, weights, seed=seed, obs_transform=transform,
+                   timeout_nonterminal=rt.timeout_nonterminal, **floor)
     available = rt.available_action[task % len(rt.available_action)]
     if algo == "ximpala":
         return ximpala_runner.XImpalaActor(

@@ -27,15 +27,16 @@ path only:
   training). `run_async`: free-running actor threads and the
   ingest/train learner loop in one process.
 
-The actor has the pipeline's slice protocol; the learner has stage
-timings, a profiler window and checkpoints (with a replay snapshot).
-Not ported: `remote_act`, `timeout_nonterminal`, the recent-mix knob
-(`DRL_R2D2_RECENT_FRACTION`, which `run_role` refuses by name) and the
-mesh.
+The actor has the pipeline's slice protocol and `timeout_nonterminal`;
+the learner has stage timings, a profiler window, checkpoints (with a
+replay snapshot) and the opt-in recent mix (`DRL_R2D2_RECENT_FRACTION`,
+`DRL_R2D2_RECENT_WINDOW`). Not ported: `remote_act` (ROADMAP item 12)
+and the mesh (item 13).
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import sys
 
@@ -51,7 +52,8 @@ from distributed_reinforcement_learning_tpu_torch.data.structures import (
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
 from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
 from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
-    PipelineSlice, run_async_loop, slice_seed, split_batched_env, sync_slices_params)
+    PipelineSlice, run_async_loop, shape_timeout, slice_seed, split_batched_env,
+    sync_slices_params)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
 from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import (
     ReplayTrainMixin, prioritized_train_call)
@@ -71,6 +73,11 @@ class R2D2Actor:
         seed: int = 0,
         epsilon_decay: float = 0.1,
         epsilon_floor: float = 0.0,  # 0 = reference parity
+        # Record a time-limit truncation (env info `truncated`) as
+        # non-terminal: done stays False in the recorded stream and the
+        # LSTM carry and previous action continue across the env's reset.
+        # False = reference parity.
+        timeout_nonterminal: bool = False,
         obs_transform=None,  # e.g. envs.cartpole.pomdp_project
     ):
         self.agent = agent
@@ -79,6 +86,7 @@ class R2D2Actor:
         self.weights = weights
         self.epsilon_decay = epsilon_decay
         self.epsilon_floor = epsilon_floor
+        self.timeout_nonterminal = timeout_nonterminal
         self.obs_transform = obs_transform or (lambda x: x)
 
         self._seed = seed  # slice seeds derive from it (actor_pipeline)
@@ -123,17 +131,18 @@ class R2D2Actor:
                 self._generator)
             action = action.cpu().numpy().astype(np.int32)
             next_obs_raw, reward, done, infos = self.env.step(action)
+            rec_done = shape_timeout(done, infos, self.timeout_nonterminal)
 
             acc.append(state=self._obs, previous_action=self._prev_action, action=action,
-                       reward=reward.astype(np.float32), done=done)
+                       reward=reward.astype(np.float32), done=rec_done)
 
-            keep = (~done).astype(np.float32)[:, None]
+            keep = (~rec_done).astype(np.float32)[:, None]
             self._h = h.cpu().numpy() * keep
             self._c = c.cpu().numpy() * keep
-            self._prev_action = np.where(done, 0, action).astype(np.int32)
+            self._prev_action = np.where(rec_done, 0, action).astype(np.int32)
             self._obs = self.obs_transform(next_obs_raw)
-            # Exploration anneals per episode.
-            self._episodes += done
+            # Exploration anneals per recorded episode.
+            self._episodes += rec_done
             for ret in completed_returns(infos, done):
                 self.episode_returns.append(float(ret))
 
@@ -188,15 +197,16 @@ class R2D2Actor:
     def slice_step(self, sl: PipelineSlice, out: tuple) -> tuple:
         action, h, c = out
         next_obs_raw, reward, done, infos = sl.env.step(action)
+        rec_done = shape_timeout(done, infos, self.timeout_nonterminal)
         self._slice_accs.append_slice(
             sl.index, state=sl.obs, previous_action=sl.prev_action, action=action,
-            reward=reward.astype(np.float32), done=done)
-        keep = (~done).astype(np.float32)[:, None]
+            reward=reward.astype(np.float32), done=rec_done)
+        keep = (~rec_done).astype(np.float32)[:, None]
         sl.h = h * keep
         sl.c = c * keep
-        sl.prev_action = np.where(done, 0, action).astype(np.int32)
+        sl.prev_action = np.where(rec_done, 0, action).astype(np.int32)
         sl.obs = self.obs_transform(next_obs_raw)
-        sl.episodes += done
+        sl.episodes += rec_done
         for ret in completed_returns(infos, done):
             sl.episode_returns.append(float(ret))
         return ()
@@ -219,26 +229,45 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         publish_interval: int = 1,
         updates_per_call: int = 1,
         replay_service=None,
+        init_seed: int = 0,
     ):
-        # The JAX learner refuses its recent-mix knob with shards and with
-        # K > 1; the port has no recent mix at all.
-        if float(os.environ.get("DRL_R2D2_RECENT_FRACTION", "0") or 0) > 0:
-            raise ValueError("DRL_R2D2_RECENT_FRACTION: the recent-mix knob is not ported "
-                             "(ROADMAP item 15)")
+        """`init_seed` seeds the initial parameters (the JAX learner's
+        `rng`, default `PRNGKey(0)`); `seed` seeds only the replay's
+        sampling stream `RandomState(seed)`, as the JAX learner's does."""
         self.agent = agent
         self.queue = queue
         self.weights = weights
         self.batch_size = batch_size
+        # Recency-mixed sampling (opt-in, as in the JAX learner):
+        # DRL_R2D2_RECENT_FRACTION=r replaces the last round(r*B) rows of
+        # every prioritized batch with sequences drawn uniformly from the
+        # most recent DRL_R2D2_RECENT_WINDOW ingests, at IS weight 1 (a
+        # deliberate bias). It forces the list-backed replay, whose rows
+        # are replaceable before stacking. The window is clamped to the
+        # capacity, so a cached tree index is never a recycled slot.
+        self.recent_fraction = float(os.environ.get("DRL_R2D2_RECENT_FRACTION", "0"))
+        self._recent: collections.deque = collections.deque(maxlen=min(
+            int(os.environ.get("DRL_R2D2_RECENT_WINDOW", str(8 * batch_size))),
+            replay_capacity))
         # The monolithic replay is always built: the normal path without
         # shards, and the demotion target when the service loses them all.
-        self.replay = make_replay(replay_capacity)
+        self.replay = make_replay(
+            replay_capacity, backend="python" if self.recent_fraction > 0 else "auto")
         self.replay_service = replay_service
+        if self.recent_fraction > 0 and updates_per_call > 1:
+            raise ValueError("DRL_R2D2_RECENT_FRACTION does not compose with "
+                             "updates_per_call > 1 (a K-update call samples its K batches "
+                             "at once)")
+        if self.recent_fraction > 0 and replay_service is not None:
+            raise ValueError("DRL_R2D2_RECENT_FRACTION does not compose with "
+                             "DRL_REPLAY_SHARDS (shard ingest bypasses the recent deque)")
         print(f"[r2d2 learner] replay: {describe_replay(self.replay)}", file=sys.stderr,
               flush=True)
         self.target_sync_interval = target_sync_interval
         self._init_stride(updates_per_call)
         self.logger = logger or MetricsLogger(None)
-        self.state = agent.sync_target(agent.init_state(seed))
+        self.init_seed, self.replay_seed = init_seed, seed  # logged by the runs
+        self.state = agent.sync_target(agent.init_state(init_seed))
         self._np_rng = np.random.RandomState(seed)
         self.publish_interval = max(1, publish_interval)
         self.ingested_sequences = 0
@@ -324,9 +353,28 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
                 # One slice assignment per field.
                 self.replay.add_batch_stacked(td, tree_map(lambda x: x[:n], batch))
             else:
-                self.replay.add_batch(td, seqs)
+                new_idxs = self.replay.add_batch(td, seqs)
+                if self.recent_fraction > 0:
+                    self._recent.extend(zip(new_idxs, seqs))
         self.ingested_sequences += n
         return n
+
+    def _mix_recent(self, items, idxs, is_weight):
+        """Swap the tail of a prioritized sample for uniform-recent rows
+        (the recent mix, see __init__). Their tree indices come along, so
+        the step's priority refresh covers them too."""
+        k = int(round(self.recent_fraction * len(items)))
+        if k == 0 or len(self._recent) < k:
+            return items, idxs, is_weight
+        pick = self._np_rng.choice(len(self._recent), size=k, replace=False)
+        idxs = np.asarray(idxs).copy()
+        is_weight = np.asarray(is_weight).copy()
+        for j, slot in enumerate(pick):
+            ridx, rseq = self._recent[int(slot)]
+            items[len(items) - k + j] = rseq
+            idxs[len(items) - k + j] = ridx
+            is_weight[len(items) - k + j] = 1.0
+        return items, idxs, is_weight
 
     def train(self) -> dict | None:
         """One prioritized train call over sequences (K updates with
@@ -355,6 +403,8 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
             return prioritized_train_call(self, self.updates_per_call, replay)
         with self.timer.stage("sample"):
             items, idxs, is_weight = replay.sample(self.batch_size, self._np_rng)
+            if self.recent_fraction > 0:
+                items, idxs, is_weight = self._mix_recent(items, idxs, is_weight)
             batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
             self.state, priorities, metrics = self.agent.learn(self.state, batch, is_weight)

@@ -16,9 +16,10 @@ clearing. Per-env epsilon `max(1/(0.1*episode+1), floor)` with a floor of
 tell states apart, and the reference's per-episode decay would starve
 exploration before then. The actor has the pipeline's slice protocol,
 with the window persisting across rounds per slice; an act the pipeline
-discards is un-pushed (`slice_discard_act`).
+discards is un-pushed (`slice_discard_act`). `timeout_nonterminal`
+records a time-limit truncation as non-terminal, as `R2D2Actor` does.
 
-Not ported: `remote_act`, `timeout_nonterminal`.
+Not ported: `remote_act` (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from distributed_reinforcement_learning_tpu_torch.data.structures import (
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
 from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
 from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
-    PipelineSlice, push_window, slice_seed, split_batched_env, sync_slices_params,
-    unpush_window)
+    PipelineSlice, push_window, shape_timeout, slice_seed, split_batched_env,
+    sync_slices_params, unpush_window)
 from distributed_reinforcement_learning_tpu_torch.runtime.r2d2_runner import (  # noqa: F401
     R2D2Learner,
     run_async,  # re-exported: topology only
@@ -57,6 +58,7 @@ class XformerActor:
         seed: int = 0,
         epsilon_decay: float = 0.1,
         epsilon_floor: float = 0.15,
+        timeout_nonterminal: bool = False,  # see R2D2Actor
         obs_transform=None,  # e.g. envs.cartpole.pomdp_project
     ):
         self.agent = agent
@@ -65,6 +67,7 @@ class XformerActor:
         self.weights = weights
         self.epsilon_decay = epsilon_decay
         self.epsilon_floor = epsilon_floor
+        self.timeout_nonterminal = timeout_nonterminal
         self.obs_transform = obs_transform or (lambda x: x)
 
         self._seed = seed  # slice seeds derive from it (actor_pipeline)
@@ -119,14 +122,15 @@ class XformerActor:
             action = self._act(self._params, self._win_obs, self._win_pa, self._win_done,
                                self._episodes, self._generator)
             next_obs_raw, reward, done, infos = self.env.step(action)
+            rec_done = shape_timeout(done, infos, self.timeout_nonterminal)
             acc.append(state=self._obs, previous_action=self._prev_action, action=action,
-                       reward=reward.astype(np.float32), done=done)
+                       reward=reward.astype(np.float32), done=rec_done)
 
-            self._win_done[:, -1] = done  # now known; later windows see it
-            self._prev_action = np.where(done, 0, action).astype(np.int32)
+            self._win_done[:, -1] = rec_done  # now known; later windows see it
+            self._prev_action = np.where(rec_done, 0, action).astype(np.int32)
             self._obs = self.obs_transform(next_obs_raw)
-            # Exploration anneals per episode.
-            self._episodes += done
+            # Exploration anneals per recorded episode.
+            self._episodes += rec_done
             for ret in completed_returns(infos, done):
                 self.episode_returns.append(float(ret))
 
@@ -190,13 +194,14 @@ class XformerActor:
 
     def slice_step(self, sl: PipelineSlice, action: np.ndarray) -> tuple:
         next_obs_raw, reward, done, infos = sl.env.step(action)
+        rec_done = shape_timeout(done, infos, self.timeout_nonterminal)
         self._slice_accs.append_slice(
             sl.index, state=sl.obs, previous_action=sl.prev_action, action=action,
-            reward=reward.astype(np.float32), done=done)
-        sl.win_done[:, -1] = done
-        sl.prev_action = np.where(done, 0, action).astype(np.int32)
+            reward=reward.astype(np.float32), done=rec_done)
+        sl.win_done[:, -1] = rec_done
+        sl.prev_action = np.where(rec_done, 0, action).astype(np.int32)
         sl.obs = self.obs_transform(next_obs_raw)
-        sl.episodes += done
+        sl.episodes += rec_done
         for ret in completed_returns(infos, done):
             sl.episode_returns.append(float(ret))
         return ()

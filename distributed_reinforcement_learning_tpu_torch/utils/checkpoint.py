@@ -224,7 +224,22 @@ class Checkpointer:
             return None
         device = next(iter(template.params.values())).device
         saved = torch.load(payload, map_location=device, weights_only=True)
-        state = load_state_into(template, saved)
+        try:
+            state = load_state_into(template, saved)
+        except ValueError as e:
+            # Layout migration, as in the JAX package: a state saved with
+            # the old NatureConv nesting (`torso.Conv_{i}.weight`) retries
+            # through the upgrade map, chained to the first error so a
+            # corrupt checkpoint shows both failures.
+            from distributed_reinforcement_learning_tpu_torch.models.convert import (
+                upgrade_nature_conv_names)
+
+            try:
+                state = load_state_into(template, {
+                    k: upgrade_nature_conv_names(v) if isinstance(v, dict) else v
+                    for k, v in saved.items()})
+            except Exception as retry_err:
+                raise retry_err from e
         extra_path = self._extra_path(step)
         extra = json.loads(extra_path.read_text()) if extra_path.exists() else {}
         return state, extra, step

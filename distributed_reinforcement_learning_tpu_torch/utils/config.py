@@ -4,10 +4,9 @@
 Counterpart of the JAX package's `utils/config.py`. Loads one section
 into an agent config and a `RuntimeConfig` and applies the same
 validation (actor, env and action-set counts agree). Keys that select
-what the port does not run yet raise instead of being ignored: several
-optimizer steps per call for the IMPALA families (ROADMAP item 15), and
-the transformer features that need a mesh (sequence-parallel attention,
-the pipeline, `seq_parallel` or `expert_parallel` > 1: item 13).
+what the port does not run yet raise instead of being ignored: the
+transformer features that need a mesh (sequence-parallel attention, the
+pipeline, `seq_parallel` or `expert_parallel` > 1: ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ class RuntimeConfig:
     publish_interval: int = 1
     replay_capacity: int = 100_000
     target_sync_interval: int = 100
-    # Prioritized updates per train call (the replay families).
+    # Optimizer steps per train call (every family).
     updates_per_call: int = 1
     # Devices on a mesh's `seq` and `expert` axes (transformer families):
     # 1 on one device; more raises (ROADMAP item 13).
@@ -48,6 +47,9 @@ class RuntimeConfig:
     # r2d2 / xformer actors: residual exploration floor (None = the
     # actor's own default: r2d2 0.0, reference parity; xformer 0.15).
     epsilon_floor: float | None = None
+    # r2d2 / xformer actors: record time-limit truncations as
+    # non-terminal (False = reference parity).
+    timeout_nonterminal: bool = False
 
 
 def check_config(rt: RuntimeConfig, num_actions: int) -> None:
@@ -67,9 +69,6 @@ def load_config(path: str | Path, section: str):
     algorithm = d.get("algorithm", section.split("_")[0])
     if algorithm not in ("impala", "apex", "r2d2", "xformer", "ximpala"):
         raise ValueError(f"unknown algorithm {algorithm!r} in section {section!r}")
-    if d.get("updates_per_call", 1) != 1 and algorithm not in ("apex", "r2d2", "xformer"):
-        raise ValueError("updates_per_call > 1 for the IMPALA families (scan_learn) is "
-                         "not ported (ROADMAP item 15)")
     for key in ("seq_parallel", "expert_parallel"):
         if d.get(key, 1) > 1:
             raise ValueError(f"{key}={d[key]} needs a mesh, which is not ported "
@@ -90,6 +89,7 @@ def load_config(path: str | Path, section: str):
         seq_parallel=d.get("seq_parallel", 1),
         expert_parallel=d.get("expert_parallel", 1),
         epsilon_floor=d.get("epsilon_floor"),
+        timeout_nonterminal=d.get("timeout_nonterminal", False),
     )
     if algorithm == "apex":
         agent_cfg = ApexConfig(

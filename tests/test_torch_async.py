@@ -232,6 +232,7 @@ def test_pipelined_actor_slices_fill_the_queue(family, monkeypatch):
     """`DRL_ACTOR_PIPE=1` wraps each family's actor in the pipeline: two
     slices of the envs, one round of unrolls per slice env."""
     monkeypatch.setenv("DRL_ACTOR_PIPE", "1")
+    monkeypatch.setenv("DRL_NO_GYMNASIUM", "1")  # the in-tree CartPole stream
     env = BatchedEnv([(lambda s=s: make_env("CartPole-v0", seed=s)) for s in range(4)])
     queue, store = TrajectoryQueue(32), WeightStore()
     if family == "r2d2":

@@ -180,7 +180,10 @@ def _lstm_inputs(T, B, H, seed):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
-LSTM_SHAPES = [(10, 32, 512), (20, 32, 256), (10, 8, 64)]
+# The r2d2 learn step; the r2d2_pixel section's learn step (its T is
+# seq_len 20, burn-in inside) and ingest (12 sequences padded to 16); a
+# small one; and (30, 32, 256), seq_len 20 with a burn-in of 10 on top.
+LSTM_SHAPES = [(10, 32, 512), (20, 32, 256), (10, 8, 64), (20, 16, 256), (30, 32, 256)]
 # Shapes that stress the persistent kernels' partition: a batch that is
 # not a multiple of the 8-row tile, one row, several 64-row chunks, one
 # step, H = 1024 (8 units a block, K staged in chunks), and hidden sizes
@@ -248,6 +251,33 @@ def test_lstm_function_gradients_match_autograd(T, B, H):
     want = torch.autograd.grad(loss(h_ref, hT_ref, cT_ref), ref)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=5e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_vtrace_and_lstm_wrappers_take_bf16_inputs():
+    """A bfloat16 V-trace input, or a bfloat16 xg and keep, is cast to
+    float32 by the wrapper and launches the kernel once: the result is
+    the float32 call's on the cast inputs, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = [a.to(torch.bfloat16) for a in _inputs(18, 32, seed=3)]
+    before = kvt.vtrace_cuda.launches
+    got = kvt.vtrace(*args)
+    want = kvt.vtrace_plain(*(a.float() for a in args))
+    torch.cuda.synchronize()
+    assert kvt.vtrace_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and _bit_equal(g, w)
+    xg, wh, keep, h0, c0 = _lstm_inputs(20, 32, 256, seed=4)
+    xg16, keep16 = xg.to(torch.bfloat16), keep.to(torch.bfloat16)
+    before = klstm.lstm_fwd_cuda.launches
+    got = klstm.lstm_fwd(xg16, wh, keep16, h0, c0)
+    want = klstm.lstm_fwd_cuda(xg16.float(), wh, keep16.float(), h0, c0)
+    torch.cuda.synchronize()
+    assert klstm.lstm_fwd_cuda.launches == before + 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def _lstm_bwd_args(xg, wh, keep, h0, c0, seed=1):
@@ -620,6 +650,35 @@ def test_pinned_prefetch_gives_the_pageable_copys_batch():
     finally:
         pre.close()
     assert len(pre.h2d_ms()) == 6
+
+
+@pytest.mark.gpu
+def test_prefetch_stacks_k_batches_on_cuda():
+    """`stack_calls` K = 3: each batch is the [K, B, ...] stack of K
+    consecutive batches, copied from pageable memory, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.common import batch_to_device
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import (
+        TrajectoryQueue, stack_pytrees)
+    from distributed_reinforcement_learning_tpu_torch.data.prefetch import DevicePrefetcher
+
+    items = _impala_items(24, 20, seed=2)
+    queue = TrajectoryQueue(64)
+    for it in items:
+        queue.put(it)
+    pre = DevicePrefetcher(queue, batch_size=4, device=torch.device("cuda"), stack_calls=3)
+    try:
+        for i in range(2):
+            got = batch_to_device(pre.get_batch(timeout=30.0), torch.device("cuda"))
+            want = batch_to_device(stack_pytrees(
+                [stack_pytrees(items[12 * i + 4 * j: 12 * i + 4 * j + 4]) for j in range(3)]),
+                torch.device("cuda"))
+            for name, x, y in zip(got._fields, got, want):
+                assert x.is_cuda and x.shape[:2] == (3, 4) and torch.equal(x, y), name
+    finally:
+        pre.close()
+    assert len(pre.h2d_ms()) == 2
 
 
 @pytest.mark.gpu

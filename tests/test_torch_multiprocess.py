@@ -78,6 +78,30 @@ def test_learner_and_actor_processes_train_over_tcp(tmp_path):
     assert (tmp_path / "ckpt" / "ckpt_0000000006.pt").exists()
 
 
+def test_k_update_learner_and_actor_processes_train_over_tcp():
+    """The `impala_cartpole_scan` section (K = 4) over TCP: the learner's
+    prefetcher stacks 4 batches a call and each call is one `learn_many`."""
+    env = dict(os.environ, DRL_LEARNER_ADDR=f"127.0.0.1:{_free_port()}",
+               OMP_NUM_THREADS="2")
+    kw = dict(section="impala_cartpole_scan")
+    learner = _spawn(["--mode", "learner", "--updates", "8"], env, **kw)
+    actor = _spawn(["--mode", "actor", "--task", "0", "--actor_grace", "1"], env, **kw)
+    try:
+        out, err = _finish(learner, timeout=150)
+        a_out, a_err = _finish(actor, timeout=60)
+    finally:
+        for p in (learner, actor):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+    assert learner.returncode == 0, out[-2000:] + err[-2000:]
+    assert actor.returncode == 0, a_out[-2000:] + a_err[-2000:]
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["train_steps"] == 8 and summary["frames_learned"] == 8 * 16 * 16
+    assert len(summary["queue_depth"]) == 2  # two calls of 4 steps
+    a_summary = json.loads(a_out.strip().splitlines()[-1])
+    assert a_summary["weight_version"] > 0 and a_summary["frames"] > 0
+
+
 # A CartPole Ape-X section (config.json has only the Breakout one).
 _APEX_CARTPOLE = {
     "num_actors": 1, "env": ["CartPole-v0"], "available_action": [2], "envs_per_actor": 4,

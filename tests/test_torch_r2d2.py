@@ -308,9 +308,10 @@ def test_load_config_matches_jax(section):
     cfg, rt = load_config(CONFIG, section)
     jcfg, jrt = jax_load_config(CONFIG, section)
     assert isinstance(cfg, R2D2Config)
-    mine = dataclasses.asdict(cfg)
+    mine = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "dtype"}
     theirs = {k: v for k, v in dataclasses.asdict(jcfg).items() if k != "dtype"}
     assert mine == theirs
+    assert str(cfg.dtype) == f"torch.{np.dtype(jcfg.dtype).name}"  # float32 in both
     for field in dataclasses.fields(rt):
         assert getattr(rt, field.name) == getattr(jrt, field.name), field.name
     if section == "r2d2":

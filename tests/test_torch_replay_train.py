@@ -329,8 +329,8 @@ def test_updates_per_call_loads_for_the_replay_families(tmp_path):
         "impala_cartpole": {**sections["impala_cartpole"], "updates_per_call": 2}}))
     assert load_config(path, "apex")[1].updates_per_call == 4
     assert load_config(path, "r2d2")[1].updates_per_call == 2
-    with pytest.raises(ValueError, match="item 15"):
-        load_config(path, "impala_cartpole")
+    # The IMPALA families' K-update calls are ported too.
+    assert load_config(path, "impala_cartpole")[1].updates_per_call == 2
 
 
 def test_k_beyond_the_target_sync_interval_and_the_recent_mix_are_refused(monkeypatch):
@@ -339,6 +339,15 @@ def test_k_beyond_the_target_sync_interval_and_the_recent_mix_are_refused(monkey
     with pytest.raises(ValueError, match="target_sync_interval"):
         r2d2_runner.R2D2Learner(agent, TrajectoryQueue(4), WeightStore(), batch_size=4,
                                 target_sync_interval=2, updates_per_call=3)
+    # The recent mix refuses K > 1 and a replay service, as the JAX learner does.
     monkeypatch.setenv("DRL_R2D2_RECENT_FRACTION", "0.25")
-    with pytest.raises(ValueError, match="item 15"):
-        r2d2_runner.R2D2Learner(agent, TrajectoryQueue(4), WeightStore(), batch_size=4)
+    with pytest.raises(ValueError, match="updates_per_call > 1"):
+        r2d2_runner.R2D2Learner(agent, TrajectoryQueue(4), WeightStore(), batch_size=4,
+                                target_sync_interval=4, updates_per_call=2)
+    svc = replay_service.ShardedReplayService(2, 64, mode="sequence", seed=0)
+    try:
+        with pytest.raises(ValueError, match="DRL_REPLAY_SHARDS"):
+            r2d2_runner.R2D2Learner(agent, TrajectoryQueue(4), WeightStore(), batch_size=4,
+                                    replay_service=svc)
+    finally:
+        svc.close()

@@ -280,7 +280,8 @@ def test_actor_matches_the_jax_actor_and_its_blobs():
     assert actor.episode_returns == jactor.episode_returns and actor.episode_returns
 
 
-def test_pipelined_actor_unpushes_a_discarded_act():
+def test_pipelined_actor_unpushes_a_discarded_act(monkeypatch):
+    monkeypatch.setenv("DRL_NO_GYMNASIUM", "1")  # the in-tree CartPole stream
     agent = XformerAgent(XformerConfig(obs_shape=(2,), num_actions=2, seq_len=8, d_model=32,
                                        num_heads=2), device="cpu")
     weights = WeightStore()

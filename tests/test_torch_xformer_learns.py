@@ -7,8 +7,11 @@ velocity. The JAX test's configuration (d_model 32, 2 heads, 2 layers,
 seq_len 10, burn-in 5, Adam 2e-3, batch 16, 8 envs, target sync every
 20) and bar: 600 updates for each of seeds 0, 1 and 2, each seed's
 late-20 mean return above 25 (a random policy scores ~20), the seed mean
-above 60. One torch thread, so each run is deterministic. A file of its
-own, so that `--dist loadfile` gives it a worker of its own.
+above 60. Wired as the JAX test is: the seed goes to the learner's
+parameters (`init_seed`, the JAX test's `rng=PRNGKey(seed)`) and the
+replay samples from the learner's default `RandomState(0)`. One torch
+thread, so each run is deterministic. A file of its own, so that
+`--dist loadfile` gives it a worker of its own.
 """
 
 import numpy as np
@@ -42,7 +45,7 @@ def test_xformer_learns_cartpole_pomdp():
         weights = WeightStore()
         learner = xformer_runner.XformerLearner(
             agent, queue, weights, batch_size=16, replay_capacity=5_000,
-            target_sync_interval=20, seed=seed)
+            target_sync_interval=20, init_seed=seed)
         actor = xformer_runner.XformerActor(
             agent, VectorCartPole(num_envs=8, seed=seed), queue, weights, seed=seed + 1,
             obs_transform=pomdp_project)
