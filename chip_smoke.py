@@ -207,11 +207,35 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    K1 launches a step, finite metrics), the synchronised step and the
    steps' own peak for each, and remat's gradients against the plain
    ones (within 1e-4 of each tensor's largest).
-31. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K1 carries phases 27-30's launches beside phase
-   4's; K2a and K2b phase 20's and 26's beside phase 6's; K3a, K3b and
-   K3c phase 23's beside phase 9's).
-32. The device line, then `{"ok": true, "device": {...}}` as the last line.
+31. The `impala` section at full width through the port's local-cluster
+   launcher (`launch_local_cluster.py`): the learner on CUDA, 4 CPU actor
+   processes, 8 updates, (i) with the defaults (the shm weight board by
+   its gate, rings off) and (ii) with DRL_SHM_RING=1. Each fails unless
+   the launcher exits 0, the learner logged that it serves the board
+   (and the rings), every actor logged that it attached them, no actor
+   demoted to TCP before the learner began to shut down, the learner
+   took 8 steps with exactly 2 K1 launches each, every actor held a
+   weight version above 0 and no `drl*` segment is left in /dev/shm.
+   Logs /dev/shm's size, and beside phase 11's TCP-only numbers the wall
+   a step after the first, learned and env frames/s, the learner's busy
+   share and `learn` stage, the board pulls and the actors' pull p50,
+   the publication's handoff-to-board ms, and the ring puts and bytes.
+32. The `r2d2` section through the launcher with DRL_SHM_RING=1: the
+   learner's default sharded service fed by one actor's ring, 3
+   updates. Fails unless the shards ingested every sequence the ring
+   carried (and no TCP put), the learner took its 3 steps with 2 K2a and
+   1 K2b launches each, and the checks of phase 31 on attaches,
+   demotion and segments hold.
+33. The respawn drill: `impala_cartpole` through the launcher with
+   `--respawn on-exit`, rings and the board, 2 actors, 400 updates;
+   actor 0 is SIGKILLed once it runs. Fails unless the launcher
+   respawned it, the new actor attached its ring and board again, and
+   the learner finished its 400 updates with 2 K1 launches each.
+34. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-33's launches beside phase
+   4's; K2a and K2b phase 20's, 26's and 32's beside phase 6's; K3a,
+   K3b and K3c phase 23's beside phase 9's).
+35. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24 and
@@ -1000,11 +1024,12 @@ def phase_r2d2_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict) -> list[dict]:
+def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
+              launcher_r2d2: dict) -> list[dict]:
     """The K2a and K2b entries of the kernels line: `launches` from the
     r2d2 path (phase 6), with the default multi-process r2d2 learner's
-    own count (phase 20, K=2 calls) and the r2d2_pixel path's (phase 26)
-    beside it."""
+    own count (phase 20, K=2 calls), the r2d2_pixel path's (phase 26) and
+    the ring-fed r2d2 learner's (phase 32) beside it."""
     rows = []
     for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
         t = k2["timings"][LSTM_MAIN][tag]
@@ -1015,7 +1040,8 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict) -> lis
             "launches": r2d2["launches"][name], "max_abs_err": k2["max_abs_err"][tag],
             "launches_by_path": {"r2d2": r2d2["launches"][name],
                                  "multiprocess_r2d2_default": r2d2_default["launches"][name],
-                                 "r2d2_pixel": r2d2_pixel["launches"][name]},
+                                 "r2d2_pixel": r2d2_pixel["launches"][name],
+                                 "launcher_r2d2_ring": launcher_r2d2["launches"][name]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
@@ -1498,6 +1524,35 @@ def run_topology(algo: str, section: str, updates: int, actors: int,
             f.close()
 
 
+def impala_rates(learner: dict, actors: list, agent_cfg, rt) -> dict:
+    """A multi-process IMPALA run's numbers from its roles' summaries."""
+    T = agent_cfg.trajectory
+    steps = learner["step_s"]
+    n = len(steps)
+    # Steps 2..n: the first pays the learner's one-off start-up (library
+    # loads, cuDNN's first calls) and starts on a queue the actors filled
+    # meanwhile; the last 4 start on a queue the learner has drained.
+    steady = (steps[-1] - steps[0]) / (n - 1)
+    tail = (steps[-1] - steps[-5]) / 4
+    stage = learner["stage_total_ms"]
+    steady_ms = (steps[-1] - steps[0]) * 1e3
+    busy = (stage["learn"] + stage.get("publish", 0.0)) / steady_ms
+    actor_rate = sum(a["frames"] / a["active_s"] for a in actors if a["active_s"] > 0)
+    pulls = [a["weight_pulls"]["pull_ms_p50"] for a in actors
+             if a["weight_pulls"]["pull_ms_p50"] is not None]
+    return {
+        "wall_per_update_ms": steady * 1e3, "tail_wall_per_update_ms": tail * 1e3,
+        "first_step_s": steps[0], "learned_frames_per_s": rt.batch_size * T / steady,
+        "busy_share": busy, "env_frames_per_s": actor_rate,
+        "h2d_ms": learner["h2d_ms_per_batch"], "publish_ms": learner["stage_ms"]["publish"],
+        "learn_ms": learner["stage_ms"]["learn"],
+        "publish_land_ms": learner["publish_land_ms"], "peak_mib": learner["peak_device_mib"],
+        "launches": learner["launches"],
+        "pull_ms_p50": float(np.median(pulls)) if pulls else None,
+        "weight_pulls": sum(a["weight_pulls"]["pulls"] for a in actors),
+    }
+
+
 def phase_multiprocess_impala() -> dict:
     """The `impala` section at full width across processes: the learner on
     CUDA (prefetcher, async publication), 4 actor processes of 5
@@ -1513,26 +1568,12 @@ def phase_multiprocess_impala() -> dict:
                            f"{2 * MP_UPDATES} V-trace launches")
     if any(a["weight_version"] <= 0 for a in actors):
         raise RuntimeError(f"an actor never received a weight version > 0: {actors}")
-    T = agent_cfg.trajectory
     steps = learner["step_s"]
     n = len(steps)
-    # Steps 2..n: the first pays the learner's one-off start-up (library
-    # loads, cuDNN's first calls) and starts on a queue the actors filled
-    # meanwhile; the last 4 start on a queue the learner has drained.
     steady = (steps[-1] - steps[0]) / (n - 1)
     tail = (steps[-1] - steps[-5]) / 4
-    stage = learner["stage_total_ms"]
-    steady_ms = (steps[-1] - steps[0]) * 1e3
-    busy = (stage["learn"] + stage.get("publish", 0.0)) / steady_ms
-    actor_rate = sum(a["frames"] / a["active_s"] for a in actors if a["active_s"] > 0)
-    result = {
-        "wall_per_update_ms": steady * 1e3, "tail_wall_per_update_ms": tail * 1e3,
-        "first_step_s": steps[0], "learned_frames_per_s": rt.batch_size * T / steady,
-        "busy_share": busy, "env_frames_per_s": actor_rate,
-        "h2d_ms": learner["h2d_ms_per_batch"], "publish_ms": learner["stage_ms"]["publish"],
-        "publish_land_ms": learner["publish_land_ms"], "peak_mib": learner["peak_device_mib"],
-        "launches": launches,
-    }
+    result = impala_rates(learner, actors, agent_cfg, rt)
+    busy, actor_rate = result["busy_share"], result["env_frames_per_s"]
     log(f"[multiproc] impala: {learner['train_steps']} updates, {learner['frames_learned']} "
         f"frames learned; topology {total:.1f} s; learner loop {learner['wall_s']:.2f} s, "
         f"steps done at {[round(t, 3) for t in steps]} s; first step at {steps[0]:.2f} s "
@@ -1554,7 +1595,10 @@ def phase_multiprocess_impala() -> dict:
         f"peak device memory {learner['peak_device_mib']:.1f} MiB; launches {launches}")
     for a in actors:
         log(f"[multiproc] impala actor {a['task']}: {a['frames']} env frames in "
-            f"{a['active_s']:.2f} s, weight version {a['weight_version']}, {a['transport']}")
+            f"{a['active_s']:.2f} s, weight version {a['weight_version']}, {a['transport']}, "
+            f"weight pulls {a['weight_pulls']}")
+    log(f"[multiproc] impala weight pulls over TCP: {result['weight_pulls']} pulls, p50 "
+        f"{result['pull_ms_p50']:.3f} ms (the actors' medians, median)")
     return result
 
 
@@ -3010,6 +3054,254 @@ def attention_rows(k3: dict, ximpala: dict, xformer_long: dict) -> list[dict]:
     return rows
 
 
+# -- the launcher's topology on the card (phases 31-33) ------------------------
+
+LAUNCH_TIMEOUT_S = 240
+RESPAWN_SECTION = "impala_cartpole"
+RESPAWN_UPDATES = 400  # the learner outlives a respawned actor's start-up
+
+
+def shm_segments() -> list[str]:
+    return sorted(f for f in Path("/dev/shm").iterdir() if f.name.startswith("drl")) \
+        if Path("/dev/shm").is_dir() else []
+
+
+def shm_size() -> str:
+    import os
+
+    st = os.statvfs("/dev/shm")
+    return (f"/dev/shm {st.f_bavail * st.f_frsize / 1e6:.0f} MB free of "
+            f"{st.f_blocks * st.f_frsize / 1e6:.0f} MB")
+
+
+def role_json(out: str, role: str) -> list[dict]:
+    """The JSON summaries the launcher relayed for `role` ("learner",
+    "actor0", ...)."""
+    head = f"[{role}] {{"
+    return [json.loads(line[len(role) + 3:]) for line in out.splitlines()
+            if line.startswith(head)]
+
+
+def run_launcher(section: str, updates: int, actors: int, tag: str, env_set: dict,
+                 extra: list[str] = (), during=None) -> str:
+    """`launch_local_cluster` from this checkout: the learner on CUDA, the
+    actors on the CPU, in a process group of its own that is killed whole
+    on failure or timeout. `during(proc, log_path)` runs while it does.
+    Fails unless it exits 0 and leaves no `drl*` segment in /dev/shm.
+    -> its output (each line prefixed by its role)."""
+    import os
+    import signal
+
+    env = dict(os.environ)
+    for key, value in env_set.items():
+        if value is None:
+            env.pop(key, None)
+        else:
+            env[key] = value
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    log_path = out_dir / f"smoke_launcher_{tag}.log"
+    cmd = [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.launch_local_cluster",
+           "--config", str(CONFIG), "--section", section, "--actors", str(actors),
+           "--updates", str(updates), "--actor_grace", "5", *extra]
+    with open(log_path, "w+") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            if during is not None:
+                during(proc, log_path)
+            proc.wait(timeout=LAUNCH_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        f.seek(0)
+        out = f.read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"launcher {tag}: exit {proc.returncode}:\n{out[-4000:]}")
+    left = shm_segments()
+    if left:
+        raise RuntimeError(f"launcher {tag}: segments left in /dev/shm: {left}")
+    return out
+
+
+def check_attached(out: str, tag: str, actors: int, rings: bool,
+                   times: tuple[int, ...] | None = None) -> None:
+    """The learner served the board (and the rings) and actor k logged
+    `times[k]` attaches of each (once by default)."""
+    want = ["[learner] [learner] shm weight board serving co-hosted actors"]
+    if rings:
+        want.append(f"[learner] [learner] shm rings serving {actors} co-hosted actor(s)")
+    missing = [w for w in want if w not in out]
+    for k in range(actors):
+        n = 1 if times is None else times[k]
+        for plane in ("shm weight board attached", "shm ring attached")[:2 if rings else 1]:
+            line = f"[actor{k}] [actor {k}] {plane}: "
+            if out.count(line) != n:
+                missing.append(f"{line}... x{n} (got {out.count(line)})")
+    if missing:
+        raise RuntimeError(f"launcher {tag}: missing {missing}")
+
+
+def check_no_early_demotion(learner: dict, actors: list, tag: str) -> None:
+    """No actor's ring or board demoted to TCP before the learner began
+    to shut down (the planes' demotion at shutdown is their design)."""
+    early = [(a["task"], plane, at) for a in actors for plane in ("ring", "board")
+             if a.get(plane) for at in a[plane]["demoted_at"] if at < learner["shutdown_at"]]
+    if early:
+        raise RuntimeError(f"launcher {tag}: demoted to TCP before the learner stopped: {early}")
+
+
+def phase_launcher_impala(tcp: dict) -> dict:
+    """The `impala` section at full width through the port's launcher:
+    the learner on CUDA, rt.num_actors CPU actors, MP_UPDATES updates,
+    (i) with the defaults (the weight board by its gate, rings off) and
+    (ii) with DRL_SHM_RING=1; logged beside phase 11's TCP-only run
+    (`tcp`)."""
+    agent_cfg, rt = load_config(CONFIG, "impala")
+    out = {}
+    log(f"[launcher] {shm_size()}; segments before: {shm_segments()}")
+    for tag, env_set in (("defaults", {"DRL_SHM_RING": None, "DRL_SHM_WEIGHTS": None}),
+                         ("rings", {"DRL_SHM_RING": "1", "DRL_SHM_WEIGHTS": None})):
+        t0 = time.perf_counter()
+        text = run_launcher("impala", MP_UPDATES, rt.num_actors, f"impala_{tag}", env_set)
+        seconds = time.perf_counter() - t0
+        rings = tag == "rings"
+        check_attached(text, tag, rt.num_actors, rings)
+        (learner,) = role_json(text, "learner")
+        actors = [j for k in range(rt.num_actors) for j in role_json(text, f"actor{k}")]
+        if len(actors) != rt.num_actors:
+            raise RuntimeError(f"launcher {tag}: {len(actors)} actor summaries")
+        launches = learner["launches"]
+        if learner["train_steps"] != MP_UPDATES or launches["vtrace"] != 2 * MP_UPDATES:
+            raise RuntimeError(f"launcher {tag}: {learner['train_steps']} steps, launches "
+                               f"{launches}; expected {MP_UPDATES} and {2 * MP_UPDATES} V-trace")
+        if any(a["weight_version"] <= 0 for a in actors):
+            raise RuntimeError(f"launcher {tag}: an actor never held a weight version > 0")
+        check_no_early_demotion(learner, actors, tag)
+        got = impala_rates(learner, actors, agent_cfg, rt)
+        board = learner["board"]
+        ring_puts = [a["ring"]["unrolls_sent"] for a in actors] if rings else None
+        ring_mb = sum(a["ring"]["bytes_sent"] for a in actors) / 1e6 if rings else None
+        got.update(board_pulls=sum(a["board"]["board_pulls"] for a in actors),
+                   handoff_to_board_ms=board["handoff_to_board_ms"],
+                   board_write_ms=board["write_ms"], ring_puts=ring_puts, ring_mb=ring_mb,
+                   seconds=seconds)
+        out[tag] = got
+        log(f"[launcher] impala {tag}: {learner['train_steps']} updates, launches {launches}; "
+            f"wall a step after the first {got['wall_per_update_ms']:.1f} ms (TCP, phase 11: "
+            f"{tcp['wall_per_update_ms']:.1f}); learned frames/s "
+            f"{got['learned_frames_per_s']:.0f} ({tcp['learned_frames_per_s']:.0f}); env "
+            f"frames/s {got['env_frames_per_s']:.0f} ({tcp['env_frames_per_s']:.0f}); learner "
+            f"busy {100 * got['busy_share']:.1f}% ({100 * tcp['busy_share']:.1f}%); learn "
+            f"stage {got['learn_ms']:.2f} ms ({tcp['learn_ms']:.2f}); weight pulls "
+            f"{got['weight_pulls']}, {got['board_pulls']} from the board, actors' pull p50 "
+            f"{got['pull_ms_p50']:.3f} ms (TCP {tcp['pull_ms_p50']:.3f}); board writes "
+            f"{board['writes']}, {board['write_ms']:.3f} ms each, handoff to board "
+            f"{board['handoff_to_board_ms']:.2f} ms (TCP landing {tcp['publish_land_ms']:.2f})"
+            + (f"; ring puts {ring_puts}, {ring_mb:.1f} MB, drained "
+               f"{learner['rings']['unrolls_drained']}; TCP puts accepted "
+               f"{learner['transport']['unrolls_accepted']}" if rings else "")
+            + f"; stage ms " + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+            + f"; phase {seconds:.1f} s")
+    return out
+
+
+def phase_launcher_r2d2_ring() -> dict:
+    """The `r2d2` section through the launcher with DRL_SHM_RING=1: the
+    learner's default sharded service drains one actor's ring, 3
+    updates. Fails unless the shards ingested the ring's sequences (all
+    of them: no TCP put) and the learner took its steps, 2 K2a and 1 K2b
+    a step."""
+    n = MP_SMALL_UPDATES
+    t0 = time.perf_counter()
+    text = run_launcher("r2d2", n, 1, "r2d2_ring", {"DRL_SHM_RING": "1", "DRL_SHM_WEIGHTS": None,
+                                                    "DRL_REPLAY_SHARDS": None})
+    check_attached(text, "r2d2", 1, rings=True)
+    (learner,) = role_json(text, "learner")
+    actors = role_json(text, "actor0")
+    svc = learner["replay_service"]
+    drained = (learner["rings"] or {}).get("unrolls_drained", 0)
+    ingested = sum(sh["ingested_blobs"] for sh in svc["shard_stats"]) if svc else 0
+    want = {"lstm_fwd": 2 * n, "lstm_bwd": n, "vtrace": 0, "attention_fwd": 0,
+            "attention_dq": 0, "attention_dkv": 0}
+    if (learner["train_steps"] != n or svc is None or svc["shards"] != 2 or drained == 0
+            or ingested != drained or learner["transport"]["unrolls_accepted"] != 0
+            or learner["launches"] != want or len(actors) != 1):
+        raise RuntimeError(f"launcher r2d2: {learner['train_steps']} steps, {drained} drained, "
+                           f"{ingested} ingested, launches {learner['launches']} (expected "
+                           f"{want}), service {svc}, transport {learner['transport']}")
+    check_no_early_demotion(learner, actors, "r2d2")
+    seconds = time.perf_counter() - t0
+    log(f"[launcher] r2d2 through a ring: {n} updates, {drained} sequences drained from the "
+        f"ring and ingested by the shards {[sh['ingested_blobs'] for sh in svc['shard_stats']]}, "
+        f"no TCP put; launches {learner['launches']}; ring {actors[0]['ring']}; stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+        + f"; phase {seconds:.1f} s")
+    return {"drained": drained, "launches": learner["launches"], "seconds": seconds}
+
+
+def kill_actor_mid_run(proc, log_path: Path, seen: dict) -> None:
+    """SIGKILL actor 0 once it and the learner are running; record its pid."""
+    import os
+    import signal
+
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and proc.poll() is None:
+        text = log_path.read_text()
+        if "[learner] [learner] serving on" in text and "[actor0] [actor 0] connected" in text:
+            break
+        time.sleep(0.2)
+    else:
+        raise RuntimeError("respawn drill: actor 0 never connected")
+    time.sleep(1.0)
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            cmdline = (entry / "cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        ppid = int(stat.rsplit(")", 1)[1].split()[1])
+        if ppid == proc.pid and b"actor" in cmdline and cmdline[cmdline.index(b"--task") + 1] == b"0":
+            os.kill(int(entry.name), signal.SIGKILL)
+            seen["pid"] = int(entry.name)
+            return
+    raise RuntimeError("respawn drill: actor 0's process not found")
+
+
+def phase_launcher_respawn() -> dict:
+    """`--respawn on-exit` with rings and the board: SIGKILL actor 0 mid-run.
+    Fails unless the launcher respawned it, the new incarnation attached
+    its ring and board again, the learner finished its RESPAWN_UPDATES
+    updates (2 K1 launches each) and every actor held a weight version."""
+    seen: dict = {}
+    t0 = time.perf_counter()
+    text = run_launcher(RESPAWN_SECTION, RESPAWN_UPDATES, 2, "respawn",
+                        {"DRL_SHM_RING": "1", "DRL_SHM_WEIGHTS": None},
+                        extra=["--respawn", "on-exit"],
+                        during=lambda proc, path: kill_actor_mid_run(proc, path, seen))
+    if "[cluster] respawning actor0 (exit -9" not in text:
+        raise RuntimeError("respawn drill: actor 0 was not respawned")
+    check_attached(text, "respawn", 2, rings=True, times=(2, 1))
+    (learner,) = role_json(text, "learner")
+    actors = role_json(text, "actor0") + role_json(text, "actor1")
+    if (learner["train_steps"] != RESPAWN_UPDATES
+            or learner["launches"]["vtrace"] != 2 * RESPAWN_UPDATES or len(actors) != 2
+            or any(a["weight_version"] <= 0 for a in actors)):
+        raise RuntimeError(f"respawn drill: {learner['train_steps']} steps, launches "
+                           f"{learner['launches']}, actors {actors}")
+    check_no_early_demotion(learner, actors, "respawn")
+    seconds = time.perf_counter() - t0
+    log(f"[launcher] respawn drill ({RESPAWN_SECTION}, 2 actors, rings and board): actor 0 "
+        f"(pid {seen['pid']}) SIGKILLed, respawned, ring and board attached again; learner "
+        f"{learner['train_steps']} updates, launches {learner['launches']}; the new actor 0: "
+        f"{actors[0]['frames']} frames, ring {actors[0]['ring']}, board {actors[0]['board']}; "
+        f"phase {seconds:.1f} s")
+    return {"launches": learner["launches"], "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3067,6 +3359,12 @@ def main() -> int:
                                       ("impala_invaders", UPDATES),
                                       ("impala_cartpole_scan", SCAN_UPDATES))}
     options = phase_impala_options(phase_memory("impala options"))
+    phase_memory("launcher")
+    t_launcher = time.perf_counter()
+    launcher = phase_launcher_impala(multiproc)
+    launcher_r2d2 = phase_launcher_r2d2_ring()
+    respawn = phase_launcher_respawn()
+    launcher_s = time.perf_counter() - t_launcher
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -3082,13 +3380,16 @@ def main() -> int:
         "launches_by_path": {"impala": main_path["launches"]["vtrace"],
                              **{name: got["launches"]["vtrace"] for name, got in sections.items()},
                              **{f"impala_{label}": n
-                                for label, n in options["launches"].items()}},
+                                for label, n in options["launches"].items()},
+                             **{f"impala_launcher_{tag}": got["launches"]["vtrace"]
+                                for tag, got in launcher.items()},
+                             "impala_cartpole_respawn": respawn["launches"]["vtrace"]},
         "shape": list(MAIN_SHAPE), "graph_ms": t["graph_ms"],
         "plain_graph_ms": t["plain_graph_ms"],
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel),
+    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2),
         *attention_rows(k3, ximpala, xformer_long)]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
@@ -3131,7 +3432,12 @@ def main() -> int:
                     f"({got['seconds']:.1f} s)" for name, got in sections.items())
         + "; impala learn_ms " + ", ".join(f"{label} {ms:.3f}"
                                              for label, ms in options["learn_ms"].items())
-        + f" ({options['seconds']:.1f} s); smoke took {time.perf_counter() - t_start:.1f} s")
+        + f" ({options['seconds']:.1f} s); launcher: impala defaults "
+        f"{launcher['defaults']['wall_per_update_ms']:.1f} / rings "
+        f"{launcher['rings']['wall_per_update_ms']:.1f} ms a step after the first (TCP "
+        f"{multiproc['wall_per_update_ms']:.1f}), r2d2 ring {launcher_r2d2['drained']} "
+        f"sequences, respawn drill {respawn['seconds']:.1f} s; phases 31-33 {launcher_s:.1f} s; "
+        f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

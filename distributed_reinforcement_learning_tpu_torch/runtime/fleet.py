@@ -1,10 +1,11 @@
 """Elastic fleet supervisor: registration, heartbeats, re-promote ladders.
 
 Copy of the JAX package's `runtime/fleet.py` (it imports no jax). Of the
-surfaces named below, the port has the TCP pull path only: its shm
-ring, weight board, replay shards and inference replicas are not
-ported yet, so the supervisor keeps a roster and the heartbeats track
-the learner's incarnation.
+surfaces named below, the port has the shm ring (`runtime/shm_ring.py`),
+the weight board (`runtime/weight_board.py`) and the replay shards; its
+heartbeats drive the ring's and the board's reattach ladders. The
+inference replicas and the sharded weight pull are not ported yet
+(ROADMAP items 12d, 12e).
 
 Every fast path this repo shipped fails SAFE but — until this module —
 failed PERMANENTLY: the shm ring (PR 3), the weight board (PR 5), the

@@ -16,7 +16,7 @@ Counterpart of the JAX package's `runtime/impala_runner.py`:
   the learner loop in one process; the multi-process topology goes
   through `runtime/transport.py`.
 
-Not ported: remote acting (ROADMAP item 12) and the mesh (item 13).
+Not ported: remote acting (ROADMAP item 12d) and the mesh (item 13).
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ path only:
 The actor has the pipeline's slice protocol and `timeout_nonterminal`;
 the learner has stage timings, a profiler window, checkpoints (with a
 replay snapshot) and the opt-in recent mix (`DRL_R2D2_RECENT_FRACTION`,
-`DRL_R2D2_RECENT_WINDOW`). Not ported: `remote_act` (ROADMAP item 12)
+`DRL_R2D2_RECENT_WINDOW`). Not ported: `remote_act` (ROADMAP item 12d)
 and the mesh (item 13).
 """
 

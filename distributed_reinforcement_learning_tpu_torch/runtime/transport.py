@@ -23,11 +23,18 @@ a flax tree, so `RemoteWeights` refuses anything but a flat dict.
 learner` (queue, weight store, learner on `resolve_device(device)`, this
 server) or `--mode actor --task k` (an actor whose queue and weight
 store are `RemoteQueue` / `RemoteWeights` over one `TransportClient`).
-Left out, each refused with a ValueError that names its ROADMAP item:
-serving acts (`--serve_inference`, `--remote_act`, `--mode inference`;
-the server answers OP_ACT with ST_UNAVAILABLE), shm rings and the
-weight board, the learner tier and multi-host learners, and the fused
-device sample path (`DRL_DEVICE_PATH`). The learner's queue is
+Co-hosted roles take the JAX package's shared-memory planes by the same
+names: a learner with `DRL_SHM_RING_CREATE` drains one shm ring per
+actor into the queue this server feeds (`runtime/shm_ring.py`), and with
+`DRL_SHM_WEIGHTS_CREATE` mirrors every landed version into a weight
+board (`runtime/weight_board.py`); an actor with `DRL_SHM_RING_NAME` /
+`DRL_SHM_WEIGHTS_NAME` puts and pulls through them, demoting to TCP if
+they fail. Left out, each refused with a ValueError that names its
+ROADMAP item: serving acts (`--serve_inference`, `--remote_act`, `--mode
+inference`; the server answers OP_ACT with ST_UNAVAILABLE), sharded
+weight publication (`DRL_WEIGHTS_SHARDED`), the learner tier and
+multi-host learners, and the fused device sample path
+(`DRL_DEVICE_PATH`). The learner's queue is
 `_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
 wherever the native library builds, else the Python `TrajectoryQueue`.
 A replay learner (Ape-X, R2D2) serves, as the JAX package's does by
@@ -48,7 +55,7 @@ import struct
 import sys
 import threading
 import time
-from collections import Counter
+from collections import Counter, deque
 from typing import Any
 
 import numpy as np
@@ -407,7 +414,7 @@ class TransportServer(_LockedStatsMixin):
                         conn_version = version
                         _send_msg(conn, ST_OK, _I64.pack(version), blob)
                 elif op in (OP_GET_WEIGHTS_SHARDED, OP_ACT):
-                    # Unsharded store; no act service (ROADMAP item 12).
+                    # Unsharded store; no act service (ROADMAP items 12d, 12e).
                     _send_msg(conn, ST_UNAVAILABLE)
                 elif op in (OP_REGISTER, OP_HEARTBEAT):
                     if self.fleet is None:
@@ -643,7 +650,7 @@ class TransportClient(_LockedStatsMixin):
         """The shard-scoped pull, as a probe: raises
         ShardedWeightsUnavailableError when the learner publishes whole
         blobs (every port learner does), ValueError when it serves shards
-        (the port has no shard decoder: ROADMAP item 12)."""
+        (the port has no shard decoder: ROADMAP item 12e)."""
         req = bytearray(21)  # [i64 have][i64 base][u8 flags][u32 nkeys=0]
         _I64.pack_into(req, 0, have_version)
         _I64.pack_into(req, 8, -2)
@@ -653,7 +660,7 @@ class TransportClient(_LockedStatsMixin):
         if status != ST_OK:
             raise ShardedWeightsUnavailableError("endpoint does not serve sharded weight pulls")
         raise ValueError("the learner publishes sharded weights; sharded pulls are not "
-                         "ported (ROADMAP item 12)")
+                         "ported (ROADMAP item 12e)")
 
     def queue_size(self) -> int:
         return _I64.unpack(self._call(OP_QUEUE_SIZE))[0]
@@ -755,7 +762,7 @@ class ShardedRemoteWeights(RemoteWeights):
     every port learner, demotes itself to whole-blob pulls for good. A JAX
     actor's `ShardedRemoteWeights` takes the same fallback against a port
     learner. A learner that does serve shards raises ValueError (the
-    shard decoder is not ported, ROADMAP item 12)."""
+    shard decoder is not ported, ROADMAP item 12e)."""
 
     telemetry_prefix = "wshard"
     surface_name = "wshard"
@@ -798,21 +805,12 @@ def refuse_unported(mode: str, serve_inference: bool = False, remote_act: bool =
     JAX topology that the caller asks for and the port lacks."""
     if mode == "inference" or serve_inference or remote_act:
         raise ValueError("serving acts (--serve_inference, --remote_act, --mode inference) "
-                         "is not ported (ROADMAP item 12)")
+                         "is not ported (ROADMAP item 12d)")
     if mode == "anakin":
         raise ValueError("the on-device loop (--mode anakin) is not ported (ROADMAP item 14)")
-    for name in ("DRL_SHM_RING", "DRL_SHM_WEIGHTS"):
-        if _truthy(name):
-            raise ValueError(f"{name}: shm rings and the weight board are not ported "
-                             f"(ROADMAP item 12)")
-    for name in ("DRL_SHM_RING_CREATE", "DRL_SHM_RING_NAME", "DRL_SHM_WEIGHTS_CREATE",
-                 "DRL_SHM_WEIGHTS_NAME"):
-        if os.environ.get(name, "").strip():
-            raise ValueError(f"{name}: shm rings and the weight board are not ported "
-                             f"(ROADMAP item 12)")
     if _truthy("DRL_WEIGHTS_SHARDED"):
         raise ValueError("DRL_WEIGHTS_SHARDED: sharded weight publication is not ported "
-                         "(ROADMAP item 12)")
+                         "(ROADMAP item 12e)")
     seats = os.environ.get("DRL_LEARNER_SEATS", "").strip()
     if (seats not in ("", "0", "1") or os.environ.get("DRL_LEARNER_PEERS", "").strip()
             or os.environ.get("DRL_COORDINATOR", "").strip()):
@@ -903,6 +901,20 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
 
         queue = _make_queue(rt.queue_size)
         weights = WeightStore()
+        # Co-hosted actors' publish-once weight plane: the launcher names
+        # one board per learner; this side creates the segment and the
+        # store mirrors every landed version into it (from the first
+        # publish on, which the learner makes as it is built). Failure
+        # leaves TCP-only weight pulls.
+        board = None
+        board_name = os.environ.get("DRL_SHM_WEIGHTS_CREATE", "").strip()
+        if board_name:
+            from distributed_reinforcement_learning_tpu_torch.runtime import weight_board
+
+            board = weight_board.serve_board(board_name)
+            if board is not None:
+                weights.attach_board(board)
+                print("[learner] shm weight board serving co-hosted actors", flush=True)
         # The sharded replay with ingest-time priorities (on by default,
         # as in the JAX package): each serve thread decodes, scores and
         # inserts into its own shard through the facade; the real queue
@@ -922,6 +934,9 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         except BaseException:
             if replay_service is not None:
                 replay_service.close()
+            if board is not None:
+                board.close()
+                board.unlink()
             raise
         ckpt = None
         if checkpoint_dir is not None:
@@ -936,6 +951,20 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             supervisor.watch(ingest_queue)  # revives dead shards on its sweep
         server = TransportServer(ingest_queue, weights, host="0.0.0.0", port=port,
                                  fleet=supervisor).start()
+        # Co-hosted actors' zero-copy data plane: the launcher names one
+        # ring per co-hosted actor; this side creates the segments and
+        # drains them into the same queue the TCP server feeds (the
+        # replay shards' facade for the replay families). Failure leaves
+        # TCP-only operation.
+        ring_drainer = None
+        ring_names = [n for n in os.environ.get("DRL_SHM_RING_CREATE", "").split(",") if n]
+        if ring_names:
+            from distributed_reinforcement_learning_tpu_torch.runtime import shm_ring
+
+            ring_drainer = shm_ring.serve_rings(ring_names, ingest_queue)
+            if ring_drainer is not None:
+                print(f"[learner] shm rings serving {len(ring_names)} co-hosted actor(s)",
+                      flush=True)
         if maybe_configure("learner", 0, run_dir):
             _OBS.sample("transport/queue_depth", queue.size)
             _OBS.sample("learner/weight_version", lambda: weights.version)
@@ -945,6 +974,11 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 fleet_mod.register_supervisor_telemetry(supervisor)
             if replay_service is not None:
                 replay_shard.register_telemetry(replay_service)
+            if ring_drainer is not None:
+                _OBS.sample("ring/depth", ring_drainer.depth_bytes)
+                for key in ring_drainer.snapshot_stats():
+                    _OBS.sample(f"ring/{key}", lambda k=key: ring_drainer.stat(k),
+                                kind="counter")
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         print(f"[learner] serving on :{port}; training {num_updates} updates on {device}; "
@@ -965,11 +999,19 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             _learner_loop(algo, learner, num_updates, ckpt, checkpoint_interval, on_step)
         finally:
             wall = time.perf_counter() - t0
+            shutdown_at = time.time()  # wall clock: actors' demotions are held to it
             if ckpt is not None and learner.train_steps > 0:
                 learner.save_checkpoint(ckpt)
             learner.close()  # flush publication, stop the prefetch thread
             queue.close()
             server.stop()
+            if ring_drainer is not None:
+                ring_drainer.stop()  # closes and unlinks the ring segments
+            if board is not None:
+                weights.close()  # drain pending async publishes
+                board.close_writer()  # attached actors demote to TCP
+                board.close()
+                board.unlink()
             replay_stats = _service_summary(replay_service, ingest_queue)
             if replay_service is not None:
                 replay_service.close()  # stop the update-router thread
@@ -1004,6 +1046,9 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "publishes_landed": len(land),
             "queue_depth": [d for _, d in steps],
             "transport": server.snapshot_stats(),
+            "shutdown_at": shutdown_at,
+            "rings": None if ring_drainer is None else ring_drainer.snapshot_stats(),
+            "board": None if board is None else weights.board_stats(),
             "peak_device_mib": (torch.cuda.max_memory_allocated(device) / 2**20
                                 if device.type == "cuda" else None),
         }
@@ -1016,7 +1061,21 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     from distributed_reinforcement_learning_tpu_torch.data import admission
 
     client = TransportClient(host, port)
-    queue = RemoteQueue(client)
+    queue: Any = RemoteQueue(client)
+    # Zero-copy data plane for co-hosted actors: when the launcher named
+    # a ring for this task, trajectory PUTs become one memcpy into shared
+    # memory (control traffic stays on this TCP client). Attach failure
+    # or a mid-run ring death falls back to TCP.
+    ring_name = os.environ.get("DRL_SHM_RING_NAME", "").strip()
+    if ring_name:
+        from distributed_reinforcement_learning_tpu_torch.runtime import shm_ring
+
+        rq = shm_ring.attach_ring_queue(ring_name, client)
+        if rq is not None:
+            queue = rq
+            print(f"[actor {task}] shm ring attached: {ring_name}" if rq.attached else
+                  f"[actor {task}] shm ring {ring_name} unavailable; starting demoted to TCP "
+                  f"(reattach ladder armed)", flush=True)
     # Sample-at-source (off by default, as in the JAX package): score and
     # stamp initial priorities here, and thin low-priority unrolls under
     # the learner's ingest pressure. One controller an actor, shared
@@ -1026,15 +1085,33 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         print(f"[actor {task}] actor-side priority stamping on "
               f"(scorer={admission_ctrl.scorer_name}, "
               f"admission={'on' if admission.admission_enabled() else 'off'})", flush=True)
-    weights = ShardedRemoteWeights(client, device)
-    actor = launch.make_actor(algo, agent_cfg, rt, task, queue, weights, seed=seed + 1 + task,
+    tcp_weights = ShardedRemoteWeights(client, device)
+    weights: Any = tcp_weights
+    # Publish-once weight plane: when the launcher named a board, a pull
+    # is a shared-memory version peek plus one memcpy when the version
+    # changed; attach failure or a dead board falls back to TCP pulls.
+    board_name = os.environ.get("DRL_SHM_WEIGHTS_NAME", "").strip()
+    if board_name:
+        from distributed_reinforcement_learning_tpu_torch.runtime import weight_board
+
+        bw = weight_board.attach_board_weights(board_name, client, fallback=tcp_weights,
+                                               device=device)
+        if bw is not None:
+            weights = bw
+            print(f"[actor {task}] shm weight board attached: {board_name}" if bw.attached else
+                  f"[actor {task}] shm weight board {board_name} unavailable; starting demoted "
+                  f"to TCP pulls (reattach ladder armed)", flush=True)
+    timed = _TimedWeights(weights)
+    actor = launch.make_actor(algo, agent_cfg, rt, task, queue, timed, seed=seed + 1 + task,
                               device=device)
     from distributed_reinforcement_learning_tpu_torch.runtime import actor_pipeline
 
     pub_client = None
-    if actor_pipeline.pipeline_enabled():
+    if actor_pipeline.pipeline_enabled() and type(queue) is RemoteQueue:
         # The publisher gets its own connection: the shared client's
         # request/reply lock would serialise its PUTs with weight pulls.
+        # A ring queue needs none, and its publisher thread is then the
+        # ring's one producer.
         pub_client = TransportClient(host, port)
         pub_queue = RemoteQueue(pub_client)
         if admission_ctrl is not None:
@@ -1044,14 +1121,26 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         if not isinstance(actor, actor_pipeline.ActorPipeline):
             pub_client.close()
             pub_client = None
-    heartbeats = fleet_mod.start_member_loop(rt, "actor", task,
-                                             version_fn=lambda: getattr(actor, "_version", -1))
+    else:
+        actor = actor_pipeline.maybe_wrap(actor, label=f"actor {task}")
+    # Fleet membership: each heartbeat reply drives the demoted shm
+    # surfaces' bounded reattach probes, so a respawned learner's
+    # segments come back into service.
+    heartbeats = fleet_mod.start_member_loop(
+        rt, "actor", task,
+        surfaces=[s for s in (queue, weights) if hasattr(s, "reattach")],
+        version_fn=lambda: getattr(actor, "_version", -1))
     if maybe_configure("actor", task, run_dir):
         for key in client.snapshot_stats():
             _OBS.sample(f"actor/{key}", lambda k=key: client.stat(k), kind="counter")
         _OBS.sample("actor/weight_version_held", lambda: getattr(actor, "_version", -1))
         if heartbeats is not None:
             fleet_mod.register_member_telemetry(heartbeats)
+        for prefix, surface in (("ring", queue), ("board", weights)):
+            if hasattr(surface, "snapshot_stats"):
+                for key in surface.snapshot_stats():
+                    _OBS.sample(f"{prefix}/{key}", lambda k=key, s=surface: s.stat(k),
+                                kind="counter")
     print(f"[actor {task}] connected to {host}:{port} on {device}", flush=True)
     # Elastic recovery: on transport failure keep retrying for
     # `actor_grace` seconds (a learner restart from a checkpoint), then
@@ -1066,30 +1155,33 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     # that cut a round short (its steps count in the actor's `_steps`).
     started = stopped = None
     try:
-        while True:
-            try:
-                t_round = time.perf_counter()
-                started = started or t_round
-                with _OBS.span("actor_round"):
-                    got = _actor_round(algo, actor)
-                first_round = first_round or t_round
-                last_round = stopped = time.perf_counter()
-                frames += got
-                if _OBS.enabled:
-                    _OBS.count("actor/env_frames", got)
-                down_since = None
-            except (TransportError, OSError):
-                if down_since is None:
-                    stopped = time.perf_counter()
-                now = time.time()
-                down_since = down_since or now
-                if now - down_since > actor_grace:
-                    print(f"[actor {task}] learner gone >{actor_grace:.0f}s after {frames} "
-                          f"frames; exiting", flush=True)
-                    break
-                time.sleep(1.0)
-            finally:
-                max_version = max(max_version, getattr(actor, "_version", -1))
+        try:
+            while True:
+                try:
+                    t_round = time.perf_counter()
+                    started = started or t_round
+                    with _OBS.span("actor_round"):
+                        got = _actor_round(algo, actor)
+                    first_round = first_round or t_round
+                    last_round = stopped = time.perf_counter()
+                    frames += got
+                    if _OBS.enabled:
+                        _OBS.count("actor/env_frames", got)
+                    down_since = None
+                except (TransportError, OSError):
+                    if down_since is None:
+                        stopped = time.perf_counter()
+                    now = time.time()
+                    down_since = down_since or now
+                    if now - down_since > actor_grace:
+                        print(f"[actor {task}] learner gone >{actor_grace:.0f}s after {frames} "
+                              f"frames; exiting", flush=True)
+                        break
+                    time.sleep(1.0)
+                finally:
+                    max_version = max(max_version, getattr(actor, "_version", -1))
+        except KeyboardInterrupt:  # the cluster launcher's stop request
+            print(f"[actor {task}] interrupted; stopping", flush=True)
     finally:
         if heartbeats is not None:
             heartbeats.stop()
@@ -1097,6 +1189,9 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             actor.close()
         if pub_client is not None:
             pub_client.close()
+        for surface in (queue, weights):
+            if hasattr(surface, "reattach"):
+                surface.close()
         client.close()
         _OBS.close()
     summary = {"role": "actor", "task": task, "device": str(device), "frames": frames,
@@ -1104,9 +1199,44 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                "env_steps": getattr(actor, "_steps", None),
                "stepping_s": (stopped - started) if started and stopped else 0.0,
                "weight_version": max_version, "transport": client.snapshot_stats(),
+               "weight_pulls": timed.summary(),
+               "ring": _surface_summary(queue), "board": _surface_summary(weights),
                "admission": None if admission_ctrl is None else admission_ctrl.snapshot()}
     print(json.dumps(summary), flush=True)
     return summary
+
+
+class _TimedWeights:
+    """An actor's weight surface with the ms of each `get_if_newer` kept:
+    pulls (a new version arrived) apart from checks (already newest)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.pull_ms: deque = deque(maxlen=4096)
+        self.check_ms: deque = deque(maxlen=4096)
+
+    def get_if_newer(self, have_version: int):
+        t0 = time.perf_counter()
+        got = self.inner.get_if_newer(have_version)
+        (self.check_ms if got is None else self.pull_ms).append(
+            (time.perf_counter() - t0) * 1e3)
+        return got
+
+    def summary(self) -> dict:
+        def p50(xs):
+            return float(np.median(list(xs))) if xs else None
+
+        return {"surface": type(self.inner).__name__, "pulls": len(self.pull_ms),
+                "pull_ms_p50": p50(self.pull_ms), "checks": len(self.check_ms),
+                "check_ms_p50": p50(self.check_ms)}
+
+
+def _surface_summary(surface) -> dict | None:
+    """An shm surface's counters and the wall-clock times it demoted to
+    TCP; None for a TCP surface."""
+    if not hasattr(surface, "reattach"):
+        return None
+    return {**surface.snapshot_stats(), "demoted_at": list(surface.demoted_at)}
 
 
 def _describe_service(service) -> str:

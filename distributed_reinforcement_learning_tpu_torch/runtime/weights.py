@@ -18,6 +18,7 @@ enqueued later.
 - `publish` (synchronous): the clone is the snapshot; its blob is
   encoded when the transport first asks for it (`get_blob`), once per
   version, so an in-process run never pays the device-to-host copy.
+  With a weight board attached, the blob is encoded at publish time.
 - `publish_async`: the clone is the only work on the caller's thread.
   One background worker, latest submit wins, copies the clone into
   pinned host buffers on a side CUDA stream (after an event recorded
@@ -25,9 +26,17 @@ enqueued later.
   the version. `flush_async` waits for the worker; `close` retires it,
   and a later `publish_async` publishes synchronously.
 
+`attach_board` mirrors every landed version into a shm weight board
+(`runtime/weight_board.py`), as the JAX store's does: the board write is
+one memcpy of the encoded blob inside `_apply`, under the store's lock,
+so it follows the submission-order rule (a rolled-back version that
+lands last is the board's version too). Under `publish_async` the
+copy, the encode and the board write all run on the publish worker,
+never on the learn thread.
+
 Not ported: sharded publication (`sharded` is always False, so the
-transport server answers the shard-scoped op as for an unsharded store)
-and the shm weight board.
+transport server answers the shard-scoped op as for an unsharded store;
+ROADMAP item 12e).
 """
 
 from __future__ import annotations
@@ -49,12 +58,19 @@ def _device_clone(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in params.items()}
 
 
+def _encode_host(params: dict[str, torch.Tensor]) -> np.ndarray:
+    """The snapshot's blob through a synchronous device-to-host copy."""
+    return codec.encode({k: v.cpu().numpy() for k, v in params.items()}, cache=True)
+
+
 class WeightStore:
     _GUARDED_BY = {
         "_params": "_lock",
         "_blob": "_lock",
         "_version": "_lock",
         "_applied_seq": "_lock",
+        "_board": "_lock",
+        "_board_writes": "_lock",
         "_seq": ("_async_lock", "_cond"),
         "_pending": ("_async_lock", "_cond"),
         "_busy": ("_async_lock", "_cond"),
@@ -65,6 +81,8 @@ class WeightStore:
         "_pinned": "publish worker only",
         "_stream": "publish worker only",
         "land_ms": "appended by the publish worker only; deque appends are atomic",
+        "board_write_ms": "appended under _lock by the thread that lands a version; "
+                          "deque appends are atomic",
     }
 
     # The port publishes whole blobs only (see the module docstring).
@@ -76,6 +94,8 @@ class WeightStore:
         self._blob: np.ndarray | None = None
         self._version = -1
         self._applied_seq = 0
+        self._board = None  # optional shm WeightBoard (attach_board)
+        self._board_writes = 0
         # Async publication: races are arbitrated by SUBMISSION order
         # (`_seq`), not by version: a checkpoint restore may republish
         # a lower version, and the last submit must win.
@@ -88,13 +108,65 @@ class WeightStore:
         self._closed = False
         self._pinned: dict[str, torch.Tensor] | None = None
         self._stream = None
-        # Submit-to-landed ms of each async publication (the last 1024).
+        # Submit-to-landed ms of each async publication (the last 1024);
+        # with a board attached a version lands once it is on the board.
         self.land_ms: deque = deque(maxlen=1024)
+        # ms of each board write (the memcpy and the meta flip).
+        self.board_write_ms: deque = deque(maxlen=1024)
 
     def _next_seq(self) -> int:
         with self._async_lock:
             self._seq += 1
             return self._seq
+
+    def attach_board(self, board) -> None:
+        """Mirror every landed version into a shm weight board. An
+        already-published snapshot is written at once (encoded here if
+        it has no blob yet), so a late attach never leaves the board
+        empty behind live actors."""
+        with self._lock:
+            self._board = board
+            if self._params is not None:
+                if self._blob is None:
+                    self._blob = _encode_host(self._params)
+                self._board_publish_locked(self._version)
+
+    def board_stats(self) -> dict:
+        """Board writes so far, the mean ms of the last 1024, and the mean
+        ms from an async handoff to its version landing (on the board
+        when one is attached)."""
+        with self._lock:
+            attached, n = self._board is not None, self._board_writes
+        writes, land = list(self.board_write_ms), list(self.land_ms)
+        return {"attached": attached, "writes": n,
+                "write_ms": sum(writes) / len(writes) if writes else None,
+                "handoff_to_board_ms": sum(land) / len(land) if land else None}
+
+    def _board_publish_locked(self, version: int) -> None:
+        # Failure latches the board off for good (an oversize blob, an
+        # unmapped segment at shutdown): the store keeps publishing
+        # in-process and over TCP, and closing the writer side lets
+        # attached actors demote themselves to TCP pulls.
+        board = self._board
+        if board is None or self._blob is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            board.publish_blob(self._blob, version)
+        except Exception as e:  # noqa: BLE001 — the board is an optimization
+            self._board = None
+            import sys
+
+            try:
+                board.close_writer()
+            except Exception as ce:  # noqa: BLE001 — segment already gone
+                print(f"[weights] WARNING: board close_writer failed during disable: "
+                      f"{ce!r}", file=sys.stderr)
+            print(f"[weights] WARNING: shm weight board disabled ({e}); actors fall back "
+                  f"to TCP pulls", file=sys.stderr)
+            return
+        self._board_writes += 1
+        self.board_write_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _apply(self, snap: dict[str, torch.Tensor], blob: np.ndarray | None, version: int,
                seq: int) -> None:
@@ -103,12 +175,18 @@ class WeightStore:
             if applied:
                 self._params, self._blob = snap, blob
                 self._version, self._applied_seq = version, seq
+                self._board_publish_locked(version)
         if applied and _OBS.enabled:
             _OBS.gauge("weights/version", version)
 
     def publish(self, params: dict[str, torch.Tensor], version: int) -> None:
-        """Store a device snapshot of `params` as `version`."""
-        self._apply(_device_clone(params), None, version, self._next_seq())
+        """Store a device snapshot of `params` as `version` (encoded now
+        when a board is attached, which needs the bytes)."""
+        snap = _device_clone(params)
+        with self._lock:
+            board = self._board
+        blob = _encode_host(snap) if board is not None else None
+        self._apply(snap, blob, version, self._next_seq())
 
     def publish_async(self, params: dict[str, torch.Tensor], version: int) -> None:
         """Versioned publish off the caller's critical path: clone on the
@@ -212,8 +290,7 @@ class WeightStore:
         shared by every pull: read-only by contract."""
         with self._lock:
             if self._blob is None and self._params is not None:  # a synchronous D2H
-                self._blob = codec.encode(
-                    {k: v.cpu().numpy() for k, v in self._params.items()}, cache=True)
+                self._blob = _encode_host(self._params)
             return self._blob, self._version
 
     def get_if_newer(self, have_version: int) -> tuple[Any, int] | None:

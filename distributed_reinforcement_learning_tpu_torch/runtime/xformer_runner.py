@@ -19,7 +19,7 @@ with the window persisting across rounds per slice; an act the pipeline
 discards is un-pushed (`slice_discard_act`). `timeout_nonterminal`
 records a time-limit truncation as non-terminal, as `R2D2Actor` does.
 
-Not ported: `remote_act` (ROADMAP item 12).
+Not ported: `remote_act` (ROADMAP item 12d).
 """
 
 from __future__ import annotations

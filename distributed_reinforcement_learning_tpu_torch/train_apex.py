@@ -7,9 +7,10 @@ The modes and options of `train_impala.py`: `--mode local` (default,
 one process; prints the result as JSON), `--mode learner`, `--mode actor
 --task k` (64 env steps a round, one re-sampled unroll put a step once
 warm). Every mode runs on CUDA unless `--device` names another device.
-`--mode anakin` (ROADMAP item 14), `--mode inference`,
-`--serve_inference` and `--remote_act` (item 12) are not ported and
-raise.
+What `train_impala.py` refuses, this refuses: `--mode anakin` (ROADMAP
+item 14), `--mode inference`, `--serve_inference` and `--remote_act`
+(item 12d), `DRL_WEIGHTS_SHARDED` (item 12e), the learner tier (item 13)
+and `DRL_DEVICE_PATH` (item 16).
 """
 
 from __future__ import annotations

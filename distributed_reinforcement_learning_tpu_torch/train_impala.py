@@ -9,11 +9,16 @@
   multi-process topology over the socket transport
   (`runtime/transport.py:run_role`); the learner listens on the
   section's `server_port` (or `DRL_LEARNER_ADDR`), actors connect to it.
+  Co-hosted roles also take the shm rings and the weight board by the
+  JAX package's `DRL_SHM_*` names; `launch_local_cluster.py` starts the
+  whole topology and names them.
 
 Every mode runs on CUDA unless `--device` names another device: start
-actors with `--device cpu` to keep them off the card. `--mode anakin`,
-`--mode inference`, `--serve_inference` and `--remote_act` are not
-ported and raise.
+actors with `--device cpu` to keep them off the card. Not ported, and
+refused with a ValueError naming the ROADMAP item: `--mode anakin`
+(item 14), `--mode inference`, `--serve_inference` and `--remote_act`
+(serving, item 12d), `DRL_WEIGHTS_SHARDED` (item 12e), the learner tier
+and multi-host learners (item 13) and `DRL_DEVICE_PATH` (item 16).
 """
 
 from __future__ import annotations
@@ -43,9 +48,9 @@ def run_cli(doc: str, algo: str, section: str, argv: list[str] | None) -> dict:
                     help="actor mode: seconds to ride out a learner outage before exiting")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--serve_inference", action="store_true",
-                    help="learner mode: serve acts (not ported; raises)")
+                    help="learner mode: serve acts (not ported, ROADMAP item 12d; raises)")
     ap.add_argument("--remote_act", action="store_true",
-                    help="actor mode: act through the learner (not ported; raises)")
+                    help="actor mode: act through the learner (not ported, ROADMAP item 12d; raises)")
     args = ap.parse_args(argv)
     if args.mode != "local" or args.serve_inference or args.remote_act:
         from distributed_reinforcement_learning_tpu_torch.runtime.transport import run_role

@@ -6,7 +6,9 @@
 The modes and options of `train_impala.py`: `--mode local` (default,
 one process; prints the result as JSON), `--mode learner`, `--mode actor
 --task k`. Every mode runs on CUDA unless `--device` names another
-device. The `xformer_moe` section runs the same family with routed
+device; what `train_impala.py` refuses (serving, item 12d; sharded
+weights, 12e; the learner tier, 13; `--mode anakin`, 14;
+`DRL_DEVICE_PATH`, 16), this refuses. The `xformer_moe` section runs the same family with routed
 experts.
 """
 

@@ -24,14 +24,30 @@ JAX run's indices.
 
     JAX_PLATFORMS=cpu python scripts/xformer_seed_diagnostic.py --seed 0
 
+`--spread` measures instead how far the return moves with the seed: it
+runs the twin configuration in both packages on their own streams (the
+JAX test's run; the port test's run, parameters from `init_seed=seed`,
+replay from `RandomState(0)`) for every seed of `--seeds`, `--jobs`
+processes at a time, one thread each. It prints one JSON line a run, then
+a summary: each package's late-20 returns, mean and standard deviation,
+the share of seeds above the per-seed bar (25), the share of 3-seed
+windows (consecutive seeds, and all 3-seed subsets) whose mean clears
+60, and the decision of the rule "the port's mean lies below JAX's by
+more than twice the standard error of the difference".
+
+    JAX_PLATFORMS=cpu python scripts/xformer_seed_diagnostic.py --spread \
+        --seeds 0-15 --jobs 6
+
 Runs on the CPU (one torch thread); imports both packages.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -145,11 +161,98 @@ def run_port_fed(seed: int, ref: dict, updates: int) -> dict:
     return out
 
 
+def run_port(seed: int, updates: int) -> float:
+    """The port test's run (tests/test_torch_xformer_learns.py) for one seed."""
+    import torch
+
+    from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+        XformerAgent, XformerConfig)
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
+    from distributed_reinforcement_learning_tpu_torch.envs.cartpole import (
+        VectorCartPole, pomdp_project)
+    from distributed_reinforcement_learning_tpu_torch.runtime import xformer_runner
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    torch.set_num_threads(1)
+    agent = XformerAgent(XformerConfig(**CFG), device="cpu")
+    queue, weights = TrajectoryQueue(capacity=128), WeightStore()
+    learner = xformer_runner.XformerLearner(agent, queue, weights, init_seed=seed, **LEARNER)
+    actor = xformer_runner.XformerActor(agent, VectorCartPole(num_envs=8, seed=seed), queue,
+                                        weights, seed=seed + 1, obs_transform=pomdp_project)
+    result = xformer_runner.run_sync(learner, [actor], num_updates=updates)
+    return float(np.mean(result["episode_returns"][-20:]))
+
+
+def _seeds(text: str) -> list[int]:
+    lo, _, hi = text.partition("-")
+    return list(range(int(lo), int(hi or lo) + 1))
+
+
+def spread_summary(returns: dict[str, list[float]], bar: float = 25.0,
+                   mean_bar: float = 60.0) -> dict:
+    """Each package's spread, the 3-seed window shares and the rule's
+    decision from the per-seed late-20 returns (seed order)."""
+    out: dict = {}
+    for pkg, r in returns.items():
+        a = np.asarray(r, np.float64)
+        windows = [np.mean(a[i:i + 3]) > mean_bar for i in range(len(a) - 2)]
+        subsets = [np.mean(c) > mean_bar for c in itertools.combinations(a, 3)]
+        out[pkg] = {"late20": [round(float(x), 2) for x in a], "mean": float(a.mean()),
+                    "std": float(a.std(ddof=1)), "share_above_bar": float(np.mean(a > bar)),
+                    "share_consecutive_windows_clear": float(np.mean(windows)),
+                    "share_3_subsets_clear": float(np.mean(subsets))}
+    j, p = out["jax"], out["port"]
+    se = float(np.sqrt(j["std"] ** 2 / len(returns["jax"])
+                       + p["std"] ** 2 / len(returns["port"])))
+    diff = p["mean"] - j["mean"]
+    out["rule"] = {"port_minus_jax": diff, "se_difference": se,
+                   "divergence": bool(diff < -2 * se)}
+    return out
+
+
+def spread(seeds: list[int], jobs: int, updates: int) -> None:
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false")
+    runs = [(pkg, s) for s in seeds for pkg in ("jax", "port")]
+    returns: dict[str, dict[int, float]] = {"jax": {}, "port": {}}
+    running: list = []
+    while runs or running:
+        while runs and len(running) < jobs:
+            pkg, s = runs.pop(0)
+            cmd = [sys.executable, os.path.abspath(__file__), "--one", pkg, "--seed", str(s),
+                   "--updates", str(updates)]
+            running.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, text=True))
+        proc = running.pop(0)
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{proc.args} exited {proc.returncode}")
+        line = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps(line), flush=True)
+        returns[line["package"]][line["seed"]] = line["late20"]
+    ordered = {pkg: [r[s] for s in seeds] for pkg, r in returns.items()}
+    print(json.dumps({"seeds": seeds, "updates": updates, **spread_summary(ordered)}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--updates", type=int, default=UPDATES)
+    ap.add_argument("--spread", action="store_true")
+    ap.add_argument("--seeds", default="0-15")
+    ap.add_argument("--jobs", type=int, default=6)
+    ap.add_argument("--one", choices=("jax", "port"), default=None)
     args = ap.parse_args()
+    if args.spread:
+        spread(_seeds(args.seeds), args.jobs, args.updates)
+        return
+    if args.seed is None:
+        ap.error("--seed is required without --spread")
+    if args.one is not None:
+        late = (run_jax(args.seed, fed=False, updates=args.updates)["late20"]
+                if args.one == "jax" else run_port(args.seed, args.updates))
+        print(json.dumps({"package": args.one, "seed": args.seed, "late20": late}), flush=True)
+        return
     plain = run_jax(args.seed, fed=False, updates=args.updates)
     ref = run_jax(args.seed, fed=True, updates=args.updates)
     port = run_port_fed(args.seed, ref, args.updates)

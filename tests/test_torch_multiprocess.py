@@ -188,8 +188,8 @@ def test_replay_learner_defaults_to_the_sharded_service_over_tcp(algo, section, 
 @pytest.mark.parametrize("mode, env, item", [
     ("inference", {}, "item 12"),
     ("anakin", {}, "item 14"),
-    ("learner", {"DRL_SHM_RING_CREATE": "ring0"}, "item 12"),
-    ("actor", {"DRL_SHM_WEIGHTS_NAME": "board0"}, "item 12"),
+    ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, "item 12"),
+    ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, "item 12"),
     ("learner", {"DRL_LEARNER_SEATS": "2"}, "item 13"),
     ("learner", {"DRL_COORDINATOR": "localhost:1234"}, "item 13"),
     ("learner", {"DRL_DEVICE_PATH": "1"}, "item 16"),
