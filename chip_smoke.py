@@ -231,11 +231,35 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    actor 0 is SIGKILLed once it runs. Fails unless the launcher
    respawned it, the new actor attached its ring and board again, and
    the learner finished its 400 updates with 2 K1 launches each.
-34. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K1 carries phases 27-33's launches beside phase
-   4's; K2a and K2b phase 20's, 26's and 32's beside phase 6's; K3a,
-   K3b and K3c phase 23's beside phase 9's).
-35. The device line, then `{"ok": true, "device": {...}}` as the last line.
+34. Served acts in process: each family's `InferenceServer` on CUDA at
+   its section's full width over seeded random parameters, one 16-row
+   batch against the same agent's act on the CPU on the same rows (TF32
+   off; policy, q, h and c at rtol 1e-4, atol 1e-5; greedy actions
+   equal at epsilon 0); with the counts zeroed just before, 2 K3a for
+   the `ximpala` batch (one a layer) and no kernel for the others; the
+   round trip of a served batch at 1, 16 and 32 rows (2 K3a a ximpala
+   batch again); K3a at the served batch shapes (1 and 32 rows; 16 is
+   phase 8's main shape) against its plain version, timed.
+35. The `impala` section through the launcher with `--serve_inference
+   --remote_act`: the learner on CUDA acts for 4 CPU actor processes, 8
+   updates. Fails unless the learner logged its service, served acts,
+   no actor pulled a weight blob, every actor acted through it, 2 K1 a
+   step, the launcher exited 0 and left no segment; logs env frames/s,
+   the actors' act round trip p50 / p99, batch occupancy and rows, the
+   service's latency beside phase 34's idle round trip, and the `learn`
+   stage beside phase 11's.
+36. The `ximpala` section with `--serve_inference --remote_act
+   --inference_replicas 2`, 2 CPU actors, each replica on the card
+   reading the weight board; replica 0 SIGKILLed mid-run. Fails unless
+   the actors demoted it once each and no act of theirs failed or fell
+   back to the learner, the learner took its 120 updates, and the
+   surviving replica's summary shows acts served and 2 K3a a batch.
+37. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-33's and 35's launches
+   beside phase 4's; K2a and K2b phase 20's, 26's and 32's beside phase
+   6's; K3a, K3b and K3c phase 23's beside phase 9's, and K3a phases
+   34's and 36's with its times at the served batch shapes).
+38. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24 and
@@ -248,6 +272,7 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -255,6 +280,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -297,9 +323,11 @@ LSTM_PIXEL = (20, 32, 256)
 LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, LSTM_PIXEL, (20, 16, 256), (20, 256, 512),
                (30, 32, 256)]
 # Flash attention (B, H, T, D): the ximpala section's act and learn
-# shape, bench.py's ximpala_learn shape, and a long sequence.
+# shape, the served ximpala act's buckets of one row and of two actors'
+# rows (phases 34 and 36), bench.py's ximpala_learn shape, and a long
+# sequence.
 ATTN_MAIN = (16, 2, 16, 32)
-ATTN_SHAPES = [ATTN_MAIN, (64, 4, 32, 64), (1, 4, 8192, 64)]
+ATTN_SHAPES = [ATTN_MAIN, (1, 2, 16, 32), (32, 2, 16, 32), (64, 4, 32, 64), (1, 4, 8192, 64)]
 XIMPALA_UPDATES = 3
 IMPALA_OPTION_STEPS = 3
 SCAN_UPDATES = 8  # impala_cartpole_scan: 2 calls of K = 4
@@ -2106,6 +2134,37 @@ def ingest_on_threads(facade, blobs: list[bytes], threads: int) -> list[list[flo
     return times
 
 
+@contextlib.contextmanager
+def relu_tape(tape: list, pin: list | None = None):
+    """Within the block, every `torch.nn.functional.relu` call made on this
+    thread appends its input (detached, on the host) to `tape`. With `pin`,
+    the tape of an earlier run of the same code (on another device), the
+    i-th call passes its input where `pin[i]` was positive and gives 0
+    elsewhere: relu up to the units whose sign the two runs' rounding
+    decides, with the earlier run's derivative at those units."""
+    orig = torch.nn.functional.relu
+    me = threading.get_ident()
+
+    def relu(x, inplace=False):
+        if threading.get_ident() != me:
+            return orig(x, inplace)
+        i = len(tape)
+        tape.append(x.detach().cpu())
+        if pin is None:
+            return orig(x, inplace)
+        if pin[i].shape != x.shape:
+            raise RuntimeError(f"ReLU call {i}: {tuple(x.shape)} against the pinned "
+                               f"{tuple(pin[i].shape)}")
+        return torch.where(pin[i].to(x.device) > 0, x, torch.zeros((), dtype=x.dtype,
+                                                                    device=x.device))
+
+    torch.nn.functional.relu = relu
+    try:
+        yield
+    finally:
+        torch.nn.functional.relu = orig
+
+
 def k_call_parity(svc, agent_cfg, rt) -> str:
     """One K-update call (`learn_many`) on CUDA and on the CPU, TF32 off,
     from the same parameters (and another target network) on the same
@@ -2120,7 +2179,15 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
     sum of Adam's K step bounds elsewhere. (A step of the two calls starts
     from parameters that earlier steps left apart at the gradients' noise
     floor, so their gradients are held to each other only through the
-    parameters.) -> a log line."""
+    parameters.)
+
+    The replay of a step runs under `relu_tape`: every ReLU input of the
+    CPU replay must be within the gradients' bar of the CUDA step's (rtol
+    1e-4, atol 1e-5 of the largest), and the replay passes a unit where the
+    CUDA step's input was positive. A unit whose input the two devices'
+    rounding puts on either side of 0 would otherwise take its gradient on
+    one device and not on the other, a jump in the gradient that no float32
+    bar covers; such units are counted. -> a log line."""
     from distributed_reinforcement_learning_tpu_torch.agents import common
     from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
     from distributed_reinforcement_learning_tpu_torch.data.device_path import gather_scan_batch
@@ -2144,8 +2211,10 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
         def recording_learn(st, batch, w, agent=agent, steps=steps):
             before = {"params": host(st.params), "target": host(st.target_params),
                       "mu": host(st.mu), "nu": host(st.nu), "step": st.step,
-                      "batch": type(batch)(*(x.cpu() for x in batch)), "w": w.cpu()}
-            grads, td, loss = agent.grads(st, batch, w)
+                      "batch": type(batch)(*(x.cpu() for x in batch)), "w": w.cpu(),
+                      "relu": []}
+            with relu_tape(before["relu"]):
+                grads, td, loss = agent.grads(st, batch, w)
             st, metrics = agent.apply_grads(st, grads, loss)
             steps.append({"before": before, "grads": host(grads), "td": td.cpu(),
                           "metrics": {k: float(torch.as_tensor(v)) for k, v in metrics.items()},
@@ -2167,6 +2236,7 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
                                f"step's own")
     replay = ApexAgent(agent_cfg, device="cpu")
     worst_rel, grad_margin, unsettled_steps = 0.0, 0.0, 0
+    relu_margin, flips = 0.0, []
     for i, s in enumerate(cu["steps"]):
         b = s["before"]
         st = replay.state_from_params(b["params"])
@@ -2175,7 +2245,20 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
             st.mu[name].copy_(b["mu"][name])
             st.nu[name].copy_(b["nu"][name])
         st.step = b["step"]
-        grads, td, loss = replay.grads(st, b["batch"], b["w"])
+        tape: list = []
+        with relu_tape(tape, pin=b["relu"]):
+            grads, td, loss = replay.grads(st, b["batch"], b["w"])
+        if len(tape) != len(b["relu"]):
+            raise RuntimeError(f"K-call step {i}: {len(tape)} ReLU calls on the CPU, "
+                               f"{len(b['relu'])} on CUDA")
+        flips.append(0)
+        for j, (x_cpu, x_cu) in enumerate(zip(tape, b["relu"])):
+            atol = 1e-5 * float(x_cu.abs().max())
+            torch.testing.assert_close(x_cpu, x_cu, rtol=1e-4, atol=atol,
+                                       msg=lambda m: f"K-call step {i} ReLU input {j}: {m}")
+            bar = atol + 1e-4 * x_cu.abs()
+            relu_margin = max(relu_margin, float(((x_cpu - x_cu).abs() / bar).max()))
+            flips[-1] += int(((x_cpu > 0) != (x_cu > 0)).sum())
         st, m = replay.apply_grads(st, grads, loss)
         for key in ("loss", "grad_norm", "learning_rate"):
             if not math.isclose(s["metrics"][key], float(m[key]), rel_tol=1e-4):
@@ -2189,10 +2272,14 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
         for name, g in grads.items():
             err = (s["grads"][name] - g).abs() / (1e-5 * g.abs().max() + 1e-4 * g.abs())
             grad_margin = max(grad_margin, float(err.max()))
-        unsettled_steps += sum(
-            adam_step_close(f"K-call step {i} {name}", s["params"][name], p.detach(),
-                            s["grads"][name], grads[name], lr_i, t=b["step"] + 1)
-            for name, p in st.params.items())
+        try:
+            unsettled_steps += sum(
+                adam_step_close(f"K-call step {i} {name}", s["params"][name], p.detach(),
+                                s["grads"][name], grads[name], lr_i, t=b["step"] + 1)
+                for name, p in st.params.items())
+        except AssertionError as e:
+            raise AssertionError(f"{e}\n({flips[-1]} ReLU units on the other side of 0 in "
+                                 f"this step)") from e
 
     lr = agent_cfg.start_learning_rate
     bound = sum(2 * adam_ratio_bound(t) for t in range(1, SHARD_K + 1)) * lr
@@ -2214,7 +2301,9 @@ def k_call_parity(svc, agent_cfg, rt) -> str:
     n = sum(v.numel() for v in cpu["params"].values())
     return (f"K={SHARD_K} call cuda vs cpu (TF32 off): each step within phase 16's bar from "
             f"the state it started from (TD worst rel {worst_rel:.2e}, "
-            f"gradients at {grad_margin:.2f} of their bar, {unsettled_steps} element-steps at the gradients' noise floor), losses "
+            f"ReLU inputs at {relu_margin:.2f} of the same bar, ReLU units on the other side "
+            f"of 0 a step {flips}, gradients at {grad_margin:.2f} of their bar, "
+            f"{unsettled_steps} element-steps at the gradients' noise floor), losses "
             f"{[s['metrics']['loss'] for s in cu['steps']]}; the two calls' parameters within "
             f"{worst:.2e} ({worst / lr:.1e} of lr), {unsettled} of {n:,} elements at the "
             f"noise floor")
@@ -3255,6 +3344,12 @@ def kill_actor_mid_run(proc, log_path: Path, seen: dict) -> None:
     else:
         raise RuntimeError("respawn drill: actor 0 never connected")
     time.sleep(1.0)
+    seen["pid"] = child_pid(proc, b"actor", b"0")
+    os.kill(seen["pid"], signal.SIGKILL)
+
+
+def child_pid(proc, mode: bytes, task: bytes) -> int:
+    """The pid of the launcher's child `--mode <mode> --task <task>`."""
     for entry in Path("/proc").iterdir():
         if not entry.name.isdigit():
             continue
@@ -3264,11 +3359,9 @@ def kill_actor_mid_run(proc, log_path: Path, seen: dict) -> None:
         except OSError:
             continue
         ppid = int(stat.rsplit(")", 1)[1].split()[1])
-        if ppid == proc.pid and b"actor" in cmdline and cmdline[cmdline.index(b"--task") + 1] == b"0":
-            os.kill(int(entry.name), signal.SIGKILL)
-            seen["pid"] = int(entry.name)
-            return
-    raise RuntimeError("respawn drill: actor 0's process not found")
+        if ppid == proc.pid and mode in cmdline and cmdline[cmdline.index(b"--task") + 1] == task:
+            return int(entry.name)
+    raise RuntimeError(f"no {mode.decode()} {task.decode()} process under the launcher")
 
 
 def phase_launcher_respawn() -> dict:
@@ -3300,6 +3393,292 @@ def phase_launcher_respawn() -> dict:
         f"{actors[0]['frames']} frames, ring {actors[0]['ring']}, board {actors[0]['board']}; "
         f"phase {seconds:.1f} s")
     return {"launches": learner["launches"], "seconds": seconds}
+
+
+# -- served acts on the card (phases 34-36) ------------------------------------
+
+FAMILIES = ("impala", "apex", "r2d2", "xformer", "ximpala")
+SERVED_ROWS = (1, 16, 32)  # rows a served batch: one env, one actor, two actors
+SERVED_CALLS = 20  # timed submits at each size
+SERVED_REPLICA_UPDATES = 120  # the replica drill's learner outlives a replica kill
+
+
+def served_request(algo: str, cfg, n: int, rng, epsilon: float = 0.0) -> dict:
+    """n rows of the family's act request at the section's shapes: frames
+    as uint8 for the pixel sections, windows `[n, W, ...]` for the
+    transformer families with leading pad slots marked done."""
+    def step_obs(*lead):
+        if len(cfg.obs_shape) == 3:
+            return rng.randint(0, 256, (*lead, *cfg.obs_shape)).astype(np.uint8)
+        return (rng.randn(*lead, *cfg.obs_shape) * 0.5).astype(np.float32)
+
+    A = cfg.num_actions
+    eps = np.full(n, epsilon, np.float32)
+    if algo in ("impala", "r2d2"):
+        h = (rng.randn(n, cfg.lstm_size) * 0.3).astype(np.float32)
+        req = {"obs": step_obs(n), "prev_action": rng.randint(0, A, n).astype(np.int32),
+               "h": h, "c": -h}
+        return req if algo == "impala" else {**req, "epsilon": eps}
+    if algo == "apex":
+        return {"obs": step_obs(n), "prev_action": rng.randint(0, A, n).astype(np.int32),
+                "epsilon": eps}
+    w = cfg.seq_len if algo == "xformer" else cfg.trajectory
+    done = np.zeros((n, w), bool)
+    done[:, : w // 4] = True
+    done[::3, w // 2] = True
+    req = {"obs": step_obs(n, w), "prev_action": rng.randint(0, A, (n, w)).astype(np.int32),
+           "done": done}
+    return {**req, "epsilon": eps} if algo == "xformer" else req
+
+
+def served_round_trip_ms(server, algo: str, cfg, n: int, rng, k3a_a_batch: int) -> float:
+    """Median round trip of SERVED_CALLS n-row submits after 3 warm ones;
+    fails unless the batches launched `k3a_a_batch` K3a each."""
+    reqs = [served_request(algo, cfg, n, rng) for _ in range(3)]
+    for r in reqs:  # warm this bucket
+        server.submit(dict(r))
+    batches, k3a = server.batches_run, kattn.flash_fwd_cuda.launches
+    ms = []
+    for i in range(SERVED_CALLS):
+        t = time.perf_counter()
+        server.submit(dict(reqs[i % 3]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    got = kattn.flash_fwd_cuda.launches - k3a
+    if got != k3a_a_batch * (server.batches_run - batches):
+        raise RuntimeError(f"served {algo}: {got} K3a launches for "
+                           f"{server.batches_run - batches} batches")
+    return float(np.median(ms))
+
+
+def phase_served_acts() -> dict:
+    """(34) Each family's `InferenceServer` on CUDA at its config.json
+    section's full width, over seeded random parameters: one 16-row batch
+    against the same agent's act on the CPU on the same rows (TF32 off;
+    policy, q, h and c at rtol 1e-4, atol 1e-5; greedy actions equal at
+    epsilon 0), with the kernel counts zeroed just before and read just
+    after (ximpala: 2 K3a a batch, one per layer; the others none); then
+    the served act's round trip in process at 1, 16 and 32 rows (median of
+    SERVED_CALLS submits, host clock), whose ximpala batches must launch 2
+    K3a each too. K3a at the served batch shapes is phase 8's (ATTN_SHAPES)."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+    from distributed_reinforcement_learning_tpu_torch.runtime.inference import (
+        InferenceServer, make_act_adapter)
+    from distributed_reinforcement_learning_tpu_torch.runtime.serving import (
+        ContinuousInferenceServer)
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"families": {}}
+    try:
+        for algo in FAMILIES:
+            agent_cfg, _ = load_config(CONFIG, algo)
+            agent = launch.make_agent(algo, agent_cfg, device="cuda")
+            params = agent.init_state(seed=13).params
+            store = WeightStore()
+            store.publish(params, 0)
+            server = InferenceServer.for_agent(algo, agent, store, seed=21)
+            try:
+                rng = np.random.RandomState(31)
+                req = served_request(algo, agent_cfg, 16, rng)
+                zero_launch_counts()
+                got = server.submit(dict(req))
+                launches = all_launches()
+                cpu_agent = launch.make_agent(algo, agent_cfg, device="cpu")
+                with torch.no_grad():
+                    want = make_act_adapter(algo, cpu_agent)(
+                        {k: v.detach().cpu() for k, v in params.items()},
+                        {k: torch.from_numpy(v) for k, v in req.items()},
+                        torch.Generator().manual_seed(0))
+                worst = 0.0
+                for key in ("policy", "q", "h", "c"):
+                    if key in want:
+                        w = want[key].numpy()
+                        np.testing.assert_allclose(got[key], w, rtol=1e-4, atol=1e-5,
+                                                   err_msg=f"{algo} {key}")
+                        worst = max(worst, float(np.abs(got[key] - w).max()))
+                if algo in ("apex", "r2d2", "xformer"):  # epsilon 0: the argmax
+                    if not np.array_equal(got["action"], want["action"].numpy()):
+                        raise RuntimeError(f"served {algo}: greedy actions differ from the CPU "
+                                           f"act: {got['action']} vs {want['action']}")
+                want_k3a = 2 if algo == "ximpala" else 0
+                if launches != {**{k: 0 for k in launches}, "attention_fwd": want_k3a}:
+                    raise RuntimeError(f"served {algo}: launches {launches}, expected "
+                                       f"{want_k3a} K3a and no other kernel")
+                times = {"classic": {}, "continuous": {}}
+                cont = ContinuousInferenceServer.for_agent(algo, agent, store, seed=21)
+                try:
+                    for kind, srv in (("classic", server), ("continuous", cont)):
+                        for n in SERVED_ROWS:
+                            times[kind][n] = served_round_trip_ms(srv, algo, agent_cfg, n, rng,
+                                                                  want_k3a)
+                finally:
+                    cont.stop()
+                # The classic server's dispatch-to-host latency over every
+                # batch above, idle: phase 35 reads the learner's beside it.
+                idle = server.stats()
+                out["families"][algo] = {"max_abs_err": worst, "launches": launches,
+                                         "act_ms": times["classic"],
+                                         "continuous_act_ms": times["continuous"],
+                                         "latency_ms_p50": idle["latency_ms_p50"],
+                                         "latency_ms_p99": idle["latency_ms_p99"]}
+                log(f"[served] {algo} ({agent_cfg.__class__.__name__}, section `{algo}`): one "
+                    f"16-row batch on CUDA against the CPU act, max |diff| {worst:.3e}"
+                    + (", greedy actions equal" if algo in ("apex", "r2d2", "xformer") else "")
+                    + f"; launches {launches}; served act round trip in process, ms a batch "
+                    f"(median of {SERVED_CALLS}), classic server (2 ms wait window) "
+                    + ", ".join(f"{n} rows {t:.3f}" for n, t in times["classic"].items())
+                    + "; continuous server "
+                    + ", ".join(f"{n} rows {t:.3f}" for n, t in times["continuous"].items())
+                    + f"; classic server's dispatch-to-host latency p50 "
+                    f"{idle['latency_ms_p50']:.3f} / p99 {idle['latency_ms_p99']:.3f} ms")
+            finally:
+                server.stop()
+            del agent, params, store, server
+            gc.collect()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[served] phase 34 took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_launcher_served_impala(base: dict, served: dict) -> dict:
+    """(35) The `impala` section through the launcher with
+    `--serve_inference --remote_act`: the learner on CUDA answers every
+    act of 4 CPU actor processes, MP_UPDATES updates. Fails unless the
+    learner logged its service on CUDA and served acts, no actor pulled a
+    weight blob (board or TCP) and every actor acted through it, the
+    learner took its steps with 2 K1 launches each, the launcher exited 0
+    and left no segment. Logs beside `base`, phase 31 (i)'s numbers (the
+    same launch with actors acting on their CPUs), and phase 34's idle
+    service."""
+    agent_cfg, rt = load_config(CONFIG, "impala")
+    t0 = time.perf_counter()
+    text = run_launcher("impala", MP_UPDATES, rt.num_actors, "impala_served",
+                        {"DRL_SHM_RING": None, "DRL_SHM_WEIGHTS": None},
+                        extra=["--serve_inference", "--remote_act"])
+    seconds = time.perf_counter() - t0
+    if "[learner] [learner] SEED-style inference service enabled on cuda" not in text:
+        raise RuntimeError("served impala: the learner did not log its inference service")
+    (learner,) = role_json(text, "learner")
+    actors = [j for k in range(rt.num_actors) for j in role_json(text, f"actor{k}")]
+    served_acts = learner["transport"]["acts_served"]
+    inf = learner["inference"]
+    bad = [a["task"] for a in actors
+           if a["weight_pulls"]["pulls"] or a["transport"]["weight_pulls"]
+           or (a["board"] or {}).get("board_pulls") or not (a["remote_act"] or {}).get("acts")]
+    if (len(actors) != rt.num_actors or served_acts <= 0 or bad
+            or learner["train_steps"] != MP_UPDATES
+            or learner["launches"]["vtrace"] != 2 * MP_UPDATES):
+        raise RuntimeError(f"served impala: {len(actors)} actors, {served_acts} acts served, "
+                           f"actors that pulled weights or never acted {bad}, "
+                           f"{learner['train_steps']} steps, launches {learner['launches']}")
+    got = impala_rates(learner, actors, agent_cfg, rt)
+    p50 = [a["remote_act"]["act_ms_p50"] for a in actors]
+    p99 = [a["remote_act"]["act_ms_p99"] for a in actors]
+    idle = served["families"]["impala"]
+    got.update(acts_served=served_acts, inference=inf, act_ms_p50=p50, act_ms_p99=p99,
+               seconds=seconds)
+    log(f"[served] impala through the launcher, acts on the learner's card: "
+        f"{learner['train_steps']} updates, launches {learner['launches']}, {served_acts} acts "
+        f"served in {inf['batches_run']} batches of {inf['rows_served']} rows (occupancy "
+        f"{inf['occupancy']:.3f}, {inf['rows_served'] / max(1, inf['batches_run']):.1f} rows a "
+        f"batch), service latency p50 {inf['latency_ms_p50']:.3f} / p99 "
+        f"{inf['latency_ms_p99']:.3f} ms (phase 34, the same server idle: "
+        f"{idle['latency_ms_p50']:.3f} / {idle['latency_ms_p99']:.3f} ms; a round trip in "
+        f"process at 16 rows {idle['act_ms'][16]:.3f}, 32 rows {idle['act_ms'][32]:.3f} ms); "
+        f"actors' act round trip p50 "
+        + ", ".join(f"{x:.2f}" for x in p50) + " ms, p99 " + ", ".join(f"{x:.2f}" for x in p99)
+        + f" ms; env frames/s {got['env_frames_per_s']:.0f} (actors acting on their CPUs, "
+        f"phase 31 (i): {base['env_frames_per_s']:.0f}); wall a step after the first "
+        f"{got['wall_per_update_ms']:.1f} ms ({base['wall_per_update_ms']:.1f}); learn stage "
+        f"{got['learn_ms']:.2f} ms ({base['learn_ms']:.2f}); busy "
+        f"{100 * got['busy_share']:.1f}%; weight pulls {got['weight_pulls']}; stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
+        + f"; phase {seconds:.1f} s")
+    return got
+
+
+REPLICA_KILL_ACTS = 64  # replica 0's acts before the kill (its stats line, once a second)
+
+
+def kill_replica_mid_run(proc, log_path: Path, seen: dict) -> None:
+    """SIGKILL replica 0 once its server's stats line (DRL_TRANSPORT_STATS_S)
+    counts REPLICA_KILL_ACTS acts served: both actors, which alternate
+    between the replicas, are then acting through it; record its pid."""
+    import os
+    import signal
+
+    acts = re.compile(r"^\[infer0\] \[transport\] depth=\d+ acts=(\d+)", re.M)
+    deadline = time.monotonic() + 150
+    while time.monotonic() < deadline and proc.poll() is None:
+        if max(map(int, acts.findall(log_path.read_text())), default=0) >= REPLICA_KILL_ACTS:
+            break
+        time.sleep(0.2)
+    else:
+        raise RuntimeError("replica drill: replica 0 never served its acts")
+    seen["pid"] = child_pid(proc, b"inference", b"0")
+    os.kill(seen["pid"], signal.SIGKILL)
+
+
+def phase_launcher_replicas() -> dict:
+    """(36) The `ximpala` section through the launcher with
+    `--serve_inference --remote_act --inference_replicas 2`: 2 CPU actors
+    act through 2 replicas on the card, each reading the learner's weight
+    board; replica 0 is SIGKILLed once it has served REPLICA_KILL_ACTS
+    acts (its server's stats line, DRL_TRANSPORT_STATS_S=1). Fails unless each replica
+    attached the board, the actors demoted replica 0 and acted on (every
+    act they made returned: none lost, none through the learner's
+    fallback while the survivor served), the learner took its updates,
+    and the survivor's summary shows acts served with 2 K3a launches a
+    batch."""
+    t0 = time.perf_counter()
+    seen: dict = {}
+    text = run_launcher("ximpala", SERVED_REPLICA_UPDATES, 2, "ximpala_replicas",
+                        {"DRL_SHM_RING": None, "DRL_SHM_WEIGHTS": None,
+                         "DRL_INFER_REPLICAS": None, "DRL_TRANSPORT_STATS_S": "1"},
+                        extra=["--serve_inference", "--remote_act", "--inference_replicas", "2"],
+                        during=lambda proc, path: kill_replica_mid_run(proc, path, seen))
+    seconds = time.perf_counter() - t0
+    want = ["[cluster] inference tier: 2 act-serving replica(s)",
+            *(f"[infer{k}] [infer {k}] shm weight board attached: " for k in range(2)),
+            *(f"[actor{k}] [actor {k}] remote act via 2 inference replica(s)" for k in range(2))]
+    missing = [w for w in want if w not in text]
+    (learner,) = role_json(text, "learner")
+    actors = role_json(text, "actor0") + role_json(text, "actor1")
+    survivors = role_json(text, "infer1")
+    if missing or len(actors) != 2 or len(survivors) != 1 or role_json(text, "infer0"):
+        raise RuntimeError(f"replica drill: missing {missing}, {len(actors)} actor and "
+                           f"{len(survivors)} survivor summaries")
+    (survivor,) = survivors
+    services = [a["remote_act"]["service"] for a in actors]
+    demoted = sum(s["replica_demotes"] for s in services)
+    # A lost request raises out of the act (the actor's grace loop takes
+    # it); a served one counts once, on a replica or the fallback.
+    lost = [a["task"] for a in actors
+            if a["remote_act"]["failed"] or a["remote_act"]["service"]["fallback_acts"]]
+    if (learner["train_steps"] != SERVED_REPLICA_UPDATES or demoted < 1 or lost
+            or any(s["replica_demotes"] > 1 for s in services)
+            or any(a["weight_pulls"]["pulls"] or a["transport"]["weight_pulls"] for a in actors)
+            or survivor["acts_served"] <= 0
+            or survivor["launches"]["attention_fwd"] != 2 * survivor["batches_run"]):
+        raise RuntimeError(f"replica drill: learner {learner['train_steps']} steps; actors' "
+                           f"services {services}, lost {lost}; survivor {survivor}")
+    log(f"[served] ximpala replica drill: replica 0 (pid {seen['pid']}) SIGKILLed; actors' "
+        f"services {services}; act round trip p50 "
+        + ", ".join(f"{a['remote_act']['act_ms_p50']:.2f}" for a in actors) + " / p99 "
+        + ", ".join(f"{a['remote_act']['act_ms_p99']:.2f}" for a in actors)
+        + f" ms; survivor: {survivor['acts_served']} acts in {survivor['batches_run']} batches "
+        f"of {survivor['rows_served']} rows (occupancy {survivor['occupancy']:.3f}), K3a "
+        f"{survivor['launches']['attention_fwd']}, latency p50 "
+        f"{survivor['latency_ms_p50']:.3f} / p99 {survivor['latency_ms_p99']:.3f} ms, "
+        f"{survivor['weight_versions_seen']} weight versions; learner "
+        f"{learner['train_steps']} updates, launches {learner['launches']}, "
+        f"{learner['transport']['acts_served']} fallback acts served; phase {seconds:.1f} s")
+    return {"survivor": survivor, "services": services, "learner_launches": learner["launches"],
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -3365,6 +3744,12 @@ def main() -> int:
     launcher_r2d2 = phase_launcher_r2d2_ring()
     respawn = phase_launcher_respawn()
     launcher_s = time.perf_counter() - t_launcher
+    phase_memory("served acts")
+    t_served = time.perf_counter()
+    served = phase_served_acts()
+    served_impala = phase_launcher_served_impala(launcher["defaults"], served)
+    replicas = phase_launcher_replicas()
+    served_s = time.perf_counter() - t_served
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -3383,7 +3768,8 @@ def main() -> int:
                                 for label, n in options["launches"].items()},
                              **{f"impala_launcher_{tag}": got["launches"]["vtrace"]
                                 for tag, got in launcher.items()},
-                             "impala_cartpole_respawn": respawn["launches"]["vtrace"]},
+                             "impala_cartpole_respawn": respawn["launches"]["vtrace"],
+                             "impala_served_acts": served_impala["launches"]["vtrace"]},
         "shape": list(MAIN_SHAPE), "graph_ms": t["graph_ms"],
         "plain_graph_ms": t["plain_graph_ms"],
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
@@ -3391,6 +3777,10 @@ def main() -> int:
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
     }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2),
         *attention_rows(k3, ximpala, xformer_long)]
+    k3a = next(row for row in kernels if row["name"] == "attention_fwd")
+    k3a["launches_by_path"].update(
+        ximpala_served_in_process=served["families"]["ximpala"]["launches"]["attention_fwd"],
+        ximpala_replica_survivor=replicas["survivor"]["launches"]["attention_fwd"])
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
@@ -3437,6 +3827,12 @@ def main() -> int:
         f"{launcher['rings']['wall_per_update_ms']:.1f} ms a step after the first (TCP "
         f"{multiproc['wall_per_update_ms']:.1f}), r2d2 ring {launcher_r2d2['drained']} "
         f"sequences, respawn drill {respawn['seconds']:.1f} s; phases 31-33 {launcher_s:.1f} s; "
+        f"served acts: in process " + ", ".join(
+            f"{a} {got['act_ms'][16]:.3f}" for a, got in served["families"].items())
+        + f" ms a 16-row batch ({served['seconds']:.1f} s), impala through the learner "
+        f"{served_impala['env_frames_per_s']:.0f} env frames/s, act p50 "
+        f"{np.median(served_impala['act_ms_p50']):.2f} ms ({served_impala['seconds']:.1f} s), "
+        f"replica drill {replicas['seconds']:.1f} s; phases 34-36 {served_s:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

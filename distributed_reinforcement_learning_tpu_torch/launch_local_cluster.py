@@ -42,12 +42,26 @@ its segments under the same names and restores from
 `DRL_PUBLISH_INTERVAL` to N // 4. `--replay_shards` passes
 `DRL_REPLAY_SHARDS` through.
 
-When the learner has finished, each actor gets SIGINT: it stops, prints
-its JSON summary and exits 0 (after `--actor_grace` seconds without a
-learner an actor ends by itself, as `train_<algo>` does). Refused by
-name, with the ROADMAP item: `--learners` > 1 and `--learner_sync`
-(item 13), `--serve_inference`, `--remote_act` and
-`--inference_replicas` (item 12d), `--weights_sharded 1` (item 12e).
+Served acts: `--serve_inference` makes the learner answer acts on its
+device, and `--remote_act` (which needs it) starts the actors with
+`--remote_act`, so that they act through it and pull no weights. With
+`--inference_replicas N` (which needs `--remote_act`; unset,
+`DRL_INFER_REPLICAS` or `runtime/serving.py`'s verdict constant decides,
+0 by default) the launcher spawns N act-serving replicas (`train_<algo>
+--mode inference --task k`, on the learner's device) between the learner
+and the actors, each on a free port handed to it as `DRL_INFER_PORT`
+and reading the learner's weight board when there is one, and hands the
+actors their addresses as `DRL_INFER_ADDRS`: the actors then act through
+the replicas, with the learner as the fallback. Replicas are respawned
+and stopped as actors are; `--chaos` kills actor 0, then replica 0, then
+the learner.
+
+When the learner has finished, each actor, then each replica, gets
+SIGINT: it stops, prints its JSON summary and exits 0 (after
+`--actor_grace` seconds without a learner an actor or a replica ends by
+itself, as `train_<algo>` does). Refused by name, with the ROADMAP item:
+`--learners` > 1 and `--learner_sync` (item 13), `--weights_sharded 1`
+(item 12e).
 """
 
 from __future__ import annotations
@@ -138,14 +152,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "shards (<run_dir>/telemetry)")
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--device", "--platform", dest="device", default=None,
-                   help="the LEARNER's torch device (default: cuda); actors run on the CPU")
+                   help="the learner's and the replicas' torch device (default: cuda); "
+                        "actors run on the CPU")
     p.add_argument("--actor_grace", type=float, default=30.0,
                    help="seconds an actor rides out a learner outage before it exits")
     p.add_argument("--serve_inference", action="store_true",
-                   help="not ported (ROADMAP item 12d)")
-    p.add_argument("--remote_act", action="store_true", help="not ported (ROADMAP item 12d)")
+                   help="the learner also serves acts on its device")
+    p.add_argument("--remote_act", action="store_true",
+                   help="actors act through the service and pull no weights "
+                        "(needs --serve_inference)")
     p.add_argument("--inference_replicas", type=int, default=None,
-                   help="not ported (ROADMAP item 12d)")
+                   help="act-serving replicas for --remote_act actors (default: "
+                        "DRL_INFER_REPLICAS, else the serving verdict: 0)")
     p.add_argument("--replay_shards", type=int, default=None,
                    help="replay learners: N >= 1 ingest shards, 0 the monolithic replay "
                         "(DRL_REPLAY_SHARDS; unset: the default of 2)")
@@ -172,9 +190,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.learners != 1 or args.learner_sync is not None:
         p.error("--learners > 1 and --learner_sync (the learner tier, multi-host learners) "
                 "are not ported (ROADMAP item 13)")
-    if args.serve_inference or args.remote_act or args.inference_replicas:
-        p.error("--serve_inference, --remote_act and --inference_replicas (serving acts) "
-                "are not ported (ROADMAP item 12d)")
+    if args.remote_act and not args.serve_inference:
+        # The actors would fail at once while the learner idles.
+        p.error("--remote_act needs the learner to serve inference; pass --serve_inference too")
+    args.infer_replicas = infer_replicas(args, p)
     if args.weights_sharded == 1:
         p.error("--weights_sharded 1: sharded weight publication is not ported "
                 "(ROADMAP item 12e)")
@@ -182,6 +201,26 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.chaos and args.respawn == "off":
         p.error("--chaos needs a respawn policy; drop --respawn off")
     return args
+
+
+def infer_replicas(args: argparse.Namespace, p: argparse.ArgumentParser) -> int:
+    """The replica count: `--inference_replicas` forces it; without
+    `--remote_act` none; else `serving.replica_count()` (DRL_INFER_REPLICAS,
+    then the verdict constant). Replicas serve remote-act actors only."""
+    if args.inference_replicas is not None:
+        n = max(0, args.inference_replicas)
+    elif not args.remote_act:
+        n = 0
+    else:
+        from distributed_reinforcement_learning_tpu_torch.runtime import serving
+
+        try:
+            n = serving.replica_count()
+        except ValueError as e:
+            p.error(str(e))
+    if n and not args.remote_act:
+        p.error("--inference_replicas needs remote-act actors; pass --remote_act too")
+    return n
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -230,6 +269,8 @@ def main(argv: list[str] | None = None) -> int:
         learner_cmd += ["--checkpoint_dir", args.checkpoint_dir]
     if args.device:
         learner_cmd += ["--device", args.device]
+    if args.serve_inference:
+        learner_cmd += ["--serve_inference"]
     lenv = dict(env)
     if ring_names:
         lenv["DRL_SHM_RING_CREATE"] = ",".join(ring_names[t] for t in sorted(ring_names))
@@ -237,6 +278,27 @@ def main(argv: list[str] | None = None) -> int:
         lenv["DRL_SHM_WEIGHTS_CREATE"] = board_name
     roles = [Role("learner", learner_cmd, lenv, "learner",
                   segments=(*ring_names.values(), *((board_name,) if board_name else ())))]
+    # Act-serving replicas between the learner and the actors: each on
+    # its own port, reading the learner's board (read-only) when there is
+    # one, on the learner's device.
+    infer_addrs = []
+    for k in range(args.infer_replicas):
+        iport = _free_port()
+        infer_cmd = base + ["--mode", "inference", "--task", str(k),
+                            "--actor_grace", str(args.actor_grace)]
+        if args.run_dir:
+            infer_cmd += ["--run_dir", args.run_dir]
+        if args.device:
+            infer_cmd += ["--device", args.device]
+        ienv = dict(env, DRL_INFER_PORT=str(iport))
+        if board_name:
+            ienv["DRL_SHM_WEIGHTS_NAME"] = board_name
+        roles.append(Role(f"infer{k}", infer_cmd, ienv, "infer"))
+        infer_addrs.append(f"127.0.0.1:{iport}")
+    if infer_addrs:
+        env["DRL_INFER_ADDRS"] = ",".join(infer_addrs)
+        print(f"[cluster] inference tier: {len(infer_addrs)} act-serving replica(s)",
+              file=sys.stderr)
     for task in range(args.actors):
         aenv = dict(env, CUDA_VISIBLE_DEVICES="")
         aenv.setdefault("OMP_NUM_THREADS", "1")
@@ -246,7 +308,8 @@ def main(argv: list[str] | None = None) -> int:
             aenv["DRL_SHM_WEIGHTS_NAME"] = board_name
         roles.append(Role(f"actor{task}", base + [
             "--mode", "actor", "--task", str(task), "--device", "cpu",
-            "--actor_grace", str(args.actor_grace)], aenv, "actor"))
+            "--actor_grace", str(args.actor_grace),
+            *(["--remote_act"] if args.remote_act else [])], aenv, "actor"))
 
     pumps: list[threading.Thread] = []
 
@@ -260,16 +323,20 @@ def main(argv: list[str] | None = None) -> int:
     for role in roles:
         spawn(role)
     learner = roles[0]
-    actors = roles[1:]
+    replicas = [r for r in roles if r.kind == "infer"]
+    actors = [r for r in roles if r.kind == "actor"]
     stop_evt = threading.Event()
+
+    def signal_roles(kinds) -> None:
+        for role in roles:
+            if role.kind in kinds and role.proc is not None and role.proc.poll() is None:
+                # Actors and replicas stop on SIGINT and print their summaries.
+                role.proc.send_signal(signal.SIGTERM if role.kind == "learner"
+                                      else signal.SIGINT)
 
     def shutdown(*_):
         stop_evt.set()
-        for role in roles:
-            if role.proc is not None and role.proc.poll() is None:
-                # Actors stop on SIGINT and print their summaries.
-                role.proc.send_signal(signal.SIGINT if role.kind == "actor"
-                                      else signal.SIGTERM)
+        signal_roles(("learner", "infer", "actor"))
 
     signal.signal(signal.SIGINT, shutdown)
     signal.signal(signal.SIGTERM, shutdown)
@@ -279,7 +346,7 @@ def main(argv: list[str] | None = None) -> int:
         # runs, the segments stay until the pid-keyed reap, and the fleet
         # supervisor sees the death by missed heartbeats alone.
         def chaos_loop() -> None:
-            for role in actors[:1] + [learner]:
+            for role in actors[:1] + replicas[:1] + [learner]:
                 if stop_evt.wait(args.chaos_interval):
                     return
                 if role.proc is not None and role.proc.poll() is None:
@@ -290,7 +357,7 @@ def main(argv: list[str] | None = None) -> int:
         threading.Thread(target=chaos_loop, daemon=True, name="chaos").start()
 
     rc = 0
-    tally = {"learner": 0, "actor": 0}
+    tally = {"learner": 0, "actor": 0, "infer": 0}
     while not stop_evt.is_set():
         for role in roles:
             code = role.proc.poll() if role.proc is not None else None
@@ -319,17 +386,21 @@ def main(argv: list[str] | None = None) -> int:
             rc = 1
             break
         stop_evt.wait(0.5)
-    shutdown()
-    for role in roles:
-        if role.proc is None:
-            continue
-        try:
-            role.proc.wait(timeout=15)
-        except subprocess.TimeoutExpired:
-            role.proc.kill()
-            # Reap the killed child: a zombie still passes the sweep's
-            # liveness check below and would keep its segments.
-            role.proc.wait(timeout=10)
+    # Actors first, so that no act is cut short by a replica going down,
+    # then the replicas and the learner.
+    stop_evt.set()
+    for kinds in (("actor",), ("infer", "learner")):
+        signal_roles(kinds)
+        for role in roles:
+            if role.kind not in kinds or role.proc is None:
+                continue
+            try:
+                role.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                role.proc.kill()
+                # Reap the killed child: a zombie still passes the sweep's
+                # liveness check below and would keep its segments.
+                role.proc.wait(timeout=10)
     code = learner.proc.poll() if learner.proc is not None else None
     if code is not None and code != 0:  # an interrupted or failed learner
         rc = max(rc, 128 - code if code < 0 else code)

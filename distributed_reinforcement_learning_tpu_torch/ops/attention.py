@@ -129,7 +129,9 @@ def causal_attention(q, k, v, *, q_seg=None, k_seg=None) -> torch.Tensor:
         ks = zeros if k_seg is None else k_seg.to(torch.int32)
 
         def flat(x):
-            return x.transpose(1, 2).reshape(b * h, t, d)
+            # At b = 1 the reshape is a view of the transpose, not a copy:
+            # the kernels take contiguous rows.
+            return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
         out = flash_attention_bhtd(
             flat(q), flat(k), flat(v), qs.repeat_interleave(h, dim=0),

@@ -115,8 +115,10 @@ def sync_slices_params(actor: Any, slices: list) -> None:
     adopted by every slice — k independent per-slice pulls were k
     version checks (and k full-blob transfers per version bump) for
     identical bytes. Runs on the main thread before any slice's round
-    begins, so the lockstep handoff is untouched. (The port has no remote
-    acting, whose actors pull no weights.)"""
+    begins, so the lockstep handoff is untouched. A remote-act actor pulls
+    no weights."""
+    if getattr(actor, "remote_act", None) is not None:
+        return
     actor._sync_params()
     if actor._params is None:
         raise RuntimeError("no weights published yet")

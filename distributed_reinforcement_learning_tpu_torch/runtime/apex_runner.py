@@ -8,6 +8,8 @@ Counterpart of the JAX package's `runtime/apex_runner.py`:
   more than 3 unrolls, every env step puts one `unroll_size`
   re-sample of it (or `DRL_PUT_BATCH` of them in one exchange). It has
   the pipelined actor's slice protocol (`runtime/actor_pipeline.py`).
+  With `remote_act` its acts go to a service as rows (its epsilon
+  schedule with them) and it pulls no weights.
 - `ApexLearner`: drains unrolls (K of them in one `[K * 32]` TD
   forward, `DRL_APEX_INGEST_UNROLLS`), inserts each transition into the
   prioritized replay with its |TD|, trains with IS weights once
@@ -28,7 +30,7 @@ Counterpart of the JAX package's `runtime/apex_runner.py`:
   at most `DRAIN_CAP` ingest calls between train calls, where the JAX
   package's solo learner drains until the queue is empty.
 
-Not ported: remote acting and the mesh.
+Not ported: the mesh (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -73,11 +75,13 @@ class ApexActor:
         epsilon_decay: float = 0.05,
         sync_every_steps: int = 100,
         life_loss_shaping: bool = False,
+        remote_act=None,  # a served act: row dict -> reply dict; no weight pulls
     ):
         self.agent = agent
         self.env = env
         self.queue = queue
         self.weights = weights
+        self.remote_act = remote_act
         self.unroll_size = unroll_size
         self.warmup = warmup_factor * unroll_size
         self.epsilon_decay = epsilon_decay
@@ -110,6 +114,11 @@ class ApexActor:
 
     def _act(self, params, obs: np.ndarray, prev_action: np.ndarray, epsilon: np.ndarray,
              generator: torch.Generator) -> np.ndarray:
+        if self.remote_act is not None:
+            # The epsilon schedule stays with the actor: it rides the rows.
+            r = self.remote_act({"obs": obs, "prev_action": prev_action,
+                                 "epsilon": np.asarray(epsilon, np.float32)})
+            return np.asarray(r["action"], np.int32)
         device = self.agent.device
         action, _ = self.agent.act(
             params, torch.as_tensor(obs, device=device),
@@ -136,10 +145,11 @@ class ApexActor:
         unrolls into one batched exchange; unset puts one a step.
         Pending unrolls are put before a normal return; an error mid-round
         drops them (they are re-samples, not the only copy)."""
-        if self._steps % self.sync_every_steps == 0 or self._params is None:
-            self._sync_params()
-        if self._params is None:
-            raise RuntimeError("no weights published yet")
+        if self.remote_act is None:
+            if self._steps % self.sync_every_steps == 0 or self._params is None:
+                self._sync_params()
+            if self._params is None:
+                raise RuntimeError("no weights published yet")
         put_batch = max(1, put_batch_size())
         pending: list = []
 
@@ -211,7 +221,9 @@ class ApexActor:
     def pipeline_sync_weights(self, slices: list) -> None:
         """One weights pull a round for every due slice, on the
         sequential loop's `sync_every_steps` cadence (slices step in
-        lockstep, so they are due together)."""
+        lockstep, so they are due together); none with `remote_act`."""
+        if self.remote_act is not None:
+            return
         due = [sl for sl in slices
                if sl.steps % self.sync_every_steps == 0 or sl.params is None]
         if not due:
@@ -224,7 +236,7 @@ class ApexActor:
                 sl.params, sl.version = self._params, self._version
 
     def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
-        if sl.params is None:
+        if self.remote_act is None and sl.params is None:
             raise RuntimeError("no weights published yet")
         sl.put_batch = max(1, put_batch_size())
         sl.pending = []

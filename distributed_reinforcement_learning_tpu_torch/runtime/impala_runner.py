@@ -5,7 +5,9 @@ Counterpart of the JAX package's `runtime/impala_runner.py`:
 - `ImpalaActor`: N batched envs, one act call per timestep for all of
   them, a weight pull per unroll, life-loss shaping, T-step unroll
   accumulation, trajectory put with backpressure; and the slice
-  protocol of the pipelined actor (`runtime/actor_pipeline.py`).
+  protocol of the pipelined actor (`runtime/actor_pipeline.py`). With
+  `remote_act` the acts go to a service (`runtime/inference.py`) as
+  rows, the LSTM state stays here, and no weights are pulled.
 - `ImpalaLearner`: drains a batch from the queue (through the device
   prefetcher when `prefetch`), runs one learn step, publishes versioned
   weights; stage timings, a profiler window, checkpoints. With
@@ -16,7 +18,7 @@ Counterpart of the JAX package's `runtime/impala_runner.py`:
   the learner loop in one process; the multi-process topology goes
   through `runtime/transport.py`.
 
-Not ported: remote acting (ROADMAP item 12d) and the mesh (item 13).
+Not ported: the mesh (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ class ImpalaActor:
         seed: int = 0,
         available_action: int | None = None,
         life_loss_shaping: bool = False,
+        remote_act=None,  # a served act: row dict -> reply dict; no weight pulls
     ):
         self.agent = agent
         self.env = env
@@ -61,6 +64,7 @@ class ImpalaActor:
         self.weights = weights
         self.available_action = available_action
         self.life_loss_shaping = life_loss_shaping
+        self.remote_act = remote_act
 
         self._seed = seed  # slice seeds derive from it (actor_pipeline)
         self._generator = torch.Generator(device=agent.device).manual_seed(seed)
@@ -80,26 +84,39 @@ class ImpalaActor:
         if got is not None:
             self._params, self._version = got
 
+    def _act(self, params, obs, prev_action, h, c, generator) -> ActOutput:
+        """One batched act -> host arrays: through the service when
+        `remote_act` is set (the rows go, the actions and the advanced
+        LSTM state come back), else the agent's act on its device."""
+        if self.remote_act is not None:
+            r = self.remote_act({"obs": obs, "prev_action": prev_action, "h": h, "c": c})
+            return ActOutput(np.asarray(r["action"], np.int32), np.asarray(r["policy"]),
+                             np.asarray(r["h"]), np.asarray(r["c"]))
+        device = self.agent.device
+        out = self.agent.act(
+            params, torch.as_tensor(obs, device=device),
+            torch.as_tensor(prev_action, device=device), torch.as_tensor(h, device=device),
+            torch.as_tensor(c, device=device), generator)
+        return ActOutput(out.action.cpu().numpy().astype(np.int32), out.policy.cpu().numpy(),
+                         out.h.cpu().numpy(), out.c.cpu().numpy())
+
     def run_unroll(self) -> int:
         """Collect one T-step unroll from all N envs; enqueue N trajectories.
 
         Returns the number of env frames generated (N * T).
         """
         cfg = self.agent.cfg
-        device = self.agent.device
-        self._sync_params()
-        if self._params is None:
-            raise RuntimeError("no weights published yet")
+        if self.remote_act is None:
+            self._sync_params()
+            if self._params is None:
+                raise RuntimeError("no weights published yet")
         acc = ImpalaTrajectoryAccumulator()
         n = self._obs.shape[0]
 
         for _ in range(cfg.trajectory):
-            out = self.agent.act(
-                self._params, torch.as_tensor(self._obs, device=device),
-                torch.as_tensor(self._prev_action, device=device),
-                torch.as_tensor(self._h, device=device),
-                torch.as_tensor(self._c, device=device), self._generator)
-            actions = out.action.cpu().numpy().astype(np.int32)
+            out = self._act(self._params, self._obs, self._prev_action, self._h, self._c,
+                            self._generator)
+            actions = out.action
             env_actions = actions % self.available_action if self.available_action else actions
             next_obs, reward, done, infos = self.env.step(env_actions)
 
@@ -113,15 +130,15 @@ class ImpalaActor:
                 reward=rec_reward,
                 done=rec_done,
                 action=actions,
-                behavior_policy=out.policy.cpu().numpy(),
+                behavior_policy=out.policy,
                 previous_action=self._prev_action,
                 initial_h=self._h,
                 initial_c=self._c,
             )
 
             keep = (~done).astype(np.float32)[:, None]
-            self._h = out.h.cpu().numpy() * keep
-            self._c = out.c.cpu().numpy() * keep
+            self._h = out.h * keep
+            self._c = out.c * keep
             self._prev_action = np.where(done, 0, actions).astype(np.int32)
             self._obs = next_obs
             for ret in completed_returns(infos, done):
@@ -161,20 +178,13 @@ class ImpalaActor:
     pipeline_sync_weights = sync_slices_params
 
     def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
-        if sl.params is None:
+        if self.remote_act is None and sl.params is None:
             raise RuntimeError("no weights published yet")
         self._slice_accs.reset_slice(sl.index)
 
     def slice_act(self, sl: PipelineSlice) -> ActOutput:
         """Runs on the pipeline's act worker; returns host arrays."""
-        device = self.agent.device
-        out = self.agent.act(
-            sl.params, torch.as_tensor(sl.obs, device=device),
-            torch.as_tensor(sl.prev_action, device=device),
-            torch.as_tensor(sl.h, device=device), torch.as_tensor(sl.c, device=device),
-            sl.generator)
-        return ActOutput(out.action.cpu().numpy().astype(np.int32), out.policy.cpu().numpy(),
-                         out.h.cpu().numpy(), out.c.cpu().numpy())
+        return self._act(sl.params, sl.obs, sl.prev_action, sl.h, sl.c, sl.generator)
 
     def slice_step(self, sl: PipelineSlice, out: ActOutput) -> tuple:
         actions = out.action

@@ -70,6 +70,11 @@ def _is_atari(rt: RuntimeConfig) -> bool:
     return any("v4" in e for e in rt.envs)
 
 
+def make_agent(algo: str, agent_cfg: Any, device: str | torch.device | None = None):
+    """The agent of family `algo` on `device` (an act-serving replica's)."""
+    return _AGENT_CLS[algo](agent_cfg, device=device)
+
+
 def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
                  logger: MetricsLogger | None = None, seed: int = 0,
                  device: str | torch.device | None = None, agent=None,
@@ -106,14 +111,18 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
 
 
 def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, weights,
-               seed: int = 0, device: str | torch.device | None = None, agent=None):
+               seed: int = 0, device: str | torch.device | None = None, agent=None,
+               remote_act=None):
     """Actor `task` of the topology over any queue and weight store. Pass
-    `agent` to share one agent between runners in a process."""
+    `agent` to share one agent between runners in a process. `remote_act`
+    (any family; a `transport.RemoteInference` or `RemoteActService`, or
+    an `InferenceServer.submit`) makes the actor act through a service:
+    it then pulls no weights."""
     agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
     env = _make_batched_env(rt, task, agent_cfg.num_actions)
     if algo == "apex":
         return apex_runner.ApexActor(agent, env, queue, weights, seed=seed,
-                                     life_loss_shaping=_is_atari(rt))
+                                     life_loss_shaping=_is_atari(rt), remote_act=remote_act)
     # The 2-feature agents observe the CartPole POMDP view.
     transform = pomdp_project if agent_cfg.obs_shape == (2,) else None
     if algo in SEQUENCE_REPLAY:
@@ -121,15 +130,15 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
         floor = {} if rt.epsilon_floor is None else {"epsilon_floor": rt.epsilon_floor}
         cls = xformer_runner.XformerActor if algo == "xformer" else r2d2_runner.R2D2Actor
         return cls(agent, env, queue, weights, seed=seed, obs_transform=transform,
-                   timeout_nonterminal=rt.timeout_nonterminal, **floor)
+                   timeout_nonterminal=rt.timeout_nonterminal, remote_act=remote_act, **floor)
     available = rt.available_action[task % len(rt.available_action)]
     if algo == "ximpala":
         return ximpala_runner.XImpalaActor(
             agent, env, queue, weights, seed=seed, available_action=available,
-            life_loss_shaping=_is_atari(rt), obs_transform=transform)
+            life_loss_shaping=_is_atari(rt), obs_transform=transform, remote_act=remote_act)
     return impala_runner.ImpalaActor(agent, env, queue, weights, seed=seed,
                                      available_action=available,
-                                     life_loss_shaping=_is_atari(rt))
+                                     life_loss_shaping=_is_atari(rt), remote_act=remote_act)
 
 
 def build_local(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XformerConfig

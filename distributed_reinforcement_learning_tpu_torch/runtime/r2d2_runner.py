@@ -30,8 +30,10 @@ path only:
 The actor has the pipeline's slice protocol and `timeout_nonterminal`;
 the learner has stage timings, a profiler window, checkpoints (with a
 replay snapshot) and the opt-in recent mix (`DRL_R2D2_RECENT_FRACTION`,
-`DRL_R2D2_RECENT_WINDOW`). Not ported: `remote_act` (ROADMAP item 12d)
-and the mesh (item 13).
+`DRL_R2D2_RECENT_WINDOW`). With `remote_act` the actor's acts go to a
+service as rows (its LSTM state and epsilon with them; the advanced
+state comes back) and it pulls no weights. Not ported: the mesh (ROADMAP
+item 13).
 """
 
 from __future__ import annotations
@@ -79,11 +81,13 @@ class R2D2Actor:
         # False = reference parity.
         timeout_nonterminal: bool = False,
         obs_transform=None,  # e.g. envs.cartpole.pomdp_project
+        remote_act=None,  # a served act: row dict -> reply dict; no weight pulls
     ):
         self.agent = agent
         self.env = env
         self.queue = queue
         self.weights = weights
+        self.remote_act = remote_act
         self.epsilon_decay = epsilon_decay
         self.epsilon_floor = epsilon_floor
         self.timeout_nonterminal = timeout_nonterminal
@@ -110,26 +114,35 @@ class R2D2Actor:
         if got is not None:
             self._params, self._version = got
 
+    def _act(self, params, obs, h, c, prev_action, epsilon, generator) -> tuple:
+        """One batched epsilon-greedy act -> host (action, h', c'): through
+        the service when `remote_act` is set, else the agent's act."""
+        if self.remote_act is not None:
+            r = self.remote_act({"obs": obs, "h": h, "c": c, "prev_action": prev_action,
+                                 "epsilon": np.asarray(epsilon, np.float32)})
+            return np.asarray(r["action"], np.int32), np.asarray(r["h"]), np.asarray(r["c"])
+        device = self.agent.device
+        action, _, h, c = self.agent.act(
+            params, torch.as_tensor(obs, device=device), torch.as_tensor(h, device=device),
+            torch.as_tensor(c, device=device), torch.as_tensor(prev_action, device=device),
+            torch.as_tensor(epsilon, dtype=torch.float32, device=device), generator)
+        return action.cpu().numpy().astype(np.int32), h.cpu().numpy(), c.cpu().numpy()
+
     def run_unroll(self) -> int:
         """One seq_len unroll from all envs -> N sequences into the queue.
         Returns the number of env frames generated (N * seq_len)."""
         cfg = self.agent.cfg
-        device = self.agent.device
-        self._sync_params()
-        if self._params is None:
-            raise RuntimeError("no weights published yet")
+        if self.remote_act is None:
+            self._sync_params()
+            if self._params is None:
+                raise RuntimeError("no weights published yet")
         acc = R2D2SequenceAccumulator()
         acc.reset(self._h, self._c)
         n = self._obs.shape[0]
 
         for _ in range(cfg.seq_len):
-            action, _, h, c = self.agent.act(
-                self._params, torch.as_tensor(self._obs, device=device),
-                torch.as_tensor(self._h, device=device), torch.as_tensor(self._c, device=device),
-                torch.as_tensor(self._prev_action, device=device),
-                torch.as_tensor(self.epsilon, dtype=torch.float32, device=device),
-                self._generator)
-            action = action.cpu().numpy().astype(np.int32)
+            action, h, c = self._act(self._params, self._obs, self._h, self._c,
+                                     self._prev_action, self.epsilon, self._generator)
             next_obs_raw, reward, done, infos = self.env.step(action)
             rec_done = shape_timeout(done, infos, self.timeout_nonterminal)
 
@@ -137,8 +150,8 @@ class R2D2Actor:
                        reward=reward.astype(np.float32), done=rec_done)
 
             keep = (~rec_done).astype(np.float32)[:, None]
-            self._h = h.cpu().numpy() * keep
-            self._c = c.cpu().numpy() * keep
+            self._h = h * keep
+            self._c = c * keep
             self._prev_action = np.where(rec_done, 0, action).astype(np.int32)
             self._obs = self.obs_transform(next_obs_raw)
             # Exploration anneals per recorded episode.
@@ -180,19 +193,13 @@ class R2D2Actor:
     pipeline_sync_weights = sync_slices_params
 
     def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
-        if sl.params is None:
+        if self.remote_act is None and sl.params is None:
             raise RuntimeError("no weights published yet")
         self._slice_accs.reset_slice(sl.index, sl.h, sl.c)
 
     def slice_act(self, sl: PipelineSlice) -> tuple:
-        device = self.agent.device
         epsilon = np.maximum(1.0 / (self.epsilon_decay * sl.episodes + 1.0), self.epsilon_floor)
-        action, _, h, c = self.agent.act(
-            sl.params, torch.as_tensor(sl.obs, device=device),
-            torch.as_tensor(sl.h, device=device), torch.as_tensor(sl.c, device=device),
-            torch.as_tensor(sl.prev_action, device=device),
-            torch.as_tensor(epsilon, dtype=torch.float32, device=device), sl.generator)
-        return (action.cpu().numpy().astype(np.int32), h.cpu().numpy(), c.cpu().numpy())
+        return self._act(sl.params, sl.obs, sl.h, sl.c, sl.prev_action, epsilon, sl.generator)
 
     def slice_step(self, sl: PipelineSlice, out: tuple) -> tuple:
         action, h, c = out

@@ -12,17 +12,29 @@ so a client of one package talks to a server of the other:
                                 encoded once per version
   (iii) QUEUE_SIZE / PING       polls and liveness
   (iv)  REGISTER / HEARTBEAT    the fleet control plane (runtime/fleet.py)
+  (v)   ACT                     served acts: actor -> service observation
+                                rows, service -> actor action rows
+                                (runtime/inference.py), ST_BUSY when the
+                                service's admission budget is full
 
 Trajectories cross between the packages: both codecs give the same
 bytes for the same tree, and `codec.decode` rebuilds a namedtuple by
 name and fields. Weight blobs do not: the port's blob is a flat
 `{parameter name: array}` dict of its own module names, a JAX learner's
-a flax tree, so `RemoteWeights` refuses anything but a flat dict.
+a flax tree, so `RemoteWeights` refuses anything but a flat dict. Act
+rows are plain numpy row dicts, the JAX package's layouts, and do cross:
+a JAX actor acts through a port service and a port actor through a JAX
+one.
 
 `run_role` starts one process of the reference topology: `--mode
 learner` (queue, weight store, learner on `resolve_device(device)`, this
-server) or `--mode actor --task k` (an actor whose queue and weight
-store are `RemoteQueue` / `RemoteWeights` over one `TransportClient`).
+server; with `serve_inference` an `InferenceServer` on the learner's
+device that answers OP_ACT), `--mode actor --task k` (an actor whose
+queue and weight store are `RemoteQueue` / `RemoteWeights` over one
+`TransportClient`; with `remote_act` it acts through `RemoteInference`,
+the learner's service, or `RemoteActService` over the replicas that
+`DRL_INFER_ADDRS` names, and pulls no weights), or `--mode inference
+--task k` (an act-serving replica, `runtime/serving.run_replica`).
 Co-hosted roles take the JAX package's shared-memory planes by the same
 names: a learner with `DRL_SHM_RING_CREATE` drains one shm ring per
 actor into the queue this server feeds (`runtime/shm_ring.py`), and with
@@ -30,11 +42,9 @@ actor into the queue this server feeds (`runtime/shm_ring.py`), and with
 board (`runtime/weight_board.py`); an actor with `DRL_SHM_RING_NAME` /
 `DRL_SHM_WEIGHTS_NAME` puts and pulls through them, demoting to TCP if
 they fail. Left out, each refused with a ValueError that names its
-ROADMAP item: serving acts (`--serve_inference`, `--remote_act`, `--mode
-inference`; the server answers OP_ACT with ST_UNAVAILABLE), sharded
-weight publication (`DRL_WEIGHTS_SHARDED`), the learner tier and
-multi-host learners, and the fused device sample path
-(`DRL_DEVICE_PATH`). The learner's queue is
+ROADMAP item: sharded weight publication (`DRL_WEIGHTS_SHARDED`), the
+learner tier and multi-host learners, the on-device loop and the fused
+device sample path (`DRL_DEVICE_PATH`). The learner's queue is
 `_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
 wherever the native library builds, else the Python `TrajectoryQueue`.
 A replay learner (Ape-X, R2D2) serves, as the JAX package's does by
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import socket
 import struct
 import sys
@@ -71,7 +82,7 @@ OP_PUT_TRAJ = 1
 OP_GET_WEIGHTS = 2
 OP_QUEUE_SIZE = 3
 OP_PING = 4
-OP_ACT = 5  # remote inference: never served by the port (ST_UNAVAILABLE)
+OP_ACT = 5  # served acts (runtime/inference.py); ST_UNAVAILABLE without a service
 OP_PUT_TRAJ_N = 6  # K unrolls per round trip
 OP_GET_WEIGHTS_SHARDED = 7  # the port's store is unsharded: ST_UNAVAILABLE
 OP_REGISTER = 8  # fleet control plane: member registration (runtime/fleet.py)
@@ -116,6 +127,43 @@ def unpack_batch(payload) -> list[memoryview]:
 
 class TransportError(ConnectionError):
     pass
+
+
+class InferenceUnavailableError(RuntimeError):
+    """OP_ACT permanently unserved (a learner without --serve_inference).
+    Not a TransportError: the actor's grace loop would ride it out as an
+    outage, and a misconfigured learner never recovers."""
+
+
+class InferenceBusyError(RuntimeError):
+    """OP_ACT answered ST_BUSY: the service's admission budget is full.
+    Not a TransportError: a busy replica is alive and must not be
+    demoted; RemoteActService fails the request over to a sibling, and
+    `remote_act(busy_retry=True)` retries it."""
+
+
+class RemoteActFailed(TransportError):
+    """OP_ACT answered ST_ERROR: the endpoint is alive but this request,
+    or the batch it joined, failed on the serving side. A TransportError,
+    so a single-endpoint actor's grace loop retries; RemoteActService
+    tells it apart and does not demote the replica that reported it."""
+
+
+class _BusyBackoff:
+    """The act paths' ST_BUSY wait: full jitter around an exponential base
+    (capped at 50 ms), bounded by a deadline from the first busy reply."""
+
+    def __init__(self, timeout: float, rng: random.Random):
+        self.timeout = timeout
+        self.deadline = time.monotonic() + timeout
+        self._delay = 2e-3
+        self._rng = rng
+
+    def sleep_or_raise(self, what: str) -> None:
+        if time.monotonic() >= self.deadline:
+            raise TransportError(f"{what} busy for >{self.timeout:.0f}s")
+        time.sleep(self._rng.uniform(0.5, 1.5) * self._delay)
+        self._delay = min(2 * self._delay, 0.05)
 
 
 class ShardedWeightsUnavailableError(RuntimeError):
@@ -212,8 +260,10 @@ class _LockedStatsMixin:
 
 class TransportServer(_LockedStatsMixin):
     """Learner-side service: serves the queue and the weight store (which
-    must have `get_blob` and `version`), and a fleet supervisor's ops when
-    one is given."""
+    must have `get_blob` and `version`), an act service's OP_ACT
+    (`inference`, an `InferenceServer`) and a fleet supervisor's ops when
+    they are given. Queue-less (`queue` None: an act-serving replica), it
+    answers the trajectory ops with ST_UNAVAILABLE."""
 
     _GUARDED_BY = {
         "stats": "_stats_lock",
@@ -225,10 +275,12 @@ class TransportServer(_LockedStatsMixin):
                  "closes it cross-thread on purpose to end the accept loop",
     }
 
-    def __init__(self, queue, weights, host: str = "0.0.0.0", port: int = 8000, fleet=None):
+    def __init__(self, queue, weights, host: str = "0.0.0.0", port: int = 8000, fleet=None,
+                 inference=None):
         self.queue = queue
         self.weights = weights
         self.fleet = fleet
+        self.inference = inference
         self.host, self.port = host, port
         self._sock: socket.socket | None = None
         self._threads: list[threading.Thread] = []
@@ -237,7 +289,7 @@ class TransportServer(_LockedStatsMixin):
         self._conns_lock = threading.Lock()
         self.stats = {"unrolls_accepted": 0, "busy_replies": 0, "partial_accepts": 0,
                       "weight_sends": 0, "weight_bytes_sent": 0, "bytes_received": 0,
-                      "fleet_msg_errors": 0}
+                      "fleet_msg_errors": 0, "acts_served": 0, "act_busy_replies": 0}
         self._stats_lock = threading.Lock()
 
     def start(self) -> "TransportServer":
@@ -264,7 +316,9 @@ class TransportServer(_LockedStatsMixin):
         (`DRL_TRANSPORT_STATS_S`)."""
         while not self._stop.wait(interval):
             s = self.snapshot_stats()
-            print(f"[transport] depth={self.queue.size()} unrolls={s['unrolls_accepted']} "
+            depth = self.queue.size() if self.queue is not None else 0
+            print(f"[transport] depth={depth} acts={s['acts_served']} "
+                  f"unrolls={s['unrolls_accepted']} "
                   f"busy={s['busy_replies']} partial={s['partial_accepts']} "
                   f"weight_sends={s['weight_sends']}", file=sys.stderr, flush=True)
 
@@ -380,7 +434,10 @@ class TransportServer(_LockedStatsMixin):
             except (TransportError, OSError):
                 return
             try:
-                if op == OP_PUT_TRAJ:
+                if self.queue is None and op in (OP_PUT_TRAJ, OP_PUT_TRAJ_N, OP_QUEUE_SIZE):
+                    # A queue-less endpoint (a replica) never takes trajectories.
+                    _send_msg(conn, ST_UNAVAILABLE)
+                elif op == OP_PUT_TRAJ:
                     self._bump("bytes_received", len(payload))
                     ok = self._enqueue_many([payload]) == 1
                     self._bump("unrolls_accepted" if ok else "busy_replies")
@@ -413,9 +470,28 @@ class TransportServer(_LockedStatsMixin):
                         self._bump("weight_bytes_sent", len(blob))
                         conn_version = version
                         _send_msg(conn, ST_OK, _I64.pack(version), blob)
-                elif op in (OP_GET_WEIGHTS_SHARDED, OP_ACT):
-                    # Unsharded store; no act service (ROADMAP items 12d, 12e).
+                elif op == OP_GET_WEIGHTS_SHARDED:
+                    # Unsharded store (ROADMAP item 12e).
                     _send_msg(conn, ST_UNAVAILABLE)
+                elif op == OP_ACT:
+                    # Its own RuntimeError handling: a failed act (no weights
+                    # yet, a bad request, a failed batch) answers ST_ERROR,
+                    # never the queue-closed ST_CLOSED below; an admission
+                    # reject (`retryable`) answers ST_BUSY.
+                    if self.inference is None:
+                        _send_msg(conn, ST_UNAVAILABLE)
+                    else:
+                        try:
+                            out = self.inference.submit(codec.decode(payload, copy=True))
+                        except RuntimeError as e:
+                            if getattr(e, "retryable", False):
+                                self._bump("act_busy_replies")
+                                _send_msg(conn, ST_BUSY)
+                            else:
+                                _send_msg(conn, ST_ERROR)
+                        else:
+                            self._bump("acts_served")
+                            _send_msg(conn, ST_OK, codec.encode(out))
                 elif op in (OP_REGISTER, OP_HEARTBEAT):
                     if self.fleet is None:
                         _send_msg(conn, ST_UNAVAILABLE)
@@ -449,11 +525,19 @@ class TransportServer(_LockedStatsMixin):
                 return
 
 
+# A connected client's reconnect tries, for the clients that set
+# `reconnect_retries`: a peer that was up and went away is dead, not
+# starting, so the start-up budget (`connect_retries`) no longer applies.
+RECONNECT_RETRIES = 3
+
+
 class TransportClient(_LockedStatsMixin):
     """Actor-side connection with bounded-retry reconnect. One lock
-    serialises each request/reply exchange, reconnects included."""
+    serialises each request/reply exchange, reconnects included. Once it
+    has connected, a reconnect tries at most `reconnect_retries` times
+    when that is set (RECONNECT_RETRIES at every call site that does)."""
 
-    _GUARDED_BY = {"_sock": "_lock", "stats": "_stats_lock"}
+    _GUARDED_BY = {"_sock": "_lock", "_connected": "_lock", "stats": "_stats_lock"}
     _NOT_GUARDED = {
         "_admission": "set once by the actor's runner (set_admission) before "
                       "any PUT; the controller locks itself",
@@ -461,28 +545,37 @@ class TransportClient(_LockedStatsMixin):
 
     def __init__(self, host: str, port: int, connect_retries: int = 60,
                  retry_interval: float = 1.0, busy_timeout: float = 90.0,
-                 connect: bool = True):
+                 connect: bool = True, reconnect_retries: int | None = None):
         self.host, self.port = host, port
         self.connect_retries = connect_retries
+        self.reconnect_retries = reconnect_retries
+        self._connected = False
         self.retry_interval = retry_interval
         self.busy_timeout = busy_timeout
         self._sock: socket.socket | None = None
         self._lock = threading.Lock()
         self.stats = {"unrolls_sent": 0, "busy_waits": 0, "partial_accepts": 0,
                       "weight_pulls": 0, "weight_bytes_received": 0,
-                      "unrolls_admission_dropped": 0}
+                      "unrolls_admission_dropped": 0, "acts": 0, "act_busy_waits": 0}
         self._stats_lock = threading.Lock()
         self._admission = None  # data/admission.AdmissionController
+        # Jittered act-busy backoff: fixed seeds would march rejected
+        # actors back in lockstep.
+        self._jitter = random.Random()
         if connect:
             self._connect_locked()
 
     def _connect_locked(self) -> None:
         last: Exception | None = None
-        for _ in range(self.connect_retries):
+        tries = self.connect_retries
+        if self._connected and self.reconnect_retries is not None:
+            tries = min(tries, self.reconnect_retries)
+        for _ in range(tries):
             try:
                 sock = socket.create_connection((self.host, self.port), timeout=300.0)
                 sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 self._sock = sock
+                self._connected = True
                 return
             except OSError as e:
                 last = e
@@ -662,6 +755,35 @@ class TransportClient(_LockedStatsMixin):
         raise ValueError("the learner publishes sharded weights; sharded pulls are not "
                          "ported (ROADMAP item 12e)")
 
+    def remote_act(self, request: dict, busy_retry: bool = True) -> dict:
+        """A served act: ship the family's observation rows, get its action
+        rows, computed with the service's newest weights. Resend-safe
+        (acting twice on the same rows is a fresh sample). ST_BUSY is
+        retried with jittered backoff up to `busy_timeout`; with
+        `busy_retry=False` it raises InferenceBusyError, so a caller with
+        several endpoints can fail over instead."""
+        blob = codec.encode(request)
+        backoff: _BusyBackoff | None = None
+        while True:
+            status, resp = self._exchange(OP_ACT, blob, retry=True, resend=True)
+            if status == ST_BUSY:
+                self._bump("act_busy_waits")
+                if not busy_retry:
+                    raise InferenceBusyError("inference service admission budget full")
+                backoff = backoff or _BusyBackoff(self.busy_timeout, self._jitter)
+                backoff.sleep_or_raise("inference service")
+                continue
+            if status == ST_UNAVAILABLE:
+                raise InferenceUnavailableError(
+                    "endpoint does not serve inference "
+                    "(start the learner with --serve_inference)")
+            if status == ST_CLOSED:
+                raise TransportError("learner closed the data plane")
+            if status != ST_OK:
+                raise RemoteActFailed("remote act failed on the serving side")
+            self._bump("acts")
+            return codec.decode(resp, copy=True)
+
     def queue_size(self) -> int:
         return _I64.unpack(self._call(OP_QUEUE_SIZE))[0]
 
@@ -780,6 +902,204 @@ class ShardedRemoteWeights(RemoteWeights):
         return super().get_if_newer(have_version)
 
 
+class RemoteInference:
+    """An actor's act surface over one endpoint's OP_ACT (the learner's
+    service): callable with the family's row dict, -> the reply dict."""
+
+    def __init__(self, client: TransportClient):
+        self._client = client
+
+    def __call__(self, request: dict) -> dict:
+        return self._client.remote_act(request)
+
+
+class RemoteActService(_LockedStatsMixin):
+    """An actor's act surface over a replicated serving tier: N replica
+    endpoints, and the learner's own service as the fallback.
+
+    Each request goes to the live endpoint with the fewest requests in
+    flight (a rotating cursor breaks ties). ST_BUSY fails over at once to
+    a live replica that has not refused this round; only when all have
+    does the request back off with jitter (up to `busy_timeout`) and start
+    a new round. A dead replica (TransportError or OSError after the
+    client's own reconnects) is demoted, and acts skip it from then on;
+    `reattach()` (the fleet heartbeat's cadence, never the act path) pings
+    demoted replicas on a bounded ladder each and re-promotes one that
+    answers. ST_ERROR (RemoteActFailed) propagates without a demotion: one
+    bad request must not take a healthy replica out. With every replica
+    demoted, requests go to the learner's client.
+
+    An endpoint connects with `connect_retries` tries (60 x 1 s from
+    `from_addrs`: at topology start a replica binds its port only after
+    the learner's first publish), and once it has connected reconnects
+    with `RECONNECT_RETRIES`: a replica that dies mid-run is demoted after
+    ~3 s, where the JAX package's tier keeps the start-up budget for the
+    whole run and stalls each actor's in-flight act ~60 s on it (ROADMAP
+    F9).
+
+    `_sel_lock` covers the selection state that actor threads race on;
+    the endpoint list is fixed after construction, each client locks
+    itself."""
+
+    _GUARDED_BY = {"stats": "_stats_lock", "_pending": "_sel_lock", "_dead": "_sel_lock",
+                   "_rr": "_sel_lock"}
+    _NOT_GUARDED = {
+        "_endpoints": "fixed after construction; each client serialises itself",
+        "_ladders": "fixed after construction; each RetryLadder locks itself",
+    }
+
+    surface_name = "remote_act"  # the fleet heartbeat's registration label
+
+    def __init__(self, endpoints: list[TransportClient], fallback: TransportClient | None = None,
+                 busy_timeout: float = 90.0):
+        from distributed_reinforcement_learning_tpu_torch.runtime.fleet import RetryLadder
+
+        self._endpoints = list(endpoints)
+        self._fallback = fallback
+        self.busy_timeout = busy_timeout
+        self._sel_lock = threading.Lock()
+        self._pending = [0] * len(self._endpoints)
+        self._dead = [False] * len(self._endpoints)
+        self._rr = 0
+        self.stats = {"acts": 0, "busy_failovers": 0, "replica_demotes": 0,
+                      "fallback_acts": 0, "replica_repromotes": 0}
+        self._stats_lock = threading.Lock()
+        self._jitter = random.Random()
+        self._ladders = [RetryLadder(f"replica-{c.host}:{c.port}") for c in self._endpoints]
+
+    @classmethod
+    def from_addrs(cls, addrs: list[str], fallback: TransportClient | None = None,
+                   connect_retries: int = 60, **kwargs) -> "RemoteActService":
+        """From "host:port" strings. Endpoints connect on their first act;
+        the generous default retries cover a replica that binds its port
+        only after the learner's first publish."""
+        clients = []
+        for addr in addrs:
+            host, _, p = addr.rpartition(":")
+            clients.append(TransportClient(host, int(p), connect=False,
+                                           connect_retries=connect_retries,
+                                           reconnect_retries=RECONNECT_RETRIES))
+        return cls(clients, fallback=fallback, **kwargs)
+
+    def _pick(self, skip: set | frozenset = frozenset()) -> int | None:
+        """Take a slot on the live endpoint with the fewest requests in
+        flight, outside `skip`; None when there is none."""
+        with self._sel_lock:
+            n = len(self._endpoints)
+            best: int | None = None
+            for off in range(n):
+                i = (self._rr + off) % n
+                if self._dead[i] or i in skip:
+                    continue
+                if best is None or self._pending[i] < self._pending[best]:
+                    best = i
+            if best is None:
+                return None
+            self._rr += 1
+            self._pending[best] += 1
+            return best
+
+    def _release(self, i: int) -> None:
+        with self._sel_lock:
+            self._pending[i] -= 1
+
+    def _demote(self, i: int) -> None:
+        with self._sel_lock:
+            was_dead, self._dead[i] = self._dead[i], True
+        if not was_dead:
+            self._bump("replica_demotes")
+            ep = self._endpoints[i]
+            print(f"[remote_act] WARNING: inference replica {ep.host}:{ep.port} demoted (dead)",
+                  file=sys.stderr, flush=True)
+            try:
+                ep.close()
+            except OSError:
+                pass
+
+    def __call__(self, request: dict) -> dict:
+        backoff: _BusyBackoff | None = None
+        busy_round: set[int] = set()
+        while True:
+            i = self._pick(skip=busy_round)
+            if i is None:
+                if busy_round and self.live_endpoints() > 0:
+                    # Every live replica refused this round: back off, then
+                    # a fresh round.
+                    backoff = backoff or _BusyBackoff(self.busy_timeout, self._jitter)
+                    backoff.sleep_or_raise("inference tier")
+                    busy_round.clear()
+                    continue
+                if self._fallback is None:
+                    raise TransportError("no live inference replicas and no learner fallback")
+                self._bump("fallback_acts")
+                out = self._fallback.remote_act(request)
+                self._bump("acts")
+                return out
+            try:
+                out = self._endpoints[i].remote_act(request, busy_retry=False)
+            except InferenceBusyError:
+                self._bump("busy_failovers")  # saturated, not dead
+                busy_round.add(i)
+            except RemoteActFailed:
+                raise  # alive: the caller's grace loop owns the retry
+            except (InferenceUnavailableError, TransportError, OSError):
+                # Dead or misrouted: demote and act again on a survivor
+                # (resend-safe, so no request is lost while one is up).
+                self._demote(i)
+            else:
+                self._bump("acts")
+                return out
+            finally:
+                self._release(i)
+
+    def live_endpoints(self) -> int:
+        with self._sel_lock:
+            return sum(not d for d in self._dead)
+
+    def reattach(self, ctx=None) -> None:
+        """Ping demoted replicas, each on its bounded ladder, and
+        re-promote those that answer (a respawned replica)."""
+        del ctx  # replicas carry no shm identity to check
+        with self._sel_lock:
+            dead = [i for i, d in enumerate(self._dead) if d]
+        for i in dead:
+            ladder = self._ladders[i]
+            if not ladder.try_acquire():
+                continue
+            ep = self._endpoints[i]
+            # A short probe, then the act path's reconnect budget back.
+            saved, ep.connect_retries = ep.connect_retries, 1
+            try:
+                alive = ep.ping()
+            finally:
+                ep.connect_retries = saved
+            if alive:
+                with self._sel_lock:
+                    self._dead[i] = False
+                ladder.note_success()
+                self._bump("replica_repromotes")
+                print(f"[remote_act] inference replica {ep.host}:{ep.port} re-promoted "
+                      f"(answered ping)", file=sys.stderr, flush=True)
+            else:
+                ladder.note_failure()
+
+    def reset_reattach(self) -> None:
+        """Fresh probe budgets (a learner epoch change)."""
+        for ladder in self._ladders:
+            ladder.reset()
+
+    def close(self) -> None:
+        """Close the replica clients (the fallback is the caller's)."""
+        with self._sel_lock:
+            dead = list(self._dead)
+        for i, client in enumerate(self._endpoints):
+            if not dead[i]:
+                try:
+                    client.close()
+                except OSError:
+                    pass
+
+
 def resolve_learner_addr(rt) -> tuple[str, int]:
     """The learner's address:
 
@@ -800,12 +1120,10 @@ def _truthy(name: str) -> bool:
     return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
 
 
-def refuse_unported(mode: str, serve_inference: bool = False, remote_act: bool = False) -> None:
+def refuse_unported(mode: str) -> None:
     """Raise a ValueError naming the ROADMAP item for each plane of the
-    JAX topology that the caller asks for and the port lacks."""
-    if mode == "inference" or serve_inference or remote_act:
-        raise ValueError("serving acts (--serve_inference, --remote_act, --mode inference) "
-                         "is not ported (ROADMAP item 12d)")
+    JAX topology that the caller asks for and the port lacks. Every mode,
+    the act-serving ones included, takes these refusals."""
     if mode == "anakin":
         raise ValueError("the on-device loop (--mode anakin) is not ported (ROADMAP item 14)")
     if _truthy("DRL_WEIGHTS_SHARDED"):
@@ -854,8 +1172,11 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
              checkpoint_dir: str | None = None, checkpoint_interval: int = 500,
              actor_grace: float = 120.0, device: str | torch.device | None = None,
              serve_inference: bool = False, remote_act: bool = False) -> dict:
-    """One process of the reference topology: `--mode learner` or `--mode
-    actor --task k`. Runs on CUDA unless `device` names another device.
+    """One process of the reference topology: `--mode learner`, `--mode
+    actor --task k` or `--mode inference --task k` (an act-serving
+    replica, `runtime/serving.run_replica`, which stops once the learner
+    has been gone for `actor_grace` seconds). Runs on CUDA unless
+    `device` names another device.
 
     The learner prints `[learner] serving on :<port>` when it listens,
     `[learner] done: N updates` when it stops, then one JSON line: train
@@ -872,14 +1193,28 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     completed rounds, seconds from its first round's start to its last
     round's end, the env steps it took with a round cut short by the
     learner's exit included and the seconds they took, the newest weight
-    version it held). -> the printed dict."""
+    version it held).
+
+    With `serve_inference` the learner also answers OP_ACT through an
+    `InferenceServer` on its own device (seed `seed + 7777`), logs
+    `[learner] SEED-style inference service enabled`, and its JSON holds
+    the service's counters and latency (`inference`). With `remote_act` an
+    actor acts through the learner's service, or through the replicas
+    `DRL_INFER_ADDRS` names (the learner as the fallback), pulls no
+    weights, and its JSON holds the acts' round trip (`remote_act`).
+    -> the printed dict."""
     from distributed_reinforcement_learning_tpu_torch.runtime import fleet as fleet_mod
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
     from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
     from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
     from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 
-    refuse_unported(mode, serve_inference, remote_act)
+    refuse_unported(mode)
+    if mode == "inference":
+        from distributed_reinforcement_learning_tpu_torch.runtime import serving
+
+        return serving.run_replica(algo, config_path, section, task=task, seed=seed,
+                                   run_dir=run_dir, grace=actor_grace, device=device)
     if mode not in ("learner", "actor"):
         raise ValueError(f"unknown mode {mode!r}")
     agent_cfg, rt = load_config(config_path, section)
@@ -946,11 +1281,21 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             ckpt = Checkpointer(checkpoint_dir)
             if learner.restore_checkpoint(ckpt):
                 print(f"[learner] resumed from step {learner.train_steps}", flush=True)
+        inference = None
+        if serve_inference:
+            from distributed_reinforcement_learning_tpu_torch.runtime.inference import (
+                InferenceServer)
+
+            # Acts on the learner's device and its current stream, behind
+            # the learn steps already enqueued there (ordered after each
+            # publish's device snapshot).
+            inference = InferenceServer.for_agent(algo, learner.agent, weights, seed=seed + 7777)
+            print(f"[learner] SEED-style inference service enabled on {device}", flush=True)
         supervisor = fleet_mod.FleetSupervisor().start() if fleet_mod.fleet_enabled() else None
         if supervisor is not None and replay_service is not None:
             supervisor.watch(ingest_queue)  # revives dead shards on its sweep
         server = TransportServer(ingest_queue, weights, host="0.0.0.0", port=port,
-                                 fleet=supervisor).start()
+                                 fleet=supervisor, inference=inference).start()
         # Co-hosted actors' zero-copy data plane: the launcher names one
         # ring per co-hosted actor; this side creates the segments and
         # drains them into the same queue the TCP server feeds (the
@@ -974,6 +1319,13 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 fleet_mod.register_supervisor_telemetry(supervisor)
             if replay_service is not None:
                 replay_shard.register_telemetry(replay_service)
+            if inference is not None:
+                _OBS.sample("inference/rows_served", lambda: inference.rows_served,
+                            kind="counter")
+                _OBS.sample("inference/batches_run", lambda: inference.batches_run,
+                            kind="counter")
+                _OBS.sample("inference/admission_rejects", inference.admission_reject_count,
+                            kind="counter")
             if ring_drainer is not None:
                 _OBS.sample("ring/depth", ring_drainer.depth_bytes)
                 for key in ring_drainer.snapshot_stats():
@@ -1012,6 +1364,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 board.close_writer()  # attached actors demote to TCP
                 board.close()
                 board.unlink()
+            if inference is not None:
+                inference.stop()
             replay_stats = _service_summary(replay_service, ingest_queue)
             if replay_service is not None:
                 replay_service.close()  # stop the update-router thread
@@ -1049,6 +1403,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "shutdown_at": shutdown_at,
             "rings": None if ring_drainer is None else ring_drainer.snapshot_stats(),
             "board": None if board is None else weights.board_stats(),
+            "inference": None if inference is None else inference.stats(),
             "peak_device_mib": (torch.cuda.max_memory_allocated(device) / 2**20
                                 if device.type == "cuda" else None),
         }
@@ -1102,8 +1457,22 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                   f"[actor {task}] shm weight board {board_name} unavailable; starting demoted "
                   f"to TCP pulls (reattach ladder armed)", flush=True)
     timed = _TimedWeights(weights)
+    # Served acts: through the replicas the launcher names (round-robin
+    # with a least-pending bias, dead ones demoted, the learner's service
+    # as the fallback), else through the learner's service.
+    remote: Any = None
+    if remote_act:
+        infer_addrs = [a for a in os.environ.get("DRL_INFER_ADDRS", "").split(",") if a]
+        if infer_addrs:
+            remote = RemoteActService.from_addrs(infer_addrs, fallback=client)
+            print(f"[actor {task}] remote act via {len(infer_addrs)} inference replica(s)",
+                  flush=True)
+        else:
+            remote = RemoteInference(client)
+            print(f"[actor {task}] remote act via the learner's inference service", flush=True)
+    timed_act = None if remote is None else _TimedAct(remote)
     actor = launch.make_actor(algo, agent_cfg, rt, task, queue, timed, seed=seed + 1 + task,
-                              device=device)
+                              device=device, remote_act=timed_act)
     from distributed_reinforcement_learning_tpu_torch.runtime import actor_pipeline
 
     pub_client = None
@@ -1128,7 +1497,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     # segments come back into service.
     heartbeats = fleet_mod.start_member_loop(
         rt, "actor", task,
-        surfaces=[s for s in (queue, weights) if hasattr(s, "reattach")],
+        surfaces=[s for s in (queue, weights, remote) if hasattr(s, "reattach")],
         version_fn=lambda: getattr(actor, "_version", -1))
     if maybe_configure("actor", task, run_dir):
         for key in client.snapshot_stats():
@@ -1136,7 +1505,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         _OBS.sample("actor/weight_version_held", lambda: getattr(actor, "_version", -1))
         if heartbeats is not None:
             fleet_mod.register_member_telemetry(heartbeats)
-        for prefix, surface in (("ring", queue), ("board", weights)):
+        for prefix, surface in (("ring", queue), ("board", weights), ("remote_act", remote)):
             if hasattr(surface, "snapshot_stats"):
                 for key in surface.snapshot_stats():
                     _OBS.sample(f"{prefix}/{key}", lambda k=key, s=surface: s.stat(k),
@@ -1189,7 +1558,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             actor.close()
         if pub_client is not None:
             pub_client.close()
-        for surface in (queue, weights):
+        for surface in (queue, weights, remote):
             if hasattr(surface, "reattach"):
                 surface.close()
         client.close()
@@ -1201,6 +1570,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                "weight_version": max_version, "transport": client.snapshot_stats(),
                "weight_pulls": timed.summary(),
                "ring": _surface_summary(queue), "board": _surface_summary(weights),
+               "remote_act": None if timed_act is None else timed_act.summary(),
                "admission": None if admission_ctrl is None else admission_ctrl.snapshot()}
     print(json.dumps(summary), flush=True)
     return summary
@@ -1229,6 +1599,37 @@ class _TimedWeights:
         return {"surface": type(self.inner).__name__, "pulls": len(self.pull_ms),
                 "pull_ms_p50": p50(self.pull_ms), "checks": len(self.check_ms),
                 "check_ms_p50": p50(self.check_ms)}
+
+
+class _TimedAct:
+    """An actor's served-act surface with each act's round trip kept (ms,
+    the last 4096) and the acts that raised counted (a lost request)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        # The act worker and the main thread take turns, never together.
+        self.acts = 0
+        self.failed = 0
+        self.ms: deque = deque(maxlen=4096)
+
+    def __call__(self, request: dict) -> dict:
+        t0 = time.perf_counter()
+        try:
+            out = self.inner(request)
+        except Exception:
+            self.failed += 1
+            raise
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.acts += 1
+        return out
+
+    def summary(self) -> dict:
+        ms = list(self.ms)
+        return {"surface": type(self.inner).__name__, "acts": self.acts, "failed": self.failed,
+                "act_ms_p50": float(np.percentile(ms, 50)) if ms else None,
+                "act_ms_p99": float(np.percentile(ms, 99)) if ms else None,
+                "service": (self.inner.snapshot_stats()
+                            if hasattr(self.inner, "snapshot_stats") else None)}
 
 
 def _surface_summary(surface) -> dict | None:

@@ -18,8 +18,8 @@ exploration before then. The actor has the pipeline's slice protocol,
 with the window persisting across rounds per slice; an act the pipeline
 discards is un-pushed (`slice_discard_act`). `timeout_nonterminal`
 records a time-limit truncation as non-terminal, as `R2D2Actor` does.
-
-Not ported: `remote_act` (ROADMAP item 12d).
+With `remote_act` the windows and epsilons go to a service as rows, the
+windows stay here, and no weights are pulled.
 """
 
 from __future__ import annotations
@@ -60,11 +60,13 @@ class XformerActor:
         epsilon_floor: float = 0.15,
         timeout_nonterminal: bool = False,  # see R2D2Actor
         obs_transform=None,  # e.g. envs.cartpole.pomdp_project
+        remote_act=None,  # a served act: row dict -> reply dict; no weight pulls
     ):
         self.agent = agent
         self.env = env
         self.queue = queue
         self.weights = weights
+        self.remote_act = remote_act
         self.epsilon_decay = epsilon_decay
         self.epsilon_floor = epsilon_floor
         self.timeout_nonterminal = timeout_nonterminal
@@ -98,6 +100,10 @@ class XformerActor:
             self._params, self._version = got
 
     def _act(self, params, win_obs, win_pa, win_done, episodes, generator) -> np.ndarray:
+        if self.remote_act is not None:
+            r = self.remote_act({"obs": win_obs, "prev_action": win_pa, "done": win_done,
+                                 "epsilon": self._epsilon(episodes).astype(np.float32)})
+            return np.asarray(r["action"], np.int32)
         device = self.agent.device
         action, _ = self.agent.act(
             params, torch.as_tensor(win_obs, device=device),
@@ -110,9 +116,10 @@ class XformerActor:
         """One seq_len unroll from all envs -> N sequences into the queue.
         Returns the number of env frames generated (N * seq_len)."""
         cfg = self.agent.cfg
-        self._sync_params()
-        if self._params is None:
-            raise RuntimeError("no weights published yet")
+        if self.remote_act is None:
+            self._sync_params()
+            if self._params is None:
+                raise RuntimeError("no weights published yet")
         acc = XformerSequenceAccumulator()
         n = self._obs.shape[0]
 
@@ -171,7 +178,7 @@ class XformerActor:
     pipeline_sync_weights = sync_slices_params
 
     def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
-        if sl.params is None:
+        if self.remote_act is None and sl.params is None:
             raise RuntimeError("no weights published yet")
         self._slice_accs.reset_slice(sl.index)
 

@@ -7,8 +7,9 @@ and `run_async` are topology only, so all three are reused. Only the
 actor differs from `ImpalaActor`: instead of carrying (h, c) it keeps a
 window of the current unroll's steps and records the window-final
 softmax as the behavior policy; it has the pipeline's slice protocol.
-
-Not ported: `remote_act`.
+With `remote_act` the windows go to a service as rows (the action and
+the behaviour policy come back), the windows stay here, and no weights
+are pulled.
 """
 
 from __future__ import annotations
@@ -48,11 +49,13 @@ class XImpalaActor:
         available_action: int | None = None,
         life_loss_shaping: bool = False,
         obs_transform=None,  # e.g. envs.cartpole.pomdp_project
+        remote_act=None,  # a served act: row dict -> reply dict; no weight pulls
     ):
         self.agent = agent
         self.env = env
         self.queue = queue
         self.weights = weights
+        self.remote_act = remote_act
         self.available_action = available_action
         self.life_loss_shaping = life_loss_shaping
         self.obs_transform = obs_transform or (lambda x: x)
@@ -79,6 +82,19 @@ class XImpalaActor:
         if got is not None:
             self._params, self._version = got
 
+    def _act(self, params, win_obs, win_pa, win_done, generator) -> tuple:
+        """One batched act over the windows -> host (action, behaviour
+        policy): through the service when `remote_act` is set, else the
+        agent's act."""
+        if self.remote_act is not None:
+            r = self.remote_act({"obs": win_obs, "prev_action": win_pa, "done": win_done})
+            return np.asarray(r["action"], np.int32), np.asarray(r["policy"])
+        device = self.agent.device
+        out = self.agent.act(
+            params, torch.as_tensor(win_obs, device=device), torch.as_tensor(win_pa, device=device),
+            torch.as_tensor(win_done, device=device), generator)
+        return out.action.cpu().numpy().astype(np.int32), out.policy.cpu().numpy()
+
     def run_unroll(self) -> int:
         """Collect one T-step unroll from all N envs; enqueue N trajectories.
 
@@ -89,10 +105,10 @@ class XImpalaActor:
         conditioning. Returns the number of env frames generated (N * T).
         """
         cfg = self.agent.cfg
-        device = self.agent.device
-        self._sync_params()
-        if self._params is None:
-            raise RuntimeError("no weights published yet")
+        if self.remote_act is None:
+            self._sync_params()
+            if self._params is None:
+                raise RuntimeError("no weights published yet")
         acc = XImpalaTrajectoryAccumulator()
         n = self._obs.shape[0]
         self._win_obs[:] = 0
@@ -102,11 +118,8 @@ class XImpalaActor:
         for _ in range(cfg.trajectory):
             push_window(self._win_obs, self._win_pa, self._win_done, self._obs,
                         self._prev_action)
-            out = self.agent.act(
-                self._params, torch.as_tensor(self._win_obs, device=device),
-                torch.as_tensor(self._win_pa, device=device),
-                torch.as_tensor(self._win_done, device=device), self._generator)
-            action = out.action.cpu().numpy().astype(np.int32)
+            action, policy = self._act(self._params, self._win_obs, self._win_pa,
+                                       self._win_done, self._generator)
             env_actions = action % self.available_action if self.available_action else action
             next_obs_raw, reward, done, infos = self.env.step(env_actions)
             next_obs = self.obs_transform(next_obs_raw)
@@ -122,7 +135,7 @@ class XImpalaActor:
                 action=action,
                 done=rec_done,  # shaped -> V-trace discounts
                 env_done=done,  # true episode ends -> attention segments
-                behavior_policy=out.policy.cpu().numpy(),
+                behavior_policy=policy,
                 previous_action=self._prev_action,
             )
 
@@ -167,7 +180,7 @@ class XImpalaActor:
     pipeline_sync_weights = sync_slices_params
 
     def slice_begin_round(self, sl: PipelineSlice, steps: int) -> None:
-        if sl.params is None:
+        if self.remote_act is None and sl.params is None:
             raise RuntimeError("no weights published yet")
         self._slice_accs.reset_slice(sl.index)
         sl.win_obs[:] = 0
@@ -176,12 +189,7 @@ class XImpalaActor:
 
     def slice_act(self, sl: PipelineSlice) -> tuple:
         push_window(sl.win_obs, sl.win_pa, sl.win_done, sl.obs, sl.prev_action)
-        device = self.agent.device
-        out = self.agent.act(
-            sl.params, torch.as_tensor(sl.win_obs, device=device),
-            torch.as_tensor(sl.win_pa, device=device),
-            torch.as_tensor(sl.win_done, device=device), sl.generator)
-        return out.action.cpu().numpy().astype(np.int32), out.policy.cpu().numpy()
+        return self._act(sl.params, sl.win_obs, sl.win_pa, sl.win_done, sl.generator)
 
     def slice_step(self, sl: PipelineSlice, out: tuple) -> tuple:
         action, policy = out

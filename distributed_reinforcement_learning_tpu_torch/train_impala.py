@@ -12,13 +12,19 @@
   Co-hosted roles also take the shm rings and the weight board by the
   JAX package's `DRL_SHM_*` names; `launch_local_cluster.py` starts the
   whole topology and names them.
+- Served acts: `--serve_inference` makes the learner answer acts on its
+  device; `--remote_act` actors act through it (or through the replicas
+  `DRL_INFER_ADDRS` names) and pull no weights; `--mode inference --task
+  k` runs an act-serving replica (`runtime/serving.py`) that reads the
+  learner's weight board, or pulls over TCP. Local mode ignores the two
+  flags, as the JAX launchers do.
 
 Every mode runs on CUDA unless `--device` names another device: start
 actors with `--device cpu` to keep them off the card. Not ported, and
 refused with a ValueError naming the ROADMAP item: `--mode anakin`
-(item 14), `--mode inference`, `--serve_inference` and `--remote_act`
-(serving, item 12d), `DRL_WEIGHTS_SHARDED` (item 12e), the learner tier
-and multi-host learners (item 13) and `DRL_DEVICE_PATH` (item 16).
+(item 14), `DRL_WEIGHTS_SHARDED` and `DRL_WEIGHTS_KEYS` (item 12e), the
+learner tier and multi-host learners (item 13) and `DRL_DEVICE_PATH`
+(item 16).
 """
 
 from __future__ import annotations
@@ -48,11 +54,12 @@ def run_cli(doc: str, algo: str, section: str, argv: list[str] | None) -> dict:
                     help="actor mode: seconds to ride out a learner outage before exiting")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--serve_inference", action="store_true",
-                    help="learner mode: serve acts (not ported, ROADMAP item 12d; raises)")
+                    help="learner mode: also serve acts (OP_ACT) on the learner's device")
     ap.add_argument("--remote_act", action="store_true",
-                    help="actor mode: act through the learner (not ported, ROADMAP item 12d; raises)")
+                    help="actor mode: act through the learner's service, or the replicas "
+                         "DRL_INFER_ADDRS names; pull no weights")
     args = ap.parse_args(argv)
-    if args.mode != "local" or args.serve_inference or args.remote_act:
+    if args.mode != "local":
         from distributed_reinforcement_learning_tpu_torch.runtime.transport import run_role
 
         return run_role(algo, args.config, args.section, args.mode, args.task,

@@ -6,8 +6,8 @@
 The modes and options of `train_impala.py`: `--mode local` (default,
 one process; prints the result as JSON), `--mode learner`, `--mode actor
 --task k`. Every mode runs on CUDA unless `--device` names another
-device; what `train_impala.py` refuses (serving, item 12d; sharded
-weights, 12e; the learner tier, 13; `--mode anakin`, 14;
+device; served acts as in `train_impala.py`; what `train_impala.py`
+refuses (sharded weights, 12e; the learner tier, 13; `--mode anakin`, 14;
 `DRL_DEVICE_PATH`, 16), this refuses.
 """
 

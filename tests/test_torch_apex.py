@@ -266,6 +266,52 @@ def test_grads_then_apply_grads_equals_learn():
         assert torch.equal(p, twin.params[k])
 
 
+def test_relu_tape_pins_the_recorded_pattern():
+    """chip_smoke's `relu_tape`, which its K-call replay runs under: a taped
+    `grads` equals a plain one, a replay pinned to its own tape equals it
+    too, and one pinned unit moved across 0 moves the gradients as that
+    unit's own derivative would. Other threads go untaped and relu is
+    restored after the block."""
+    import threading
+
+    from chip_smoke import relu_tape
+
+    kw = LEARN_NETS["dueling_folded"]
+    _, _, agent, state = _agents(kw)
+    b = ApexBatch(**{k: _t(v) for k, v in _batch(kw, 6, seed=4).items()})
+    w = np.linspace(0.3, 1.0, 6).astype(np.float32)
+    relu = torch.nn.functional.relu
+    plain, _, _ = agent.grads(state, b, w)
+    tape, other = [], []
+    with relu_tape(tape):
+        taped, _, _ = agent.grads(state, b, w)
+        worker = threading.Thread(target=lambda: other.append(agent.grads(state, b, w)))
+        worker.start()
+        worker.join()
+    assert torch.nn.functional.relu is relu
+    assert other and len(tape) == 18  # 9 ReLUs a pass: the stacked main pass, the target's
+    again = []
+    with relu_tape(again, pin=tape):
+        pinned, _, _ = agent.grads(state, b, w)
+    assert len(again) == len(tape)
+    for k in plain:
+        assert torch.equal(taped[k], plain[k]) and torch.equal(pinned[k], plain[k]), k
+    # The conv1 input of the main pass nearest 0, pinned to the other side:
+    # the forward barely moves, conv0's gradient takes that unit's term.
+    moved = [t.clone() for t in tape]
+    conv1 = moved[1].contiguous()
+    unit = int(torch.argmin(conv1.abs().flatten()))
+    x = float(conv1.view(-1)[unit])
+    conv1.view(-1)[unit] = 1.0 if x <= 0 else -1.0
+    moved[1] = conv1
+    with relu_tape([], pin=moved):
+        flipped, _, _ = agent.grads(state, b, w)
+    assert abs(x) < 1e-3
+    assert not torch.equal(flipped["torso.conv0.weight"], plain["torso.conv0.weight"])
+    for k in ("value.layers.1.weight", "mean.layers.1.weight"):
+        torch.testing.assert_close(flipped[k], plain[k], rtol=1e-4, atol=1e-6)
+
+
 def test_act_at_epsilon_zero_is_jax_argmax():
     kw = NETS["dueling_uint8_folded"]
     _, jstate, agent, state = _agents(kw)
@@ -337,7 +383,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
     (["--mode", "learner", "--serve_inference"], "item 12"),
     (["--mode", "actor", "--task", "0", "--remote_act"], "item 12"),
 ])
-def test_unported_modes_raise(argv, item):
+def test_unported_modes_raise(argv, item, monkeypatch):
+    # Serving acts is ported: its modes and flags still refuse the planes
+    # that are not, here sharded publication (item 12e).
+    monkeypatch.setenv("DRL_WEIGHTS_SHARDED", "1")
     with pytest.raises(ValueError, match=item):
         train_apex.main(["--config", str(CONFIG), "--device", "cpu", *argv])
 

@@ -16,7 +16,9 @@ order than cuBLAS takes them) and 1e-6 at H <= 64; LSTM gradients atol
 data plane: none, bit for bit. Transformer-R2D2: the flash launches of
 its act, td_error and learn step at seq_len 32 (remat off and on), and
 its learn step against the CPU at rtol 1e-4 (Adam's noise-floor
-elements within 2 lr).
+elements within 2 lr). Served acts: a Transformer-IMPALA act batch
+through the act service, its K3a launches and its policy against the
+CPU at rtol 1e-4, atol 1e-5.
 """
 
 import re
@@ -949,4 +951,57 @@ def test_xformer_learn_step_on_cuda_matches_the_cpu(kw):
             torch.testing.assert_close(p_g[k][settled], v[settled], rtol=1e-4, atol=1e-2 * lr)
             assert float((p_g[k] - v).abs().max()) <= 2 * lr * (1 + 1e-5), k
     finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("continuous, n", [(False, 12), (True, 12), (False, 1)])
+def test_served_ximpala_batch_launches_k3a_and_matches_plain(continuous, n):
+    """A served Transformer-IMPALA act batch on CUDA, at the `ximpala`
+    section's width (2 layers, window 16, head dim 32): one K3a launch per
+    layer per batch, and the policy equal to the same act on the CPU (the
+    plain versions) at rtol 1e-4, atol 1e-5, TF32 off; through the classic
+    server and the continuous one (the completion thread waits on the
+    batch's CUDA event), and at one row (ROADMAP F10)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathlib import Path
+
+    from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaAgent
+    from distributed_reinforcement_learning_tpu_torch.runtime.inference import (
+        InferenceServer, make_act_adapter)
+    from distributed_reinforcement_learning_tpu_torch.runtime.serving import (
+        ContinuousInferenceServer)
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+    from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = load_config(Path(__file__).resolve().parents[1] / "config.json", "ximpala")
+    agent = XImpalaAgent(cfg, device="cuda")
+    params = agent.init_state(seed=3).params
+    store = WeightStore()
+    store.publish(params, 0)
+    cls = ContinuousInferenceServer if continuous else InferenceServer
+    server = cls.for_agent("ximpala", agent, store, seed=5)
+    try:
+        rng = np.random.RandomState(4)
+        w = cfg.trajectory
+        done = np.zeros((n, w), bool)
+        done[:, :3] = True
+        req = {"obs": (rng.randn(n, w, *cfg.obs_shape) * 0.1).astype(np.float32),
+               "prev_action": rng.randint(0, cfg.num_actions, (n, w)).astype(np.int32),
+               "done": done}
+        before = kattn.flash_fwd_cuda.launches
+        got = server.submit(dict(req))
+        assert kattn.flash_fwd_cuda.launches - before == cfg.num_layers
+        assert server.padded_rows == (16 if n == 12 else 1) and server.rows_served == n
+        cpu = XImpalaAgent(cfg, device="cpu")
+        want = make_act_adapter("ximpala", cpu)(
+            {k: v.cpu() for k, v in params.items()},
+            {k: torch.from_numpy(v) for k, v in req.items()}, torch.Generator().manual_seed(0))
+        np.testing.assert_allclose(got["policy"], want["policy"].numpy(), rtol=1e-4, atol=1e-5)
+        assert got["action"].dtype == np.int32 and got["action"].shape == (n,)
+    finally:
+        server.stop()
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32

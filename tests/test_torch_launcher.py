@@ -6,8 +6,11 @@ on (`DRL_SHM_RING=1 DRL_SHM_WEIGHTS=1`): it ends with rc 0, the learner
 serves both planes, every actor attaches them and holds a weight
 version above 0, the learner's steps were fed through the rings alone,
 no actor demoted to TCP before the learner began to shut down, and no
-segment of the launch is left in /dev/shm. The refusals by name, and
-the reaper's creator-pid rule. The `--chaos` drill (an actor and then
+segment of the launch is left in /dev/shm. One launch with served acts
+(`--serve_inference --remote_act --inference_replicas 1`): the replica
+reads the board and serves every act, the actors pull no weights. The
+serving options' checks, the refusals by name, and the reaper's
+creator-pid rule. The `--chaos` drill (an actor and then
 the learner SIGKILLed, both respawned, every ring and board re-attached)
 is marked slow.
 """
@@ -89,14 +92,79 @@ def test_launch_trains_through_rings_and_board(tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["--learners", "2"], "item 13"),
     (["--learner_sync", "async"], "item 13"),
-    (["--remote_act"], "item 12d"),
-    (["--serve_inference"], "item 12d"),
+    # Serving acts is ported; beside it the other planes are still refused.
+    (["--serve_inference", "--remote_act", "--learners", "2"], "item 13"),
+    (["--serve_inference", "--remote_act", "--inference_replicas", "2",
+      "--weights_sharded", "1"], "item 12e"),
     (["--weights_sharded", "1"], "item 12e"),
 ])
 def test_unported_options_are_refused_by_name(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
         cluster.parse_args(["--section", "impala_cartpole", *argv])
     assert e.value.code == 2 and item in capsys.readouterr().err
+
+
+def test_launch_serves_acts_through_a_replica(tmp_path):
+    env = dict(os.environ, DRL_SHM_WEIGHTS="1", DRL_NO_GYMNASIUM="1", OMP_NUM_THREADS="1")
+    for key in ("DRL_LEARNER_ADDR", "DRL_SHM_RING", "DRL_INFER_REPLICAS", "DRL_INFER_ADDRS"):
+        env.pop(key, None)
+    updates = 40
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.launch_local_cluster",
+         "--config", str(_tmp_config(tmp_path)), "--section", "impala_cartpole", "--actors", "2",
+         "--updates", str(updates), "--device", "cpu", "--actor_grace", "5",
+         "--serve_inference", "--remote_act", "--inference_replicas", "1"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=150)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate(timeout=10)
+        raise
+    assert proc.returncode == 0, out[-4000:]
+    assert "[cluster] inference tier: 1 act-serving replica(s)" in out
+    assert "[learner] [learner] SEED-style inference service enabled on cpu" in out
+    assert f"[infer0] [infer 0] shm weight board attached: drlwboard-{proc.pid}-" in out
+    assert "[infer0] [infer 0] serving acts on :" in out
+    (learner,) = _json_lines(out, "learner")
+    (replica,) = _json_lines(out, "infer0")
+    actors = _json_lines(out, "actor0") + _json_lines(out, "actor1")
+    assert learner["train_steps"] == updates and learner["inference"] is not None
+    assert len(actors) == 2
+    for k, a in enumerate(actors):
+        assert f"[actor{k}] [actor {k}] remote act via 1 inference replica(s)" in out
+        assert a["weight_version"] == -1 and a["weight_pulls"]["pulls"] == 0
+        assert a["transport"]["weight_pulls"] == 0
+        acts = a["remote_act"]
+        assert acts["surface"] == "RemoteActService" and acts["acts"] > 0
+        assert acts["failed"] == 0
+        assert acts["service"]["acts"] == acts["acts"] and acts["service"]["fallback_acts"] == 0
+    assert replica["role"] == "inference" and replica["device"] == "cpu"
+    assert replica["acts_served"] == sum(a["remote_act"]["acts"] for a in actors)
+    assert replica["weight_versions_seen"] >= 1
+    assert learner["transport"]["acts_served"] == 0  # every act stayed on the tier
+    assert not [f for f in os.listdir("/dev/shm") if f"-{proc.pid}-" in f]
+
+
+def test_serving_options_are_checked(capsys, monkeypatch):
+    monkeypatch.delenv("DRL_INFER_REPLICAS", raising=False)
+    for argv, what in ((["--remote_act"], "needs the learner to serve inference"),
+                       (["--serve_inference", "--inference_replicas", "1"],
+                        "needs remote-act actors")):
+        with pytest.raises(SystemExit) as e:
+            cluster.parse_args(["--section", "impala_cartpole", *argv])
+        assert e.value.code == 2 and what in capsys.readouterr().err
+    serve = ["--section", "ximpala", "--serve_inference", "--remote_act"]
+    assert cluster.parse_args(serve).infer_replicas == 0  # the verdict: replicas off
+    assert cluster.parse_args(serve + ["--inference_replicas", "2"]).infer_replicas == 2
+    monkeypatch.setenv("DRL_INFER_REPLICAS", "3")
+    assert cluster.parse_args(serve).infer_replicas == 3
+    assert cluster.parse_args(["--section", "ximpala"]).infer_replicas == 0
+    monkeypatch.setenv("DRL_INFER_REPLICAS", "three")
+    with pytest.raises(SystemExit):
+        cluster.parse_args(serve)
+    assert "DRL_INFER_REPLICAS must be an integer" in capsys.readouterr().err
 
 
 def test_section_prefix_picks_the_family():

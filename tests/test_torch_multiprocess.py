@@ -186,7 +186,7 @@ def test_replay_learner_defaults_to_the_sharded_service_over_tcp(algo, section, 
 
 
 @pytest.mark.parametrize("mode, env, item", [
-    ("inference", {}, "item 12"),
+    ("inference", {"DRL_WEIGHTS_KEYS": "torso"}, "item 12"),
     ("anakin", {}, "item 14"),
     ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, "item 12"),
     ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, "item 12"),
@@ -202,10 +202,13 @@ def test_unported_planes_are_refused_by_name(mode, env, item, monkeypatch):
         run_role("impala", str(CONFIG), "impala_cartpole", mode, 0, device="cpu")
 
 
-def test_serving_flags_are_refused():
-    with pytest.raises(ValueError, match="item 12"):
+def test_serving_flags_are_refused(monkeypatch):
+    """Serving acts is ported: the flags are refused only beside a plane
+    that is not (here sharded publication, ROADMAP item 12e)."""
+    monkeypatch.setenv("DRL_WEIGHTS_SHARDED", "1")
+    with pytest.raises(ValueError, match="item 12e"):
         run_role("impala", str(CONFIG), "impala_cartpole", "learner", 0, device="cpu",
                  serve_inference=True)
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 12e"):
         run_role("impala", str(CONFIG), "impala_cartpole", "actor", 0, device="cpu",
                  remote_act=True)
