@@ -14,7 +14,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the main path's shape and larger ones, then time both (CUDA events
    over many eager calls, and per call inside a replayed CUDA graph,
    with the inputs rotated past the 50 MB L2 cache where they fit).
-   V-trace (K1) at three shapes and on a set of NaN, +inf and -inf
+   V-trace (K1) at four shapes (with (18, 20), Anakin IMPALA's on the
+   impala section) and on a set of NaN, +inf and -inf
    log-rhos, with and without the rho clip, each bit for bit equal to
    its plain version; each K1 call must make one kernel launch and run
    no other kernel, and ptxas may report no stack or spills for it.
@@ -252,18 +253,50 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    --inference_replicas 2`, 2 CPU actors, each replica on the card
    reading the weight board; replica 0 SIGKILLed mid-run. Fails unless
    the actors demoted it once each and no act of theirs failed or fell
-   back to the learner, the learner took its 120 updates, and the
+   back to the learner, the learner took its 60 updates, and the
    surviving replica's summary shows acts served and 2 K3a a batch.
-37. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K1 carries phases 27-33's and 35's launches
-   beside phase 4's; K2a and K2b phase 20's, 26's and 32's beside phase
-   6's; K3a, K3b and K3c phase 23's beside phase 9's, and K3a phases
-   34's and 36's with its times at the served batch shapes).
-38. The device line, then `{"ok": true, "device": {...}}` as the last line.
+37. The device envs (`envs/*_device.py`: CartPole, Breakout, Pong,
+   SpaceInvaders), each stepped 64 steps of 8 envs on CUDA and on the
+   CPU from one state (some games near their end) with the same actions
+   and draws: frames (the stacks and the raw frames), rewards, dones and
+   episode returns equal, float state (CartPole's physics) within 1e-6;
+   then env frames/s on CUDA at 20 and 256 envs.
+38. Anakin IMPALA (`runtime/anakin.py`) on the `impala` section at full
+   width: Breakout on the card, 20 envs, T 20, the 18-way head aliased
+   onto 4 actions; 3 updates after one of warm-up, with the counts
+   zeroed just before: exactly 2 K1 launches an update and no other
+   kernel, finite metrics, parameters that moved; logs frames/s, the
+   synchronised ms an update and its split between the collect and the
+   learn step, the busy share and the device kernels of one update
+   (profiler, device activity only, over one act and env step and one
+   learn step: an update is T of the first and one of the second) and
+   the peak. Then one CUDA collect replayed
+   on the CPU from the same parameters and state with the CUDA run's env
+   draws and actions forced (behaviour policy and stored h, c within
+   1e-5, frames, rewards and dones equal) and one learn step on that
+   batch on both devices (loss terms and grad norm at rtol 1e-4, TF32
+   off).
+39. Anakin Ape-X (`runtime/anakin_apex.py`) on the `apex` section: 20
+   Breakout envs, 16 steps a collect, the default ring (32,640
+   transitions of two uint8 stacks), the launcher's warm-up, 3 updates:
+   no kernel, finite loss, parameters that moved; logs the ring's bytes,
+   frames/s and the peak.
+40. Anakin R2D2 (`runtime/anakin_r2d2.py`) on `r2d2` and `r2d2_pixel`:
+   12 envs, the default sequence ring, the launcher's warm-up, 3 updates
+   of K learns: exactly (2 + 2K) K2a and K K2b launches an update (the
+   ingest's main and target unrolls, each learn's two and its BPTT),
+   finite loss and priorities, parameters that moved; logs as phase 39.
+41. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-33's, 35's and 38's launches
+   beside phase 4's, and its times at phase 38's shape; K2a and K2b
+   phase 20's, 26's, 32's and 40's beside phase 6's; K3a, K3b and K3c
+   phase 23's beside phase 9's, and K3a phases 34's and 36's with its
+   times at the served batch shapes).
+42. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24 and
-26-29 are read net of it.
+logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29
+and 38-40 are read net of it.
 Every child process runs in its own process group and is killed whole
 if its phase fails.
 
@@ -310,7 +343,8 @@ CONFIG = ROOT / "config.json"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor-core float32
 MAIN_SHAPE = (18, 32)  # V-trace at the impala section: T = trajectory - 2, B = batch
-SHAPES = [MAIN_SHAPE, (20, 256), (20, 65536)]
+ANAKIN_SHAPE = (18, 20)  # V-trace in Anakin IMPALA on the impala section: B = its 20 envs
+SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, (20, 256), (20, 65536)]
 UPDATES = 3
 R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 # LSTM (T, B, H): the r2d2 learn step and ingest (12 sequences padded to
@@ -320,8 +354,11 @@ R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 LSTM_MAIN = (10, 32, 512)
 LSTM_INGEST = (10, 16, 512)
 LSTM_PIXEL = (20, 32, 256)
+# Anakin R2D2 scores each collect's new sequences, one an env: B = the
+# sections' 12 envs (phase 40).
+LSTM_ANAKIN_INGEST = [(10, 12, 512), (20, 12, 256)]
 LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, LSTM_PIXEL, (20, 16, 256), (20, 256, 512),
-               (30, 32, 256)]
+               (30, 32, 256), *LSTM_ANAKIN_INGEST]
 # Flash attention (B, H, T, D): the ximpala section's act and learn
 # shape, the served ximpala act's buckets of one row and of two actors'
 # rows (phases 34 and 36), bench.py's ximpala_learn shape, and a long
@@ -589,7 +626,7 @@ def phase_vtrace() -> dict:
         log(f"[vtrace] ptxas {kernel}: {line}")
     check_no_spills("vtrace", "vtrace_kernel")
     timings = {}
-    for T, B in (MAIN_SHAPE, SHAPES[-1]):
+    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, SHAPES[-1]):
         # The main path's 14 KB stay in L2 between its producer and the
         # kernel; the large shape rotates through 4 input sets (127 MB).
         sets = [vtrace_inputs(T, B, seed=i, device="cuda")
@@ -1053,11 +1090,12 @@ def phase_r2d2_parity() -> None:
 
 
 def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
-              launcher_r2d2: dict) -> list[dict]:
+              launcher_r2d2: dict, anakin: dict) -> list[dict]:
     """The K2a and K2b entries of the kernels line: `launches` from the
     r2d2 path (phase 6), with the default multi-process r2d2 learner's
-    own count (phase 20, K=2 calls), the r2d2_pixel path's (phase 26) and
-    the ring-fed r2d2 learner's (phase 32) beside it."""
+    own count (phase 20, K=2 calls), the r2d2_pixel path's (phase 26),
+    the ring-fed r2d2 learner's (phase 32) and Anakin R2D2's on both
+    sections (phase 40) beside it."""
     rows = []
     for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
         t = k2["timings"][LSTM_MAIN][tag]
@@ -1069,7 +1107,9 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
             "launches_by_path": {"r2d2": r2d2["launches"][name],
                                  "multiprocess_r2d2_default": r2d2_default["launches"][name],
                                  "r2d2_pixel": r2d2_pixel["launches"][name],
-                                 "launcher_r2d2_ring": launcher_r2d2["launches"][name]},
+                                 "launcher_r2d2_ring": launcher_r2d2["launches"][name],
+                                 **{f"anakin_{section}": got["launches"][name]
+                                    for section, got in anakin.items()}},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
@@ -3400,7 +3440,7 @@ def phase_launcher_respawn() -> dict:
 FAMILIES = ("impala", "apex", "r2d2", "xformer", "ximpala")
 SERVED_ROWS = (1, 16, 32)  # rows a served batch: one env, one actor, two actors
 SERVED_CALLS = 20  # timed submits at each size
-SERVED_REPLICA_UPDATES = 120  # the replica drill's learner outlives a replica kill
+SERVED_REPLICA_UPDATES = 60  # the replica drill's learner outlives a replica kill
 
 
 def served_request(algo: str, cfg, n: int, rng, epsilon: float = 0.0) -> dict:
@@ -3681,6 +3721,397 @@ def phase_launcher_replicas() -> dict:
             "seconds": seconds}
 
 
+# -- the on-device (Anakin) loops, phases 37-40 ----------------------------------
+
+ANAKIN_ENV_STEPS = 64  # phase 37: steps of each device env on CUDA and the CPU
+ANAKIN_PARITY_ENVS = 8  # phase 37: envs stepped on both devices (the CPU side sets the time)
+ANAKIN_ENV_COUNTS = (20, 256)  # phase 37's throughput: the impala section's envs, and more
+ANAKIN_UPDATES = 3  # phases 38-40: updates after the warm-up
+
+
+def to_device(tree, device):
+    """A tensor, or a tuple or NamedTuple of tensors, on `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    moved = [to_device(t, device) for t in tree]
+    return type(tree)(*moved) if hasattr(tree, "_fields") else tuple(moved)
+
+
+def eventful_start(name: str, state):
+    """A device env's reset state with some games near their end (lives,
+    scores, the step cap), so that 64 steps see life losses, game overs
+    and auto-resets."""
+    n = state[0].shape[0]
+    ramp = torch.arange(n)
+    if name == "cartpole":
+        return state._replace(steps=torch.where(ramp % 3 == 0, 190, 0).to(torch.int32))
+    if name == "breakout":
+        return state._replace(lives=(1 + ramp % 5).to(torch.int32))
+    if name == "pong":
+        return state._replace(enemy_score=torch.where(ramp % 2 == 0, 20, 0).to(torch.int32),
+                              player_score=torch.where(ramp % 3 == 0, 20, 0).to(torch.int32))
+    return state._replace(lives=(1 + ramp % 3).to(torch.int32),
+                          frames=torch.where(ramp % 4 == 0, 9_900, 0).to(torch.int32))
+
+
+def device_env_modules() -> dict:
+    from distributed_reinforcement_learning_tpu_torch.envs import (
+        breakout_device, cartpole_device, invaders_device, pong_device)
+
+    return {"cartpole": cartpole_device, "breakout": breakout_device, "pong": pong_device,
+            "invaders": invaders_device}
+
+
+def compare_env_outputs(name: str, t: int, cpu, cuda) -> None:
+    """Step `t`'s outputs and state on the two devices: integers, booleans
+    and frames equal (a frame mismatch is reported by its count of pixels
+    and largest difference), floats within 1e-6."""
+    (s_cpu, *out_cpu), (s_gpu, *out_gpu) = cpu, cuda
+    pairs = list(zip(("obs", "reward", "done", "episode_return"), out_cpu, out_gpu))
+    pairs += [(f"state.{k}", a, getattr(s_gpu, k)) for k, a in s_cpu._asdict().items()]
+    for what, a, b in pairs:
+        b = b.cpu()
+        if a.dtype.is_floating_point:
+            err = float((a - b).abs().max()) if a.numel() else 0.0
+            if not err <= 1e-6:
+                raise RuntimeError(f"{name} step {t}: {what} differs by {err:.3e} (bar 1e-6)")
+        elif not torch.equal(a, b):
+            diff = (a.to(torch.int32) - b.to(torch.int32)).abs()
+            raise RuntimeError(f"{name} step {t}: {what} differs in {int((diff > 0).sum())} "
+                               f"places, by at most {int(diff.max())}")
+
+
+def phase_anakin_envs() -> dict:
+    """(37) The device envs on the card: each stepped ANAKIN_ENV_STEPS
+    steps of ANAKIN_PARITY_ENVS envs on CUDA and on the CPU from the same state with the same actions
+    and draws; frames (the observation stacks and the raw frames in the
+    state), rewards, dones and episode returns equal, float state within
+    1e-6. Then env frames/s on CUDA at 20 and 256 envs (one frame is one
+    observation, `frameskip` emulated frames for the pixel games)."""
+    t0 = time.perf_counter()
+    mods = device_env_modules()
+    out = {"frames_per_s": {}, "events": {}}
+    for name, mod in mods.items():
+        n = ANAKIN_PARITY_ENVS
+        gen = torch.Generator().manual_seed(7)
+        state, _ = mod.reset(n, gen)
+        state = eventful_start(name, state)
+        gstate = to_device(state, "cuda")
+        rng = np.random.RandomState(1)
+        events = {"done": 0, "reward": 0, "episode_end": 0}
+        t1 = time.perf_counter()
+        for t in range(ANAKIN_ENV_STEPS):
+            actions = torch.from_numpy(rng.randint(0, mod.NUM_ACTIONS, n))
+            draws = mod.draws(gen, n)
+            cpu = mod.step(state, actions, draws)
+            cuda = mod.step(gstate, actions.cuda(), to_device(draws, "cuda"))
+            compare_env_outputs(name, t, cpu, cuda)
+            state, gstate = cpu[0], cuda[0]
+            events["done"] += int(cpu[3].sum())
+            events["reward"] += int((cpu[2] != 0).sum())
+            events["episode_end"] += int((cpu[4] != 0).sum())
+        if not events["done"]:
+            raise RuntimeError(f"{name}: {ANAKIN_ENV_STEPS} steps of {n} envs saw no done")
+        out["events"][name] = events
+        parity_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for count in ANAKIN_ENV_COUNTS:
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            gstate, _ = mod.reset(count, gen)
+            acts = [torch.randint(0, mod.NUM_ACTIONS, (count,), device="cuda", generator=gen)
+                    for _ in range(32)]
+            draws = [mod.draws(gen, count) for _ in range(32)]
+            for i in range(3):
+                gstate = mod.step(gstate, acts[i], draws[i])[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(32):
+                gstate = mod.step(gstate, acts[i], draws[i])[0]
+            torch.cuda.synchronize()
+            out["frames_per_s"][(name, count)] = 32 * count / (time.perf_counter() - t1)
+        log(f"[anakin envs] {name}: {ANAKIN_ENV_STEPS} steps of {n} envs on CUDA and the CPU "
+            f"from one state with the same draws: frames, rewards, dones and returns equal, "
+            f"float state within 1e-6 ({events}); env frames/s on CUDA "
+            + ", ".join(f"{out['frames_per_s'][(name, c)]:.0f} at {c} envs"
+                        for c in ANAKIN_ENV_COUNTS)
+            + f" (parity {parity_s:.1f} s, rates {time.perf_counter() - t1:.1f} s)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def anakin_profile(what: str, fn) -> dict:
+    """torch.profiler, device activity only (a CPU trace of ~24,000 ops
+    takes the profiler ~20 s to reduce), over one synchronised call of
+    `fn` -> device-kernel ms and device kernels launched; logs the
+    largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    got = {"device_ms": sum(device_us(e) for e in events) / 1e3,
+           "kernels": sum(e.count for e in events)}
+    log(f"[profile] {what}: {got['kernels']} device kernels, {got['device_ms']:.2f} ms of them")
+    for e in sorted(events, key=lambda e: -device_us(e))[:6]:
+        log(f"[profile]   {device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return got
+
+
+def timed_chunk(loop, state, updates: int) -> tuple:
+    """`loop.train_chunk` with the counts zeroed just before and read just
+    after -> (state, metrics, synchronised seconds, launches)."""
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = loop.train_chunk(state, updates)
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0, all_launches()
+
+
+def check_finite(label: str, metrics: dict) -> None:
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise RuntimeError(f"{label}: metrics not finite: {bad}")
+
+
+def anakin_impala_parity(loop, state) -> dict:
+    """One CUDA collect replayed on the CPU from the same parameters and
+    state, with the CUDA run's env draws and sampled actions forced: per
+    step behaviour policy and stored (h, c) within 1e-5, frames, rewards,
+    dones and the prev_action resets equal; then one learn step on the
+    CUDA batch on both devices, loss terms and the gradient norm at rtol
+    1e-4 (TF32 off)."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin import (
+        AnakinImpala, AnakinState)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, env, n = loop.agent.cfg, loop.env, loop.num_envs
+    cpu_loop = AnakinImpala(ImpalaAgent(cfg, device="cpu"), n, env=env)
+    params = {k: v.detach().cpu() for k, v in state.train.params.items()}
+    cpu_state = AnakinState(
+        train=cpu_loop.agent.state_from_params(params), env=to_device(state.env, "cpu"),
+        obs=state.obs.cpu(), prev_action=state.prev_action.cpu(), h=state.h.cpu(),
+        c=state.c.cpu(), generator=torch.Generator().manual_seed(0))
+    draws = [env.draws(state.generator, n) for _ in range(cfg.trajectory)]
+    batch, _ = loop.collect(state, env_draws=draws)
+    want, _ = cpu_loop.collect(cpu_state, actions=batch.action.transpose(0, 1).cpu(),
+                               env_draws=[to_device(d, "cpu") for d in draws])
+    errs = {}
+    for name in want._fields:
+        a, b = getattr(batch, name).cpu(), getattr(want, name)
+        if a.dtype.is_floating_point:
+            errs[name] = float((a - b).abs().max())
+            if not errs[name] <= 1e-5:
+                raise RuntimeError(f"anakin impala parity: {name} differs by {errs[name]:.3e}")
+        elif not torch.equal(a, b):
+            raise RuntimeError(f"anakin impala parity: {name} differs in "
+                               f"{int((a != b).sum())} places")
+    if not torch.equal(state.prev_action.cpu(), cpu_state.prev_action):
+        raise RuntimeError("anakin impala parity: prev_action after the collect differs")
+    gpu_train = loop.agent.state_from_params(state.train.params)
+    _, m_gpu = loop.agent.learn(gpu_train, batch)
+    _, m_cpu = cpu_loop.agent.learn(cpu_state.train, to_device(batch, "cpu"))
+    rel = {}
+    for k in ("pi_loss", "baseline_loss", "entropy", "total_loss", "grad_norm"):
+        a, b = float(m_gpu[k]), float(m_cpu[k])
+        rel[k] = abs(a - b) / max(abs(b), 1e-30)
+        if not rel[k] <= 1e-4:
+            raise RuntimeError(f"anakin impala learn parity: {k} {a} on CUDA, {b} on the CPU")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return {"collect_max_abs_err": errs, "learn_rel_err": rel}
+
+
+def phase_anakin_impala(mem_start: int) -> dict:
+    """(38) Anakin IMPALA on the `impala` section at full width: Breakout
+    on the card (`envs/breakout_device.py`), NatureConv, LSTM 256, the
+    18-way head aliased onto 4 actions, 20 envs, T 20. One update warms
+    up; then ANAKIN_UPDATES updates with the counts zeroed just before:
+    exactly 2 K1 launches an update, finite metrics, parameters that
+    moved. Logs frames/s, the synchronised ms an update, the device busy
+    share and kernels launched in one update (profiler), and the peak;
+    then the device parity of `anakin_impala_parity`."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin import (
+        AnakinImpala, env_action)
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import _device_env_for
+
+    t0 = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, "impala")
+    env, _ = _device_env_for(agent_cfg, rt)
+    loop = AnakinImpala(ImpalaAgent(agent_cfg, device="cuda"),
+                        rt.num_actors * rt.envs_per_actor, env=env)
+    state = loop.init(0)
+    state, _ = loop.train_chunk(state, 1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = {k: v.detach().clone() for k, v in state.train.params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    state, m, wall, launches = timed_chunk(loop, state, ANAKIN_UPDATES)
+    peak = torch.cuda.max_memory_allocated()
+    check_finite("anakin impala", m)
+    if launches["vtrace"] != 2 * ANAKIN_UPDATES or sum(launches.values()) != launches["vtrace"]:
+        raise RuntimeError(f"anakin impala: launches {launches} in {ANAKIN_UPDATES} updates, "
+                           f"expected {2 * ANAKIN_UPDATES} of K1 and no other kernel")
+    still = [k for k, v in before.items() if torch.equal(state.train.params[k].detach(), v)]
+    if still:
+        raise RuntimeError(f"anakin impala: parameters did not move: {still}")
+    frames = ANAKIN_UPDATES * loop.num_envs * agent_cfg.trajectory
+    # Where an update's time goes: its collect, then its learn step.
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    batch, _ = loop.collect(state)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t1) * 1e3
+    state.train, _ = loop.agent.learn(state.train, batch)
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t1) * 1e3 - collect_ms
+    # The profiler over a whole update (~24,000 kernels) takes ~18 s to
+    # reduce, so it reads one act and env step and one learn step: an
+    # update is T of the first and one of the second.
+    t1 = time.perf_counter()
+    T = agent_cfg.trajectory
+
+    def act_and_step():
+        out = loop.agent.act(state.train.params, state.obs, state.prev_action, state.h, state.c,
+                             state.generator)
+        loop.env.step(state.env, env_action(out.action, agent_cfg.num_actions, loop.env),
+                      loop.env.draws(state.generator, loop.num_envs))
+
+    step = anakin_profile("one act and env step of the anakin impala collect", act_and_step)
+    learn = anakin_profile("one anakin impala learn step",
+                           lambda: loop.agent.learn(state.train, batch))
+    prof = {k: T * step[k] + learn[k] for k in step}
+    prof_s = time.perf_counter() - t1
+    parity = anakin_impala_parity(loop, state)
+    parity_s = time.perf_counter() - t1 - prof_s
+    got = {"launches": launches, "ms_per_update": wall / ANAKIN_UPDATES * 1e3,
+           "frames_per_s": frames / wall, "peak_mib": (peak - mem_start) / 2**20,
+           "kernels_per_update": prof["kernels"], "collect_ms": collect_ms, "learn_ms": learn_ms,
+           "busy": prof["device_ms"] / (wall / ANAKIN_UPDATES * 1e3), **parity,
+           "seconds": time.perf_counter() - t0}
+    log(f"[anakin impala] {ANAKIN_UPDATES} updates of {loop.num_envs} Breakout envs x T "
+        f"{agent_cfg.trajectory} on the card: {got['ms_per_update']:.1f} ms an update "
+        f"synchronised ({collect_ms:.1f} ms its collect, {learn_ms:.1f} ms its learn step), "
+        f"{got['frames_per_s']:.0f} frames/s, launches {launches}; one update T x "
+        f"{step['kernels']} + {learn['kernels']} = {prof['kernels']} device kernels, "
+        f"{prof['device_ms']:.2f} ms of them ({100 * got['busy']:.1f}% busy); own peak {got['peak_mib']:.1f} MiB; last metrics "
+        + json.dumps({k: float(v[-1]) for k, v in m.items()})
+        + f"; CPU replay of a CUDA collect: max abs diff {parity['collect_max_abs_err']}, "
+        f"learn step relative diff {parity['learn_rel_err']}; phase {got['seconds']:.1f} s "
+        f"(set-up and warm-up {warm_s:.1f}, profile {prof_s:.1f}, parity {parity_s:.1f})")
+    return got
+
+
+def phase_anakin_apex(mem_start: int) -> dict:
+    """(39) Anakin Ape-X on the `apex` section at full width: 20 Breakout
+    envs on the card, 16 steps a collect (W 320), the default ring of
+    min(replay_capacity, 32768) transitions cut to a multiple of W, the
+    warm-up of the launcher (ceil(3 x 32 / 320) collects), then
+    ANAKIN_UPDATES updates with the counts zeroed just before: no kernel,
+    finite loss, parameters that moved. Logs the ring's bytes, frames/s
+    and the peak."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_apex import AnakinApex
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import _device_env_for
+
+    t0 = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, "apex")
+    env, transform = _device_env_for(agent_cfg, rt)
+    n, steps = rt.num_actors * rt.envs_per_actor, 16
+    width = n * steps
+    cap = min(rt.replay_capacity, 32768)
+    cap -= cap % width
+    torch.cuda.reset_peak_memory_stats()
+    loop = AnakinApex(ApexAgent(agent_cfg, device="cuda"), num_envs=n, batch_size=rt.batch_size,
+                      capacity=cap, steps_per_collect=steps,
+                      target_sync_interval=rt.target_sync_interval,
+                      updates_per_collect=rt.updates_per_call,
+                      epsilon_floor=rt.epsilon_floor or 0.0, env=env, obs_transform=transform)
+    state = loop.init(0)
+    ring_bytes = state.replay.nbytes()
+    warm = -(-rt.train_start_factor * rt.batch_size // width)
+    state, _ = loop.collect_chunk(state, warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = {k: v.detach().clone() for k, v in state.train.params.items()}
+    state, m, wall, launches = timed_chunk(loop, state, ANAKIN_UPDATES)
+    peak = torch.cuda.max_memory_allocated()
+    check_finite("anakin apex", m)
+    if any(launches.values()):
+        raise RuntimeError(f"anakin apex: kernels launched {launches}; Ape-X has none")
+    still = [k for k, v in before.items() if torch.equal(state.train.params[k].detach(), v)]
+    if still or state.train.step != ANAKIN_UPDATES * rt.updates_per_call:
+        raise RuntimeError(f"anakin apex: step {state.train.step}, unmoved {still}")
+    got = {"ring_bytes": ring_bytes, "capacity": cap, "warm": warm,
+           "ms_per_update": wall / ANAKIN_UPDATES * 1e3,
+           "frames_per_s": ANAKIN_UPDATES * width / wall, "peak_mib": (peak - mem_start) / 2**20,
+           "seconds": time.perf_counter() - t0}
+    log(f"[anakin apex] {n} Breakout envs x {steps} steps a collect, a ring of {cap} "
+        f"transitions ({ring_bytes / 1e9:.3f} GB on the card), {warm} warm-up collect(s), then "
+        f"{ANAKIN_UPDATES} updates: {got['ms_per_update']:.1f} ms an update synchronised, "
+        f"{got['frames_per_s']:.0f} frames/s, launches {launches}; peak "
+        f"{got['peak_mib']:.1f} MiB; last loss {float(m['loss'][-1]):.5f}; phase "
+        f"{got['seconds']:.1f} s (set-up and warm-up {warm_s:.1f})")
+    return got
+
+
+def phase_anakin_r2d2(mem_start: int, section: str) -> dict:
+    """(40) Anakin R2D2 on `section` (`r2d2`: CartPole-POMDP, LSTM 512,
+    seq_len 10; `r2d2_pixel`: Breakout, Nature torso, LSTM 256, seq_len
+    20) at full width, 12 envs on the card, the default ring of
+    min(replay_capacity, 4096) sequences cut to a multiple of 12, the
+    launcher's warm-up, then ANAKIN_UPDATES updates of K =
+    `updates_per_call` learns with the counts zeroed just before: K2a
+    2 + 2K and K2b K launches an update (PERF.md's prediction), no K1 or
+    K3, finite loss and priorities, parameters that moved."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_r2d2 import AnakinR2D2
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import _device_env_for
+
+    t0 = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, section)
+    env, transform = _device_env_for(agent_cfg, rt)
+    n = rt.num_actors * rt.envs_per_actor
+    cap = min(rt.replay_capacity, 4096)
+    cap -= cap % n
+    K = rt.updates_per_call
+    torch.cuda.reset_peak_memory_stats()
+    loop = AnakinR2D2(R2D2Agent(agent_cfg, device="cuda"), num_envs=n, batch_size=rt.batch_size,
+                      capacity=cap, target_sync_interval=rt.target_sync_interval,
+                      updates_per_collect=K, epsilon_floor=rt.epsilon_floor or 0.0, env=env,
+                      obs_transform=transform)
+    state = loop.init(0)
+    ring_bytes = state.replay.nbytes()
+    warm = -(-rt.train_start_factor * rt.batch_size // n)
+    state, _ = loop.collect_chunk(state, warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = {k: v.detach().clone() for k, v in state.train.params.items()}
+    state, m, wall, launches = timed_chunk(loop, state, ANAKIN_UPDATES)
+    peak = torch.cuda.max_memory_allocated()
+    check_finite(f"anakin {section}", m)
+    want = {"lstm_fwd": (2 + 2 * K) * ANAKIN_UPDATES, "lstm_bwd": K * ANAKIN_UPDATES}
+    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
+        raise RuntimeError(f"anakin {section}: launches {launches}, expected {want}")
+    if not bool(torch.isfinite(state.replay.priorities).all()):
+        raise RuntimeError(f"anakin {section}: priorities not finite")
+    still = [k for k, v in before.items() if torch.equal(state.train.params[k].detach(), v)]
+    if still:
+        raise RuntimeError(f"anakin {section}: parameters did not move: {still}")
+    got = {"launches": launches, "ring_bytes": ring_bytes, "capacity": cap,
+           "ms_per_update": wall / ANAKIN_UPDATES * 1e3,
+           "frames_per_s": ANAKIN_UPDATES * n * agent_cfg.seq_len / wall,
+           "peak_mib": (peak - mem_start) / 2**20, "seconds": time.perf_counter() - t0}
+    log(f"[anakin {section}] {n} envs x seq_len {agent_cfg.seq_len}, a ring of {cap} sequences "
+        f"({ring_bytes / 1e9:.3f} GB), {warm} warm-up collects, then {ANAKIN_UPDATES} updates of "
+        f"K={K}: {got['ms_per_update']:.1f} ms an update synchronised, "
+        f"{got['frames_per_s']:.0f} frames/s, launches {launches}; peak "
+        f"{got['peak_mib']:.1f} MiB; last loss {float(m['loss'][-1]):.5f}; phase "
+        f"{got['seconds']:.1f} s (set-up and warm-up {warm_s:.1f})")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3750,9 +4181,18 @@ def main() -> int:
     served_impala = phase_launcher_served_impala(launcher["defaults"], served)
     replicas = phase_launcher_replicas()
     served_s = time.perf_counter() - t_served
+    t_anakin = time.perf_counter()
+    phase_memory("anakin envs")
+    anakin_envs = phase_anakin_envs()
+    anakin_impala = phase_anakin_impala(phase_memory("anakin impala"))
+    anakin_apex = phase_anakin_apex(phase_memory("anakin apex"))
+    anakin_r2d2 = {section: phase_anakin_r2d2(phase_memory(f"anakin {section}"), section)
+                   for section in ("r2d2", "r2d2_pixel")}
+    anakin_s = time.perf_counter() - t_anakin
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
+    anakin_k1 = k1["timings"][ANAKIN_SHAPE]
     kernels = [{
         "name": "vtrace",
         "route": "cuda",
@@ -3769,13 +4209,15 @@ def main() -> int:
                              **{f"impala_launcher_{tag}": got["launches"]["vtrace"]
                                 for tag, got in launcher.items()},
                              "impala_cartpole_respawn": respawn["launches"]["vtrace"],
-                             "impala_served_acts": served_impala["launches"]["vtrace"]},
+                             "impala_served_acts": served_impala["launches"]["vtrace"],
+                             "anakin_impala": anakin_impala["launches"]["vtrace"]},
         "shape": list(MAIN_SHAPE), "graph_ms": t["graph_ms"],
         "plain_graph_ms": t["plain_graph_ms"],
         "large": {"shape": list(SHAPES[-1]), "ms": big["ms"], "plain_ms": big["plain_ms"],
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
-    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2),
+        "anakin": {"shape": list(ANAKIN_SHAPE), **anakin_k1},
+    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2),
         *attention_rows(k3, ximpala, xformer_long)]
     k3a = next(row for row in kernels if row["name"] == "attention_fwd")
     k3a["launches_by_path"].update(
@@ -3833,6 +4275,16 @@ def main() -> int:
         f"{served_impala['env_frames_per_s']:.0f} env frames/s, act p50 "
         f"{np.median(served_impala['act_ms_p50']):.2f} ms ({served_impala['seconds']:.1f} s), "
         f"replica drill {replicas['seconds']:.1f} s; phases 34-36 {served_s:.1f} s; "
+        f"anakin: envs ({anakin_envs['seconds']:.1f} s), impala "
+        f"{anakin_impala['frames_per_s']:.0f} frames/s, {anakin_impala['ms_per_update']:.1f} "
+        f"ms an update, {100 * anakin_impala['busy']:.1f}% busy, "
+        f"{anakin_impala['kernels_per_update']} kernels an update "
+        f"({anakin_impala['seconds']:.1f} s), apex {anakin_apex['frames_per_s']:.0f} frames/s, "
+        f"ring {anakin_apex['ring_bytes'] / 1e9:.3f} GB ({anakin_apex['seconds']:.1f} s), "
+        + ", ".join(f"{section} {got['frames_per_s']:.0f} frames/s, "
+                    f"{got['ms_per_update']:.1f} ms an update ({got['seconds']:.1f} s)"
+                    for section, got in anakin_r2d2.items())
+        + f"; phases 37-40 {anakin_s:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

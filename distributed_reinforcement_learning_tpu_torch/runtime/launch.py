@@ -7,8 +7,9 @@ registry, build agent, queue, weight store, learner and actors from a
 config section (the agent config's type picks the family). `make_learner` and `make_actor`
 take any queue and weight store, the learner's own objects in one
 process or the transport's adapters across processes
-(`runtime/transport.py:run_role`). Everything runs on CUDA unless the
-caller passes another `device`.
+(`runtime/transport.py:run_role`). `train_anakin`, `train_anakin_apex`
+and `train_anakin_r2d2` run the on-device loops (`--mode anakin`).
+Everything runs on CUDA unless the caller passes another `device`.
 """
 
 from __future__ import annotations
@@ -198,3 +199,213 @@ def train_local(config_path: str, section: str, num_updates: int,
     if returns:
         result["mean_return_last20"] = float(np.mean(returns[-20:]))
     return result
+
+
+# -- the on-device (Anakin) loops ---------------------------------------------
+
+
+def _device_env_for(agent_cfg, rt: RuntimeConfig):
+    """-> (env module | None, obs transform | None) for `--mode anakin`.
+
+    Pixel sections route by their first env's name to the device games;
+    vector sections take the device CartPole (None, the loops' default),
+    with the POMDP projection where the agent observes the 2-feature
+    view."""
+    from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
+
+    env_name = rt.envs[0] if rt.envs else ""
+    if env_name.startswith("Breakout"):
+        from distributed_reinforcement_learning_tpu_torch.envs import breakout_device
+
+        return breakout_device, None
+    if env_name.startswith("SpaceInvaders"):
+        from distributed_reinforcement_learning_tpu_torch.envs import invaders_device
+
+        return invaders_device, None
+    if env_name.startswith("Pong"):
+        from distributed_reinforcement_learning_tpu_torch.envs import pong_device
+
+        return pong_device, None
+    if tuple(agent_cfg.obs_shape) == (2,):
+        return None, cartpole_device.pomdp_project
+    return None, None
+
+
+def _restore_train(checkpoint_dir: str | None, train):
+    """-> (Checkpointer | None, train) with the latest checkpoint loaded
+    into `train`'s own tensors."""
+    if not checkpoint_dir:
+        return None, train
+    from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(checkpoint_dir)
+    got = ckpt.restore(train)
+    if got is not None:
+        train = got[0]
+    return ckpt, train
+
+
+def _check_family(agent_cfg, want: str, message: str) -> None:
+    if algo_of(agent_cfg) != want:
+        raise ValueError(message)
+
+
+def _report_chunk(updates: int, frames: int, dt: float) -> None:
+    from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY
+
+    if TELEMETRY.enabled:
+        TELEMETRY.count("anakin/updates", updates)
+        TELEMETRY.gauge("anakin/device_chunk_s", dt)
+        TELEMETRY.gauge("anakin/steps_per_s", updates / dt)
+        TELEMETRY.gauge("anakin/frames_per_s", frames / dt)
+
+
+def _chunk_return(m: dict) -> tuple[float, float]:
+    """-> (mean completed return, games completed) of a chunk's metrics:
+    the chunk's one read of device values on the host."""
+    eps = float(m["episodes_done"].sum())
+    return float(m["episode_return_sum"].sum()) / max(eps, 1.0), eps
+
+
+def train_anakin(config_path: str, section: str, num_updates: int, chunk: int = 50,
+                 seed: int = 0, num_envs: int | None = None,
+                 checkpoint_dir: str | None = None, run_dir: str | None = None,
+                 device: str | torch.device | None = None) -> dict:
+    """IMPALA on one device (`runtime/anakin.py`), for the sections whose
+    env has a device twin. Collect and learn run in chunks of `chunk`
+    updates; each chunk's mean completed return goes to stdout.
+    `checkpoint_dir` saves and restores the train state a chunk (env and
+    LSTM state are not kept: a resume starts fresh episodes, as an actor
+    restart does)."""
+    import time
+
+    from distributed_reinforcement_learning_tpu_torch.observability import maybe_configure
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin import AnakinImpala
+
+    agent_cfg, rt = load_config(config_path, section)
+    _check_family(agent_cfg, "impala", "anakin mode currently runs the IMPALA family")
+    env_mod, _ = _device_env_for(agent_cfg, rt)
+    anakin = AnakinImpala(ImpalaAgent(agent_cfg, device=device),
+                          num_envs or rt.num_actors * rt.envs_per_actor, env=env_mod)
+    state = anakin.init(seed)
+    ckpt, state.train = _restore_train(checkpoint_dir, state.train)
+    chunk = max(1, min(chunk, num_updates))
+    returns = []
+    maybe_configure("anakin", 0, run_dir)  # env-gated run-wide telemetry
+    frames_per_update = anakin.num_envs * agent_cfg.trajectory
+    while state.train.step < num_updates:
+        u = min(chunk, num_updates - state.train.step)
+        t0 = time.perf_counter()
+        state, m = anakin.train_chunk(state, u)
+        mean_ret, eps = _chunk_return(m)
+        dt = time.perf_counter() - t0  # the reads above synchronise the chunk
+        _report_chunk(u, u * frames_per_update, dt)
+        returns.append(mean_ret)
+        print(f"[anakin] step {state.train.step}: mean_return {mean_ret:.1f} "
+              f"({eps:.0f} episodes, loss {float(m['total_loss'][-1]):.2f})")
+        if ckpt is not None:
+            ckpt.save(state.train.step, state.train, {})
+    return {
+        "frames": state.train.step * frames_per_update,
+        "chunk_mean_returns": [round(r, 2) for r in returns],
+        "mean_return_last_chunk": round(returns[-1], 2) if returns else None,
+    }
+
+
+def _replay_chunk_loop(anakin, state, num_updates: int, chunk: int, ckpt, label: str,
+                       frames_per_collect: int, warm: int, run_dir: str | None = None) -> dict:
+    """The warm-up and chunked train loop of the replay loops (`AnakinApex`,
+    `AnakinR2D2`). `num_updates` counts optimizer steps; a chunk's update
+    is one collect and K learns (K = `updates_per_collect`), so the last
+    chunk may overshoot by up to K - 1 steps."""
+    import time
+
+    from distributed_reinforcement_learning_tpu_torch.observability import maybe_configure
+
+    state, _ = anakin.collect_chunk(state, warm)
+    K = anakin.updates_per_collect
+    collects = warm
+    returns = []
+    maybe_configure(label, 0, run_dir)  # env-gated run-wide telemetry
+    while state.train.step < num_updates:
+        u = max(1, min(chunk, -(-(num_updates - state.train.step) // K)))
+        t0 = time.perf_counter()
+        state, m = anakin.train_chunk(state, u)
+        collects += u
+        mean_ret, eps = _chunk_return(m)
+        dt = time.perf_counter() - t0  # the reads above synchronise the chunk
+        _report_chunk(u * K, u * frames_per_collect, dt)
+        returns.append(mean_ret)
+        print(f"[{label}] step {state.train.step}: mean_return {mean_ret:.1f} "
+              f"({eps:.0f} episodes, loss {float(m['loss'][-1]):.4f}, "
+              f"eps {float(m['epsilon_mean'][-1]):.3f})")
+        if ckpt is not None:
+            ckpt.save(state.train.step, state.train, {})
+    return {
+        "frames": collects * frames_per_collect,
+        "chunk_mean_returns": [round(r, 2) for r in returns],
+        "mean_return_last_chunk": round(returns[-1], 2) if returns else None,
+    }
+
+
+def train_anakin_apex(config_path: str, section: str, num_updates: int, chunk: int = 50,
+                      seed: int = 0, num_envs: int | None = None, capacity: int | None = None,
+                      checkpoint_dir: str | None = None, run_dir: str | None = None,
+                      device: str | torch.device | None = None) -> dict:
+    """Ape-X on one device (`runtime/anakin_apex.py`): collection, the
+    prioritized ring, double-DQN training and target syncs.
+
+    `capacity` defaults to min(replay_capacity, 32768) transitions, cut to
+    a multiple of the write width: a pixel transition holds two 84x84x4
+    uint8 stacks (56 KB), so the default ring takes ~1.8 GB of device
+    memory."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_apex import AnakinApex
+
+    agent_cfg, rt = load_config(config_path, section)
+    _check_family(agent_cfg, "apex", "anakin-apex mode runs the Ape-X family")
+    env_mod, obs_transform = _device_env_for(agent_cfg, rt)
+    n = num_envs or rt.num_actors * rt.envs_per_actor
+    steps = 16
+    width = n * steps
+    cap = capacity or min(rt.replay_capacity, 32768)
+    cap = max(width, cap - cap % width)  # ring writes stay width-aligned
+    anakin = AnakinApex(
+        ApexAgent(agent_cfg, device=device), num_envs=n, batch_size=rt.batch_size,
+        capacity=cap, steps_per_collect=steps, target_sync_interval=rt.target_sync_interval,
+        updates_per_collect=rt.updates_per_call, epsilon_floor=rt.epsilon_floor or 0.0,
+        env=env_mod, obs_transform=obs_transform)
+    state = anakin.init(seed)
+    ckpt, state.train = _restore_train(checkpoint_dir, state.train)
+    warm = -(-rt.train_start_factor * rt.batch_size // width)
+    return _replay_chunk_loop(anakin, state, num_updates, chunk, ckpt, "anakin-apex", width,
+                              warm, run_dir=run_dir)
+
+
+def train_anakin_r2d2(config_path: str, section: str, num_updates: int, chunk: int = 50,
+                      seed: int = 0, num_envs: int | None = None, capacity: int | None = None,
+                      checkpoint_dir: str | None = None, run_dir: str | None = None,
+                      device: str | torch.device | None = None) -> dict:
+    """R2D2 on one device (`runtime/anakin_r2d2.py`): collection, the
+    prioritized sequence ring and training. `capacity` defaults to
+    min(replay_capacity, 4096) sequences, cut to a multiple of the env
+    count: the ring lives in device memory."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_r2d2 import AnakinR2D2
+
+    agent_cfg, rt = load_config(config_path, section)
+    _check_family(agent_cfg, "r2d2", "anakin-r2d2 mode runs the R2D2 family")
+    env_mod, obs_transform = _device_env_for(agent_cfg, rt)
+    n = num_envs or rt.num_actors * rt.envs_per_actor
+    cap = capacity or min(rt.replay_capacity, 4096)
+    cap = max(n, cap - cap % n)  # ring writes stay n-aligned
+    anakin = AnakinR2D2(
+        R2D2Agent(agent_cfg, device=device), num_envs=n, batch_size=rt.batch_size,
+        capacity=cap, target_sync_interval=rt.target_sync_interval,
+        updates_per_collect=rt.updates_per_call, epsilon_floor=rt.epsilon_floor or 0.0,
+        env=env_mod, obs_transform=obs_transform)
+    state = anakin.init(seed)
+    ckpt, state.train = _restore_train(checkpoint_dir, state.train)
+    # Warm-up: the host learner's train-start gate (more than factor x
+    # batch sequences) as collect-only updates.
+    warm = -(-rt.train_start_factor * rt.batch_size // n)
+    return _replay_chunk_loop(anakin, state, num_updates, chunk, ckpt, "anakin-r2d2",
+                              n * agent_cfg.seq_len, warm, run_dir=run_dir)

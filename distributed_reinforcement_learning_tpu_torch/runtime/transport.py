@@ -1120,12 +1120,20 @@ def _truthy(name: str) -> bool:
     return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
 
 
-def refuse_unported(mode: str) -> None:
+# The families with an on-device loop (`--mode anakin`), as in the JAX
+# launchers: the transformer families have none.
+ANAKIN_FAMILIES = ("impala", "apex", "r2d2")
+
+
+def refuse_unported(mode: str, algo: str) -> None:
     """Raise a ValueError naming the ROADMAP item for each plane of the
     JAX topology that the caller asks for and the port lacks. Every mode,
-    the act-serving ones included, takes these refusals."""
-    if mode == "anakin":
-        raise ValueError("the on-device loop (--mode anakin) is not ported (ROADMAP item 14)")
+    the act-serving and on-device ones included, takes these refusals;
+    `--mode anakin` is refused for a family the JAX package has no
+    on-device loop for."""
+    if mode == "anakin" and algo not in ANAKIN_FAMILIES:
+        raise ValueError(f"--mode anakin: the on-device loops (ROADMAP item 14) run "
+                         f"{', '.join(ANAKIN_FAMILIES)}; the JAX package has none for {algo}")
     if _truthy("DRL_WEIGHTS_SHARDED"):
         raise ValueError("DRL_WEIGHTS_SHARDED: sharded weight publication is not ported "
                          "(ROADMAP item 12e)")
@@ -1209,7 +1217,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
     from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 
-    refuse_unported(mode)
+    refuse_unported(mode, algo)
     if mode == "inference":
         from distributed_reinforcement_learning_tpu_torch.runtime import serving
 

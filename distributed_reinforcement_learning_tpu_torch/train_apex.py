@@ -6,11 +6,15 @@
 The modes and options of `train_impala.py`: `--mode local` (default,
 one process; prints the result as JSON), `--mode learner`, `--mode actor
 --task k` (64 env steps a round, one re-sampled unroll put a step once
-warm). Every mode runs on CUDA unless `--device` names another device.
+warm). `--mode anakin` runs `runtime/anakin_apex.py`: 16 steps from every
+device env a collect, TD-scored into a prioritized transition ring on
+the device (`--anakin_capacity`, default min(replay_capacity, 32768)
+cut to a multiple of the write width), `updates_per_call` learns a
+collect. Every mode runs on CUDA unless `--device` names another device.
 Served acts as in `train_impala.py` (`--serve_inference`, `--remote_act`,
 `--mode inference`). What `train_impala.py` refuses, this refuses:
-`--mode anakin` (ROADMAP item 14), `DRL_WEIGHTS_SHARDED` (item 12e), the
-learner tier (item 13) and `DRL_DEVICE_PATH` (item 16).
+`DRL_WEIGHTS_SHARDED` (item 12e), the learner tier (item 13) and
+`DRL_DEVICE_PATH` (item 16).
 """
 
 from __future__ import annotations

@@ -12,6 +12,13 @@
   Co-hosted roles also take the shm rings and the weight board by the
   JAX package's `DRL_SHM_*` names; `launch_local_cluster.py` starts the
   whole topology and names them.
+- `--mode anakin`: the on-device loop (`runtime/anakin.py`): envs,
+  act, trajectory and learn all on the device, in chunks of 50 updates;
+  `--anakin_envs` sets the env count. The section's env picks the
+  device env (Breakout, Pong or SpaceInvaders names route to
+  `envs/{breakout,pong,invaders}_device.py`, CartPole to
+  `envs/cartpole_device.py`). Prints the summary (frames,
+  chunk_mean_returns, mean_return_last_chunk) as JSON.
 - Served acts: `--serve_inference` makes the learner answer acts on its
   device; `--remote_act` actors act through it (or through the replicas
   `DRL_INFER_ADDRS` names) and pull no weights; `--mode inference --task
@@ -21,10 +28,9 @@
 
 Every mode runs on CUDA unless `--device` names another device: start
 actors with `--device cpu` to keep them off the card. Not ported, and
-refused with a ValueError naming the ROADMAP item: `--mode anakin`
-(item 14), `DRL_WEIGHTS_SHARDED` and `DRL_WEIGHTS_KEYS` (item 12e), the
-learner tier and multi-host learners (item 13) and `DRL_DEVICE_PATH`
-(item 16).
+refused with a ValueError naming the ROADMAP item: `DRL_WEIGHTS_SHARDED`
+and `DRL_WEIGHTS_KEYS` (item 12e), the learner tier and multi-host
+learners (item 13) and `DRL_DEVICE_PATH` (item 16).
 """
 
 from __future__ import annotations
@@ -58,7 +64,15 @@ def run_cli(doc: str, algo: str, section: str, argv: list[str] | None) -> dict:
     ap.add_argument("--remote_act", action="store_true",
                     help="actor mode: act through the learner's service, or the replicas "
                          "DRL_INFER_ADDRS names; pull no weights")
+    ap.add_argument("--anakin_envs", type=int, default=None,
+                    help="anakin mode: envs on the device (default num_actors * "
+                         "envs_per_actor from the section)")
+    ap.add_argument("--anakin_capacity", type=int, default=None,
+                    help="anakin mode, Ape-X and R2D2: the device ring's capacity "
+                         "(default min(replay_capacity, 32768) transitions, 4096 sequences)")
     args = ap.parse_args(argv)
+    if args.mode == "anakin":
+        return _run_anakin(algo, args)
     if args.mode != "local":
         from distributed_reinforcement_learning_tpu_torch.runtime.transport import run_role
 
@@ -75,6 +89,26 @@ def run_cli(doc: str, algo: str, section: str, argv: list[str] | None) -> dict:
     summary = {k: v for k, v in result.items() if k != "episode_returns"}
     summary["episodes"] = len(result["episode_returns"])
     print(json.dumps(summary))
+    return result
+
+
+def _run_anakin(algo: str, args) -> dict:
+    """`--mode anakin`: the family's on-device loop; prints its summary."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import refuse_unported
+
+    refuse_unported("anakin", algo)
+    kw = dict(seed=args.seed, num_envs=args.anakin_envs, checkpoint_dir=args.checkpoint_dir,
+              run_dir=args.run_dir, device=args.device)
+    if algo == "impala":
+        if args.anakin_capacity is not None:
+            raise ValueError("--anakin_capacity sizes a replay ring; IMPALA's loop has none")
+        result = launch.train_anakin(args.config, args.section, args.updates, **kw)
+    else:
+        train = launch.train_anakin_apex if algo == "apex" else launch.train_anakin_r2d2
+        result = train(args.config, args.section, args.updates,
+                       capacity=args.anakin_capacity, **kw)
+    print(json.dumps(result))
     return result
 
 

@@ -5,10 +5,13 @@
 
 The modes and options of `train_impala.py`: `--mode local` (default,
 one process; prints the result as JSON), `--mode learner`, `--mode actor
---task k`. Every mode runs on CUDA unless `--device` names another
+--task k`, and `--mode anakin` (`runtime/anakin_r2d2.py`: one sequence
+from every device env a collect, scored into a prioritized sequence ring
+on the device; `--anakin_capacity`, default min(replay_capacity, 4096)
+sequences). Every mode runs on CUDA unless `--device` names another
 device; served acts as in `train_impala.py`; what `train_impala.py`
-refuses (sharded weights, 12e; the learner tier, 13; `--mode anakin`, 14;
-`DRL_DEVICE_PATH`, 16), this refuses.
+refuses (sharded weights, 12e; the learner tier, 13; `DRL_DEVICE_PATH`,
+16), this refuses.
 """
 
 from __future__ import annotations

@@ -38,6 +38,9 @@ class RuntimeConfig:
     publish_interval: int = 1
     replay_capacity: int = 100_000
     target_sync_interval: int = 100
+    # The replay learners and the on-device loops train once the replay
+    # holds more than factor * batch entries (`train_impala.py:94`).
+    train_start_factor: int = 3
     # Optimizer steps per train call (every family).
     updates_per_call: int = 1
     # Devices on a mesh's `seq` and `expert` axes (transformer families):
@@ -85,6 +88,7 @@ def load_config(path: str | Path, section: str):
         publish_interval=d.get("publish_interval", 1),
         replay_capacity=int(d.get("replay_capacity", 1e5)),
         target_sync_interval=d.get("target_sync_interval", 100),
+        train_start_factor=d.get("train_start_factor", 3),
         updates_per_call=d.get("updates_per_call", 1),
         seq_parallel=d.get("seq_parallel", 1),
         expert_parallel=d.get("expert_parallel", 1),

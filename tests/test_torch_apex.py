@@ -378,14 +378,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mode", "anakin"], "item 14"),
+    (["--mode", "anakin"], "item 12"),
     (["--mode", "inference"], "item 12"),
     (["--mode", "learner", "--serve_inference"], "item 12"),
     (["--mode", "actor", "--task", "0", "--remote_act"], "item 12"),
 ])
 def test_unported_modes_raise(argv, item, monkeypatch):
-    # Serving acts is ported: its modes and flags still refuse the planes
-    # that are not, here sharded publication (item 12e).
+    # Serving acts and the on-device loop are ported: their modes and
+    # flags still refuse the planes that are not, here sharded publication
+    # (item 12e).
     monkeypatch.setenv("DRL_WEIGHTS_SHARDED", "1")
     with pytest.raises(ValueError, match=item):
         train_apex.main(["--config", str(CONFIG), "--device", "cpu", *argv])

@@ -18,7 +18,9 @@ its act, td_error and learn step at seq_len 32 (remat off and on), and
 its learn step against the CPU at rtol 1e-4 (Adam's noise-floor
 elements within 2 lr). Served acts: a Transformer-IMPALA act batch
 through the act service, its K3a launches and its policy against the
-CPU at rtol 1e-4, atol 1e-5.
+CPU at rtol 1e-4, atol 1e-5. The on-device loops: each device env on
+CUDA against the CPU (frames and integer state equal, float state within
+1e-6), and each loop's kernel launches at the counts the code predicts.
 """
 
 import re
@@ -1005,3 +1007,81 @@ def test_served_ximpala_batch_launches_k3a_and_matches_plain(continuous, n):
     finally:
         server.stop()
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cartpole", "breakout", "pong", "invaders"])
+def test_device_env_on_cuda_equals_the_cpu(name):
+    """A device env stepped 24 steps of 8 envs on CUDA and on the CPU from
+    one state with the same actions and draws: frames, rewards, dones,
+    returns and integer state equal, float state within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib
+
+    mod = importlib.import_module(
+        f"distributed_reinforcement_learning_tpu_torch.envs.{name}_device")
+
+    def move(x, device):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        moved = [move(t, device) for t in x]
+        return type(x)(*moved) if hasattr(x, "_fields") else tuple(moved)
+
+    gen = torch.Generator().manual_seed(0)
+    state, _ = mod.reset(8, gen)
+    gstate = move(state, "cuda")
+    rng = np.random.RandomState(0)
+    for t in range(24):
+        actions = torch.from_numpy(rng.randint(0, mod.NUM_ACTIONS, 8))
+        draws = mod.draws(gen, 8)
+        cpu = mod.step(state, actions, draws)
+        cuda = mod.step(gstate, actions.cuda(), move(draws, "cuda"))
+        for a, b in zip((*cpu[1:], *cpu[0]), (*cuda[1:], *cuda[0])):
+            if a.dtype.is_floating_point:
+                torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-6)
+            else:
+                assert torch.equal(b.cpu(), a), f"step {t}"
+        state, gstate = cpu[0], cuda[0]
+
+
+def _anakin_launches(loop, state, updates):
+    from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
+
+    counts = (kvt.vtrace_cuda, klstm.lstm_fwd_cuda, klstm.lstm_bwd_cuda, kattn.flash_fwd_cuda)
+    before = [fn.launches for fn in counts]
+    state, metrics = loop.train_chunk(state, updates)
+    for v in metrics.values():
+        assert bool(torch.isfinite(v).all())
+    return [fn.launches - b for fn, b in zip(counts, before)]
+
+
+@pytest.mark.gpu
+def test_anakin_loops_on_cuda_launch_the_predicted_kernels():
+    """The on-device loops on the card, small: IMPALA launches K1 twice an
+    update; R2D2 with K learns a collect K2a 2 + 2K and K2b K times an
+    update; Ape-X launches none. The batches handed to the kernels are
+    contiguous (the wrappers refuse strided rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent, ApexConfig
+    from distributed_reinforcement_learning_tpu_torch.agents.impala import (
+        ImpalaAgent, ImpalaConfig)
+    from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin import AnakinImpala
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_apex import AnakinApex
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_r2d2 import AnakinR2D2
+
+    impala = AnakinImpala(ImpalaAgent(ImpalaConfig(obs_shape=(4,), num_actions=2, trajectory=8,
+                                                   lstm_size=32), device="cuda"), 6)
+    assert _anakin_launches(impala, impala.init(0), 3) == [6, 0, 0, 0]
+    K = 2
+    r2d2 = AnakinR2D2(R2D2Agent(R2D2Config(lstm_size=64), device="cuda"), num_envs=6,
+                      capacity=24, batch_size=8, updates_per_collect=K,
+                      obs_transform=cartpole_device.pomdp_project)
+    state, _ = r2d2.collect_chunk(r2d2.init(0), 2)
+    assert _anakin_launches(r2d2, state, 3) == [0, 3 * (2 + 2 * K), 3 * K, 0]
+    apex = AnakinApex(ApexAgent(ApexConfig(obs_shape=(4,), num_actions=2), device="cuda"),
+                      num_envs=4, steps_per_collect=4, capacity=32, batch_size=8)
+    state, _ = apex.collect_chunk(apex.init(0), 1)
+    assert _anakin_launches(apex, state, 3) == [0, 0, 0, 0]

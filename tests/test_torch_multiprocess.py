@@ -187,7 +187,7 @@ def test_replay_learner_defaults_to_the_sharded_service_over_tcp(algo, section, 
 
 @pytest.mark.parametrize("mode, env, item", [
     ("inference", {"DRL_WEIGHTS_KEYS": "torso"}, "item 12"),
-    ("anakin", {}, "item 14"),
+    ("anakin", {"DRL_DEVICE_PATH": "1"}, "item 16"),
     ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, "item 12"),
     ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, "item 12"),
     ("learner", {"DRL_LEARNER_SEATS": "2"}, "item 13"),
