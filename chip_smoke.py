@@ -211,7 +211,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 31. The `impala` section at full width through the port's local-cluster
    launcher (`launch_local_cluster.py`): the learner on CUDA, 4 CPU actor
    processes, 8 updates, (i) with the defaults (the shm weight board by
-   its gate, rings off) and (ii) with DRL_SHM_RING=1. Each fails unless
+   its gate, rings off) and (ii) with DRL_SHM_RING=1 and
+   `--weights_sharded 1` (the segmented board and shard-scoped TCP
+   pulls; the learner must report its shard publishes and every actor
+   its shard pulls from the board). Each fails unless
    the launcher exits 0, the learner logged that it serves the board
    (and the rings), every actor logged that it attached them, no actor
    demoted to TCP before the learner began to shut down, the learner
@@ -286,13 +289,34 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    of K learns: exactly (2 + 2K) K2a and K K2b launches an update (the
    ingest's main and target unrolls, each learn's two and its BPTT),
    finite loss and priorities, parameters that moved; logs as phase 39.
-41. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+41. Sharded weight publication (`runtime/weight_shards.py`) on the
+   `xformer_moe` section's agent at full width on CUDA: stores publishing
+   through `publish_async` per shard in float32 and in bfloat16 (the
+   shards `expert`, `-,model` and `rep`), each with a segmented board,
+   and a whole-blob store, all served over TCP. At each of 22 versions
+   (the first, one that moves the experts alone, then 20 learn steps)
+   CPU readers pull over TCP (`ShardedRemoteWeights`) and through the
+   board (`BoardWeights`); each must be bit for bit the whole-blob
+   decode (float32) or its bfloat16 round trip. Logs the bytes a version
+   (whole, sharded, bfloat16), the shards each publish memcpys (1 when
+   only the experts moved) and each reader's pull p50.
+42. The fused device sample path (`data/device_path.py`) under
+   `device_path_force`, against the default 2-shard service: `r2d2` at
+   K = 2 and `apex` at its section's K, each beside a host-path learner
+   over a service fed the same blobs, from the same parameters and
+   sampling seed. The first call of each path must launch the same
+   kernels (2K K2a and K K2b for r2d2, none for apex), sample the same
+   indices, write back priorities at rtol 1e-4 and leave parameters at
+   phase 16's bar (rtol 1e-4, an element at Adam's noise floor within
+   2 lr a step). Logs the H2D copy's device ms, the share of it inside
+   the learn calls and the ms a call on both paths.
+43. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
    paths launch none; K1 carries phases 27-33's, 35's and 38's launches
    beside phase 4's, and its times at phase 38's shape; K2a and K2b
-   phase 20's, 26's, 32's and 40's beside phase 6's; K3a, K3b and K3c
-   phase 23's beside phase 9's, and K3a phases 34's and 36's with its
-   times at the served batch shapes).
-42. The device line, then `{"ok": true, "device": {...}}` as the last line.
+   phase 20's, 26's, 32's, 40's and 42's beside phase 6's; K3a, K3b and
+   K3c phase 23's beside phase 9's, and K3a phases 34's and 36's with
+   its times at the served batch shapes).
+44. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29
@@ -1090,12 +1114,13 @@ def phase_r2d2_parity() -> None:
 
 
 def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
-              launcher_r2d2: dict, anakin: dict) -> list[dict]:
+              launcher_r2d2: dict, anakin: dict, devpath: dict) -> list[dict]:
     """The K2a and K2b entries of the kernels line: `launches` from the
     r2d2 path (phase 6), with the default multi-process r2d2 learner's
     own count (phase 20, K=2 calls), the r2d2_pixel path's (phase 26),
-    the ring-fed r2d2 learner's (phase 32) and Anakin R2D2's on both
-    sections (phase 40) beside it."""
+    the ring-fed r2d2 learner's (phase 32), Anakin R2D2's on both
+    sections (phase 40) and the device sample path's first K=2 call
+    (phase 42) beside it."""
     rows = []
     for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
         t = k2["timings"][LSTM_MAIN][tag]
@@ -1109,7 +1134,8 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
                                  "r2d2_pixel": r2d2_pixel["launches"][name],
                                  "launcher_r2d2_ring": launcher_r2d2["launches"][name],
                                  **{f"anakin_{section}": got["launches"][name]
-                                    for section, got in anakin.items()}},
+                                    for section, got in anakin.items()},
+                                 "r2d2_device_path_call": devpath["r2d2"]["launches"]["device"][name]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
@@ -3285,15 +3311,18 @@ def phase_launcher_impala(tcp: dict) -> dict:
     """The `impala` section at full width through the port's launcher:
     the learner on CUDA, rt.num_actors CPU actors, MP_UPDATES updates,
     (i) with the defaults (the weight board by its gate, rings off) and
-    (ii) with DRL_SHM_RING=1; logged beside phase 11's TCP-only run
+    (ii) with DRL_SHM_RING=1 and `--weights_sharded 1` (the segmented
+    board, shard-scoped TCP pulls); logged beside phase 11's TCP-only run
     (`tcp`)."""
     agent_cfg, rt = load_config(CONFIG, "impala")
     out = {}
     log(f"[launcher] {shm_size()}; segments before: {shm_segments()}")
-    for tag, env_set in (("defaults", {"DRL_SHM_RING": None, "DRL_SHM_WEIGHTS": None}),
-                         ("rings", {"DRL_SHM_RING": "1", "DRL_SHM_WEIGHTS": None})):
+    for tag, env_set, extra in (
+            ("defaults", {"DRL_SHM_RING": None, "DRL_SHM_WEIGHTS": None}, []),
+            ("rings", {"DRL_SHM_RING": "1", "DRL_SHM_WEIGHTS": None}, ["--weights_sharded", "1"])):
         t0 = time.perf_counter()
-        text = run_launcher("impala", MP_UPDATES, rt.num_actors, f"impala_{tag}", env_set)
+        text = run_launcher("impala", MP_UPDATES, rt.num_actors, f"impala_{tag}", env_set,
+                            extra=extra)
         seconds = time.perf_counter() - t0
         rings = tag == "rings"
         check_attached(text, tag, rt.num_actors, rings)
@@ -3308,6 +3337,12 @@ def phase_launcher_impala(tcp: dict) -> dict:
         if any(a["weight_version"] <= 0 for a in actors):
             raise RuntimeError(f"launcher {tag}: an actor never held a weight version > 0")
         check_no_early_demotion(learner, actors, tag)
+        shards = learner["weight_shards"]
+        shard_pulls = [a["board"]["shard_pulls"] for a in actors]
+        if (shards is not None) != bool(extra) or (extra and (
+                shards["shard_publishes"] < MP_UPDATES or min(shard_pulls) < 1)):
+            raise RuntimeError(f"launcher {tag}: shard publication {shards}, actors' shard "
+                               f"pulls from the board {shard_pulls}")
         got = impala_rates(learner, actors, agent_cfg, rt)
         board = learner["board"]
         ring_puts = [a["ring"]["unrolls_sent"] for a in actors] if rings else None
@@ -3331,6 +3366,9 @@ def phase_launcher_impala(tcp: dict) -> dict:
             + (f"; ring puts {ring_puts}, {ring_mb:.1f} MB, drained "
                f"{learner['rings']['unrolls_drained']}; TCP puts accepted "
                f"{learner['transport']['unrolls_accepted']}" if rings else "")
+            + (f"; sharded publication: {shards['shard_publishes']} publishes, "
+               f"{shards['shards_changed']} shards changed, {shards['broadcast_bytes'] / 1e6:.1f} "
+               f"MB broadcast, actors' shard pulls from the board {shard_pulls}" if shards else "")
             + f"; stage ms " + ", ".join(f"{k} {v:.2f}" for k, v in learner["stage_ms"].items())
             + f"; phase {seconds:.1f} s")
     return out
@@ -4112,6 +4150,349 @@ def phase_anakin_r2d2(mem_start: int, section: str) -> dict:
     return got
 
 
+SHARD_PUBLISHES = 20  # phase 41: timed publishes, a learn step before each
+SHARD_BOARD_BYTES = 64 << 20  # phase 41: each segmented board's arena
+
+
+def params_bit_equal(got: dict, want: dict) -> bool:
+    return set(got) == set(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+        and np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes() for k in want)
+
+
+def phase_sharded_publication() -> dict:
+    """Sharded weight publication (`runtime/weight_shards.py`) on the
+    `xformer_moe` section's agent at full width: CUDA learner stores
+    publishing through `publish_async` per shard in float32 and in
+    bfloat16, and a whole-blob store, each served over TCP, the sharded
+    ones also onto a segmented board. CPU readers pull each version over
+    TCP (`ShardedRemoteWeights`) and through the board (`BoardWeights`):
+    bit for bit the whole-blob decode in float32, its bfloat16 round trip
+    in bfloat16. Logs the bytes a version, the shards each publish
+    memcpys and the pull p50 of each reader."""
+    import os
+
+    from distributed_reinforcement_learning_tpu_torch.data import bf16, codec
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
+        RemoteWeights, ShardedRemoteWeights, TransportClient, TransportServer)
+    from distributed_reinforcement_learning_tpu_torch.runtime.weight_board import (
+        BoardWeights, ShardedWeightBoard, attach_any)
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    t_phase = time.perf_counter()
+    agent_cfg, rt = load_config(CONFIG, "xformer_moe")
+    agent = XformerAgent(agent_cfg, device="cuda")
+    state = agent.init_state(seed=3)
+    batch, is_weight = xformer_batch(agent_cfg, rt.batch_size, seed=5)
+    stores = {"f32": WeightStore(sharded=True, quant=""),
+              "bf16": WeightStore(sharded=True, quant="bf16"), "whole": WeightStore(sharded=False)}
+    boards, servers, clients, readers = {}, {}, {}, {}
+    try:
+        for tag in ("f32", "bf16"):
+            boards[tag] = ShardedWeightBoard.create(f"drlsmoke-wshard-{tag}-{os.getpid()}",
+                                                    SHARD_BOARD_BYTES)
+            stores[tag].attach_board(boards[tag])
+        for tag, store in stores.items():
+            servers[tag] = TransportServer(TrajectoryQueue(4), store, host="127.0.0.1",
+                                           port=free_port()).start()
+            clients[tag] = TransportClient("127.0.0.1", servers[tag].port)
+        for tag in ("f32", "bf16"):
+            readers[f"tcp_{tag}"] = ShardedRemoteWeights(clients[tag], "cpu")
+            readers[f"board_{tag}"] = BoardWeights(attach_any(boards[tag].name), clients[tag],
+                                                   device="cpu")
+        readers["tcp_whole"] = RemoteWeights(clients["whole"], "cpu")
+        changed: dict[str, list[int]] = {"f32": [], "bf16": []}
+        pull_ms: dict[str, list[float]] = {tag: [] for tag in readers}
+
+        def publish(version: int) -> None:
+            before = {tag: stores[tag].shard_stat("shards_changed") for tag in changed}
+            for store in stores.values():
+                store.publish_async(state.params, version)
+            for store in stores.values():
+                if not store.flush_async(timeout=60.0):
+                    raise RuntimeError(f"sharded publication: version {version} did not land")
+            for tag in changed:
+                changed[tag].append(stores[tag].shard_stat("shards_changed") - before[tag])
+
+        def pull_and_check(version: int, timed: bool) -> None:
+            want = codec.decode(stores["whole"].get_blob()[0], copy=True)
+            want_bf16 = {k: bf16.bf16_u16_to_f32(bf16.f32_to_bf16_u16(v))
+                         if v.dtype == np.float32 else v for k, v in want.items()}
+            for tag, reader in readers.items():
+                t0 = time.perf_counter()
+                got = reader.get_if_newer(version - 1)
+                ms = (time.perf_counter() - t0) * 1e3
+                if got is None or got[1] != version:
+                    raise RuntimeError(f"sharded publication: reader {tag} got {got and got[1]}, "
+                                       f"expected version {version}")
+                host = {k: v.numpy() for k, v in got[0].items()}
+                ref = want_bf16 if tag.endswith("bf16") else want
+                if not params_bit_equal(host, ref):
+                    bad = [k for k in ref if host[k].tobytes() != ref[k].tobytes()]
+                    raise RuntimeError(f"sharded publication: reader {tag} at version {version} "
+                                       f"differs from the whole-blob decode"
+                                       f"{' bfloat16 round trip' if ref is want_bf16 else ''}: "
+                                       f"{bad[:4]}")
+                if timed:
+                    pull_ms[tag].append(ms)
+
+        publish(0)
+        manifest = json.loads(bytes(stores["f32"].get_sharded(-1)[1]))
+        keys = [sh["key"] for sh in manifest["shards"]]
+        if not {"expert", "-,model", "rep"} <= set(keys):
+            raise RuntimeError(f"sharded publication: xformer_moe shards {keys}")
+        pull_and_check(0, timed=False)
+        experts = [k for k in state.params if ".moe.moe_w" in k]
+        with torch.no_grad():
+            for k in experts:
+                state.params[k].add_(1e-3)
+        publish(1)  # the expert tensors alone moved
+        pull_and_check(1, timed=False)
+        if changed["f32"][1] != 1:
+            raise RuntimeError(f"sharded publication: {changed['f32'][1]} shards changed when only "
+                               f"the experts moved")
+        for v in range(2, 2 + SHARD_PUBLISHES):
+            agent.learn(state, batch, is_weight)
+            publish(v)
+            pull_and_check(v, timed=True)
+        sizes = {tag: sum(sh["nbytes"] for sh in json.loads(bytes(
+            stores[tag].get_sharded(-1)[1]))["shards"]) for tag in ("f32", "bf16")}
+        sizes["whole"] = len(stores["whole"].get_blob()[0])
+        board_stats = {tag: stores[tag].board_stats() for tag in ("f32", "bf16")}
+        shard_pulls = {tag: readers[f"board_{tag}"].stat("shard_pulls") for tag in ("f32", "bf16")}
+        sent = {tag: servers[tag].snapshot_stats() for tag in ("f32", "bf16")}
+        versions = 2 + SHARD_PUBLISHES
+        if (any(n != versions for n in shard_pulls.values())
+                or any(readers[f"tcp_{t}"].stat("shard_pulls") != versions for t in changed)
+                or any(readers[f"board_{t}"].stat("tcp_fallbacks") for t in changed)):
+            raise RuntimeError(f"sharded publication: board shard pulls {shard_pulls}, TCP "
+                               f"{[readers[f'tcp_{t}'].snapshot_stats() for t in changed]}")
+    finally:
+        for reader in readers.values():
+            if hasattr(reader, "close"):
+                reader.close()
+        for client in clients.values():
+            client.close()
+        for server in servers.values():
+            server.stop()
+        for store in stores.values():
+            store.close()
+        for board in boards.values():
+            board.close()
+            board.unlink()
+    p50 = {tag: float(np.median(ms)) for tag, ms in pull_ms.items()}
+    result = {"keys": keys, "bytes": sizes, "changed": changed, "pull_ms_p50": p50,
+              "board": board_stats, "seconds": time.perf_counter() - t_phase}
+    log(f"[wshard] xformer_moe ({sum(v.numel() for v in state.params.values()):,} parameters) "
+        f"sharded {keys}: bytes a version whole {sizes['whole']:,}, sharded f32 "
+        f"{sizes['f32']:,}, bf16 {sizes['bf16']:,} (manifest {len(bytes(stores['f32'].get_sharded(-1)[1])):,}); "
+        f"shards memcpy'd a publish f32 {changed['f32']}, bf16 {changed['bf16']}; every reader "
+        f"bit for bit the whole-blob decode (f32) or its bf16 round trip at "
+        f"{2 + SHARD_PUBLISHES} versions; board shard pulls {shard_pulls}; TCP shard sends "
+        f"{ {t: (s['shard_sends'], s['shard_full_sends']) for t, s in sent.items()} }; board "
+        f"writes {[b['writes'] for b in board_stats.values()]}, "
+        f"{[round(b['write_ms'], 3) for b in board_stats.values()]} ms each")
+    log(f"[wshard] pull p50 over {SHARD_PUBLISHES} versions (ms): " + ", ".join(
+        f"{tag} {ms:.3f}" for tag, ms in p50.items()) + f"; phase {result['seconds']:.1f} s")
+    return result
+
+
+DEVICE_PATH_CALLS = 6  # phase 42: timed train calls on each path
+DEVICE_PATH_RUNS = (("r2d2", "r2d2", 2), ("apex", "apex", None))  # (algo, section, K)
+
+
+def seeded_blobs(algo: str, agent_cfg, n: int) -> list[bytes]:
+    """`n` codec blobs the sharded service ingests: a 32-transition Ape-X
+    unroll or one R2D2 sequence each, seeded."""
+    from distributed_reinforcement_learning_tpu_torch.data import codec
+
+    if algo == "apex":
+        return [bytes(codec.encode(apex_batch(agent_cfg, 32, seed=100 + i)[0])) for i in range(n)]
+    batch, _ = r2d2_batch(agent_cfg, n, seed=100)
+    return [bytes(codec.encode(tree_map(lambda x, i=i: x[i], batch))) for i in range(n)]
+
+
+def record_writebacks(svc) -> list:
+    """Wrap the service's `update_batch` to keep each (indices, priorities)."""
+    calls = []
+    update = svc.update_batch
+
+    def recording(idxs, prio):
+        calls.append((np.asarray(idxs).copy(), np.asarray(prio).copy()))
+        return update(idxs, prio)
+
+    svc.update_batch = recording
+    return calls
+
+
+def device_path_run(algo: str, section: str, k: int | None, ref) -> dict:
+    """One family under the device path and on the host path: two
+    learners over two default 2-shard services fed the same blobs, the
+    same parameters and sampling seed."""
+    import shutil
+    import tempfile
+
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch, replay_shard
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    agent_cfg, rt = load_config(CONFIG, section)
+    if k is not None:
+        rt = dataclasses.replace(rt, updates_per_call=k)
+    k = rt.updates_per_call
+    blobs = seeded_blobs(algo, agent_cfg, 3 * rt.batch_size)
+    spill = tempfile.mkdtemp(prefix="smoke_devpath_")
+    learners, services, writebacks = [], [], []
+    try:
+        for force in (True, False):
+            svc = replay_shard.build_service(algo, rt, seed=0, spill_dir=spill)
+            if svc is None or len(svc.shards) != 2:
+                raise RuntimeError(f"device path {section}: the default service has "
+                                   f"{svc and len(svc.shards)} shards, not 2")
+            for i, blob in enumerate(blobs):
+                svc.shards[i % 2].ingest_blob(blob)
+            learner = launch.make_learner(algo, agent_cfg, rt, TrajectoryQueue(8), WeightStore(),
+                                          seed=0, device="cuda", replay_service=svc)
+            learner.device_path_force = force
+            services.append(svc)
+            learners.append(learner)
+            writebacks.append(record_writebacks(svc))
+        dev, host = learners
+        host.state = host.agent.state_from_params(
+            {n: t.detach() for n, t in dev.state.params.items()})
+        before = {n: t.detach().clone() for n, t in dev.state.params.items()}
+
+        launches, call_ms = {}, {}
+        for tag, learner in (("device", dev), ("host", host)):
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            while learner.train_steps < k:
+                learner.train()
+                if time.perf_counter() - t0 > 60:
+                    raise RuntimeError(f"device path {section}: the {tag} call never trained")
+            torch.cuda.synchronize()
+            launches[tag] = all_launches()
+        path = dev._device_path
+        if path is None or path.dead or host._device_path is not None:
+            raise RuntimeError(f"device path {section}: path {path and path.dead_reason}, host "
+                               f"path's {host._device_path}")
+        want = {"lstm_fwd": 2 * k, "lstm_bwd": k} if algo == "r2d2" else {}
+        for tag, got in launches.items():
+            if {n: c for n, c in got.items() if c} != want:
+                raise RuntimeError(f"device path {section}: {tag} call launched {got}, "
+                                   f"expected {want}")
+        lr = float(getattr(agent_cfg, "learning_rate", None)
+                   or getattr(agent_cfg, "start_learning_rate"))
+        bound = sum(2 * adam_ratio_bound(t) for t in range(1, k + 1)) * lr
+        noise, worst = 0, 0.0
+        for name, want_p in host.state.params.items():
+            got_p = dev.state.params[name].detach()
+            want_p = want_p.detach()
+            diff = (got_p - want_p).abs()
+            settled = diff <= 1e-4 * want_p.abs() + 1e-2 * lr
+            worst = max(worst, float(diff.max()))
+            if float(diff.max()) > bound * (1 + 1e-5):
+                raise RuntimeError(f"device path {section}: {name} differs by "
+                                   f"{float(diff.max())} from the host path, beyond Adam's {bound}")
+            noise += int((~settled).sum())
+            if float((got_p - before[name]).abs().max()) == 0.0:
+                raise RuntimeError(f"device path {section}: {name} did not move")
+        for svc in services:
+            if not svc.flush_updates(timeout=30.0):
+                raise RuntimeError(f"device path {section}: priority updates did not land")
+        first = [wb[:k] for wb in writebacks]
+        for (di, dp), (hi, hp) in zip(*first):
+            if not np.array_equal(di, hi):
+                raise RuntimeError(f"device path {section}: the two paths sampled other indices")
+            np.testing.assert_allclose(dp, hp, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"device path {section} priorities")
+
+        # The learn windows: events on the learn stream around each call of
+        # the agent's learn step that `device_train_call` makes, the wait on
+        # the entry's copy outside them.
+        learn_events = []
+        step_name = "learn_many" if k > 1 else "learn"
+
+        def windowed(fn):
+            def call(*args, **kwargs):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args, **kwargs)
+                b.record()
+                learn_events.append((a, b))
+                return out
+            return call
+
+        for tag, learner in (("device", dev), ("host", host)):
+            times = []
+            if tag == "device":
+                setattr(dev.agent, step_name, windowed(getattr(dev.agent, step_name)))
+            for _ in range(DEVICE_PATH_CALLS):
+                steps = learner.train_steps
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                while learner.train_steps == steps:
+                    learner.train()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            call_ms[tag] = float(np.median(times))
+        delattr(dev.agent, step_name)
+        windows = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in learn_events]
+        copies = [(ref.elapsed_time(s), ref.elapsed_time(d)) for s, d in path._transfer.timing]
+        h2d = [d - s for s, d in copies]
+        timed = [(s, d) for s, d in copies if s >= windows[0][0]]
+        overlap = sum(max(0.0, min(d, b) - max(s, a)) for s, d in timed for a, b in windows)
+        share = overlap / max(sum(d - s for s, d in timed), 1e-9)
+        stats = path.stats()
+        stage_ms = {"device": dev.timer.run_means_ms(), "host": host.timer.run_means_ms()}
+        result = {"k": k, "launches": launches, "call_ms": call_ms, "stage_ms": stage_ms,
+                  "h2d_ms": float(np.median(h2d)), "h2d_overlap": share,
+                  "entries": stats["entries_out"], "h2d_mb": stats["h2d_bytes"] / 1e6,
+                  "noise_floor": noise, "worst": worst, "lr": lr}
+    finally:
+        for learner in learners:
+            learner.close()
+        for svc in services:
+            svc.close()
+        shutil.rmtree(spill, ignore_errors=True)
+    n = sum(v.numel() for v in before.values())
+    log(f"[devpath] {section} K={k} over the default 2-shard service: launches a call device "
+        f"{ {n_: c for n_, c in launches['device'].items() if c} }, host "
+        f"{ {n_: c for n_, c in launches['host'].items() if c} }; parameters after one call "
+        f"within {result['worst']:.2e} of the host path's ({result['worst'] / lr:.1e} of lr), "
+        f"{noise} of {n:,} elements past rtol 1e-4 at Adam's noise floor; priorities and "
+        f"indices the host path's; H2D {result['h2d_ms']:.3f} ms device time an entry "
+        f"({result['h2d_mb'] / max(stats['entries_out'], 1):.2f} MB), "
+        f"{100 * share:.1f}% of it inside the learn steps' device windows; ms a call "
+        f"(synchronised) device "
+        f"path {call_ms['device']:.2f}, host path {call_ms['host']:.2f}; stage means (ms) "
+        + "; ".join(f"{tag} " + ", ".join(f"{k_} {v:.2f}" for k_, v in st.items())
+                    for tag, st in stage_ms.items()))
+    return result
+
+
+def phase_device_path() -> dict:
+    """The fused device sample path (`data/device_path.py`,
+    `replay_train.device_train_call`) under `device_path_force`: `r2d2`
+    with K = 2 (K2a and K2b through `learn_many`) and `apex` at its
+    section's K. Each path's first call from the same parameters on the
+    same sampled batches: the same launches a call, the same indices,
+    priorities at rtol 1e-4 and parameters at phase 16's bar; then the
+    H2D copy's device ms, the share of it inside the learn steps' device
+    windows (events around the agent's learn call, the wait on the next
+    copy outside), and the ms a call on both paths."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    runs = {section: device_path_run(algo, section, k, ref)
+            for algo, section, k in DEVICE_PATH_RUNS}
+    runs["seconds"] = time.perf_counter() - t_phase
+    log(f"[devpath] phase {runs['seconds']:.1f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4189,6 +4570,12 @@ def main() -> int:
     anakin_r2d2 = {section: phase_anakin_r2d2(phase_memory(f"anakin {section}"), section)
                    for section in ("r2d2", "r2d2_pixel")}
     anakin_s = time.perf_counter() - t_anakin
+    t_planes = time.perf_counter()
+    phase_memory("sharded publication")
+    wshard = phase_sharded_publication()
+    phase_memory("device sample path")
+    devpath = phase_device_path()
+    planes_s = time.perf_counter() - t_planes
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -4217,7 +4604,7 @@ def main() -> int:
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
         "anakin": {"shape": list(ANAKIN_SHAPE), **anakin_k1},
-    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2),
+    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2, devpath),
         *attention_rows(k3, ximpala, xformer_long)]
     k3a = next(row for row in kernels if row["name"] == "attention_fwd")
     k3a["launches_by_path"].update(
@@ -4284,7 +4671,14 @@ def main() -> int:
         + ", ".join(f"{section} {got['frames_per_s']:.0f} frames/s, "
                     f"{got['ms_per_update']:.1f} ms an update ({got['seconds']:.1f} s)"
                     for section, got in anakin_r2d2.items())
-        + f"; phases 37-40 {anakin_s:.1f} s; "
+        + f"; phases 37-40 {anakin_s:.1f} s; sharded publication: bytes a version "
+        f"{wshard['bytes']}, pull p50 " + ", ".join(
+            f"{tag} {ms:.3f}" for tag, ms in wshard["pull_ms_p50"].items())
+        + f" ms ({wshard['seconds']:.1f} s); device path: " + ", ".join(
+            f"{section} ms a call {got['call_ms']['device']:.2f} / host {got['call_ms']['host']:.2f}, "
+            f"H2D {got['h2d_ms']:.3f} ms ({100 * got['h2d_overlap']:.0f}% in the learn)"
+            for section, got in devpath.items() if section != "seconds")
+        + f" ({devpath['seconds']:.1f} s); phases 41-42 {planes_s:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,7 +15,7 @@ Counterpart of the JAX package's `agents/apex.py`:
 
 The main net runs over the stacked [s; s'] batch in one pass (one conv
 pass over 2B frames); the target net over s'. Parameters are explicit
-(dicts of tensors through `torch.func.functional_call`) and updated in
+(dicts of tensors through `models.functional.functional_call`) and updated in
 place. `learn_many`: K `learn` steps over a `[K, B, ...]` batch in one
 call, with the K priority rows stacked (`common.learn_many`).
 """
@@ -26,11 +26,11 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.models.apex_net import (
     DuelingQNetwork, SimpleQNetwork)
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.ops import dqn
 from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
 

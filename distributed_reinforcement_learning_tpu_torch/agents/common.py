@@ -62,7 +62,7 @@ class TargetTrainState:
 class ThreadLocalModelMixin:
     """`model`: the structure-only (meta-device) module that the agent's
     calls run under explicit parameters, one per thread.
-    `torch.func.functional_call` swaps a module's parameters in and out
+    `models.functional.functional_call` swaps a module's parameters in and out
     while it runs, so threads that share one agent (the learner and the
     actor threads of `run_async`, the pipelined actor's act worker) must
     not share the module. The host class provides `_build_model(None)`

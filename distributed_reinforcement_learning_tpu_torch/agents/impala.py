@@ -16,7 +16,7 @@ Loss math:
     total = pi_loss + c_v * baseline_loss + c_e * entropy_loss
 
 Both `act` and `learn` take the parameters explicitly, as a dict of
-tensors run through `torch.func.functional_call`, so actors act on the
+tensors run through `models.functional.functional_call`, so actors act on the
 snapshot they pulled while the learner updates its own tensors in place.
 """
 
@@ -26,10 +26,10 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.models.impala_net import (
     ImpalaActorCritic, apply_stored_state)
 from distributed_reinforcement_learning_tpu_torch.ops import vtrace

@@ -14,7 +14,7 @@ Counterpart of the JAX package's `agents/r2d2.py`:
 - Optimizer: plain Adam(1e-4), no clipping unless `gradient_clip_norm`.
 
 `act`, `td_error` and `learn` take parameters explicitly (dicts of
-tensors through `torch.func.functional_call`), as the IMPALA agent does;
+tensors through `models.functional.functional_call`), as the IMPALA agent does;
 `learn_many` runs K `learn` steps in one call (`common.learn_many`).
 `state_from_params`, `td_error`, `learn` and `learn_many` come from
 `common.SequenceReplayLearnMixin`; on CUDA each learn step runs the LSTM
@@ -27,9 +27,9 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.models.r2d2_net import R2D2Net
 from distributed_reinforcement_learning_tpu_torch.ops.kernels.lstm import check_hidden_size
 from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device

@@ -16,7 +16,7 @@ semantics (`agents/r2d2.py`) with the LSTM swapped for `TransformerQNet`:
   runs the forward over each env's rolling window of the last `seq_len`
   steps and acts epsilon-greedily on the window's final position.
 
-Parameters are explicit tensors run through `torch.func.functional_call`
+Parameters are explicit tensors run through `models.functional.functional_call`
 on a meta-device model, one per thread (`common.ThreadLocalModelMixin`).
 The target forward runs under `torch.no_grad()`. On CUDA tensors every
 attention call whose T divides by a power-of-two block of at least 8
@@ -33,9 +33,9 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.models.transformer_net import TransformerQNet
 from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
 
@@ -159,7 +159,7 @@ class XformerAgent(common.SequenceReplayLearnMixin, common.ThreadLocalModelMixin
     def _forward(self, params, obs, previous_action, done, return_aux: bool = False):
         return functional_call(self.model, params,
                                (common.normalize_obs(obs), previous_action, done),
-                               {"return_aux": return_aux}, tie_weights=False)
+                               {"return_aux": return_aux})
 
     # -- act -------------------------------------------------------------
     @torch.no_grad()

@@ -15,7 +15,7 @@ episode-segment masking stands in for done-masked state resets.
   life-loss shaped), and adds the MoE routers' load-balancing term
   (`moe_aux_weight` x the sum over layers) when `num_experts > 0`.
 
-Parameters are explicit tensors run through `torch.func.functional_call`
+Parameters are explicit tensors run through `models.functional.functional_call`
 on a meta-device model, as in `agents/impala.py`. On CUDA tensors every
 attention call with T divisible by a power-of-two block of at least 8
 runs the flash kernels K3a (forward), K3b and K3c (backward).
@@ -27,12 +27,12 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent
 from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
     build_transformer_models, init_transformer_params, moe_aux_term)
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +110,7 @@ class XImpalaAgent(ImpalaAgent):
         """Sample from the window-final softmax policy with `generator`
         (on the agent's device). Windows are `[N, W, ...]`."""
         policy, _ = functional_call(
-            self.model, params, (common.normalize_obs(obs_win), prev_action_win, done_win),
-            tie_weights=False)
+            self.model, params, (common.normalize_obs(obs_win), prev_action_win, done_win))
         policy = policy[:, -1]
         action = torch.multinomial(policy, 1, generator=generator).squeeze(-1)
         return XImpalaActOutput(action, policy)
@@ -123,7 +122,6 @@ class XImpalaAgent(ImpalaAgent):
         boundaries (see XImpalaBatch)."""
         args = (common.normalize_obs(batch.state), batch.previous_action, batch.env_done)
         if not self.cfg.num_experts:
-            return functional_call(self.model, params, args, tie_weights=False)
-        (policy, value), aux = functional_call(self.model, params, args,
-                                               {"return_aux": True}, tie_weights=False)
+            return functional_call(self.model, params, args)
+        (policy, value), aux = functional_call(self.model, params, args, {"return_aux": True})
         return policy, value, moe_aux_term(self.cfg, aux)

@@ -59,9 +59,11 @@ the learner.
 When the learner has finished, each actor, then each replica, gets
 SIGINT: it stops, prints its JSON summary and exits 0 (after
 `--actor_grace` seconds without a learner an actor or a replica ends by
-itself, as `train_<algo>` does). Refused by name, with the ROADMAP item:
-`--learners` > 1 and `--learner_sync` (item 13), `--weights_sharded 1`
-(item 12e).
+itself, as `train_<algo>` does). `--weights_sharded 1` exports
+`DRL_WEIGHTS_SHARDED=1` to every role: the learner publishes per shard
+onto the segmented board, and the actors' and replicas' TCP pulls are
+shard-scoped. Refused by name, with the ROADMAP item: `--learners` > 1
+and `--learner_sync` (item 13).
 """
 
 from __future__ import annotations
@@ -168,7 +170,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="replay learners: N >= 1 ingest shards, 0 the monolithic replay "
                         "(DRL_REPLAY_SHARDS; unset: the default of 2)")
     p.add_argument("--weights_sharded", type=int, default=None, choices=(0, 1),
-                   help="1 is not ported (ROADMAP item 12e); 0 is the port's only mode")
+                   help="force per-shard weight publication on (1) or off (0) for every "
+                        "role (DRL_WEIGHTS_SHARDED: shard blobs and a manifest on the "
+                        "board and the shard-scoped TCP pull; unset: the gate's default, "
+                        "off)")
     p.add_argument("--respawn", choices=("off", "on-exit", "chaos"), default=None,
                    help="on-exit re-spawns a role that dies mid-run with the same command "
                         "and environment; chaos = on-exit plus the --chaos kills "
@@ -194,9 +199,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         # The actors would fail at once while the learner idles.
         p.error("--remote_act needs the learner to serve inference; pass --serve_inference too")
     args.infer_replicas = infer_replicas(args, p)
-    if args.weights_sharded == 1:
-        p.error("--weights_sharded 1: sharded weight publication is not ported "
-                "(ROADMAP item 12e)")
     args.respawn = args.respawn or ("chaos" if args.chaos else "off")
     if args.chaos and args.respawn == "off":
         p.error("--chaos needs a respawn policy; drop --respawn off")
@@ -238,7 +240,12 @@ def main(argv: list[str] | None = None) -> int:
               f"{'off (monolithic)' if args.replay_shards <= 0 else args.replay_shards}",
               file=sys.stderr)
     if args.weights_sharded is not None:
+        # Every role reads the same gate (the learner decides what it
+        # publishes and creates, the readers follow the board's magic or
+        # demote on the TCP op), so it is exported to all of them.
         env["DRL_WEIGHTS_SHARDED"] = str(args.weights_sharded)
+        print(f"[cluster] sharded weight publication "
+              f"{'on' if args.weights_sharded else 'off (whole-blob)'}", file=sys.stderr)
     if args.staleness_budget is not None:
         # The observable staleness is ~4 x publish_interval: the cadence
         # itself plus the async publication's bounded lag of up to 3

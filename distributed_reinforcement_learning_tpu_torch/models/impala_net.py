@@ -13,8 +13,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
 
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.models.recurrent import LSTMCell
 from distributed_reinforcement_learning_tpu_torch.models.torso import (
     MLP, ActionEmbedding, NatureConv, ResNetTorso, init_glorot_)

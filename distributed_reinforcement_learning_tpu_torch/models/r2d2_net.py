@@ -92,7 +92,7 @@ class R2D2Net(nn.Module):
     def forward(self, obs, prev_action, h, c, done=None):
         """`step(obs, prev_action, h, c)`; with `done` (`[B, T]`),
         `unroll(obs, prev_action, done, h, c)`. One entry point, so that
-        `torch.func.functional_call` reaches both under explicit params."""
+        `models.functional.functional_call` reaches both under explicit params."""
         if done is None:
             return self.step(obs, prev_action, h, c)
         return self.unroll(obs, prev_action, done, h, c)

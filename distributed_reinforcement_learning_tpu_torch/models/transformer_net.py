@@ -42,9 +42,9 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.models.torso import (
     ActionEmbedding, glorot_uniform_, init_glorot_)
 from distributed_reinforcement_learning_tpu_torch.ops.attention import causal_attention
@@ -256,8 +256,7 @@ class TransformerQNet(nn.Module):
             names, params = zip(*block.named_parameters())
 
             def run(z, segs, *params):
-                return functional_call(block, dict(zip(names, params)), (z, segs),
-                                       tie_weights=False)
+                return functional_call(block, dict(zip(names, params)), (z, segs))
         if remat:
             return checkpoint(run, z, segs, *params, use_reentrant=False)
         return run(z, segs, *params)

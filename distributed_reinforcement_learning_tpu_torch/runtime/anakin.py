@@ -32,11 +32,11 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 
 
 @dataclasses.dataclass

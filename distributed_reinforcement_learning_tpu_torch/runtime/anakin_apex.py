@@ -26,13 +26,13 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.func import functional_call
 
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent, ApexBatch
 from distributed_reinforcement_learning_tpu_torch.data import device_replay
 from distributed_reinforcement_learning_tpu_torch.data.device_replay import DeviceReplay
 from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
+from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.runtime.anakin import (
     check_env, env_action, episode_stats)
 from distributed_reinforcement_learning_tpu_torch.runtime.anakin_mesh import DataMeshReplayMixin

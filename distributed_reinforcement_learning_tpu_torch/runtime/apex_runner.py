@@ -54,7 +54,7 @@ from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import 
     PipelineSlice, run_async_loop, shape_life_loss, slice_seed, split_batched_env)
 from distributed_reinforcement_learning_tpu_torch.runtime.publishing import PublishCadenceMixin
 from distributed_reinforcement_learning_tpu_torch.runtime.replay_train import (
-    ReplayTrainMixin, prioritized_train_call)
+    ReplayTrainMixin, device_train_call, prioritized_train_call)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.logger import MetricsLogger
 from distributed_reinforcement_learning_tpu_torch.utils.profiling import (
@@ -469,8 +469,13 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         self._profiler.on_step(self.train_steps)
         return self.log_step_metrics(metrics)
 
-    def _train_once(self, replay) -> dict:
+    def _train_once(self, replay) -> dict | None:
         """Sample -> learn -> re-prioritise, against `replay`."""
+        path = self._device_path_for(replay)
+        if path is not None:
+            # The fused device path: the gather, the stack and the H2D
+            # copy ran on its thread, beside the previous call's learn.
+            return device_train_call(self, path, replay)
         if self.updates_per_call > 1:
             return prioritized_train_call(self, self.updates_per_call, replay)
         with self.timer.stage("replay_sample"):
@@ -487,6 +492,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
     def close(self) -> None:
         self.flush_publish()
         self.close_metrics()
+        self._close_device_path()  # join the gather thread
         self._profiler.close()
         self.logger.close()
 

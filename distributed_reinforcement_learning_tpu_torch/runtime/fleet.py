@@ -4,9 +4,10 @@ Copy of the JAX package's `runtime/fleet.py` (it imports no jax). Of the
 surfaces named below, the port has the shm ring (`runtime/shm_ring.py`),
 the weight board (`runtime/weight_board.py`), the replay shards and the
 inference replicas (`runtime/serving.py`, which register as role
-"inference"); its heartbeats drive the ring's and the board's reattach
-ladders and `transport.RemoteActService`'s re-promote probes. The
-sharded weight pull is not ported yet (ROADMAP item 12e).
+"inference") and the sharded weight pull (`transport.ShardedRemoteWeights`);
+its heartbeats drive the ring's and the board's reattach ladders, the
+sharded pull's re-probe and `transport.RemoteActService`'s re-promote
+probes.
 
 Every fast path this repo shipped fails SAFE but — until this module —
 failed PERMANENTLY: the shm ring (PR 3), the weight board (PR 5), the

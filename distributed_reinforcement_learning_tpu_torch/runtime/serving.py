@@ -189,10 +189,12 @@ def run_replica(algo: str, config_path: str, section: str, task: int = 0, seed: 
     rows, admission rejects, weight versions seen and the kernels'
     launches in its process. -> that dict.
 
-    `DRL_WEIGHTS_KEYS` (shard-scoped pulls) is refused by name: sharded
-    publication is ROADMAP item 12e."""
+    Its TCP pulls are shard-scoped when the learner publishes per shard
+    (`ShardedRemoteWeights` demotes itself to the whole-blob op
+    otherwise), and `DRL_WEIGHTS_KEYS` scopes its refreshes to the named
+    shards (`weight_shards.role_keys`)."""
     from distributed_reinforcement_learning_tpu_torch.runtime import fleet as fleet_mod
-    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch, weight_shards
     from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
         RECONNECT_RETRIES, ShardedRemoteWeights, TransportClient, TransportError, TransportServer,
         _kernel_launches, resolve_learner_addr)
@@ -200,9 +202,6 @@ def run_replica(algo: str, config_path: str, section: str, task: int = 0, seed: 
     from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
     from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
 
-    if os.environ.get("DRL_WEIGHTS_KEYS", "").strip():
-        raise ValueError("DRL_WEIGHTS_KEYS: shard-scoped weight pulls are not ported "
-                         "(ROADMAP item 12e)")
     task = max(task, 0)
     device = resolve_device(device)
     agent_cfg, rt = load_config(config_path, section)
@@ -216,7 +215,7 @@ def run_replica(algo: str, config_path: str, section: str, task: int = 0, seed: 
     # start after the replica); from then on the grace loops own the
     # deadline.
     client = TransportClient(host, lport, reconnect_retries=RECONNECT_RETRIES)
-    tcp_weights = ShardedRemoteWeights(client, "cpu")
+    tcp_weights = ShardedRemoteWeights(client, "cpu", keys=weight_shards.role_keys())
     weights_src = tcp_weights
     board_name = os.environ.get("DRL_SHM_WEIGHTS_NAME", "").strip()
     if board_name:

@@ -10,6 +10,9 @@ so a client of one package talks to a server of the other:
                                 bounded queue accepts: backpressure)
   (ii)  GET_WEIGHTS             learner -> actor versioned snapshot,
                                 encoded once per version
+        GET_WEIGHTS_SHARDED     the sharded store's manifest and shards,
+                                each full, a byte-range delta or elided
+                                (runtime/weight_shards.py)
   (iii) QUEUE_SIZE / PING       polls and liveness
   (iv)  REGISTER / HEARTBEAT    the fleet control plane (runtime/fleet.py)
   (v)   ACT                     served acts: actor -> service observation
@@ -21,7 +24,9 @@ Trajectories cross between the packages: both codecs give the same
 bytes for the same tree, and `codec.decode` rebuilds a namedtuple by
 name and fields. Weight blobs do not: the port's blob is a flat
 `{parameter name: array}` dict of its own module names, a JAX learner's
-a flax tree, so `RemoteWeights` refuses anything but a flat dict. Act
+a flax tree, so `RemoteWeights` refuses anything but a flat dict. The
+sharded pull's manifest and shard layouts are the JAX package's, so a
+JAX client pulls a port store's shards as bytes. Act
 rows are plain numpy row dicts, the JAX package's layouts, and do cross:
 a JAX actor acts through a port service and a port actor through a JAX
 one.
@@ -41,10 +46,13 @@ actor into the queue this server feeds (`runtime/shm_ring.py`), and with
 `DRL_SHM_WEIGHTS_CREATE` mirrors every landed version into a weight
 board (`runtime/weight_board.py`); an actor with `DRL_SHM_RING_NAME` /
 `DRL_SHM_WEIGHTS_NAME` puts and pulls through them, demoting to TCP if
-they fail. Left out, each refused with a ValueError that names its
-ROADMAP item: sharded weight publication (`DRL_WEIGHTS_SHARDED`), the
-learner tier and multi-host learners, the on-device loop and the fused
-device sample path (`DRL_DEVICE_PATH`). The learner's queue is
+they fail. Under `DRL_WEIGHTS_SHARDED` the learner's store publishes
+per shard and its board is the segmented one; every actor's and
+replica's TCP pull is shard-scoped (`ShardedRemoteWeights`, scoped to
+`DRL_WEIGHTS_KEYS`), demoting itself to the whole-blob op against an
+unsharded store. Left out, each refused with a ValueError that names
+its ROADMAP item: the learner tier and multi-host learners (item 13).
+The learner's queue is
 `_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
 wherever the native library builds, else the Python `TrajectoryQueue`.
 A replay learner (Ape-X, R2D2) serves, as the JAX package's does by
@@ -84,7 +92,7 @@ OP_QUEUE_SIZE = 3
 OP_PING = 4
 OP_ACT = 5  # served acts (runtime/inference.py); ST_UNAVAILABLE without a service
 OP_PUT_TRAJ_N = 6  # K unrolls per round trip
-OP_GET_WEIGHTS_SHARDED = 7  # the port's store is unsharded: ST_UNAVAILABLE
+OP_GET_WEIGHTS_SHARDED = 7  # manifest + per-shard blobs (weight_shards)
 OP_REGISTER = 8  # fleet control plane: member registration (runtime/fleet.py)
 OP_HEARTBEAT = 9  # fleet control plane: liveness + incarnation echo
 
@@ -123,6 +131,95 @@ def unpack_batch(payload) -> list[memoryview]:
     if offset != len(payload):
         raise ValueError(f"batch payload length mismatch: {offset} != {len(payload)}")
     return out
+
+
+def _pack_shard_req(have_version: int, keys, base_version: int,
+                    accept_delta: bool) -> bytearray:
+    """OP_GET_WEIGHTS_SHARDED request:
+    [i64 have][i64 base][u8 flags][u32 nkeys]{[u16 klen][key]}*nkeys.
+    nkeys=0 means every manifest shard."""
+    keys = keys or ()
+    req = bytearray(_I64.size * 2 + 1 + _U32.size)
+    _I64.pack_into(req, 0, have_version)
+    _I64.pack_into(req, 8, base_version)
+    req[16] = 1 if accept_delta else 0
+    _U32.pack_into(req, 17, len(keys))
+    for key in keys:
+        kb = key.encode()
+        req += _U16.pack(len(kb)) + kb
+    return req
+
+
+def _parse_shard_req(payload) -> tuple[int, list[str] | None, int, int]:
+    have = _I64.unpack_from(payload, 0)[0]
+    base = _I64.unpack_from(payload, 8)[0]
+    flags = payload[16]
+    (nkeys,) = _U32.unpack_from(payload, 17)
+    keys: list[str] | None = None
+    off = 21
+    if nkeys:
+        keys = []
+        for _ in range(nkeys):
+            (klen,) = _U16.unpack_from(payload, off)
+            off += _U16.size
+            keys.append(bytes(payload[off:off + klen]).decode())
+            off += klen
+    return have, keys, base, flags
+
+
+def _pack_shard_reply(version: int, mbytes: bytes, shards
+                      ) -> tuple[list, int, int, int]:
+    """OP_GET_WEIGHTS_SHARDED reply payload as `_send_msg` parts (the
+    multi-MB shard blobs are never concatenated host-side):
+    [i64 version][u32 mlen][manifest][u32 n]
+    then per shard [u16 klen][key][u8 enc][i64 base][u32 blen][bytes].
+    Returns (parts, payload_bytes, n_full, n_delta, n_skip)."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+    parts: list = [_I64.pack(version), _U32.pack(len(mbytes)), mbytes,
+                   _U32.pack(len(shards))]
+    nbytes = nfull = ndelta = nskip = 0
+    for key, enc, base, blob in shards:
+        kb = key.encode()
+        parts.append(_U16.pack(len(kb)) + kb + bytes([enc]) + _I64.pack(base)
+                     + _U32.pack(len(blob)))
+        if len(blob):
+            parts.append(blob)
+        nbytes += len(blob)
+        nfull += enc == weight_shards.ENC_FULL
+        ndelta += enc == weight_shards.ENC_DELTA
+        nskip += enc == weight_shards.ENC_SKIP
+    return parts, nbytes, nfull, ndelta, nskip
+
+
+def _parse_shard_reply(resp) -> tuple[int, bytes, list]:
+    """Inverse of `_pack_shard_reply`; shard payloads are zero-copy
+    views into `resp` (a fresh buffer per `_recv_msg`)."""
+    view = memoryview(resp)
+    version = _I64.unpack_from(view, 0)[0]
+    (mlen,) = _U32.unpack_from(view, 8)
+    off = 12
+    mbytes = bytes(view[off:off + mlen])
+    off += mlen
+    (n,) = _U32.unpack_from(view, off)
+    off += _U32.size
+    shards = []
+    for _ in range(n):
+        (klen,) = _U16.unpack_from(view, off)
+        off += _U16.size
+        key = bytes(view[off:off + klen]).decode()
+        off += klen
+        enc = view[off]
+        off += 1
+        base = _I64.unpack_from(view, off)[0]
+        off += _I64.size
+        (blen,) = _U32.unpack_from(view, off)
+        off += _U32.size
+        shards.append((key, enc, base, view[off:off + blen]))
+        off += blen
+    if off != len(view):
+        raise ValueError(f"shard reply length mismatch: {off} != {len(view)}")
+    return version, mbytes, shards
 
 
 class TransportError(ConnectionError):
@@ -168,7 +265,9 @@ class _BusyBackoff:
 
 class ShardedWeightsUnavailableError(RuntimeError):
     """OP_GET_WEIGHTS_SHARDED unserved: the learner's store publishes whole
-    blobs. Not a TransportError: the caller demotes to the whole-blob op."""
+    blobs (or an old server answers ST_ERROR). Not a TransportError: the
+    caller demotes to the whole-blob op, not treating the learner as a
+    passing outage."""
 
 
 class FleetUnavailableError(RuntimeError):
@@ -288,7 +387,9 @@ class TransportServer(_LockedStatsMixin):
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
         self.stats = {"unrolls_accepted": 0, "busy_replies": 0, "partial_accepts": 0,
-                      "weight_sends": 0, "weight_bytes_sent": 0, "bytes_received": 0,
+                      "weight_sends": 0, "weight_bytes_sent": 0, "shard_sends": 0,
+                      "shard_bytes_sent": 0, "shard_full_sends": 0, "shard_delta_sends": 0,
+                      "shard_skip_sends": 0, "bytes_received": 0,
                       "fleet_msg_errors": 0, "acts_served": 0, "act_busy_replies": 0}
         self._stats_lock = threading.Lock()
 
@@ -471,8 +572,33 @@ class TransportServer(_LockedStatsMixin):
                         conn_version = version
                         _send_msg(conn, ST_OK, _I64.pack(version), blob)
                 elif op == OP_GET_WEIGHTS_SHARDED:
-                    # Unsharded store (ROADMAP item 12e).
-                    _send_msg(conn, ST_UNAVAILABLE)
+                    # The shard-scoped pull: the manifest and the asked
+                    # shards, each full, a delta against the client's base
+                    # version, or elided when unchanged since it; version
+                    # identity as OP_GET_WEIGHTS. ST_UNAVAILABLE when the
+                    # store publishes whole blobs: the client demotes to
+                    # the whole-blob op for good.
+                    if not getattr(self.weights, "sharded", False):
+                        _send_msg(conn, ST_UNAVAILABLE)
+                    else:
+                        have, keys, base, flags = _parse_shard_req(payload)
+                        got = self.weights.get_sharded(have, keys=keys, base_version=base,
+                                                       accept_delta=bool(flags & 1))
+                        if got is None:
+                            conn_version = have
+                            _send_msg(conn, ST_OK, _I64.pack(have))
+                        else:
+                            version, mbytes, shards = got
+                            parts, nbytes, nfull, ndelta, nskip = _pack_shard_reply(
+                                version, mbytes, shards)
+                            with self._stats_lock:
+                                self.stats["shard_sends"] += 1
+                                self.stats["shard_bytes_sent"] += nbytes
+                                self.stats["shard_full_sends"] += nfull
+                                self.stats["shard_delta_sends"] += ndelta
+                                self.stats["shard_skip_sends"] += nskip
+                            conn_version = version
+                            _send_msg(conn, ST_OK, *parts)
                 elif op == OP_ACT:
                     # Its own RuntimeError handling: a failed act (no weights
                     # yet, a bad request, a failed batch) answers ST_ERROR,
@@ -739,21 +865,24 @@ class TransportClient(_LockedStatsMixin):
         self._bump("weight_bytes_received", len(resp) - _I64.size)
         return codec.decode(resp[_I64.size:], copy=True), version
 
-    def get_weights_sharded(self, have_version: int) -> Any:
-        """The shard-scoped pull, as a probe: raises
-        ShardedWeightsUnavailableError when the learner publishes whole
-        blobs (every port learner does), ValueError when it serves shards
-        (the port has no shard decoder: ROADMAP item 12e)."""
-        req = bytearray(21)  # [i64 have][i64 base][u8 flags][u32 nkeys=0]
-        _I64.pack_into(req, 0, have_version)
-        _I64.pack_into(req, 8, -2)
+    def get_weights_sharded(self, have_version: int, keys=None, base_version: int = -2,
+                            accept_delta: bool = False) -> tuple[int, bytes, list] | None:
+        """The raw shard-scoped pull (OP_GET_WEIGHTS_SHARDED): None on
+        version identity, else (version, manifest bytes, shards), shards
+        being [(key, enc, base, payload view), ...]. Raises
+        ShardedWeightsUnavailableError when the learner's store is not
+        sharded: callers latch over to the whole-blob op
+        (`ShardedRemoteWeights` does)."""
+        req = _pack_shard_req(have_version, keys, base_version, accept_delta)
         status, resp = self._exchange(OP_GET_WEIGHTS_SHARDED, req, retry=True, resend=True)
         if status == ST_CLOSED:
             raise TransportError("learner closed the data plane")
         if status != ST_OK:
             raise ShardedWeightsUnavailableError("endpoint does not serve sharded weight pulls")
-        raise ValueError("the learner publishes sharded weights; sharded pulls are not "
-                         "ported (ROADMAP item 12e)")
+        if len(resp) == _I64.size:  # identity: nothing newer to carry
+            return None
+        self._bump("weight_bytes_received", len(resp))
+        return _parse_shard_reply(resp)
 
     def remote_act(self, request: dict, busy_retry: bool = True) -> dict:
         """A served act: ship the family's observation rows, get its action
@@ -860,7 +989,10 @@ def params_to_device(tree: Any, device: torch.device) -> dict[str, torch.Tensor]
     if not isinstance(tree, dict) or not all(isinstance(v, np.ndarray) for v in tree.values()):
         raise TypeError("the pulled weights are not a flat {name: array} dict of the port's "
                         "parameters (weight blobs do not cross between the packages)")
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in tree.items()}
+    # A shard pull's leaves view its read-only reply bytes: copied, so that
+    # the tensors own writable memory (torch does not track read-only).
+    return {k: torch.from_numpy(v if v.flags.writeable else v.copy()).to(device)
+            for k, v in tree.items()}
 
 
 class RemoteWeights:
@@ -879,27 +1011,251 @@ class RemoteWeights:
         return params_to_device(tree, self.device), version
 
 
-class ShardedRemoteWeights(RemoteWeights):
-    """`get_if_newer` that probes the shard-scoped op once and, as against
-    every port learner, demotes itself to whole-blob pulls for good. A JAX
-    actor's `ShardedRemoteWeights` takes the same fallback against a port
-    learner. A learner that does serve shards raises ValueError (the
-    shard decoder is not ported, ROADMAP item 12e)."""
+class ShardedRemoteWeights(_LockedStatsMixin):
+    """`get_if_newer` over the shard-scoped op (runtime/weight_shards):
+    pulls the manifest + per-shard blobs, keeps a per-shard cache so
+    the next pull can receive byte-range DELTAS and skip untouched
+    shards entirely, dequantizes a bf16/int8 broadcast back to f32,
+    and assembles the parameters via `weight_shards.materialize`, as
+    tensors on the actor's `device` (as `RemoteWeights`).
+
+    Demotes to the whole-blob op on the first ST_UNAVAILABLE/ST_ERROR
+    (the learner's store is not sharded, or an old server), so
+    pre-shard topologies pay one round trip at startup and nothing
+    after. The latch is re-probeable on a bounded RetryLadder
+    (runtime/fleet.py): `reattach()` — driven from the fleet heartbeat
+    cadence — clears it so the NEXT pull retries the sharded op (one
+    extra round trip per probe, on the pull cadence, never a second
+    hot-path exchange); a restarted learner that now publishes per
+    shard re-promotes this client, while a genuinely un-sharded
+    learner re-latches and the exhausted ladder restores the old
+    permanent behavior. Any cache/protocol inconsistency (a delta
+    whose base this client no longer holds) is repaired with ONE full
+    sharded pull, never an actor kill.
+
+    `keys` scopes REFRESHES to the listed shard keys after the first
+    full pull (`DRL_WEIGHTS_KEYS`): unlisted shards stay pinned at
+    their last-pulled bytes — for roles that deliberately freeze part
+    of the tree. A pinned shard materializes with the manifest entry
+    CACHED from the version its bytes came from (crc, quant scales):
+    decoding old int8 codes with the current version's scales would
+    silently drift the "frozen" leaves every pull.
+
+    Concurrency map (tools/drlint lock-discipline): `stats` is bumped
+    on the actor loop thread and polled by the telemetry flush thread
+    (accessors from _LockedStatsMixin); `_plain`/`_reprobe` share that
+    lock because the fleet heartbeat thread's reattach() clears the
+    latch while the actor loop reads it. `_blobs`/`_cache_version` are
+    only ever touched by the actor loop thread — same single-thread
+    contract as BoardWeights' cache."""
+
+    _GUARDED_BY = {
+        "stats": "_stats_lock",
+        "_plain": "_stats_lock",
+        "_reprobe": "_stats_lock",
+    }
+    _NOT_GUARDED = {
+        "_blobs": "actor-loop-thread-only shard cache (same "
+                  "single-thread contract as BoardWeights' cache)",
+        "_metas": "actor-loop-thread-only manifest-entry cache",
+        "_cache_version": "actor-loop-thread-only cache version",
+    }
 
     telemetry_prefix = "wshard"
-    surface_name = "wshard"
+    surface_name = "wshard"  # fleet heartbeat registration label
 
-    def __init__(self, client: TransportClient, device: str | torch.device = "cpu"):
-        super().__init__(client, device)
-        self._plain = False
+    def __init__(self, client: TransportClient, device: str | torch.device = "cpu",
+                 keys=None):
+        from distributed_reinforcement_learning_tpu_torch.runtime.fleet import RetryLadder
+
+        self._client = client
+        self.device = torch.device(device)
+        self._keys = list(keys) if keys else None
+        self._plain = False    # whole-blob demote latch (ladder-probed)
+        self._reprobe = False  # a reattach probe is pending on the pull path
+        self._ladder = RetryLadder("wshard-op")
+        self._blobs: dict[str, np.ndarray] = {}
+        self._metas: dict[str, dict] = {}  # manifest entry per cached blob
+        self._cache_version = -2
+        self.stats = {"shard_pulls": 0, "shards_full": 0, "shards_delta": 0,
+                      "shards_skipped": 0, "bytes_received": 0,
+                      "repair_pulls": 0, "whole_fallbacks": 0,
+                      "reattaches": 0}
+        self._stats_lock = threading.Lock()
+
+    def _resolve(self, shards):
+        """Wire shards -> (owned blob dict, cache_derived) against the
+        cache; None when the cache cannot honor a delta/skip (repair
+        with a full pull). `cache_derived` drives checksum
+        verification: blobs rebuilt from cached bases (delta/skip) are
+        the case the manifest crc exists for — a reused version number
+        against a stale cache; an all-FULL pull is plain TCP bytes."""
+        from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+        out = dict(self._blobs) if self._keys is not None else {}
+        nfull = ndelta = nskip = nbytes = 0
+        for key, enc, base, payload in shards:
+            if enc == weight_shards.ENC_FULL:
+                out[key] = np.frombuffer(bytes(payload), np.uint8)
+                nfull += 1
+                nbytes += len(payload)
+            elif enc == weight_shards.ENC_DELTA:
+                if base != self._cache_version or key not in self._blobs:
+                    return None
+                out[key] = weight_shards.delta_apply(self._blobs[key], payload)
+                ndelta += 1
+                nbytes += len(payload)
+            elif enc == weight_shards.ENC_SKIP:
+                if base != self._cache_version or key not in self._blobs:
+                    return None
+                out[key] = self._blobs[key]
+                nskip += 1
+            else:
+                return None
+        with self._stats_lock:
+            self.stats["shards_full"] += nfull
+            self.stats["shards_delta"] += ndelta
+            self.stats["shards_skipped"] += nskip
+            self.stats["bytes_received"] += nbytes
+        return out, (ndelta + nskip) > 0
+
+    def _merged_manifest(self, mbytes, shards) -> dict:
+        """Parse the pulled manifest; with role-scoped `keys`, PINNED
+        shards (absent from this reply) swap in the manifest entry
+        cached from the version their bytes came from — crc and quant
+        scales must describe the cached blob, not the current one."""
+        from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+        manifest = weight_shards.parse_manifest(mbytes)
+        if self._keys is None:
+            return manifest
+        refreshed = {k for k, _, _, _ in shards}
+        manifest["shards"] = [
+            sh if sh["key"] in refreshed or sh["key"] not in self._metas
+            else self._metas[sh["key"]]
+            for sh in manifest["shards"]]
+        return manifest
+
+    def reattach(self, ctx=None) -> None:
+        """Clear the whole-blob latch (bounded ladder) so the NEXT pull
+        re-probes the sharded op. Driven from the fleet heartbeat
+        cadence; the probe itself rides the normal pull path — one
+        extra round trip against a still-unsharded learner, never a
+        hot-path reconnect storm."""
+        del ctx  # nothing shm-backed to validate: the op IS the probe
+        with self._stats_lock:
+            plain = self._plain
+        if not plain or not self._ladder.try_acquire():
+            return
+        with self._stats_lock:
+            self._plain = False
+            self._reprobe = True
+
+    def reset_reattach(self) -> None:
+        """Fresh probe budget (learner epoch change: the restarted
+        learner may publish sharded where the old one did not)."""
+        self._ladder.reset()
+
+    def _note_sharded_ok(self) -> None:
+        """The sharded op answered: if a reattach probe was pending,
+        the re-promotion is confirmed."""
+        with self._stats_lock:
+            confirmed = self._reprobe
+            self._reprobe = False
+            if confirmed:
+                self.stats["reattaches"] += 1
+        if confirmed:
+            self._ladder.note_success()
+            import sys
+
+            print("[wshard] sharded weight pulls re-promoted (learner "
+                  "serves the shard-scoped op again)", file=sys.stderr)
+
+    def _whole_pull(self, have_version: int) -> tuple[Any, int] | None:
+        got = self._client.get_weights_if_newer(have_version)
+        if got is None:
+            return None
+        return params_to_device(got[0], self.device), got[1]
 
     def get_if_newer(self, have_version: int) -> tuple[Any, int] | None:
-        if not self._plain:
-            try:
-                self._client.get_weights_sharded(have_version)
-            except ShardedWeightsUnavailableError:
+        from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+        with self._stats_lock:
+            plain = self._plain
+        if plain:
+            return self._whole_pull(have_version)
+        t0 = time.perf_counter()
+        keys = self._keys if self._cache_version >= 0 else None
+        try:
+            got = self._client.get_weights_sharded(
+                have_version, keys=keys,
+                base_version=self._cache_version, accept_delta=True)
+        except ShardedWeightsUnavailableError:
+            with self._stats_lock:
                 self._plain = True
-        return super().get_if_newer(have_version)
+                reprobe = self._reprobe
+                self._reprobe = False
+                self.stats["whole_fallbacks"] += 1
+            if reprobe:  # a failed reattach probe burns a ladder slot
+                self._ladder.note_failure()
+            return self._whole_pull(have_version)
+        self._note_sharded_ok()
+        if got is None:
+            if _OBS.enabled:
+                _OBS.gauge("actor/weight_pull_ms",
+                           (time.perf_counter() - t0) * 1e3)
+            return None
+        version, mbytes, shards = got
+        params = blobs = manifest = None
+        resolved = self._resolve(shards)
+        if resolved is not None:
+            blobs, derived = resolved
+            try:
+                manifest = self._merged_manifest(mbytes, shards)
+                # Checksums run only for cache-DERIVED pulls (delta/
+                # skip): that is where a reused version number against
+                # a stale cache can silently mispair bytes. An all-FULL
+                # pull is plain framed TCP, and a crc pass would re-read
+                # every transferred byte for nothing.
+                params = weight_shards.materialize(manifest, blobs,
+                                                   verify=derived)
+            except (KeyError, ValueError):
+                # Checksum/coverage failure: the cache paired a stale
+                # blob with a reused version number (restarted learner
+                # republishing from 0 — version IDENTITY has no global
+                # uniqueness). Repair below.
+                params = None
+        if params is None:
+            # ONE full sharded pull (no deltas, no elision) repairs any
+            # cache inconsistency; a second failure is a real server
+            # fault and surfaces as a ConnectionError for the actor's
+            # elastic-grace loop.
+            self._bump("repair_pulls")
+            self._blobs, self._metas, self._cache_version = {}, {}, -2
+            got = self._client.get_weights_sharded(have_version)
+            if got is None:
+                return None
+            version, mbytes, shards = got
+            resolved = self._resolve(shards)
+            if resolved is None:
+                raise TransportError("sharded weight pull unresolvable "
+                                     "after a full repair pull")
+            blobs, _ = resolved
+            try:
+                manifest = weight_shards.parse_manifest(mbytes)
+                params = weight_shards.materialize(manifest, blobs,
+                                                   verify=False)
+            except (KeyError, ValueError) as e:
+                raise TransportError(
+                    f"sharded weight pull corrupt after repair: {e}") from e
+        self._blobs = blobs
+        self._metas = {sh["key"]: sh for sh in manifest["shards"]}
+        self._cache_version = version
+        self._bump("shard_pulls")
+        if _OBS.enabled:
+            _OBS.gauge("actor/weight_pull_ms", (time.perf_counter() - t0) * 1e3)
+            _OBS.gauge("actor/weight_version", version)
+        return params_to_device(params, self.device), version
 
 
 class RemoteInference:
@@ -1116,10 +1472,6 @@ def resolve_learner_addr(rt) -> tuple[str, int]:
     return rt.server_ip, rt.server_port + int(os.environ.get("DRL_LEARNER_INDEX", "0"))
 
 
-def _truthy(name: str) -> bool:
-    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
-
-
 # The families with an on-device loop (`--mode anakin`), as in the JAX
 # launchers: the transformer families have none.
 ANAKIN_FAMILIES = ("impala", "apex", "r2d2")
@@ -1134,17 +1486,11 @@ def refuse_unported(mode: str, algo: str) -> None:
     if mode == "anakin" and algo not in ANAKIN_FAMILIES:
         raise ValueError(f"--mode anakin: the on-device loops (ROADMAP item 14) run "
                          f"{', '.join(ANAKIN_FAMILIES)}; the JAX package has none for {algo}")
-    if _truthy("DRL_WEIGHTS_SHARDED"):
-        raise ValueError("DRL_WEIGHTS_SHARDED: sharded weight publication is not ported "
-                         "(ROADMAP item 12e)")
     seats = os.environ.get("DRL_LEARNER_SEATS", "").strip()
     if (seats not in ("", "0", "1") or os.environ.get("DRL_LEARNER_PEERS", "").strip()
             or os.environ.get("DRL_COORDINATOR", "").strip()):
         raise ValueError("the learner tier (DRL_LEARNER_SEATS) and multi-host learners "
                          "(DRL_COORDINATOR) are not ported (ROADMAP item 13)")
-    if os.environ.get("DRL_DEVICE_PATH", "").strip() not in ("", "0"):
-        raise ValueError("DRL_DEVICE_PATH: the fused device sample path is not ported "
-                         "(ROADMAP item 16)")
 
 
 def _make_queue(capacity: int):
@@ -1321,6 +1667,10 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         if maybe_configure("learner", 0, run_dir):
             _OBS.sample("transport/queue_depth", queue.size)
             _OBS.sample("learner/weight_version", lambda: weights.version)
+            if weights.sharded:
+                for key in weights.shard_stats():
+                    _OBS.sample(f"weights/{key}", lambda k=key: weights.shard_stat(k),
+                                kind="counter")
             for key in server.snapshot_stats():
                 _OBS.sample(f"transport/{key}", lambda k=key: server.stat(k), kind="counter")
             if supervisor is not None:
@@ -1411,6 +1761,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "shutdown_at": shutdown_at,
             "rings": None if ring_drainer is None else ring_drainer.snapshot_stats(),
             "board": None if board is None else weights.board_stats(),
+            "weight_shards": weights.shard_stats() if weights.sharded else None,
             "inference": None if inference is None else inference.stats(),
             "peak_device_mib": (torch.cuda.max_memory_allocated(device) / 2**20
                                 if device.type == "cuda" else None),
@@ -1448,7 +1799,12 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         print(f"[actor {task}] actor-side priority stamping on "
               f"(scorer={admission_ctrl.scorer_name}, "
               f"admission={'on' if admission.admission_enabled() else 'off'})", flush=True)
-    tcp_weights = ShardedRemoteWeights(client, device)
+    # The TCP pull is shard-scoped when the learner publishes per shard
+    # (it demotes itself to the whole-blob op against an unsharded
+    # store), and DRL_WEIGHTS_KEYS scopes this role's refreshes.
+    from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+    tcp_weights = ShardedRemoteWeights(client, device, keys=weight_shards.role_keys())
     weights: Any = tcp_weights
     # Publish-once weight plane: when the launcher named a board, a pull
     # is a shared-memory version peek plus one memcpy when the version
@@ -1567,7 +1923,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         if pub_client is not None:
             pub_client.close()
         for surface in (queue, weights, remote):
-            if hasattr(surface, "reattach"):
+            if hasattr(surface, "reattach") and hasattr(surface, "close"):
                 surface.close()
         client.close()
         _OBS.close()
@@ -1578,6 +1934,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                "weight_version": max_version, "transport": client.snapshot_stats(),
                "weight_pulls": timed.summary(),
                "ring": _surface_summary(queue), "board": _surface_summary(weights),
+               "weight_shards": tcp_weights.snapshot_stats(),
                "remote_act": None if timed_act is None else timed_act.summary(),
                "admission": None if admission_ctrl is None else admission_ctrl.snapshot()}
     print(json.dumps(summary), flush=True)
@@ -1643,7 +2000,7 @@ class _TimedAct:
 def _surface_summary(surface) -> dict | None:
     """An shm surface's counters and the wall-clock times it demoted to
     TCP; None for a TCP surface."""
-    if not hasattr(surface, "reattach"):
+    if not hasattr(surface, "demoted_at"):
         return None
     return {**surface.snapshot_stats(), "demoted_at": list(surface.demoted_at)}
 

@@ -3,14 +3,14 @@
 Copy of the JAX package's `runtime/weight_board.py` (it imports no jax):
 the same segment layouts, seqlock protocol, creator-pid word and gate,
 so a board one package writes is read by the other at the same versions
-with the same bytes (`tests/test_torch_weight_board.py`). The unset gate
+with the same bytes (`tests/test_torch_weight_board.py`, and for the
+segmented board `tests/test_torch_weight_shards.py`). The unset gate
 is the constant `BOARD_AUTO_ENABLE`, which holds the JAX package's
-committed verdict. The port publishes whole blobs only: `serve_board`
-always creates the classic `WeightBoard`, and `BoardWeights` refuses
-the segmented `ShardedWeightBoard` (a JAX learner with
-`DRL_WEIGHTS_SHARDED=1` makes one) with a ValueError naming ROADMAP
-item 12e; the segmented board's header is kept here so that both
-packages make and recognise the same segment.
+committed verdict. Under sharded publication (`DRL_WEIGHTS_SHARDED`)
+`serve_board` creates the segmented `ShardedWeightBoard` (one
+double-buffered slot pair a shard, a publish memcpys only the changed
+shards) and `BoardWeights` assembles a pull through
+`weight_shards.materialize`.
 
 The learner->actor mirror of `runtime/shm_ring.py`'s trajectory path. A
 remote weight pull over TCP carries the full encoded parameter blob per
@@ -71,6 +71,7 @@ x86-64.
 from __future__ import annotations
 
 import atexit
+import json
 import os
 import struct
 import threading
@@ -369,12 +370,10 @@ class WeightBoard:
 
 # -- segmented (sharded) board -----------------------------------------------
 
-# The JAX package's segmented layout (its `ShardedWeightBoard`): the same
-# header words as the whole-blob board at their own offsets, then two
-# manifest slots and an arena of per-shard slot pairs that its
-# `publish_shards` lays out. The port keeps the header, so that it
-# creates and recognises the same segment; publishing and reading shards
-# come with sharded publication (ROADMAP item 12e).
+# Sharded layout offsets. Meta words share the writer's cache line
+# (single writer, like the whole-blob board); the manifest is double-
+# buffered under the meta seqlock; each shard gets two payload slots
+# with per-slot seq words spaced a cache line apart.
 _S_MSEQ_OFF = 64
 _S_MACT_OFF = 72
 _S_VER_OFF = 80
@@ -387,17 +386,48 @@ def _align64(n: int) -> int:
     return (n + 63) & ~63
 
 
+class _Seg:
+    """Writer-side bookkeeping for one shard's segment pair."""
+
+    __slots__ = ("seq_off", "slots", "cap", "active", "latched")
+
+    def __init__(self, seq_off: int, slots: tuple[int, int], cap: int):
+        self.seq_off = seq_off
+        self.slots = slots
+        self.cap = cap
+        self.active = 0
+        self.latched = False
+
+
 class ShardedWeightBoard:
-    """The segmented board's segment and header: `create` makes the
-    segment the JAX package's `ShardedWeightBoard.create` makes (magic
-    "DRWS", arena and manifest-slot sizes, creator pid, meta seqlock,
-    version), `attach` validates it, `version` reads the committed
-    publication's version under the meta seqlock. Its shard publishing
-    and reading are not ported (ROADMAP item 12e), and `BoardWeights`
-    refuses such a board.
+    """Segmented shm weight board: one double-buffered segment PER SHARD
+    plus a double-buffered json manifest, under the same seqlock/version
+    -identity discipline as the whole-blob `WeightBoard`.
+
+    A publish memcpys ONLY the shards whose bytes changed (the
+    WeightStore's memcmp against the previous publication) into each
+    shard's inactive slot, then commits the new manifest + version under
+    the meta seqlock — publish cost tracks the size of the UPDATE, not
+    the policy. A pull reads the manifest, copies each needed shard's
+    active slot (validating its slot seq across the copy and that the
+    meta did not move between the manifest read and the slot-seq read —
+    the same two-publish ABA argument as the whole-blob board's
+    `read_blob`), and assembles via `runtime/weight_shards.materialize`.
+
+    An OVERSIZE SINGLE SHARD (bigger than its slot pair, at layout time
+    or after growth) latches ONLY that shard off the board (`"board":
+    false` in the published manifest — readers fetch it over TCP); the
+    rest of the plane keeps broadcasting through shared memory. A NEW
+    shard key after layout (schema change mid-run) is a whole-board
+    failure: publish raises and the store latches the board off
+    entirely, the PR-3/5 demote discipline.
 
     Concurrency map (tools/drlint lock-discipline): deliberately EMPTY,
     documentation form — lock-free by construction like `WeightBoard`.
+    The writer-side layout dict (`_segs`, `_latched`, `_mslot`) is only
+    ever touched by the store's publish path (serialized under the
+    store's `_lock`); readers learn placement exclusively through the
+    shared manifest and validate through the seqlocks.
     """
 
     _GUARDED_BY: dict = {}
@@ -410,7 +440,14 @@ class ShardedWeightBoard:
         self.name = shm.name.lstrip("/")
         self._owner = owner
         self._closed = False
+        # Writer-side only:
+        self._segs: dict[str, _Seg] = {}
+        self._mslot = int(self._read_u64(_S_MACT_OFF))
+        self._alloc = _S_MSLOT_OFF + 2 * mslot_bytes  # next free arena byte
+        self._arena_end = _S_MSLOT_OFF + 2 * mslot_bytes + arena_bytes
         self.read_retries = 0  # reader-side only (seqlock retry count)
+
+    # -- construction -----------------------------------------------------
 
     @classmethod
     def create(cls, name: str, arena_bytes: int,
@@ -418,6 +455,8 @@ class ShardedWeightBoard:
         arena_bytes = _align64(max(arena_bytes, 1 << 16))
         mslot_bytes = _align64(mslot_bytes)
         size = _S_MSLOT_OFF + 2 * mslot_bytes + arena_bytes
+        # Same stale-segment reclaim as the classic board (respawned
+        # learner, SAME name, dead creator — runtime/shm_ring.py).
         shm = create_or_reclaim_shm(name, size)
         board = cls(shm, arena_bytes, mslot_bytes, owner=True)
         board._write_u64(8, arena_bytes)
@@ -463,9 +502,106 @@ class ShardedWeightBoard:
     def writer_closed(self) -> bool:
         return self._read_u32(_S_WCLOSED_OFF) != 0
 
+    # -- writer side -------------------------------------------------------
+
+    def _alloc_seg(self, key: str, nbytes: int) -> _Seg:
+        """Lay out one shard's seq-word pair + two payload slots; a
+        shard that cannot fit the remaining arena is born latched (no
+        segment — readers fetch it over TCP)."""
+        cap = _align64(nbytes + nbytes // 8 + 1024)  # headroom for jitter
+        seq_off = _align64(self._alloc)
+        data_off = seq_off + 128  # two u64 seq words, a cache line apart
+        end = data_off + 2 * cap
+        if end > self._arena_end:
+            seg = _Seg(0, (0, 0), 0)
+            seg.latched = True
+            import sys
+
+            print(f"[weight_board] WARNING: shard {key!r} ({nbytes} B) "
+                  f"does not fit the board arena; serving it over TCP "
+                  f"(raise DRL_SHM_WEIGHTS_MB)", file=sys.stderr)
+            return seg
+        self._alloc = end
+        self._write_u64(seq_off, 0)
+        self._write_u64(seq_off + 64, 0)
+        return _Seg(seq_off, (data_off, data_off + cap), cap)
+
+    def publish_shards(self, version: int, manifest: dict,
+                       blobs: dict[str, Any], changed=None) -> None:
+        """Memcpy the CHANGED shards into their inactive slots, then
+        commit manifest + version under the meta seqlock. `manifest` is
+        the store's dict (never mutated — placement lands on a copy).
+        Raises ValueError on whole-board failures (new shard key after
+        layout, manifest overflow); an oversize single shard latches
+        just itself."""
+        keys = [sh["key"] for sh in manifest["shards"]]
+        if not self._segs:
+            for sh in manifest["shards"]:
+                self._segs[sh["key"]] = self._alloc_seg(
+                    sh["key"], int(sh["nbytes"]))
+        elif any(k not in self._segs for k in keys):
+            new = [k for k in keys if k not in self._segs]
+            raise ValueError(f"shard keys {new} appeared after board "
+                             f"layout (schema changed mid-run)")
+        write = set(keys) if changed is None else set(changed)
+        nbytes_written = 0
+        n_written = 0
+        for key in keys:
+            seg = self._segs[key]
+            if seg.latched or key not in write or key not in blobs:
+                continue
+            blob = blobs[key]
+            n = len(blob)
+            if n > seg.cap:
+                seg.latched = True
+                import sys
+
+                print(f"[weight_board] WARNING: shard {key!r} grew to "
+                      f"{n} B past its {seg.cap} B slot; serving it over "
+                      f"TCP from here on", file=sys.stderr)
+                continue
+            target = 1 - seg.active
+            s = self._read_u64(seg.seq_off + 64 * target)
+            self._write_u64(seg.seq_off + 64 * target, s + 1)  # odd
+            off = seg.slots[target]
+            if n:
+                self._buf[off:off + n] = memoryview(blob).cast("B")
+            self._write_u64(seg.seq_off + 64 * target, s + 2)  # even
+            seg.active = target
+            nbytes_written += n
+            n_written += 1
+        board_manifest = dict(
+            manifest, version=version,
+            shards=[dict(sh,
+                         board=not self._segs[sh["key"]].latched,
+                         seq=self._segs[sh["key"]].seq_off,
+                         act=self._segs[sh["key"]].active,
+                         seg=list(self._segs[sh["key"]].slots))
+                    for sh in manifest["shards"]])
+        mbytes = json.dumps(board_manifest, separators=(",", ":")).encode()
+        if len(mbytes) > self.mslot_bytes:
+            raise ValueError(f"board manifest of {len(mbytes)} bytes "
+                             f"cannot fit a {self.mslot_bytes}-byte slot")
+        mtarget = 1 - self._mslot
+        moff = _S_MSLOT_OFF + mtarget * self.mslot_bytes
+        self._buf[moff:moff + len(mbytes)] = mbytes
+        m = self._read_u64(_S_MSEQ_OFF)
+        self._write_u64(_S_MSEQ_OFF, m + 1)  # odd: meta write in progress
+        self._write_u64(_S_MACT_OFF, mtarget)
+        self._write_i64(_S_VER_OFF, version)
+        self._write_u64(_S_MLEN_OFF, len(mbytes))
+        self._write_u64(_S_MSEQ_OFF, m + 2)  # even: publication committed
+        self._mslot = mtarget
+        if _OBS.enabled:
+            _OBS.count("board/publishes")
+            _OBS.count("board/published_bytes", nbytes_written)
+            _OBS.count("board/shards_written", n_written)
+
     def close_writer(self) -> None:
         """Latch 'no more publications' so readers demote to TCP."""
         self._write_u32(_S_WCLOSED_OFF, 1)
+
+    # -- reader side -------------------------------------------------------
 
     def _read_meta(self) -> tuple[int, int, int, int] | None:
         """One consistent (manifest_slot, version, manifest_len,
@@ -481,7 +617,97 @@ class ShardedWeightBoard:
             return None
         return mslot, version, mlen, s0
 
-    version = WeightBoard.version
+    def version(self, timeout: float = 1.0) -> int:
+        deadline = time.monotonic() + timeout
+        spins, sleep_s = 0, _SLEEP_MIN
+        while True:
+            meta = self._read_meta()
+            if meta is not None:
+                return meta[1]
+            self.read_retries += 1
+            spins += 1
+            if spins <= _SPIN:
+                continue
+            if time.monotonic() >= deadline:
+                raise BoardClosed(
+                    f"board {self.name}: meta seqlock never stabilized "
+                    f"(writer died mid-publish?)")
+            time.sleep(sleep_s)
+            sleep_s = min(2 * sleep_s, _SLEEP_MAX)
+
+    def _pre_slot_read(self) -> None:
+        """No-op seam between the manifest read and a shard's slot-seq
+        read (test hook: inject the two-publish race)."""
+
+    def _copy_seg(self, off: int, n: int) -> np.ndarray:
+        out = np.empty(n, np.uint8)
+        memoryview(out)[:] = self._buf[off:off + n]
+        return out
+
+    def read_shards(self, have_version: int = -2, keys=None,
+                    timeout: float = 5.0):
+        """(manifest_dict, {key: owned blob bytes}, version), or None on
+        version identity / nothing published. Shards latched off the
+        board (`"board": false`) appear in the manifest but not in the
+        blob dict — the caller fetches those over TCP. Every accepted
+        shard copy was validated by its slot seq across the copy AND by
+        the meta seq between the manifest read and the slot-seq read
+        (a writer only rewrites a slot after flipping the manifest away
+        from it, so an unmoved meta proves the slot still held the
+        manifest's bytes — the WeightBoard.read_blob ABA argument,
+        per shard). Raises BoardClosed when reads never stabilize."""
+        deadline = time.monotonic() + timeout
+        spins, sleep_s = 0, _SLEEP_MIN
+        while True:
+            got = self._try_read(have_version, keys)
+            if got is not _RETRY:
+                return got
+            self.read_retries += 1
+            spins += 1
+            if spins <= _SPIN:
+                continue
+            if time.monotonic() >= deadline:
+                raise BoardClosed(
+                    f"board {self.name}: sharded read never stabilized "
+                    f"(torn publish?)")
+            time.sleep(sleep_s)
+            sleep_s = min(2 * sleep_s, _SLEEP_MAX)
+
+    def _try_read(self, have_version: int, keys):
+        meta = self._read_meta()
+        if meta is None:
+            return _RETRY
+        mslot, version, mlen, s0 = meta
+        if version < 0 or version == have_version:
+            return None
+        moff = _S_MSLOT_OFF + mslot * self.mslot_bytes
+        mbytes = bytes(self._buf[moff:moff + mlen])
+        if self._read_u64(_S_MSEQ_OFF) != s0:
+            return _RETRY  # manifest slot re-targeted during the copy
+        try:
+            manifest = json.loads(mbytes)
+        except ValueError:
+            return _RETRY  # only reachable if the seqlock contract broke
+        blobs: dict[str, np.ndarray] = {}
+        for sh in manifest["shards"]:
+            key = sh["key"]
+            if keys is not None and key not in keys:
+                continue
+            if not sh.get("board", True):
+                continue  # latched off the board: TCP carries it
+            self._pre_slot_read()  # test hook (no-op in production)
+            seq_off = int(sh["seq"]) + 64 * int(sh["act"])
+            d0 = self._read_u64(seq_off)
+            if d0 & 1 or self._read_u64(_S_MSEQ_OFF) != s0:
+                return _RETRY
+            blob = self._copy_seg(int(sh["seg"][int(sh["act"])]),
+                                  int(sh["nbytes"]))
+            if self._read_u64(seq_off) != d0:
+                return _RETRY  # slot re-targeted + rewritten mid-copy
+            blobs[key] = blob
+        return manifest, blobs, version
+
+    # -- lifecycle ---------------------------------------------------------
 
     def close(self) -> None:
         if self._closed:
@@ -497,6 +723,9 @@ class ShardedWeightBoard:
             self._shm.unlink()
         except FileNotFoundError:
             pass
+
+
+_RETRY = object()  # read_shards internal sentinel
 
 
 def attach_any(name: str):
@@ -550,18 +779,24 @@ def board_capacity_bytes() -> int:
 # -- learner side: create + attach to the WeightStore -------------------------
 
 
-def serve_board(name: str) -> WeightBoard | None:
-    """Learner-side wiring: create the classic double-buffered board the
-    co-hosted actors will attach (the port publishes whole blobs only;
-    the JAX package creates the segmented board under
-    `DRL_WEIGHTS_SHARDED`, which `run_role` refuses). Returns None
-    (TCP-only operation continues) if the segment cannot be created —
-    the board is an optimization, never a prerequisite. The segment is
-    unlinked at stop and again via atexit (crash backstop)."""
+def serve_board(name: str):
+    """Learner-side wiring: create the board the co-hosted actors will
+    attach — SEGMENTED when sharded publication is on (the gate the
+    WeightStore resolves too, so writer and board agree on the layout),
+    classic double-buffered otherwise. Returns None (TCP-only operation
+    continues) if the segment cannot be created — the board is an
+    optimization, never a prerequisite. The segment is unlinked at stop
+    and again via atexit (crash backstop)."""
     import sys
 
+    from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
     try:
-        board = WeightBoard.create(name, board_capacity_bytes())
+        if weight_shards.sharded_enabled():
+            # The same footprint as the classic board's two slots.
+            board = ShardedWeightBoard.create(name, 2 * board_capacity_bytes())
+        else:
+            board = WeightBoard.create(name, board_capacity_bytes())
     except (OSError, ValueError) as e:
         print(f"[weight_board] WARNING: cannot create board segment "
               f"({e}); weights stay on TCP", file=sys.stderr)
@@ -571,16 +806,6 @@ def serve_board(name: str) -> WeightBoard | None:
 
 
 # -- actor side: get_if_newer surface with graceful TCP fallback --------------
-
-
-SEGMENTED_REFUSAL = ("a segmented (sharded) weight board: sharded weight "
-                     "publication is not ported (ROADMAP item 12e)")
-
-
-def _refuse_segmented(board) -> None:
-    if isinstance(board, ShardedWeightBoard):
-        board.close()
-        raise ValueError(f"board {board.name!r} is {SEGMENTED_REFUSAL}")
 
 
 class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
@@ -596,8 +821,9 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
     bounded RetryLadder once a respawned learner re-creates it —
     validated writer-open and belonging to the CURRENT learner
     incarnation (the header's creator-pid word against the
-    heartbeat-reported pid). A segmented board is refused (ValueError):
-    the port has no shard decoder.
+    heartbeat-reported pid). A segmented board's pull reads the changed
+    shards and assembles them (`weight_shards.materialize`); a shard the
+    board latched off (oversize) is filled over TCP.
 
     Concurrency map (tools/drlint lock-discipline): `stats` is bumped on
     the actor loop thread and polled by the telemetry flush thread's
@@ -625,8 +851,7 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
 
         from distributed_reinforcement_learning_tpu_torch.runtime.fleet import RetryLadder
 
-        _refuse_segmented(board)
-        self._board = board  # WeightBoard | None
+        self._board = board  # WeightBoard | ShardedWeightBoard | None
         self._name = name or (board.name if board is not None else None)
         self._client = client
         # Demoted pulls ride `fallback` (a get_if_newer surface —
@@ -641,6 +866,7 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
         self._retries_seen = 0
         self.stats = {"board_pulls": 0, "board_checks": 0,
                       "tcp_fallbacks": 0, "seqlock_retries": 0,
+                      "shard_pulls": 0, "board_shard_fallbacks": 0,
                       "reattaches": 0}
         self._stats_lock = threading.Lock()
         # Wall-clock time of each demotion to TCP (the actor thread's own).
@@ -709,9 +935,7 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
     _pid_field = "board_pid"
 
     def _probe_attach(self):
-        # WeightBoard.attach refuses a segmented board's magic with a
-        # ValueError: the probe then counts as failed.
-        return WeightBoard.attach(self._name)
+        return attach_any(self._name)
 
     def _probe_fresh(self, board, expect) -> bool:
         return (not board.writer_closed
@@ -734,6 +958,55 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
         """Fresh probe budget (learner epoch change)."""
         self._ladder.reset()
 
+    def _fetch_latched(self, manifest: dict, blobs: dict, version: int):
+        """Fill the shards the board latched off (oversize) from the TCP
+        shard-scoped op, at this exact version -> the completed blob
+        dict, or None when TCP cannot supply a consistent set (the
+        version moved, the op is unavailable): the caller then takes a
+        whole TCP pull for this refresh, and the board stays attached."""
+        from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+        get_sharded = getattr(self._client, "get_weights_sharded", None)
+        if get_sharded is None:
+            return None
+        missing = [sh["key"] for sh in manifest["shards"] if sh.get("board", True) is False]
+        try:
+            got = get_sharded(-2, keys=missing)
+        except (ConnectionError, RuntimeError):
+            return None
+        if got is None or got[0] != version:
+            return None  # the store moved on between the board and TCP reads
+        for key, enc, _base, payload in got[2]:
+            if enc != weight_shards.ENC_FULL:  # no cache was offered
+                return None
+            blobs[key] = np.frombuffer(bytes(payload), np.uint8)
+        return blobs
+
+    def _read_sharded(self, board, have_version: int):
+        """A pull through the segmented board -> (params on `device`,
+        version) | None."""
+        from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+        from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
+            params_to_device)
+
+        got = board.read_shards(have_version)
+        if got is None:
+            return None
+        manifest, blobs, version = got
+        if any(sh.get("board", True) is False for sh in manifest["shards"]):
+            # One oversize shard latched off the board: the rest of the
+            # plane stays on shared memory, this shard rides TCP.
+            self._bump("board_shard_fallbacks")
+            filled = self._fetch_latched(manifest, blobs, version)
+            if filled is None:
+                return self._tcp_pull(have_version)
+            blobs = filled
+        self._bump("shard_pulls")
+        # verify=False: the per-shard seqlocks and the single writer own
+        # integrity here; a crc pass would read every copied byte again.
+        tree = weight_shards.materialize(manifest, blobs, verify=False)
+        return params_to_device(tree, self.device), version
+
     def get_if_newer(self, have_version: int) -> tuple[Any, int] | None:
         from distributed_reinforcement_learning_tpu_torch.data import codec
         from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
@@ -746,14 +1019,19 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
         try:
             if board.writer_closed:
                 raise BoardClosed(f"board {board.name}: writer closed")
-            got = board.read_blob(have_version)
-            if got is not None:
-                # Decode inside the guarded region: a blob that fails
-                # to decode can only mean the seqlock contract broke
-                # (e.g. a weakly-ordered CPU with DRL_SHM_WEIGHTS
-                # forced) — treat it like any other board failure,
-                # never kill the actor.
-                got = (codec.decode(got[0]), got[1])
+            if hasattr(board, "read_shards"):
+                # Assembled inside the guarded region: a failure can only
+                # mean the seqlock contract broke, a board failure.
+                got = self._read_sharded(board, have_version)
+            else:
+                got = board.read_blob(have_version)
+                if got is not None:
+                    # Decode inside the guarded region: a blob that fails
+                    # to decode can only mean the seqlock contract broke
+                    # (e.g. a weakly-ordered CPU with DRL_SHM_WEIGHTS
+                    # forced) — treat it like any other board failure,
+                    # never kill the actor.
+                    got = (params_to_device(codec.decode(got[0]), self.device), got[1])
         except (BoardClosed, ValueError, KeyError):
             self._demote()
             return self._tcp_pull(have_version)
@@ -771,8 +1049,7 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
             return None
         # The copy out of the slot is OWNED, so the decode viewed it
         # (no second copy): the same bytes a TCP pull decodes.
-        tree, version = got
-        params = params_to_device(tree, self.device)
+        params, version = got
         self._bump("board_pulls")
         if _OBS.enabled:
             _OBS.gauge("actor/weight_pull_ms", (time.perf_counter() - t0) * 1e3)
@@ -805,8 +1082,9 @@ def attach_board_weights(name: str, client,
     DURING a learner outage must not be stranded on TCP forever.
 
     `fallback` (the caller's ShardedRemoteWeights in the deployed
-    wiring) is the surface demoted pulls ride. A segmented board raises
-    ValueError (ROADMAP item 12e)."""
+    wiring) is the surface demoted pulls ride — without it a demotion
+    regresses to whole-blob TCP transfers even against a learner that
+    publishes per shard."""
     import sys
 
     from distributed_reinforcement_learning_tpu_torch.runtime import fleet

@@ -12,9 +12,9 @@ the device (`--anakin_capacity`, default min(replay_capacity, 32768)
 cut to a multiple of the write width), `updates_per_call` learns a
 collect. Every mode runs on CUDA unless `--device` names another device.
 Served acts as in `train_impala.py` (`--serve_inference`, `--remote_act`,
-`--mode inference`). What `train_impala.py` refuses, this refuses:
-`DRL_WEIGHTS_SHARDED` (item 12e), the learner tier (item 13) and
-`DRL_DEVICE_PATH` (item 16).
+`--mode inference`), and the opt-in planes `DRL_WEIGHTS_SHARDED` and
+`DRL_DEVICE_PATH`. What `train_impala.py` refuses, this refuses: the
+learner tier (item 13).
 """
 
 from __future__ import annotations

@@ -26,11 +26,16 @@
   learner's weight board, or pulls over TCP. Local mode ignores the two
   flags, as the JAX launchers do.
 
+- The JAX package's opt-in planes, by its names: `DRL_WEIGHTS_SHARDED`
+  (per-shard publication, with `DRL_WEIGHTS_QUANT`, `DRL_WEIGHTS_DELTA`
+  and a role's `DRL_WEIGHTS_KEYS`; `runtime/weight_shards.py`) and, for
+  the replay learners, `DRL_DEVICE_PATH` (the fused device sample path,
+  `data/device_path.py`). Both are off unless set.
+
 Every mode runs on CUDA unless `--device` names another device: start
 actors with `--device cpu` to keep them off the card. Not ported, and
-refused with a ValueError naming the ROADMAP item: `DRL_WEIGHTS_SHARDED`
-and `DRL_WEIGHTS_KEYS` (item 12e), the learner tier and multi-host
-learners (item 13) and `DRL_DEVICE_PATH` (item 16).
+refused with a ValueError naming the ROADMAP item: the learner tier and
+multi-host learners (item 13).
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ one process; prints the result as JSON), `--mode learner`, `--mode actor
 from every device env a collect, scored into a prioritized sequence ring
 on the device; `--anakin_capacity`, default min(replay_capacity, 4096)
 sequences). Every mode runs on CUDA unless `--device` names another
-device; served acts as in `train_impala.py`; what `train_impala.py`
-refuses (sharded weights, 12e; the learner tier, 13; `DRL_DEVICE_PATH`,
-16), this refuses.
+device; served acts and the opt-in planes (`DRL_WEIGHTS_SHARDED`,
+`DRL_DEVICE_PATH`) as in `train_impala.py`; what `train_impala.py`
+refuses (the learner tier, 13), this refuses.
 """
 
 from __future__ import annotations

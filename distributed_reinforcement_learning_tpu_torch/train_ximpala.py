@@ -6,9 +6,9 @@
 The modes and options of `train_impala.py`: `--mode local` (default,
 one process; prints the result as JSON), `--mode learner`, `--mode actor
 --task k`. Every mode runs on CUDA unless `--device` names another
-device; served acts as in `train_impala.py`; what `train_impala.py`
-refuses (sharded weights, 12e; the learner tier, 13; `DRL_DEVICE_PATH`,
-16), this refuses, and `--mode anakin` too: the JAX package has no
+device; served acts and sharded publication (`DRL_WEIGHTS_SHARDED`) as
+in `train_impala.py`; what `train_impala.py` refuses (the learner tier,
+13), this refuses, and `--mode anakin` too: the JAX package has no
 on-device loop for this family (ROADMAP item 14 ported IMPALA's, Ape-X's
 and R2D2's).
 """

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.envs import breakout_jax, cartpole_jax
 from distributed_reinforcement_learning_tpu.envs import invaders_jax, pixel_jax, pong_jax
@@ -26,9 +27,13 @@ N = 4
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

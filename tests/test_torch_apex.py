@@ -28,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.agents.apex import ApexAgent as JaxAgent
 from distributed_reinforcement_learning_tpu.agents.apex import ApexBatch as JaxBatch
@@ -57,9 +58,13 @@ _APEX_INGEST_RTOL = 1e-5
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -378,16 +383,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mode", "anakin"], "item 12"),
-    (["--mode", "inference"], "item 12"),
-    (["--mode", "learner", "--serve_inference"], "item 12"),
-    (["--mode", "actor", "--task", "0", "--remote_act"], "item 12"),
+    (["--mode", "anakin"], "item 13"),
+    (["--mode", "inference"], "item 13"),
+    (["--mode", "learner", "--serve_inference"], "item 13"),
+    (["--mode", "actor", "--task", "0", "--remote_act"], "item 13"),
 ])
 def test_unported_modes_raise(argv, item, monkeypatch):
     # Serving acts and the on-device loop are ported: their modes and
-    # flags still refuse the planes that are not, here sharded publication
-    # (item 12e).
-    monkeypatch.setenv("DRL_WEIGHTS_SHARDED", "1")
+    # flags still refuse the planes that are not, here the learner tier
+    # (item 13).
+    monkeypatch.setenv("DRL_LEARNER_SEATS", "2")
     with pytest.raises(ValueError, match=item):
         train_apex.main(["--config", str(CONFIG), "--device", "cpu", *argv])
 

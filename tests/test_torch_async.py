@@ -14,6 +14,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import (
     ImpalaAgent, ImpalaBatch, ImpalaConfig)
@@ -34,6 +35,17 @@ from distributed_reinforcement_learning_tpu_torch.runtime import (
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
 def _params(seed: int) -> dict:
     g = torch.Generator().manual_seed(seed)
     return {"a": torch.randn(5, 3, generator=g, requires_grad=True),
@@ -50,10 +62,10 @@ def test_publish_async_latest_wins_and_versions_only_grow(monkeypatch):
     landed, entered, gate = [], threading.Event(), threading.Event()
     apply = store._apply
 
-    def slow_apply(snap, blob, version, seq):
+    def slow_apply(snap, blob, version, seq, bundle=None):
         entered.set()
         gate.wait(timeout=10.0)  # hold the worker inside its first item
-        apply(snap, blob, version, seq)
+        apply(snap, blob, version, seq, bundle)
         landed.append(version)
 
     monkeypatch.setattr(store, "_apply", slow_apply)

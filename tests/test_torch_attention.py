@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.ops import attention as jattn
 from distributed_reinforcement_learning_tpu.ops.pallas import attention as jflash
@@ -26,9 +27,13 @@ BLOCK = 16
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

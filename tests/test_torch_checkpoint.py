@@ -11,6 +11,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Agent, R2D2Config
@@ -25,6 +26,17 @@ from distributed_reinforcement_learning_tpu_torch.runtime.launch import train_lo
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils import checkpoint as ckpt_mod
 from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import Checkpointer
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def _family(name: str):

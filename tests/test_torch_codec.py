@@ -11,6 +11,7 @@ must also stack and move to a device like the port's own batches.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.data import codec as jax_codec
 from distributed_reinforcement_learning_tpu.data import structures as jax_structures
@@ -18,6 +19,17 @@ from distributed_reinforcement_learning_tpu_torch.agents.common import batch_to_
 from distributed_reinforcement_learning_tpu_torch.data import codec
 from distributed_reinforcement_learning_tpu_torch.data import structures
 from distributed_reinforcement_learning_tpu_torch.data.fifo import stack_pytrees
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 N, T, A, H = 3, 5, 4, 8
 

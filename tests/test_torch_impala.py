@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.agents.impala import ImpalaAgent as JaxAgent
 from distributed_reinforcement_learning_tpu.agents.impala import ImpalaBatch as JaxBatch
@@ -41,9 +42,13 @@ CONFIG = Path(__file__).resolve().parents[1] / "config.json"
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.runtime import inference as jax_inference
 from distributed_reinforcement_learning_tpu.runtime.weights import WeightStore as JaxStore
@@ -58,9 +59,13 @@ _DETERMINISTIC = {"impala": ("policy", "h", "c"), "apex": ("q",), "r2d2": ("q", 
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

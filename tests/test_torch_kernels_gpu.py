@@ -21,6 +21,9 @@ through the act service, its K3a launches and its policy against the
 CPU at rtol 1e-4, atol 1e-5. The on-device loops: each device env on
 CUDA against the CPU (frames and integer state equal, float state within
 1e-6), and each loop's kernel launches at the counts the code predicts.
+The fused device sample path: an R2D2 K=2 call's K2a and K2b launches
+equal to a host-path call's, its indices equal and its priorities within
+rtol 1e-5.
 """
 
 import re
@@ -1085,3 +1088,68 @@ def test_anakin_loops_on_cuda_launch_the_predicted_kernels():
                       num_envs=4, steps_per_collect=4, capacity=32, batch_size=8)
     state, _ = apex.collect_chunk(apex.init(0), 1)
     assert _anakin_launches(apex, state, 3) == [0, 0, 0, 0]
+
+
+@pytest.mark.gpu
+def test_r2d2_device_path_call_launches_the_lstm_kernels_as_the_host_path():
+    """The fused device sample path on the card: an R2D2 learner with
+    K = 2 over a 2-shard service, its batches copied to the device from
+    pinned memory on the path's stream, launches 2K K2a and K K2b in a
+    call, as a host-path learner over a service fed alike does; both
+    sample the same indices and write back priorities within rtol 1e-5
+    (the gather's backward on CUDA adds with atomics, in no fixed
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Batch
+    from distributed_reinforcement_learning_tpu_torch.data import codec, replay_service
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
+    from distributed_reinforcement_learning_tpu_torch.runtime.r2d2_runner import R2D2Learner
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    K, T, H = 2, 10, 64
+    rng = np.random.RandomState(0)
+    blobs = [bytes(codec.encode(R2D2Batch(
+        state=rng.randint(0, 255, (T, 2)).astype(np.int32),
+        previous_action=rng.randint(0, 2, T).astype(np.int32),
+        action=rng.randint(0, 2, T).astype(np.int32),
+        reward=rng.randn(T).astype(np.float32), done=rng.rand(T) < 0.1,
+        initial_h=rng.randn(H).astype(np.float32), initial_c=rng.randn(H).astype(np.float32))))
+        for _ in range(32)]
+    learners, writebacks = [], []
+    for force in (True, False):
+        svc = replay_service.ShardedReplayService(2, 512, mode="sequence", seed=0)
+        for i, blob in enumerate(blobs):
+            svc.shards[i % 2].ingest_blob(blob)
+        calls = []
+        update = svc.update_batch
+        svc.update_batch = lambda idxs, prio, calls=calls, update=update: (
+            calls.append((np.asarray(idxs).copy(), np.asarray(prio).copy())), update(idxs, prio))
+        learner = R2D2Learner(R2D2Agent(R2D2Config(lstm_size=H), device="cuda"),
+                              TrajectoryQueue(8), WeightStore(), batch_size=8,
+                              replay_capacity=512, replay_service=svc, updates_per_call=K,
+                              target_sync_interval=10)
+        learner.device_path_force = force
+        learners.append(learner)
+        writebacks.append(calls)
+    dev, host = learners
+    host.state = host.agent.state_from_params(
+        {n: t.detach() for n, t in dev.state.params.items()})
+    counts = []
+    try:
+        for learner in (dev, host):
+            fwd, bwd = klstm.lstm_fwd_cuda.launches, klstm.lstm_bwd_cuda.launches
+            while learner.train_steps < K:
+                learner.train()
+            torch.cuda.synchronize()
+            counts.append((klstm.lstm_fwd_cuda.launches - fwd, klstm.lstm_bwd_cuda.launches - bwd))
+        assert dev._device_path is not None and not dev._device_path.dead
+        assert dev._device_path.h2d_ms() and host._device_path is None
+        assert counts == [(2 * K, K), (2 * K, K)]
+        for (di, dp), (hi, hp) in zip(writebacks[0][:K], writebacks[1][:K]):
+            np.testing.assert_array_equal(di, hi)
+            np.testing.assert_allclose(dp, hp, rtol=1e-5, atol=1e-6)
+    finally:
+        for learner in learners:
+            learner.close()
+            learner.replay_service.close()

@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.agents.impala import ImpalaAgent as JaxAgent
 from distributed_reinforcement_learning_tpu.agents.impala import ImpalaConfig as JaxConfig
@@ -26,9 +27,13 @@ from distributed_reinforcement_learning_tpu.ops.lstm import lstm_step as jax_lst
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -126,3 +131,67 @@ def test_init_is_seeded_glorot_with_zero_bias():
     assert torch.count_nonzero(a.lstm.gates_bias) == 0
     bound = (6.0 / (a.lstm.gates_kernel.shape[0] + a.lstm.gates_kernel.shape[1])) ** 0.5
     assert a.lstm.gates_kernel.abs().max() <= bound
+
+
+def _family_models():
+    """(name, structure-only module, params, args) of each family's network."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent, ApexConfig
+    from distributed_reinforcement_learning_tpu_torch.agents.impala import (
+        ImpalaAgent, ImpalaConfig)
+    from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
+        XformerAgent, XformerConfig)
+
+    g = torch.Generator().manual_seed(0)
+    out = []
+    impala = ImpalaAgent(ImpalaConfig(obs_shape=(4,), num_actions=3, lstm_size=16), device="cpu")
+    out.append(("impala", impala.model, impala.init_state(seed=0).params,
+                (torch.randn(5, 4, generator=g), torch.tensor([0, 1, 2, 0, 1]),
+                 torch.randn(5, 16, generator=g), torch.randn(5, 16, generator=g))))
+    apex = ApexAgent(ApexConfig(obs_shape=(4,), num_actions=3), device="cpu")
+    out.append(("apex", apex.model, apex.init_state(seed=0).params,
+                (torch.randn(5, 4, generator=g), torch.tensor([0, 1, 2, 0, 1]))))
+    for stacked in (False, True):
+        xf = XformerAgent(XformerConfig(obs_shape=(2,), num_actions=2, seq_len=6, burn_in=2,
+                                        d_model=16, num_heads=2, num_layers=2, stacked=stacked),
+                          device="cpu")
+        done = torch.zeros(3, 6, dtype=torch.bool)
+        done[1, 3] = True
+        out.append((f"xformer_stacked={stacked}", xf.model, xf.init_state(0).params,
+                    (torch.randn(3, 6, 2, generator=g),
+                     torch.randint(0, 2, (3, 6), generator=g), done)))
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_functional_call_is_torch_funcs_bit_for_bit(case):
+    """The port's `functional_call` gives `torch.func.functional_call`'s
+    outputs and gradients bit for bit, and puts the module's own tensors
+    back, also when the call raises; a module with a tied parameter is
+    refused by name."""
+    from torch.func import functional_call as torch_call
+
+    from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
+
+    name, model, params, args = _family_models()[case]
+    own = {k: v for k, v in model.named_parameters()}
+    outs, grads = [], []
+    for call in (functional_call, torch_call):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        out = call(model, p, args)
+        leaves = [t for t in (out if isinstance(out, tuple) else (out,))
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        loss = sum(t.square().sum() for t in leaves)
+        grads.append(torch.autograd.grad(loss, list(p.values())))
+        outs.append([t.detach() for t in leaves])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b), name
+    for a, b in zip(*grads):
+        assert torch.equal(a, b), name
+    assert all(v is own[k] for k, v in model.named_parameters())
+    with pytest.raises(Exception):
+        functional_call(model, params, ())  # the forward raises on missing inputs
+    assert all(v is own[k] for k, v in model.named_parameters())
+    tied = torch.nn.Sequential(torch.nn.Linear(3, 3, bias=False), torch.nn.Linear(3, 3, bias=False))
+    tied[1].weight = tied[0].weight
+    with pytest.raises(ValueError, match="'1.weight' is tied to '0.weight'"):
+        functional_call(tied, {"0.weight": torch.eye(3)}, (torch.zeros(2, 3),))

@@ -3,7 +3,8 @@ actor process over TCP (`runtime/transport.py:run_role` through
 `train_impala --mode learner|actor`, `train_apex` on a CartPole Ape-X
 section, and the replay learners of `train_r2d2` and `train_xformer` on
 the default sharded service), as tests/test_launch.py drives the JAX
-launcher; and the planes `run_role` refuses by name.
+launcher; the planes `run_role` refuses by name, and the opt-in planes
+it now runs (sharded publication, the device sample path).
 
 Each child runs in its own process group and is killed whole on its own
 timeout; the learner binds a free port passed through
@@ -19,11 +20,24 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu_torch.runtime.transport import run_role
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = REPO / "config.json"
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool in this process (the
+    # roles run in process here); the children get theirs by environment.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def _free_port() -> int:
@@ -185,30 +199,107 @@ def test_replay_learner_defaults_to_the_sharded_service_over_tcp(algo, section, 
     assert len(spill_dirs) == 1
 
 
+def _sharded_learner(params_of: str = "impala_cartpole"):
+    """A port learner's sharded weight plane in this process: the
+    section's initial parameters, published per shard as version 0 and
+    served over TCP -> (store, server)."""
+    from distributed_reinforcement_learning_tpu_torch.data.fifo import TrajectoryQueue
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import TransportServer
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+    from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
+
+    agent_cfg, _ = load_config(CONFIG, params_of)
+    agent = launch.make_agent("impala", agent_cfg, device="cpu")
+    weights = WeightStore(sharded=True)
+    weights.publish(agent.init_state(seed=0).params, 0)
+    server = TransportServer(TrajectoryQueue(64), weights, host="127.0.0.1",
+                             port=_free_port()).start()
+    return weights, server
+
+
+def _stop_after_sharded_pulls(server, pulls: int):
+    import threading
+    import time
+
+    def stop():
+        deadline = time.monotonic() + 60.0
+        while server.stat("shard_sends") < pulls and time.monotonic() < deadline:
+            time.sleep(0.01)
+        server.stop()
+
+    t = threading.Thread(target=stop)
+    t.start()
+    return t
+
+
+# Each case names the plane by its JAX variable. Items 12e (sharded
+# publication) and 16 (the device sample path) are ported: those cases
+# run the role with the plane on (None); item 13's are refused by name.
 @pytest.mark.parametrize("mode, env, item", [
-    ("inference", {"DRL_WEIGHTS_KEYS": "torso"}, "item 12"),
-    ("anakin", {"DRL_DEVICE_PATH": "1"}, "item 16"),
-    ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, "item 12"),
-    ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, "item 12"),
+    ("inference", {"DRL_WEIGHTS_KEYS": "rep"}, None),
+    ("anakin", {"DRL_DEVICE_PATH": "1"}, None),
+    ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, None),
+    ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, None),
     ("learner", {"DRL_LEARNER_SEATS": "2"}, "item 13"),
     ("learner", {"DRL_COORDINATOR": "localhost:1234"}, "item 13"),
-    ("learner", {"DRL_DEVICE_PATH": "1"}, "item 16"),
-    ("learner", {"DRL_WEIGHTS_SHARDED": "1"}, "item 12"),
+    ("learner", {"DRL_DEVICE_PATH": "1"}, None),
+    ("learner", {"DRL_WEIGHTS_SHARDED": "1"}, None),
 ])
 def test_unported_planes_are_refused_by_name(mode, env, item, monkeypatch):
+    from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match=item):
-        run_role("impala", str(CONFIG), "impala_cartpole", mode, 0, device="cpu")
+    monkeypatch.setenv("DRL_FLEET", "0")
+    for k in ("DRL_SHM_WEIGHTS_NAME", "DRL_SHM_WEIGHTS_CREATE", "DRL_SHM_RING_NAME",
+              "DRL_SHM_RING_CREATE"):
+        monkeypatch.delenv(k, raising=False)
+    weight_shards.refresh_flags()
+    try:
+        if item is not None:
+            with pytest.raises(ValueError, match=item):
+                run_role("impala", str(CONFIG), "impala_cartpole", mode, 0, device="cpu")
+        elif mode == "anakin":
+            from distributed_reinforcement_learning_tpu_torch import train_impala
+
+            out = train_impala.main(["--config", str(CONFIG), "--section", "impala_cartpole",
+                                     "--mode", "anakin", "--updates", "1", "--anakin_envs", "4",
+                                     "--device", "cpu"])
+            assert out["frames"] > 0
+        elif mode == "learner":
+            monkeypatch.setenv("DRL_LEARNER_ADDR", f"127.0.0.1:{_free_port()}")
+            summary = run_role("impala", str(CONFIG), "impala_cartpole", mode, 0,
+                               num_updates=0, device="cpu")
+            sharded = "DRL_WEIGHTS_SHARDED" in env
+            assert (summary["weight_shards"] is not None) is sharded
+            if sharded:  # the learner's first publish went out per shard
+                assert summary["weight_shards"]["shard_publishes"] >= 1
+        else:
+            weights, server = _sharded_learner()
+            monkeypatch.setenv("DRL_LEARNER_ADDR", f"127.0.0.1:{server.port}")
+            monkeypatch.setenv("DRL_INFER_PORT", str(_free_port()))
+            stopper = _stop_after_sharded_pulls(server, 1)
+            try:
+                summary = run_role("impala", str(CONFIG), "impala_cartpole", mode, 0,
+                                   device="cpu", actor_grace=0.5)
+            finally:
+                stopper.join()
+                server.stop()
+            assert summary["weight_version"] == 0
+            assert server.stat("shard_sends") >= 1 and server.stat("weight_sends") == 0
+    finally:
+        monkeypatch.undo()
+        weight_shards.refresh_flags()
 
 
 def test_serving_flags_are_refused(monkeypatch):
     """Serving acts is ported: the flags are refused only beside a plane
-    that is not (here sharded publication, ROADMAP item 12e)."""
-    monkeypatch.setenv("DRL_WEIGHTS_SHARDED", "1")
-    with pytest.raises(ValueError, match="item 12e"):
+    that is not (here the learner tier, ROADMAP item 13)."""
+    monkeypatch.setenv("DRL_LEARNER_SEATS", "2")
+    with pytest.raises(ValueError, match="item 13"):
         run_role("impala", str(CONFIG), "impala_cartpole", "learner", 0, device="cpu",
                  serve_inference=True)
-    with pytest.raises(ValueError, match="item 12e"):
+    with pytest.raises(ValueError, match="item 13"):
         run_role("impala", str(CONFIG), "impala_cartpole", "actor", 0, device="cpu",
                  remote_act=True)

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.agents.r2d2 import R2D2Agent as JaxR2D2Agent
 from distributed_reinforcement_learning_tpu.agents.r2d2 import R2D2Config as JaxR2D2Config
@@ -37,6 +38,17 @@ from distributed_reinforcement_learning_tpu_torch.runtime import (
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
 from test_torch_impala_k import CONFIG
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 KW = dict(obs_shape=(2,), num_actions=2, seq_len=6, burn_in=2, lstm_size=8)
 

@@ -36,6 +36,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.runtime import inference as jax_inference
 from distributed_reinforcement_learning_tpu.runtime import serving as jax_serving
@@ -63,9 +64,13 @@ SMALL = dict(obs_shape=(4,), num_actions=2, trajectory=8, lstm_size=32,
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -510,9 +515,48 @@ def test_replica_kill_demotes_to_survivor_without_losing_requests():
 
 
 def test_replica_refuses_shard_scoped_pulls(monkeypatch):
-    monkeypatch.setenv("DRL_WEIGHTS_KEYS", "torso")
-    with pytest.raises(ValueError, match="item 12e"):
-        serving.run_replica("impala", str(CONFIG), "impala_cartpole", device="cpu")
+    """Sharded publication is ported: a replica no longer refuses
+    `DRL_WEIGHTS_KEYS` but scopes its refreshes to the named shards. Its
+    first pull from a sharded learner is whole (both of the
+    `impala_cartpole` parameters' shards), its refresh carries `rep`
+    alone."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import weight_shards
+
+    agent_cfg, _ = load_config(CONFIG, "impala_cartpole")
+    params = ImpalaAgent(agent_cfg, device="cpu").init_state(seed=0).params
+    weights = WeightStore(sharded=True)
+    weights.publish(params, 0)
+    server = TransportServer(TrajectoryQueue(8), weights, host="127.0.0.1",
+                             port=_free_port()).start()
+    for key, value in (("DRL_WEIGHTS_KEYS", "rep"), ("DRL_LEARNER_ADDR", f"127.0.0.1:{server.port}"),
+                       ("DRL_INFER_PORT", str(_free_port())), ("DRL_INFER_PULL_S", "0.05"),
+                       ("DRL_FLEET", "0")):
+        monkeypatch.setenv(key, value)
+    monkeypatch.delenv("DRL_SHM_WEIGHTS_NAME", raising=False)
+    assert weight_shards.role_keys() == ["rep"]
+
+    def drive():
+        deadline = time.monotonic() + 30.0
+        while server.stat("shard_sends") < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        weights.publish({k: v + 1.0 for k, v in params.items()}, 1)
+        while server.stat("shard_sends") < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        server.stop()  # the learner goes: the replica exits after its grace
+
+    driver = threading.Thread(target=drive)
+    driver.start()
+    try:
+        summary = serving.run_replica("impala", str(CONFIG), "impala_cartpole", device="cpu",
+                                      grace=0.5)
+    finally:
+        driver.join()
+        server.stop()
+    assert summary["weight_versions_seen"] == 2 and summary["weight_version"] == 1
+    stats = server.snapshot_stats()
+    shards = {sh["key"] for sh in weight_shards.parse_manifest(weights.get_sharded(-1)[1])["shards"]}
+    assert shards == {"rep", "-,model"}
+    assert stats["shard_sends"] == 2 and stats["shard_full_sends"] == 2 + 1
 
 
 # -- the replica tier's client side ----------------------------------------------

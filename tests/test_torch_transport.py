@@ -20,6 +20,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.data import structures as jax_structures
 from distributed_reinforcement_learning_tpu.data.fifo import TrajectoryQueue as JaxQueue
@@ -33,6 +34,17 @@ from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
     RemoteQueue, RemoteWeights, ShardedRemoteWeights, TransportClient, TransportError,
     TransportServer)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def _free_port() -> int:

@@ -16,12 +16,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.ops import vtrace as jvt
 from distributed_reinforcement_learning_tpu.ops.pallas.vtrace import vtrace_pallas
 from distributed_reinforcement_learning_tpu_torch.ops import vtrace as tvt
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import _build, on_cuda
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import vtrace as kvt
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 SHAPES = [(18, 32), (10, 16), (5, 256), (20, 384)]
 

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.data import codec as jax_codec
 from distributed_reinforcement_learning_tpu.runtime import weight_board as jax_board
@@ -32,6 +33,17 @@ from distributed_reinforcement_learning_tpu_torch.runtime import weights as weig
 from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
     ShardedRemoteWeights, TransportClient, TransportServer)
 from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool, as the parity files
+    # pin them: several test workers share the cores.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGES = {"jax": jax_board, "port": weight_board}
@@ -208,13 +220,28 @@ def test_a_segmented_board_is_refused_by_name():
         finally:
             twin.close()
             twin.unlink()
-        view = weight_board.attach_any(name)
-        with pytest.raises(ValueError, match="item 12e"):
-            weight_board.BoardWeights(view, client=None)
-        with pytest.raises(ValueError, match="item 12e"):
-            weight_board.attach_board_weights(name, client=None, deadline_s=0.5)
+        # Sharded publication is ported: a port reader takes the segmented
+        # board a JAX learner's sharded store writes.
+        from distributed_reinforcement_learning_tpu.runtime.weights import WeightStore as JaxStore
+
+        published = jax_board.ShardedWeightBoard.create(_name("sharded-jax"), 1 << 20)
+        try:
+            jstore = JaxStore(sharded=True, quant="")
+            jstore.attach_board(published)
+            jstore.publish({k: v.numpy() for k, v in _params(3).items()}, 9)
+            bw = weight_board.BoardWeights(weight_board.attach_any(published.name), client=None)
+            params, version = bw.get_if_newer(-1)
+            assert version == 9 and bw.stat("shard_pulls") == 1
+            assert all(torch.equal(params[k], v) for k, v in _params(3).items())
+            bw.close()
+            bw = weight_board.attach_board_weights(published.name, client=None, deadline_s=0.5)
+            assert bw.attached and bw.get_if_newer(9) is None
+            bw.close()
+        finally:
+            published.close()
+            published.unlink()
         with pytest.raises(ValueError, match="not an initialized"):
-            weight_board.WeightBoard.attach(name)  # the reattach probe's attach
+            weight_board.WeightBoard.attach(name)  # the classic board's attach refuses it
     finally:
         sharded.close()
         sharded.unlink()

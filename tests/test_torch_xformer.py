@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.agents.xformer import XformerConfig as JaxConfig
 from distributed_reinforcement_learning_tpu.data import codec as jax_codec
@@ -70,9 +71,13 @@ BODIES = {"dense": {}, "moe": {"num_experts": 4}, "stacked": {"stack_layers": Tr
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -371,11 +376,12 @@ def test_full_width_sections_train_through_the_launcher(section, tmp_path, monke
     assert m["grad_norm"] > 0
 
 
-@pytest.mark.parametrize("mode, item", [("inference", "item 12"), ("anakin", "item 14")])
+@pytest.mark.parametrize("mode, item", [("inference", "item 13"), ("anakin", "item 14")])
 def test_unported_modes_raise_by_name(mode, item, monkeypatch):
-    # Serving acts is ported: an act-serving replica still refuses
-    # shard-scoped pulls (ROADMAP item 12e).
-    monkeypatch.setenv("DRL_WEIGHTS_KEYS", "torso")
+    # Serving acts is ported: an act-serving replica still refuses the
+    # multi-host learners (ROADMAP item 13); this family has no on-device
+    # loop (item 14).
+    monkeypatch.setenv("DRL_COORDINATOR", "127.0.0.1:1")
     with pytest.raises(ValueError, match=item):
         train_xformer.main(["--config", str(CONFIG), "--mode", mode, "--device", "cpu"])
 

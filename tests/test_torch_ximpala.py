@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from distributed_reinforcement_learning_tpu.agents.ximpala import XImpalaAgent as JaxAgent
 from distributed_reinforcement_learning_tpu.agents.ximpala import XImpalaBatch as JaxBatch
@@ -58,9 +59,13 @@ SMALL = dict(obs_shape=(4,), num_actions=3, trajectory=16, d_model=64, num_heads
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
+    # One thread for torch and for numpy's BLAS pool: OpenBLAS spreads the
+    # Atari resize's small matmuls over every core, which costs far more
+    # than the matmuls once several test workers share the cores.
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

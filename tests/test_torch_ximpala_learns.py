@@ -13,34 +13,52 @@ the JAX package on the same in-tree CartPole (`DRL_NO_GYMNASIUM=1`)
 measured 10.6, 130.6 and 62.4 for its seeds 1-3, which pass its bar only
 on gymnasium's CartPole. The port's RNG streams differ from JAX's, so
 its seeds are its own: 8, 9 and 10 here. The run is deterministic on one
-thread.
+thread; the three seeds run at once, each in a process of its own.
 """
 
-import numpy as np
-import pytest
-import torch
+import json
+import subprocess
+import sys
 from pathlib import Path
 
-from distributed_reinforcement_learning_tpu_torch.runtime.launch import train_local
+import numpy as np
 
 CONFIG = Path(__file__).resolve().parents[1] / "config.json"
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One seed's run in a process of its own: one torch thread, the in-tree
+# CartPole, the section through `train_local` -> its episode returns.
+_SEED_RUN = """
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+os.environ["DRL_NO_GYMNASIUM"] = "1"
+from distributed_reinforcement_learning_tpu_torch.runtime.launch import train_local
+result = train_local(sys.argv[1], "ximpala", 400, seed=int(sys.argv[2]), device="cpu")
+print(json.dumps([float(r) for r in result["episode_returns"]]))
+"""
 
 
 def test_ximpala_section_learns_cartpole(monkeypatch):
+    # The three seeds run at once, each in its own process on one thread
+    # (deterministic, so each gives what it gives in this process).
     monkeypatch.setenv("DRL_NO_GYMNASIUM", "1")  # the in-tree CartPole its seeds were picked on
+    procs = [subprocess.Popen([sys.executable, "-c", _SEED_RUN, str(CONFIG), str(seed)],
+                              cwd=CONFIG.parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for seed in (8, 9, 10)]
     lates = []
-    for seed in (8, 9, 10):
-        result = train_local(str(CONFIG), "ximpala", 400, seed=seed, device="cpu")
-        returns = result["episode_returns"]
-        assert len(returns) > 40, "too few episodes finished"
-        lates.append(float(np.mean(returns[-20:])))
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-2000:]
+            returns = json.loads(out.strip().splitlines()[-1])
+            assert len(returns) > 40, "too few episodes finished"
+            lates.append(float(np.mean(returns[-20:])))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     assert all(late > 25.0 for late in lates), lates
     assert float(np.mean(lates)) > 60.0, lates
