@@ -310,13 +310,32 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    phase 16's bar (rtol 1e-4, an element at Adam's noise floor within
    2 lr a step). Logs the H2D copy's device ms, the share of it inside
    the learn calls and the ms a call on both paths.
-43. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+43. The learner tier (`runtime/learner_tier.py` over
+   `parallel/collective.py`), TF32 off for (a) and (b). (a) Two `apex`
+   seats, ApexLearners on CUDA in threads of this process, under
+   allreduce over loopback, each on one half of a seeded batch of 32: at
+   each of 3 steps the seats hold the same bits and sit at phase 16's bar
+   of one CUDA learner that took the step on the union batch from the
+   same state; 12 more steps time the rounds; the flat vector's D2H and
+   H2D are timed apart. (b) Two `r2d2` seats from different seeds under
+   async with a merge every step, in turns: 2 K2a and 1 K2b a learn
+   step, a merge on each seat, seat 1's first merge bit for bit the mean
+   of both. (c) The launcher with `--learners 2 --learner_sync
+   allreduce` on `apex` (seats on CUDA, 2 CPU actors, the shared board):
+   seat 0 SIGKILLed at its step 20; seat 1 finishes its 80 updates as
+   the publisher (peer_deaths 1, promotions 1, the board re-created), a
+   TCP client of seat 1 and a fresh reader of the shared board in this
+   process (pulling as actor 1 would, which pulls once in 1,600 steps)
+   see versions past the kill, and the launcher exits 137.
+   No round gives up. Logs rounds, retries, giveups, round ms p50, bytes
+   a round, D2H and H2D ms, merges and the phase's seconds.
+44. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
    paths launch none; K1 carries phases 27-33's, 35's and 38's launches
    beside phase 4's, and its times at phase 38's shape; K2a and K2b
-   phase 20's, 26's, 32's, 40's and 42's beside phase 6's; K3a, K3b and
-   K3c phase 23's beside phase 9's, and K3a phases 34's and 36's with
-   its times at the served batch shapes).
-44. The device line, then `{"ok": true, "device": {...}}` as the last line.
+   phase 20's, 26's, 32's, 40's, 42's and 43's beside phase 6's; K3a,
+   K3b and K3c phase 23's beside phase 9's, and K3a phases 34's and 36's
+   with its times at the served batch shapes).
+45. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29
@@ -1114,13 +1133,14 @@ def phase_r2d2_parity() -> None:
 
 
 def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
-              launcher_r2d2: dict, anakin: dict, devpath: dict) -> list[dict]:
+              launcher_r2d2: dict, anakin: dict, devpath: dict, tier: dict) -> list[dict]:
     """The K2a and K2b entries of the kernels line: `launches` from the
     r2d2 path (phase 6), with the default multi-process r2d2 learner's
     own count (phase 20, K=2 calls), the r2d2_pixel path's (phase 26),
     the ring-fed r2d2 learner's (phase 32), Anakin R2D2's on both
-    sections (phase 40) and the device sample path's first K=2 call
-    (phase 42) beside it."""
+    sections (phase 40), the device sample path's first K=2 call
+    (phase 42) and the two async tier seats' learn steps (phase 43)
+    beside it."""
     rows = []
     for tag, name, line in (("fwd", "lstm_fwd", 45), ("bwd", "lstm_bwd", 72)):
         t = k2["timings"][LSTM_MAIN][tag]
@@ -1135,7 +1155,8 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
                                  "launcher_r2d2_ring": launcher_r2d2["launches"][name],
                                  **{f"anakin_{section}": got["launches"][name]
                                     for section, got in anakin.items()},
-                                 "r2d2_device_path_call": devpath["r2d2"]["launches"]["device"][name]},
+                                 "r2d2_device_path_call": devpath["r2d2"]["launches"]["device"][name],
+                                 "r2d2_tier_async_seats": tier["r2d2"]["launches"][name]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": list(LSTM_MAIN),
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
@@ -3238,12 +3259,12 @@ def role_json(out: str, role: str) -> list[dict]:
 
 
 def run_launcher(section: str, updates: int, actors: int, tag: str, env_set: dict,
-                 extra: list[str] = (), during=None) -> str:
+                 extra: list[str] = (), during=None, expect_rc: int = 0) -> str:
     """`launch_local_cluster` from this checkout: the learner on CUDA, the
     actors on the CPU, in a process group of its own that is killed whole
     on failure or timeout. `during(proc, log_path)` runs while it does.
-    Fails unless it exits 0 and leaves no `drl*` segment in /dev/shm.
-    -> its output (each line prefixed by its role)."""
+    Fails unless it exits `expect_rc` and leaves no `drl*` segment in
+    /dev/shm. -> its output (each line prefixed by its role)."""
     import os
     import signal
 
@@ -3272,7 +3293,7 @@ def run_launcher(section: str, updates: int, actors: int, tag: str, env_set: dic
                 proc.wait(timeout=30)
         f.seek(0)
         out = f.read()
-    if proc.returncode != 0:
+    if proc.returncode != expect_rc:
         raise RuntimeError(f"launcher {tag}: exit {proc.returncode}:\n{out[-4000:]}")
     left = shm_segments()
     if left:
@@ -4493,6 +4514,431 @@ def phase_device_path() -> dict:
     return runs
 
 
+# -- the learner tier on the card (phase 43) ---------------------------------------
+
+TIER_STEPS = 3  # (a), (b): tier steps held to the union learner / the merge
+TIER_TIMED_STEPS = 12  # (a): further allreduce steps for the round times
+TIER_UPDATES = 80  # (c): seat 1 trains on alone well after seat 0's death
+TIER_KILL_STEP = 20  # (c): seat 0 is SIGKILLed once it logged this step
+TIER_ENV = {"DRL_LEARNER_WAIT_S": "3", "DRL_SHM_WEIGHTS": "1", "DRL_SHM_RING": None}
+
+
+def tier_seats(n: int, sync: str) -> list:
+    """`n` started LearnerTiers over loopback in this process."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.learner_tier import LearnerTier
+
+    addrs = [f"127.0.0.1:{free_port()}" for _ in range(n)]
+    tiers = [LearnerTier(r, addrs, sync=sync, probe_interval_s=60.0) for r in range(n)]
+    for t in tiers:
+        t.collective.wait_s = 20.0
+        t.start()
+    return tiers
+
+
+def on_threads(fns, timeout: float = 120.0) -> list:
+    """Run each of `fns` on its own thread; -> their results, or raise the
+    first error (or a wedge)."""
+    out, errs = [None] * len(fns), [None] * len(fns)
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a tier seat wedged")
+    for e in errs:
+        if e is not None:
+            raise e
+    return out
+
+
+def close_seats(tiers, learners) -> None:
+    for learner in learners:
+        learner.close()
+    on_threads([t.close for t in tiers], timeout=30.0)
+
+
+def clone_train_state(agent, state):
+    """A copy of `state` (parameters, target, Adam moments, step) for
+    `agent`."""
+    out = agent.state_from_params({k: v.detach() for k, v in state.params.items()})
+    for mine, theirs in ((out.target_params, state.target_params), (out.mu, state.mu),
+                         (out.nu, state.nu)):
+        for k, v in theirs.items():
+            mine[k].copy_(v)
+    out.step = state.step
+    return out
+
+
+def tier_apex_allreduce() -> dict:
+    """(a) Two `apex` seats (ApexLearners on CUDA, threads of this
+    process) under allreduce over loopback, each on one half of a
+    seeded batch of 32. At each of TIER_STEPS steps both seats must hold
+    the same bits, and each must be at phase 16's bar of one CUDA learner
+    that took the step on the union batch from the same state (the merged
+    gradient against the union's, `adam_step_close`). Then
+    TIER_TIMED_STEPS more steps time the rounds; the flat vector's D2H
+    (`flatten_tree`) and H2D (`unflatten_tree`) are timed apart."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
+    from distributed_reinforcement_learning_tpu_torch.runtime.apex_runner import ApexLearner
+    from distributed_reinforcement_learning_tpu_torch.runtime.learner_tier import (
+        flatten_tree, unflatten_tree)
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    agent_cfg, rt = load_config(CONFIG, "apex")
+    batch, isw = apex_batch(agent_cfg, rt.batch_size, seed=21)
+    half = rt.batch_size // 2
+    halves = [tree_map(lambda x: x[:half], batch), tree_map(lambda x: x[half:], batch)]
+    weights = [isw[:half], isw[half:]]
+    tiers = tier_seats(2, "allreduce")
+    learners, merged = [], [[], []]
+    try:
+        for r in range(2):
+            agent = ApexAgent(agent_cfg, device="cuda")
+            apply = agent.apply_grads
+
+            def recording_apply(state, grads, loss, r=r, apply=apply):
+                merged[r].append({k: v.detach().clone() for k, v in grads.items()})
+                return apply(state, grads, loss)
+
+            agent.apply_grads = recording_apply
+            learner = ApexLearner(agent, TrajectoryQueue(8), WeightStore(), batch_size=half,
+                                  replay_capacity=1024, init_seed=11)
+            tiers[r].attach(learner)
+            learners.append(learner)
+        plan = tiers[0]._plan
+        on_threads([lambda t=t: t.await_peers(30.0) for t in tiers])
+        union = ApexAgent(agent_cfg, device="cuda")
+        lr = agent_cfg.start_learning_rate
+        unsettled = 0
+
+        def step_all():
+            return on_threads([lambda r=r: learners[r]._learn(learners[r].state, halves[r],
+                                                              weights[r])
+                               for r in range(2)])
+
+        for t in range(1, TIER_STEPS + 1):
+            ustate = clone_train_state(union, learners[0].state)
+            ugrads, _, uloss = union.grads(ustate, batch, isw)
+            ugrads = {k: v.detach().clone() for k, v in ugrads.items()}
+            union.apply_grads(ustate, ugrads, uloss)
+            step_all()
+            p0, p1 = learners[0].state.params, learners[1].state.params
+            differ = [k for k in p0 if not bit_equal(p0[k].detach(), p1[k].detach())]
+            if differ or not all(bit_equal(merged[0][-1][k], merged[1][-1][k]) for k in p0):
+                raise RuntimeError(f"tier (a) step {t}: the seats differ in {differ}")
+            for k, v in ustate.params.items():
+                unsettled += adam_step_close(f"tier (a) step {t} {k}", p0[k].detach(),
+                                             v.detach(), merged[0][-1][k], ugrads[k], lr, t)
+        round_ms: list[float] = []
+        inner = tiers[0]._merged_rounds
+
+        def timed_rounds(vec):
+            t0 = time.perf_counter()
+            out = inner(vec)
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tiers[0]._merged_rounds = timed_rounds
+        step_ms = []
+        for _ in range(TIER_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_all()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        agent = learners[0].agent
+        d2h, h2d = [], []
+        for _ in range(TIER_TIMED_STEPS):
+            grads, _, _ = agent.grads(learners[0].state, halves[0], weights[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vec, meta = flatten_tree(grads)
+            d2h.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            unflatten_tree(vec, meta)
+            torch.cuda.synchronize()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        stats = [t.snapshot_stats() for t in tiers]
+        coll = [t.collective.snapshot_stats() for t in tiers]
+        if any(s["round_giveups"] or s["round_retries"] for s in stats):
+            raise RuntimeError(f"tier (a): rounds gave up or retried: {stats}")
+        if any(c["rounds_ok"] != TIER_STEPS + TIER_TIMED_STEPS for c in coll):
+            raise RuntimeError(f"tier (a): rounds {[c['rounds_ok'] for c in coll]}")
+        n = sum(v.numel() for v in learners[0].state.params.values())
+        got = {"rounds": [s["rounds"] for s in stats],
+               "round_retries": [s["round_retries"] for s in stats],
+               "round_giveups": [s["round_giveups"] for s in stats],
+               "round_ms_p50": float(np.median(round_ms)),
+               "round_ms_max": float(np.max(round_ms)),
+               "step_ms_p50": float(np.median(step_ms)),
+               "bytes_a_round": [c["bytes_sent"] / c["rounds_ok"] for c in coll],
+               "bytes_by_class": {k[len("coll_bytes_"):]: v / coll[0]["rounds_ok"]
+                                  for k, v in coll[0].items()
+                                  if k.startswith("coll_bytes_") and v},
+               "d2h_ms_p50": float(np.median(d2h)), "h2d_ms_p50": float(np.median(h2d)),
+               "elements": n + 1, "classes": plan.classes, "unsettled": unsettled}
+    finally:
+        close_seats(tiers, learners)
+    log(f"[tier] (a) apex allreduce, 2 seats x {half} of one batch of {rt.batch_size}: "
+        f"{TIER_STEPS} steps bit for bit equal across the seats and at phase 16's bar of the "
+        f"union learner ({unsettled} elements at the gradients' noise floor); exchange plan "
+        f"{plan.classes} over {n + 1:,} f32 elements (the loss last); rounds "
+        f"{got['rounds']}, retries {got['round_retries']}, giveups {got['round_giveups']}; "
+        f"round ms p50 {got['round_ms_p50']:.3f} (max {got['round_ms_max']:.3f}), tier step "
+        f"ms p50 {got['step_ms_p50']:.3f}; bytes a round a seat {got['bytes_a_round']} "
+        f"(seat 0 by class {got['bytes_by_class']}); flat vector D2H p50 "
+        f"{got['d2h_ms_p50']:.3f} ms, H2D p50 {got['h2d_ms_p50']:.3f} ms")
+    return got
+
+
+def tier_r2d2_async() -> dict:
+    """(b) Two `r2d2` seats (R2D2Learners on CUDA from different seeds)
+    under async with a merge every step, stepped in turns on one thread
+    (so the process-wide launch counts are exact): each learn step must
+    launch 2 K2a and 1 K2b, as the solo learner's; each seat must merge
+    at least once; seat 1's first merge must be, bit for bit, the mean of
+    its own parameters and seat 0's push."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.learner_tier import flatten_tree
+    from distributed_reinforcement_learning_tpu_torch.runtime.r2d2_runner import R2D2Learner
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    agent_cfg, rt = load_config(CONFIG, "r2d2")
+    tiers = tier_seats(2, "async")
+    learners, pushed = [], [[], []]
+    try:
+        for r in range(2):
+            tiers[r].merge_steps = 1
+            push = tiers[r].collective.push_merge
+
+            def recording_push(vec, step, r=r, push=push):
+                pushed[r].append(np.array(vec, np.float32))
+                return push(vec, step)
+
+            tiers[r].collective.push_merge = recording_push
+            learner = R2D2Learner(R2D2Agent(agent_cfg, device="cuda"), TrajectoryQueue(8),
+                                  WeightStore(), batch_size=rt.batch_size, replay_capacity=1024,
+                                  init_seed=11 + r)
+            tiers[r].attach(learner)
+            learners.append(learner)
+        batches = [r2d2_batch(agent_cfg, rt.batch_size, seed=31 + r) for r in range(2)]
+        zero_launch_counts()
+        merge_ok = None
+        step_ms = []
+        for step in range(TIER_STEPS):
+            for r in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                learners[r]._learn(learners[r].state, *batches[r])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if step == 0 and r == 1:
+                    want = (pushed[1][0] + pushed[0][0]) / np.float32(2)
+                    merge_ok = np.array_equal(flatten_tree(learners[1].state.params)[0], want)
+        launches = {"lstm_fwd": klstm.lstm_fwd_cuda.launches,
+                    "lstm_bwd": klstm.lstm_bwd_cuda.launches}
+        stats = [t.snapshot_stats() for t in tiers]
+        n_steps = 2 * TIER_STEPS
+        if launches != {"lstm_fwd": 2 * n_steps, "lstm_bwd": n_steps}:
+            raise RuntimeError(f"tier (b): launches {launches} in {n_steps} learn steps")
+        if not merge_ok or any(s["merges_applied"] < 1 for s in stats):
+            raise RuntimeError(f"tier (b): the merge (seat 1's first equal to the mean: "
+                               f"{merge_ok}); {stats}")
+        if any(s["round_giveups"] or s["round_retries"] for s in stats):
+            raise RuntimeError(f"tier (b): rounds gave up or retried: {stats}")
+        finite = all(torch.isfinite(v).all() for lrn in learners
+                     for v in lrn.state.params.values())
+        if not finite:
+            raise RuntimeError("tier (b): non-finite parameters")
+        got = {"launches": launches, "merges_applied": [s["merges_applied"] for s in stats],
+               "merge_rounds": [s["merge_rounds"] for s in stats],
+               "round_giveups": [s["round_giveups"] for s in stats],
+               "round_retries": [s["round_retries"] for s in stats],
+               "step_ms_p50": float(np.median(step_ms)),
+               "bytes_a_merge": pushed[0][0].nbytes}
+    finally:
+        close_seats(tiers, learners)
+    log(f"[tier] (b) r2d2 async, 2 seats, a merge every step, {TIER_STEPS} steps each: "
+        f"launches {launches} (2 K2a + 1 K2b a learn step, as the solo learner's); merges "
+        f"applied {got['merges_applied']} of {got['merge_rounds']} merge rounds; seat 1's "
+        f"first merge the mean of both, bit for bit; retries {got['round_retries']}, giveups "
+        f"{got['round_giveups']}; tier step ms p50 {got['step_ms_p50']:.3f} (learn, push and "
+        f"merge); {got['bytes_a_merge']:,} bytes a push")
+    return got
+
+
+def seat_pid(proc, rank: int) -> int:
+    """The pid of the launcher's learner seat `rank`."""
+    want = f"DRL_LEARNER_RANK={rank}".encode()
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            environ = (entry / "environ").read_bytes().split(b"\0")
+            cmdline = (entry / "cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        ppid = int(stat.rsplit(")", 1)[1].split()[1])
+        if ppid == proc.pid and b"learner" in cmdline and want in environ:
+            return int(entry.name)
+    raise RuntimeError(f"no learner seat {rank} under the launcher")
+
+
+def wait_for_line(proc, log_path: Path, mark: str, what: str) -> str:
+    """Wait until the launcher's log holds `mark`; -> the log so far."""
+    deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+    while time.monotonic() < deadline and proc.poll() is None:
+        text = log_path.read_text()
+        if mark in text:
+            return text
+        time.sleep(0.1)
+    raise RuntimeError(f"tier (c): {what} never came")
+
+
+def read_board_versions(name: str, stop, versions: list) -> None:
+    """A fresh reader of the shared board `name`: its committed version
+    every 0.1 s until `stop` is set or the board is gone."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import weight_board
+
+    board = weight_board.attach_any(name)
+    try:
+        while not stop.is_set():
+            versions.append(board.version())
+            stop.wait(0.1)
+    except (weight_board.BoardClosed, OSError):
+        pass
+    finally:
+        board.close()
+
+
+def kill_seat_mid_run(proc, log_path: Path, seat1_port: int, seen: dict) -> None:
+    """SIGKILL seat 0 once it logged TIER_KILL_STEP tier steps. Then, as
+    an actor of seat 1 would, pull seat 1's weights over TCP, and, once
+    seat 1 logged its takeover, read the shared board afresh, each on a
+    thread of this process that ends with the launch."""
+    import os
+    import signal
+
+    text = wait_for_line(proc, log_path, f"[learner0] [learner] tier seat 0: step "
+                         f"{TIER_KILL_STEP},", "seat 0's kill step")
+    seen["board"] = re.search(r"shm weight board attached: (\S+)", text).group(1)
+    seen["pid"] = seat_pid(proc, 0)
+    os.kill(seen["pid"], signal.SIGKILL)
+    seen["stop"] = stop = threading.Event()
+    seen["tcp"], seen["board_versions"] = [], []
+    seen["threads"] = [threading.Thread(target=probe_weights, args=(seat1_port, stop,
+                                                                    seen["tcp"]))]
+    seen["threads"][0].start()
+    wait_for_line(proc, log_path, "[learner1] [learner] tier takeover: shm weight board "
+                  "re-created", "seat 1's board takeover")
+    seen["threads"].append(threading.Thread(target=read_board_versions, args=(
+        seen["board"], stop, seen["board_versions"])))
+    seen["threads"][1].start()
+
+
+def tier_launcher_kill() -> dict:
+    """(c) The launcher with `--learners 2 --learner_sync allreduce` on the
+    `apex` section (seats on CUDA, 2 CPU actors, the shared board): seat
+    0 is SIGKILLed at TIER_KILL_STEP. Seat 1 must finish its TIER_UPDATES
+    updates alone as the publisher (peer_deaths 1, promotions 1, the board
+    re-created and written), with no round given up, and the launcher
+    exits 137 (the killed seat). Pulls must go on landing new versions: an
+    Ape-X actor pulls when its step count is a multiple of 100 at the
+    start of a 64-step round, once in 1,600 steps, so a TCP client of seat
+    1 and a fresh reader of the shared board in this process pull as
+    actor 1 would, and each must see a version past the kill."""
+    import socket
+
+    seen: dict = {}
+    base = free_port()
+    while True:  # two consecutive free ports: the seats' data ports
+        try:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", base + 1))
+            break
+        except OSError:
+            base = free_port()
+    t0 = time.perf_counter()
+    try:
+        text = run_launcher("apex", TIER_UPDATES, 2, "tier",
+                            dict(TIER_ENV, DRL_LEARNER_ADDR=f"127.0.0.1:{base}"),
+                            extra=["--learners", "2", "--learner_sync", "allreduce"],
+                            during=lambda proc, path: kill_seat_mid_run(proc, path, base + 1,
+                                                                        seen),
+                            expect_rc=137)
+    finally:
+        if "stop" in seen:
+            seen["stop"].set()
+            for t in seen["threads"]:
+                t.join(30.0)
+    seconds = time.perf_counter() - t0
+    (seat1,) = role_json(text, "learner1")
+    actor1 = role_json(text, "actor1")
+    tier, coll = seat1["tier"], seat1["tier"]["collective"]
+    takeover = "[learner1] [learner] tier takeover: shm weight board re-created" in text
+    if (seat1["train_steps"] != TIER_UPDATES or not tier["publisher"] or tier["live"] != [1]
+            or tier["promotions"] != 1 or coll["peer_deaths"] != 1 or tier["round_giveups"]
+            or not takeover or not seat1["board"] or seat1["board"]["writes"] < 1):
+        raise RuntimeError(f"tier (c): seat 1 {seat1['train_steps']} steps, tier {tier}, "
+                           f"board {seat1['board']}, takeover logged {takeover}")
+    after = TIER_KILL_STEP + 10
+    tcp = [v for v, _ in seen["tcp"]]
+    if (len(actor1) != 1 or not tcp or max(tcp) <= after or not seen["board_versions"]
+            or max(seen["board_versions"]) <= after):
+        raise RuntimeError(f"tier (c): versions pulled past the kill, TCP {tcp}, board "
+                           f"{seen['board_versions']}; actor 1 {actor1}")
+    steps = seat1["step_s"]
+    got = {"seconds": seconds, "round_retries": tier["round_retries"],
+           "rounds_ok": coll["rounds_ok"], "solo_rounds": coll["solo_rounds"],
+           "actor1_version": actor1[0]["weight_version"],
+           "tcp_versions": [tcp[0], tcp[-1], len(tcp)],
+           "board_versions": [seen["board_versions"][0], seen["board_versions"][-1]],
+           "board": seat1["board"], "first_step_s": steps[0],
+           "solo_ms_a_step": (steps[-1] - steps[coll["rounds_ok"]]) / max(
+               1, len(steps) - 1 - coll["rounds_ok"]) * 1e3,
+           "paired_ms_a_step": (steps[coll["rounds_ok"] - 1] - steps[0]) / max(
+               1, coll["rounds_ok"] - 1) * 1e3}
+    log(f"[tier] (c) launcher, apex, 2 seats on CUDA + 2 CPU actors under allreduce: seat 0 "
+        f"(pid {seen['pid']}) SIGKILLed at step {TIER_KILL_STEP}; seat 1 finished "
+        f"{seat1['train_steps']} updates as the publisher ({coll['rounds_ok']} paired rounds, "
+        f"{coll['solo_rounds']} solo, retries {tier['round_retries']}, giveups "
+        f"{tier['round_giveups']}, peer_deaths {coll['peer_deaths']}, promotions "
+        f"{tier['promotions']}); its board re-created ({seat1['board']}); after the kill a "
+        f"TCP client of seat 1 pulled versions {tcp[0]}..{tcp[-1]} ({len(tcp)} pulls) and a "
+        f"fresh board reader saw {seen['board_versions'][0]}..{seen['board_versions'][-1]}; "
+        f"actor 1 ended at weight version {got['actor1_version']} (one pull a 1,600 steps); "
+        f"first step at {steps[0]:.2f} s, "
+        f"{got['paired_ms_a_step']:.1f} ms a paired step, {got['solo_ms_a_step']:.1f} ms a "
+        f"solo one (host clock); phase {seconds:.1f} s")
+    return got
+
+
+def phase_learner_tier() -> dict:
+    """Phase 43: the learner tier, (a) `apex` under allreduce in process,
+    (b) `r2d2` under async in process, (c) the launcher's two seats with
+    seat 0 SIGKILLed. TF32 off for the parity parts."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = {"apex": tier_apex_allreduce(), "r2d2": tier_r2d2_async()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    got["launcher"] = tier_launcher_kill()
+    got["seconds"] = time.perf_counter() - t_phase
+    log(f"[tier] phase 43 {got['seconds']:.1f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4576,6 +5022,8 @@ def main() -> int:
     phase_memory("device sample path")
     devpath = phase_device_path()
     planes_s = time.perf_counter() - t_planes
+    phase_memory("learner tier")
+    tier = phase_learner_tier()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -4604,7 +5052,8 @@ def main() -> int:
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
         "anakin": {"shape": list(ANAKIN_SHAPE), **anakin_k1},
-    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2, devpath),
+    }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2, devpath,
+                  tier),
         *attention_rows(k3, ximpala, xformer_long)]
     k3a = next(row for row in kernels if row["name"] == "attention_fwd")
     k3a["launches_by_path"].update(
@@ -4678,7 +5127,12 @@ def main() -> int:
             f"{section} ms a call {got['call_ms']['device']:.2f} / host {got['call_ms']['host']:.2f}, "
             f"H2D {got['h2d_ms']:.3f} ms ({100 * got['h2d_overlap']:.0f}% in the learn)"
             for section, got in devpath.items() if section != "seconds")
-        + f" ({devpath['seconds']:.1f} s); phases 41-42 {planes_s:.1f} s; "
+        + f" ({devpath['seconds']:.1f} s); phases 41-42 {planes_s:.1f} s; learner tier: apex "
+        f"allreduce round p50 {tier['apex']['round_ms_p50']:.3f} ms, "
+        f"{tier['apex']['bytes_a_round'][0]:.0f} bytes a round a seat, D2H "
+        f"{tier['apex']['d2h_ms_p50']:.3f} / H2D {tier['apex']['h2d_ms_p50']:.3f} ms; r2d2 async "
+        f"merges {tier['r2d2']['merges_applied']}; seat 0 killed, seat 1 solo "
+        f"{tier['launcher']['solo_rounds']} rounds; phase 43 {tier['seconds']:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

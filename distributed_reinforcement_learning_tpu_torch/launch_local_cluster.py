@@ -62,8 +62,24 @@ SIGINT: it stops, prints its JSON summary and exits 0 (after
 itself, as `train_<algo>` does). `--weights_sharded 1` exports
 `DRL_WEIGHTS_SHARDED=1` to every role: the learner publishes per shard
 onto the segmented board, and the actors' and replicas' TCP pulls are
-shard-scoped. Refused by name, with the ROADMAP item: `--learners` > 1
-and `--learner_sync` (item 13).
+shard-scoped.
+
+The learner tier: `--learners N --learner_sync allreduce|async` spawns
+N learner seats (`runtime/learner_tier.py`), resolved as the JAX
+launcher resolves them (`--learner_sync`, else `DRL_LEARNER_SEATS` with
+`DRL_LEARNER_SYNC`, else the tier verdict constant, off). Each seat gets
+the roster of collective endpoints (one free port a seat) as
+`DRL_LEARNER_PEERS`, its rank, the seat count and the sync; seat k
+serves its data plane on the base port + k (`DRL_LEARNER_ADDR`, N
+consecutive free ports), actor t feeds seat t % N
+(`DRL_LEARNER_INDEX`), its ring goes to that seat, and every role
+shares ONE board name, which only the publishing seat writes. Refused
+at parse time, as in the JAX launcher: `allreduce` for a family other
+than `apex` (only Ape-X has the split learn step), `--respawn` or
+`--chaos` with more than one seat (a tier restarts only whole). Refused
+by name, with the ROADMAP item: `--learners N` without a tier sync (the
+JAX package's `jax.distributed` learners, item 13b), and
+`--learner_sync` with one learner.
 """
 
 from __future__ import annotations
@@ -118,6 +134,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _free_port_run(n: int) -> int:
+    """The first of `n` consecutive free loopback ports (the seats' data
+    ports, base + rank)."""
+    for _ in range(100):
+        base = _free_port()
+        try:
+            for k in range(1, n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", base + k))
+        except OSError:
+            continue
+        return base
+    raise RuntimeError(f"no run of {n} free loopback ports")
+
+
 def _pump(prefix: str, proc: subprocess.Popen) -> None:
     for line in proc.stdout:  # type: ignore[union-attr]
         sys.stdout.write(f"[{prefix}] {line}")
@@ -145,9 +176,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--algo", default=None, help="family (default: section-name prefix)")
     p.add_argument("--actors", type=int, default=2)
     p.add_argument("--learners", type=int, default=1,
-                   help="learner processes: only 1 is ported (ROADMAP item 13)")
-    p.add_argument("--learner_sync", default=None,
-                   help="the learner tier's sync: not ported (ROADMAP item 13)")
+                   help="learner processes: N > 1 learner-tier seats (needs a tier sync)")
+    p.add_argument("--learner_sync", choices=("allreduce", "async"), default=None,
+                   help="with --learners N > 1: the learner tier's exchange, lockstep "
+                        "gradient allreduce (apex) or bounded-staleness parameter merging")
     p.add_argument("--updates", type=int, default=500)
     p.add_argument("--run_dir", default=None,
                    help="the learner's metrics.jsonl and every process's telemetry "
@@ -192,9 +224,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.algo not in FAMILIES:
         p.error(f"unknown algorithm {args.algo!r} (from --section/--algo); one of "
                 f"{sorted(FAMILIES)}")
-    if args.learners != 1 or args.learner_sync is not None:
-        p.error("--learners > 1 and --learner_sync (the learner tier, multi-host learners) "
-                "are not ported (ROADMAP item 13)")
+    args.tier_sync = learner_tier_sync(args, p)
     if args.remote_act and not args.serve_inference:
         # The actors would fail at once while the learner idles.
         p.error("--remote_act needs the learner to serve inference; pass --serve_inference too")
@@ -202,7 +232,46 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     args.respawn = args.respawn or ("chaos" if args.chaos else "off")
     if args.chaos and args.respawn == "off":
         p.error("--chaos needs a respawn policy; drop --respawn off")
+    if args.respawn != "off" and args.learners > 1:
+        # Seats cannot rejoin a live collective (dead ranks stay dead),
+        # and a respawned ex-publisher would race the promoted survivor
+        # for the shared board name: a tier restarts only whole.
+        p.error("--respawn needs --learners 1 (a learner tier can only restart wholesale)")
     return args
+
+
+def learner_tier_sync(args: argparse.Namespace, p: argparse.ArgumentParser) -> str | None:
+    """The tier's sync for `--learners N`, or None for one learner:
+    `--learner_sync` forces it; else `DRL_LEARNER_SEATS` >= 2 turns the
+    tier on with `DRL_LEARNER_SYNC` (default allreduce), as the tier
+    verdict constant would (off). N > 1 with no sync would be the JAX
+    package's `jax.distributed` learners, which are not ported."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import learner_tier
+
+    if args.learners <= 1:
+        if args.learner_sync is not None:
+            p.error("--learner_sync needs --learners N >= 2 (the learner tier, ROADMAP "
+                    "item 13a)")
+        return None
+    sync = args.learner_sync
+    if sync is None:
+        try:
+            seats = learner_tier.seat_count()
+        except ValueError as e:
+            p.error(str(e))
+        if seats >= 2:
+            sync = (os.environ.get("DRL_LEARNER_SYNC", "").strip().lower()
+                    or learner_tier.VERDICT_SYNC)
+    if sync is None:
+        p.error("--learners N > 1 without a tier sync (the multi-host learners, "
+                "DRL_COORDINATOR) is not ported (ROADMAP item 13b); pass --learner_sync "
+                "allreduce|async for the learner tier")
+    if sync == "allreduce" and args.algo != "apex":
+        # attach would refuse it too, but only after every seat built its
+        # learner.
+        p.error(f"learner-tier allreduce needs the apex family's split learn step "
+                f"(agent.grads/apply_grads); use --learner_sync async for {args.algo!r}")
+    return sync
 
 
 def infer_replicas(args: argparse.Namespace, p: argparse.ArgumentParser) -> int:
@@ -231,7 +300,7 @@ def main(argv: list[str] | None = None) -> int:
 
     print(f"[cluster] {shm_size_line()}", file=sys.stderr)
     env = dict(os.environ)
-    env.setdefault("DRL_LEARNER_ADDR", f"127.0.0.1:{_free_port()}")
+    env.setdefault("DRL_LEARNER_ADDR", f"127.0.0.1:{_free_port_run(args.learners)}")
     if args.run_dir:
         env["DRL_TELEMETRY_DIR"] = os.path.join(os.path.abspath(args.run_dir), "telemetry")
     if args.replay_shards is not None:
@@ -263,7 +332,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"[cluster] shm rings enabled for {args.actors} co-hosted actor(s)",
               file=sys.stderr)
     if weight_board.board_enabled():
-        board_name = f"drlwboard-{tag}-0"
+        # One name for a whole tier: only the publishing seat creates and
+        # writes it; a promoted seat re-creates it by creator-pid reclaim.
+        board_name = f"drlwboard-{tag}-{'tier' if args.tier_sync else 0}"
         print(f"[cluster] shm weight board enabled for {args.actors} co-hosted actor(s)",
               file=sys.stderr)
 
@@ -278,13 +349,27 @@ def main(argv: list[str] | None = None) -> int:
         learner_cmd += ["--device", args.device]
     if args.serve_inference:
         learner_cmd += ["--serve_inference"]
-    lenv = dict(env)
-    if ring_names:
-        lenv["DRL_SHM_RING_CREATE"] = ",".join(ring_names[t] for t in sorted(ring_names))
-    if board_name:
-        lenv["DRL_SHM_WEIGHTS_CREATE"] = board_name
-    roles = [Role("learner", learner_cmd, lenv, "learner",
-                  segments=(*ring_names.values(), *((board_name,) if board_name else ())))]
+    n_seats = args.learners
+    coll_peers = ""
+    if args.tier_sync:
+        # One collective endpoint a seat; the roster (index = rank) goes to
+        # every seat, so that the ring and the probes agree.
+        coll_peers = ",".join(f"127.0.0.1:{_free_port()}" for _ in range(n_seats))
+        print(f"[cluster] learner tier: {n_seats} seat(s), sync={args.tier_sync}",
+              file=sys.stderr)
+    roles = []
+    for rank in range(n_seats):
+        lenv = dict(env)
+        if args.tier_sync:
+            lenv.update(DRL_LEARNER_SEATS=str(n_seats), DRL_LEARNER_RANK=str(rank),
+                        DRL_LEARNER_PEERS=coll_peers, DRL_LEARNER_SYNC=args.tier_sync)
+        mine = [ring_names[t] for t in sorted(ring_names) if t % n_seats == rank]
+        if mine:
+            lenv["DRL_SHM_RING_CREATE"] = ",".join(mine)
+        if board_name:
+            lenv["DRL_SHM_WEIGHTS_CREATE"] = board_name
+        roles.append(Role(f"learner{rank}" if n_seats > 1 else "learner", learner_cmd, lenv,
+                          "learner", segments=(*mine, *((board_name,) if board_name else ()))))
     # Act-serving replicas between the learner and the actors: each on
     # its own port, reading the learner's board (read-only) when there is
     # one, on the learner's device.
@@ -297,7 +382,7 @@ def main(argv: list[str] | None = None) -> int:
             infer_cmd += ["--run_dir", args.run_dir]
         if args.device:
             infer_cmd += ["--device", args.device]
-        ienv = dict(env, DRL_INFER_PORT=str(iport))
+        ienv = dict(env, DRL_INFER_PORT=str(iport), DRL_LEARNER_INDEX=str(k % n_seats))
         if board_name:
             ienv["DRL_SHM_WEIGHTS_NAME"] = board_name
         roles.append(Role(f"infer{k}", infer_cmd, ienv, "infer"))
@@ -307,7 +392,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"[cluster] inference tier: {len(infer_addrs)} act-serving replica(s)",
               file=sys.stderr)
     for task in range(args.actors):
-        aenv = dict(env, CUDA_VISIBLE_DEVICES="")
+        aenv = dict(env, CUDA_VISIBLE_DEVICES="", DRL_LEARNER_INDEX=str(task % n_seats))
         aenv.setdefault("OMP_NUM_THREADS", "1")
         if task in ring_names:
             aenv["DRL_SHM_RING_NAME"] = ring_names[task]
@@ -329,7 +414,8 @@ def main(argv: list[str] | None = None) -> int:
 
     for role in roles:
         spawn(role)
-    learner = roles[0]
+    learners = [r for r in roles if r.kind == "learner"]
+    learner = learners[0]
     replicas = [r for r in roles if r.kind == "infer"]
     actors = [r for r in roles if r.kind == "actor"]
     stop_evt = threading.Event()
@@ -374,7 +460,7 @@ def main(argv: list[str] | None = None) -> int:
                 role.done = True
                 continue
             if (args.respawn != "off" and role.respawns < args.max_respawns
-                    and not learner.done):
+                    and not all(r.done for r in learners)):
                 role.respawns += 1
                 tally[role.kind] += 1
                 if role.kind == "learner":
@@ -386,7 +472,7 @@ def main(argv: list[str] | None = None) -> int:
                 role.done = True
                 if role.kind == "learner":
                     rc = max(rc, 128 - code if code < 0 else code)
-        if learner.done:
+        if all(r.done for r in learners):
             break
         if actors and all(r.done for r in actors):
             print("[cluster] all actors exited; shutting down", file=sys.stderr)
@@ -408,9 +494,10 @@ def main(argv: list[str] | None = None) -> int:
                 # Reap the killed child: a zombie still passes the sweep's
                 # liveness check below and would keep its segments.
                 role.proc.wait(timeout=10)
-    code = learner.proc.poll() if learner.proc is not None else None
-    if code is not None and code != 0:  # an interrupted or failed learner
-        rc = max(rc, 128 - code if code < 0 else code)
+    for role in learners:
+        code = role.proc.poll() if role.proc is not None else None
+        if code is not None and code != 0:  # an interrupted or failed learner seat
+            rc = max(rc, 128 - code if code < 0 else code)
     for t in pumps:
         t.join(timeout=5.0)  # the children's last lines before exit
     if sum(tally.values()):

@@ -25,8 +25,11 @@ spec `(None, "model")` is the kernel's, so that both packages key it
 `-,model`. The matcher takes any rule list: given the JAX rules and a
 tree with flax names, it gives the JAX package's plan.
 
-Left out: `build_exchange_plan` (the learner tier's gradient exchange)
-and every device mesh, ROADMAP item 13.
+`build_exchange_plan` lays the same classes over the learner tier's
+flat gradient vector (`parallel/collective.py:ExchangePlan`), walking
+the parameter dict in its own order, the order of
+`runtime/learner_tier.flatten_tree`. Left out: every device mesh,
+ROADMAP item 13b.
 """
 
 from __future__ import annotations
@@ -161,3 +164,45 @@ def shard_plan(params: Any, rules: Sequence[tuple[str, Spec]] | None = None) -> 
         specs.append(spec)
         groups.setdefault(spec_key(spec), []).append(i)
     return ShardPlan(skel, paths, specs, {k: groups[k] for k in sorted(groups)})
+
+
+def _named_leaves(tree: Any, prefix: str = ""):
+    """(rule-matching name, leaf) of a nested dict in its insertion
+    order: the order of the port's `state.params` and of the tier's flat
+    vector. A name is the codec's, `torso.conv0.weight` ->
+    `torso/conv0/weight`."""
+    for key, val in tree.items():
+        name = prefix + str(key).replace(".", "/")
+        if isinstance(val, dict):
+            yield from _named_leaves(val, name + "/")
+        else:
+            yield name, val
+
+
+def build_exchange_plan(params: Any, rules: Sequence[tuple[str, Spec]] | None = None,
+                        quant: str = "f32", overlap: int = 0, tail: int = 0):
+    """Classify every leaf of `params` (a gradient-shaped dict of tensors
+    or arrays) into its partition-spec class and lay the classes out over
+    the learner tier's flat vector: a `parallel/collective.ExchangePlan`.
+
+    The entries walk the dict in its own order, as `flatten_tree` does,
+    so the plan's segment `i` is the vector's leaf `i`; the class of each
+    leaf is `leaf_spec`'s, by name. `tail` appends that many replicated
+    elements for the values the tier rides on the vector's end (the
+    loss). Two seats building a plan from the same schema, rules and
+    config get byte-identical entries and so the same `plan_hash`; the
+    classes and sizes equal the JAX package's plan leaf by leaf name,
+    though flax orders its leaves otherwise."""
+    from distributed_reinforcement_learning_tpu_torch.parallel.collective import ExchangePlan
+
+    if rules is None:
+        rules = default_partition_rules()
+    entries = []
+    for name, leaf in _named_leaves(params):
+        # A zero-stride view: leaf_spec reads only the rank and the size,
+        # and a device tensor is never copied to the host for them.
+        shape = np.broadcast_to(np.float32(0), tuple(np.shape(leaf)))
+        entries.append((spec_key(leaf_spec(rules, name, shape)), int(shape.size)))
+    if tail:
+        entries.append((REPLICATED_KEY, int(tail)))
+    return ExchangePlan(entries, quant=quant, overlap=overlap)

@@ -482,7 +482,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
             items, idxs, is_weight = replay.sample(self.batch_size, self._np_rng)
             batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
-            self.state, td, metrics = self.agent.learn(self.state, batch, is_weight)
+            self.state, td, metrics = self._learn(self.state, batch, is_weight)
         with self.timer.stage("replay_update"):
             # Deliberate sync: re-prioritisation targets the host sum tree
             # (the service only enqueues; its router thread applies it).

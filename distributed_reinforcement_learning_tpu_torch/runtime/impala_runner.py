@@ -252,6 +252,15 @@ class ImpalaLearner(PublishCadenceMixin):
         self._profiler = ProfilerSession.from_env()
         weights.publish(self.state.params, 0)
 
+    def _learn(self, state, batch):
+        """The seam every K = 1 learn step goes through (the agent's
+        `learn`); the learner tier rebinds it, and `_learn_many`, on the
+        instance (`runtime/learner_tier.LearnerTier.attach`)."""
+        return self.agent.learn(state, batch)
+
+    def _learn_many(self, state, batch):
+        return self.agent.learn_many(state, batch)
+
     def save_checkpoint(self, ckpt) -> None:
         """Persist the train state and the host counters."""
         ckpt.save(self.train_steps, self.state,
@@ -300,13 +309,13 @@ class ImpalaLearner(PublishCadenceMixin):
         steps_done = k if batch is not None else len(parts)
         with self.timer.stage("learn"):
             if k > 1 and batch is not None:
-                self.state, stacked = self.agent.learn_many(self.state, batch)
+                self.state, stacked = self._learn_many(self.state, batch)
                 metrics = tree_map(lambda x: x[-1], stacked)
             elif k > 1:
                 for b in parts:
-                    self.state, metrics = self.agent.learn(self.state, b)
+                    self.state, metrics = self._learn(self.state, b)
             else:
-                self.state, metrics = self.agent.learn(self.state, batch)
+                self.state, metrics = self._learn(self.state, batch)
         frames = steps_done * self.batch_size * self.agent.cfg.trajectory
         self.train_steps += steps_done
         self.frames_learned += frames

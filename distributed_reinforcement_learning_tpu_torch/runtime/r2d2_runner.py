@@ -419,7 +419,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
                 items, idxs, is_weight = self._mix_recent(items, idxs, is_weight)
             batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
-            self.state, priorities, metrics = self.agent.learn(self.state, batch, is_weight)
+            self.state, priorities, metrics = self._learn(self.state, batch, is_weight)
             # Deliberate sync: re-prioritisation targets the host sum tree
             # (the service only enqueues; its router thread applies it).
             replay.update_batch(idxs, priorities.cpu().numpy())

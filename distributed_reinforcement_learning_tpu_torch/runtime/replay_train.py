@@ -69,6 +69,12 @@ class ReplayTrainMixin:
         self._device_path_demoted = False
         self.device_path_force: bool | None = None
 
+    def _learn(self, state, batch, is_weight):
+        """The seam every K = 1 learn step goes through (the agent's
+        `learn`); the learner tier rebinds it on the instance
+        (`runtime/learner_tier.LearnerTier.attach`)."""
+        return self.agent.learn(state, batch, is_weight)
+
     def _active_replay(self):
         """The replay the train path samples and re-prioritises: the
         sharded service while it is healthy, the monolithic backend
@@ -204,7 +210,7 @@ def device_train_call(learner, path, replay) -> dict | None:
     weights are already on the device (the path's thread sampled, stacked
     and issued the copy while the previous call learned), and
     `next_entry` made this stream wait for the copy. K > 1 runs as one
-    `learn_many`, K = 1 through the agent's `learn`; the K rows of
+    `learn_many`, K = 1 through the learner's `_learn` seam; the K rows of
     priorities come back in ONE device-to-host copy and fan out to the
     replay's write-back by sampled batch. -> the last step's metrics, or
     None when the gather is behind (train() skips the call; a dead path
@@ -220,7 +226,7 @@ def device_train_call(learner, path, replay) -> dict | None:
                 learner.state, batch, weights)
             metrics = tree_map(lambda x: x[-1], metrics_stack)
         else:
-            learner.state, prio, metrics = learner.agent.learn(learner.state, batch, weights)
+            learner.state, prio, metrics = learner._learn(learner.state, batch, weights)
             prio_stack = prio[None]
     with learner.timer.stage("replay_update"):
         t0 = time.perf_counter()

@@ -1460,17 +1460,22 @@ def resolve_learner_addr(rt) -> tuple[str, int]:
     """The learner's address:
 
       DRL_LEARNER_ADDR=host:port — full address;
-      DRL_LEARNER_INDEX=k — port offset against the config's
-        server_ip/server_port (co-hosted learner processes).
+      DRL_LEARNER_INDEX=k — port offset against it, or against the
+        config's server_ip/server_port (co-hosted learner seats: seat k
+        serves on the base port + k).
 
     Actors connect to it, and the port's learner binds its port (the JAX
     learner binds the config's `server_port`)."""
+    index = int(os.environ.get("DRL_LEARNER_INDEX", "0"))
     addr = os.environ.get("DRL_LEARNER_ADDR")
     if addr:
         host, _, p = addr.rpartition(":")
-        return host, int(p)
-    return rt.server_ip, rt.server_port + int(os.environ.get("DRL_LEARNER_INDEX", "0"))
+        return host, int(p) + index
+    return rt.server_ip, rt.server_port + index
 
+
+# A learner-tier seat logs its progress every this many train steps.
+TIER_LOG_STEPS = 10
 
 # The families with an on-device loop (`--mode anakin`), as in the JAX
 # launchers: the transformer families have none.
@@ -1486,11 +1491,10 @@ def refuse_unported(mode: str, algo: str) -> None:
     if mode == "anakin" and algo not in ANAKIN_FAMILIES:
         raise ValueError(f"--mode anakin: the on-device loops (ROADMAP item 14) run "
                          f"{', '.join(ANAKIN_FAMILIES)}; the JAX package has none for {algo}")
-    seats = os.environ.get("DRL_LEARNER_SEATS", "").strip()
-    if (seats not in ("", "0", "1") or os.environ.get("DRL_LEARNER_PEERS", "").strip()
-            or os.environ.get("DRL_COORDINATOR", "").strip()):
-        raise ValueError("the learner tier (DRL_LEARNER_SEATS) and multi-host learners "
-                         "(DRL_COORDINATOR) are not ported (ROADMAP item 13)")
+    if os.environ.get("DRL_COORDINATOR", "").strip():
+        raise ValueError("multi-host learners (DRL_COORDINATOR) are not ported "
+                         "(ROADMAP item 13b); the learner tier (DRL_LEARNER_SEATS, "
+                         "DRL_LEARNER_PEERS) is")
 
 
 def _make_queue(capacity: int):
@@ -1556,6 +1560,12 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     actor acts through the learner's service, or through the replicas
     `DRL_INFER_ADDRS` names (the learner as the fallback), pulls no
     weights, and its JSON holds the acts' round trip (`remote_act`).
+
+    With `DRL_LEARNER_RANK` and `DRL_LEARNER_PEERS` set (the launcher's
+    `--learners N --learner_sync allreduce|async`) the learner is one
+    seat of the learner tier (`runtime/learner_tier.py`): it serves on
+    the base port + its rank, creates the shared board only while it
+    publishes, and its JSON holds the tier's counters (`tier`).
     -> the printed dict."""
     from distributed_reinforcement_learning_tpu_torch.runtime import fleet as fleet_mod
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
@@ -1586,18 +1596,31 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     if mode == "learner":
         from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
 
-        from distributed_reinforcement_learning_tpu_torch.runtime import replay_shard
+        from distributed_reinforcement_learning_tpu_torch.runtime import learner_tier, replay_shard
 
+        # The learner tier: when the launcher exported a seat identity,
+        # this process is ONE of N cooperating seats (its own data port,
+        # base + rank, and replay; train steps exchanged through the host
+        # collective; one elected seat publishing to the shared board).
+        # None: the single learner, untouched. The endpoint comes up
+        # first, so that peers' startup barriers find it.
+        tier = learner_tier.build_tier()
+        if tier is not None:
+            tier.start()
+            port += tier.rank
+            print(f"[learner] tier seat {tier.rank}/{tier.seats} (sync={tier.sync}, "
+                  f"publisher={tier.is_publisher()})", flush=True)
         queue = _make_queue(rt.queue_size)
         weights = WeightStore()
         # Co-hosted actors' publish-once weight plane: the launcher names
-        # one board per learner; this side creates the segment and the
+        # one board per learner (one for the whole tier, which only the
+        # publishing seat writes); this side creates the segment and the
         # store mirrors every landed version into it (from the first
         # publish on, which the learner makes as it is built). Failure
         # leaves TCP-only weight pulls.
         board = None
         board_name = os.environ.get("DRL_SHM_WEIGHTS_CREATE", "").strip()
-        if board_name:
+        if board_name and (tier is None or tier.is_publisher()):
             from distributed_reinforcement_learning_tpu_torch.runtime import weight_board
 
             board = weight_board.serve_board(board_name)
@@ -1620,13 +1643,38 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir), seed=seed,
                 device=device, prefetch=algo in ("impala", "ximpala"),
                 replay_service=replay_service)
+            if tier is not None:
+                # Rebind the learn seam with the collective exchange
+                # (allreduce refuses a family without the split step).
+                tier.attach(learner)
         except BaseException:
             if replay_service is not None:
                 replay_service.close()
             if board is not None:
                 board.close()
                 board.unlink()
+            if tier is not None:
+                tier.close()
             raise
+        if tier is not None:
+            # The publication takeover: on promotion (the lowest live rank
+            # after a death) this seat re-creates the shared board under
+            # the same name (creator-pid reclaim) and the store writes its
+            # current snapshot into it; the actors' reattach ladders find
+            # it as after a learner restart.
+            def on_promoted() -> None:
+                nonlocal board
+                if not board_name or board is not None:
+                    return
+                from distributed_reinforcement_learning_tpu_torch.runtime import weight_board
+
+                board = weight_board.serve_board(board_name)
+                if board is not None:
+                    weights.attach_board(board)
+                    print("[learner] tier takeover: shm weight board re-created for "
+                          "co-hosted actors", flush=True)
+
+            tier.set_promote_cb(on_promoted)
         ckpt = None
         if checkpoint_dir is not None:
             from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
@@ -1645,7 +1693,16 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             # publish's device snapshot).
             inference = InferenceServer.for_agent(algo, learner.agent, weights, seed=seed + 7777)
             print(f"[learner] SEED-style inference service enabled on {device}", flush=True)
-        supervisor = fleet_mod.FleetSupervisor().start() if fleet_mod.fleet_enabled() else None
+        supervisor = member_loop = None
+        if fleet_mod.fleet_enabled():
+            # A tier seat's reply names the elected publisher as the
+            # board's creator, so members validate the shared board
+            # against it; seats past 0 are also members of seat 0's roster.
+            supervisor = fleet_mod.FleetSupervisor(
+                board_pid_fn=tier.publisher_pid if tier is not None else None).start()
+            if tier is not None and tier.rank != 0:
+                member_loop = fleet_mod.start_member_loop(
+                    rt, "learner", tier.rank, version_fn=lambda: weights.version)
         if supervisor is not None and replay_service is not None:
             supervisor.watch(ingest_queue)  # revives dead shards on its sweep
         server = TransportServer(ingest_queue, weights, host="0.0.0.0", port=port,
@@ -1664,7 +1721,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             if ring_drainer is not None:
                 print(f"[learner] shm rings serving {len(ring_names)} co-hosted actor(s)",
                       flush=True)
-        if maybe_configure("learner", 0, run_dir):
+        if maybe_configure("learner", tier.rank if tier is not None else 0, run_dir):
             _OBS.sample("transport/queue_depth", queue.size)
             _OBS.sample("learner/weight_version", lambda: weights.version)
             if weights.sharded:
@@ -1689,6 +1746,14 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 for key in ring_drainer.snapshot_stats():
                     _OBS.sample(f"ring/{key}", lambda k=key: ring_drainer.stat(k),
                                 kind="counter")
+            if member_loop is not None:
+                fleet_mod.register_member_telemetry(member_loop)
+            if tier is not None:
+                learner_tier.register_telemetry(tier)
+        if tier is not None and not tier.await_peers():
+            print(f"[learner] tier seat {tier.rank}: some peers never answered the startup "
+                  f"barrier; starting degraded over {tier.collective.membership.live()}",
+                  flush=True)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         print(f"[learner] serving on :{port}; training {num_updates} updates on {device}; "
@@ -1699,6 +1764,12 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
 
         def on_step() -> None:
             steps.append((time.perf_counter() - t0, queue.size()))
+            if tier is not None and len(steps) % TIER_LOG_STEPS == 0:
+                st = tier.snapshot_stats()
+                print(f"[learner] tier seat {tier.rank}: step {learner.train_steps}, rounds "
+                      f"{st['rounds']}, retries {st['round_retries']}, giveups "
+                      f"{st['round_giveups']}, merges {st['merges_applied']}, live "
+                      f"{tier.collective.membership.live()}", flush=True)
             if len(steps) == 1:  # the first step pays the one-off start-up costs:
                 first_step_ms.update(learner.timer.run_totals_ms())  # kept apart
                 first_calls.update(learner.timer.run_counts())
@@ -1729,6 +1800,16 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                 replay_service.close()  # stop the update-router thread
             if supervisor is not None:
                 supervisor.stop()
+            if member_loop is not None:
+                member_loop.stop()
+            tier_stats = None
+            if tier is not None:
+                tier_stats = {"rank": tier.rank, "seats": tier.seats, "sync": tier.sync,
+                              "publisher": tier.is_publisher(),
+                              "live": tier.collective.membership.live(),
+                              **tier.snapshot_stats(),
+                              "collective": tier.collective.snapshot_stats()}
+                tier.close()  # stop the sweep and the collective endpoint
             _OBS.close()
         print(f"[learner] done: {learner.train_steps} updates", flush=True)
         calls = Counter(first_calls) + Counter(learner.timer.run_counts())
@@ -1763,6 +1844,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "board": None if board is None else weights.board_stats(),
             "weight_shards": weights.shard_stats() if weights.sharded else None,
             "inference": None if inference is None else inference.stats(),
+            "tier": tier_stats,
             "peak_device_mib": (torch.cuda.max_memory_allocated(device) / 2**20
                                 if device.type == "cuda" else None),
         }

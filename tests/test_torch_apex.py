@@ -389,10 +389,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
     (["--mode", "actor", "--task", "0", "--remote_act"], "item 13"),
 ])
 def test_unported_modes_raise(argv, item, monkeypatch):
-    # Serving acts and the on-device loop are ported: their modes and
-    # flags still refuse the planes that are not, here the learner tier
-    # (item 13).
-    monkeypatch.setenv("DRL_LEARNER_SEATS", "2")
+    # Serving acts, the on-device loop and the learner tier are ported:
+    # their modes and flags still refuse the plane that is not, here
+    # multi-host learners (item 13b).
+    monkeypatch.setenv("DRL_COORDINATOR", "localhost:1")
     with pytest.raises(ValueError, match=item):
         train_apex.main(["--config", str(CONFIG), "--device", "cpu", *argv])
 

@@ -234,14 +234,16 @@ def _stop_after_sharded_pulls(server, pulls: int):
 
 
 # Each case names the plane by its JAX variable. Items 12e (sharded
-# publication) and 16 (the device sample path) are ported: those cases
-# run the role with the plane on (None); item 13's are refused by name.
+# publication), 16 (the device sample path) and 13a (the learner tier) are
+# ported: those cases run the role with the plane on (None; a seat count
+# without a seat identity is the single learner, as in the JAX package);
+# item 13b's are refused by name.
 @pytest.mark.parametrize("mode, env, item", [
     ("inference", {"DRL_WEIGHTS_KEYS": "rep"}, None),
     ("anakin", {"DRL_DEVICE_PATH": "1"}, None),
     ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, None),
     ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, None),
-    ("learner", {"DRL_LEARNER_SEATS": "2"}, "item 13"),
+    ("learner", {"DRL_LEARNER_SEATS": "2"}, None),
     ("learner", {"DRL_COORDINATOR": "localhost:1234"}, "item 13"),
     ("learner", {"DRL_DEVICE_PATH": "1"}, None),
     ("learner", {"DRL_WEIGHTS_SHARDED": "1"}, None),
@@ -295,8 +297,8 @@ def test_unported_planes_are_refused_by_name(mode, env, item, monkeypatch):
 
 def test_serving_flags_are_refused(monkeypatch):
     """Serving acts is ported: the flags are refused only beside a plane
-    that is not (here the learner tier, ROADMAP item 13)."""
-    monkeypatch.setenv("DRL_LEARNER_SEATS", "2")
+    that is not (here multi-host learners, ROADMAP item 13b)."""
+    monkeypatch.setenv("DRL_COORDINATOR", "localhost:1234")
     with pytest.raises(ValueError, match="item 13"):
         run_role("impala", str(CONFIG), "impala_cartpole", "learner", 0, device="cpu",
                  serve_inference=True)
