@@ -329,17 +329,45 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    see versions past the kill, and the launcher exits 137.
    No round gives up. Logs rounds, retries, giveups, round ms p50, bytes
    a round, D2H and H2D ms, merges and the phase's seconds.
-44. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K1 carries phases 27-33's, 35's and 38's launches
-   beside phase 4's, and its times at phase 38's shape; K2a and K2b
-   phase 20's, 26's, 32's, 40's, 42's and 43's beside phase 6's; K3a,
-   K3b and K3c phase 23's beside phase 9's, and K3a phases 34's and 36's
-   with its times at the served batch shapes).
-45. The device line, then `{"ok": true, "device": {...}}` as the last line.
+44. The run drivers (the port's `anakin_breakout_train`,
+   `anakin_r2d2_train`, `eval_anakin_replay`, `evaluate` and `long_run`)
+   on the card, their files in a temporary directory. (a) The Breakout
+   driver at its defaults (Nature CNN on 84x84x4 uint8, LSTM 256, 128
+   envs, T 20, bfloat16), 5 updates a chunk for 3 chunks, greedy evals of
+   32 envs x 300 steps every 2 chunks, a checkpoint every 2 and at the
+   end, then `--resume` for a 4th chunk: rows for chunks 1-3 then chunk 4
+   at 20 updates, the restored parameters the first run's bit for bit,
+   exactly 2 K1 launches an update and no other kernel (counts zeroed
+   around each run), finite losses; logs frames/s a chunk and the peak.
+   (b) The R2D2 driver on Breakout (LSTM 256, 32 envs, seq_len 20,
+   burn-in 10, a ring of 1024 sequences, batch 64, K 2, 4 updates a
+   chunk, 4 warm-up collects) for 2 chunks, then `--resume` for a 3rd:
+   K2a 2 a warm-up collect and 2 + 2K an update, K2b K an update, the
+   parameters bit for bit, the warm-up run again from the restored
+   episode counters. (c) `eval_anakin_replay` on `apex` and `r2d2`
+   checkpoints that `train_apex` / `train_r2d2 --mode anakin
+   --checkpoint_dir` wrote 2 updates earlier: the saved step restored,
+   the JAX script's keys. (d) `evaluate` on a `train_local` checkpoint of
+   `impala_cartpole`: step 4, 2 episodes. (e) `long_run` on
+   `impala_cartpole` in its own process group, 2 chunks of 4 updates,
+   one child on the card each: records at 4 and 8 updates with
+   `max_rss_mb`, 1024 frames each (the second child resumed).
+45. One learn step on a `utils/synthetic.py` batch at each of the
+   `impala`, `r2d2`, `apex`, `ximpala` and `xformer` sections' shapes:
+   with the counts zeroed just before, K1 2 (`impala`), K2a 2 and K2b 1
+   (`r2d2`), K1 2 and K3a/K3b/K3c 2 each (`ximpala`), none for `apex` and
+   `xformer` (seq_len 10), and no other kernel; finite metrics.
+46. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's and
+   45's launches beside phase 4's, and its times at phase 38's shape; K2a
+   and K2b phase 20's, 26's, 32's, 40's, 42's, 43's, 44's and 45's beside
+   phase 6's; K3a, K3b and K3c phase 23's and 45's beside phase 9's, and
+   K3a phases 34's and 36's with its times at the served batch shapes).
+47. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
-logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29
-and 38-40 are read net of it.
+logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29,
+38-40 and 44 are read net of it.
 Every child process runs in its own process group and is killed whole
 if its phase fails.
 
@@ -387,7 +415,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor-core float32
 MAIN_SHAPE = (18, 32)  # V-trace at the impala section: T = trajectory - 2, B = batch
 ANAKIN_SHAPE = (18, 20)  # V-trace in Anakin IMPALA on the impala section: B = its 20 envs
-SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, (20, 256), (20, 65536)]
+BREAKOUT_DRIVER_SHAPE = (18, 128)  # V-trace in the Breakout driver (phase 44): its 128 envs
+SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, (20, 256), (20, 65536)]
 UPDATES = 3
 R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 # LSTM (T, B, H): the r2d2 learn step and ingest (12 sequences padded to
@@ -400,8 +429,11 @@ LSTM_PIXEL = (20, 32, 256)
 # Anakin R2D2 scores each collect's new sequences, one an env: B = the
 # sections' 12 envs (phase 40).
 LSTM_ANAKIN_INGEST = [(10, 12, 512), (20, 12, 256)]
+# The R2D2 driver's learn step (phase 44 (b)): batch 64 at H 256; its
+# ingest of 32 envs' sequences is LSTM_PIXEL's shape.
+LSTM_R2D2_DRIVER = (20, 64, 256)
 LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, LSTM_PIXEL, (20, 16, 256), (20, 256, 512),
-               (30, 32, 256), *LSTM_ANAKIN_INGEST]
+               (30, 32, 256), *LSTM_ANAKIN_INGEST, LSTM_R2D2_DRIVER]
 # Flash attention (B, H, T, D): the ximpala section's act and learn
 # shape, the served ximpala act's buckets of one row and of two actors'
 # rows (phases 34 and 36), bench.py's ximpala_learn shape, and a long
@@ -669,7 +701,7 @@ def phase_vtrace() -> dict:
         log(f"[vtrace] ptxas {kernel}: {line}")
     check_no_spills("vtrace", "vtrace_kernel")
     timings = {}
-    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, SHAPES[-1]):
+    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHAPES[-1]):
         # The main path's 14 KB stay in L2 between its producer and the
         # kernel; the large shape rotates through 4 input sets (127 MB).
         sets = [vtrace_inputs(T, B, seed=i, device="cuda")
@@ -4939,6 +4971,427 @@ def phase_learner_tier() -> dict:
     return got
 
 
+# -- the run drivers and the synthetic batches (phases 44-45) ------------------
+
+# (a) the Breakout driver at its defaults: envs, T, updates a chunk (3 chunks, then 1
+# resumed), and the greedy evals' envs and steps.
+BREAKOUT_DRIVER = {"envs": 128, "T": 20, "updates": 5, "eval_envs": 32, "eval_steps": 300}
+# (b) the R2D2 driver on Breakout: K learns a collect, U updates a chunk, warm-up collects.
+R2D2_DRIVER = {"envs": 32, "T": 20, "burn_in": 10, "lstm": 256, "capacity": 1024, "batch": 64,
+               "K": 2, "U": 4, "warm": 4, "eval_envs": 8, "eval_steps": 150}
+REPLAY_EVAL = {"envs": 16, "steps": {"apex": 100, "r2d2": 200}}  # (c)
+LONG_RUN_ARGV = ["--section", "impala_cartpole", "--chunk", "4", "--max-updates", "8",
+                 "--checkpoint-interval", "4"]  # (e)
+LONG_RUN_TIMEOUT_S = 240
+
+
+@contextlib.contextmanager
+def wrapped(cls, attr: str, hook):
+    """`cls.attr` replaced by `hook(original, *args, **kwargs)` inside the
+    context."""
+    orig = getattr(cls, attr)
+    setattr(cls, attr, lambda *args, **kwargs: hook(orig, *args, **kwargs))
+    try:
+        yield
+    finally:
+        setattr(cls, attr, orig)
+
+
+def recording_restores(restored: list):
+    """A context in which every checkpoint `Checkpointer.restore` returns
+    appends (its parameters cloned, its step) to `restored`."""
+    from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import Checkpointer
+
+    def hook(orig, self, template, step=None):
+        got = orig(self, template, step)
+        if got is not None:
+            restored.append(({k: v.detach().clone() for k, v in got[0].params.items()}, got[2]))
+        return got
+
+    return wrapped(Checkpointer, "restore", hook)
+
+
+def serving_evals(cls, head: str, seeds: list):
+    """A context in which `cls.greedy_eval` appends its seed to `seeds`
+    and plays a policy that always serves: the output layer `head` with
+    its weight zeroed and its bias one-hot at FIRE, so that the argmax is
+    FIRE at every step and a game ends once its 5 balls are lost, inside
+    the phase's evals. The drivers' own policy, untrained, rarely serves,
+    and its games then run to the 10,000-frame cap (2,500 steps)."""
+    from distributed_reinforcement_learning_tpu_torch.envs import breakout_device
+
+    def hook(orig, self, params, num_envs, num_steps, seed=0):
+        seeds.append(seed)
+        weight, bias = params[f"{head}.weight"], params[f"{head}.bias"]
+        fire = torch.zeros_like(bias)
+        fire[breakout_device.sim.FIRE] = 1.0
+        serving = {**params, f"{head}.weight": torch.zeros_like(weight), f"{head}.bias": fire}
+        return orig(self, serving, num_envs, num_steps, seed)
+
+    return wrapped(cls, "greedy_eval", hook)
+
+
+def check_evals(label: str, rows: list, seeds: list, chunks: list, least_episodes: int) -> None:
+    """The eval rows are those of `chunks`, each seeded 1000 + its chunk
+    (the default `--seed` 0), with at least `least_episodes` games and a
+    finite mean."""
+    evals = [r for r in rows if "eval_s" in r]
+    if ([r["chunk"] for r in evals] != chunks or seeds != [1000 + c for c in chunks]
+            or any(r["eval_episodes"] < least_episodes or not math.isfinite(r["eval_mean_return"])
+                   for r in evals)):
+        raise RuntimeError(f"{label}: evals {evals} seeded {seeds}, expected chunks {chunks} "
+                           f"seeded 1000 + the chunk with at least {least_episodes} games each")
+
+
+def tensors_bit_equal(got: dict, want: dict) -> bool:
+    """Two dicts of tensors hold the same names, dtypes and bits."""
+    return set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+
+
+def driver_rows_finite(label: str, rows: list, loss: str) -> None:
+    bad = [r["chunk"] for r in rows
+           if not (math.isfinite(r[loss]) and math.isfinite(r["grad_norm"]))]
+    if bad:
+        raise RuntimeError(f"{label}: loss or grad norm not finite at chunks {bad}")
+
+
+def driver_breakout(tmp: Path, mem_start: int) -> dict:
+    """(44a) `anakin_breakout_train` at its defaults (Nature CNN on 84x84x4
+    uint8, LSTM 256, 128 envs, T 20, bfloat16) with BREAKOUT_DRIVER: 5
+    updates a chunk, 3 chunks, greedy evals of 32 envs x 300 steps every
+    2 chunks, a checkpoint every 2 and at the end; then `--resume` for a
+    4th chunk. With the counts zeroed around each run: 2 K1 launches an
+    update and no other kernel; rows 1-3, then chunk 4 at 20 updates; the
+    restored parameters the first run's bit for bit; finite losses. The
+    evals play a serving policy (`serving_evals`): each must be seeded by
+    its chunk (2, then 4 after the resume) and end a game in every env."""
+    from distributed_reinforcement_learning_tpu_torch import anakin_breakout_train as driver
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin import AnakinImpala
+
+    t0 = time.perf_counter()
+    d = BREAKOUT_DRIVER
+    U = d["updates"]
+    fpc = d["envs"] * d["T"] * U
+    argv = ["--out", str(tmp / "breakout"), "--num-envs", str(d["envs"]), "--trajectory",
+            str(d["T"]), "--updates-per-chunk", str(U), "--eval-every", "2", "--eval-envs",
+            str(d["eval_envs"]), "--eval-steps", str(d["eval_steps"]), "--checkpoint-every", "2"]
+    torch.cuda.reset_peak_memory_stats()
+    seeds = []
+    zero_launch_counts()
+    with serving_evals(AnakinImpala, "policy_head.layers.2", seeds):
+        first = driver.main([*argv, "--total-frames", str(3 * fpc)])
+    torch.cuda.synchronize()
+    launches = [all_launches()]
+    rows = first["rows"]
+    first_cfg = first["config"]
+    if (first_cfg["dtype"], first_cfg["platform"]) != ("bfloat16", "cuda"):
+        raise RuntimeError(f"breakout driver: config {first_cfg}")
+    want = [(1, U, fpc, False), (2, 2 * U, 2 * fpc, True), (3, 3 * U, 3 * fpc, True)]
+    if [(r["chunk"], r["updates"], r["frames"], "checkpoint" in r) for r in rows] != want:
+        raise RuntimeError(f"breakout driver: rows {rows}")
+    saved = {k: v.detach().clone() for k, v in first["state"].train.params.items()}
+    del first
+    restored = []
+    zero_launch_counts()
+    with recording_restores(restored), serving_evals(AnakinImpala, "policy_head.layers.2", seeds):
+        again = driver.main([*argv, "--total-frames", str(4 * fpc), "--resume"])
+    torch.cuda.synchronize()
+    launches.append(all_launches())
+    peak = torch.cuda.max_memory_allocated()
+    rows += again["rows"]
+    if [(r["chunk"], r["updates"], r["frames"]) for r in again["rows"]] != [(4, 4 * U, 4 * fpc)]:
+        raise RuntimeError(f"breakout driver: resumed rows {again['rows']}")
+    if (len(restored) != 1 or restored[0][1] != 3 * U
+            or not tensors_bit_equal(restored[0][0], saved)):
+        raise RuntimeError(f"breakout driver: the resume did not restore step {3 * U}'s "
+                           "parameters bit for bit")
+    for got, updates in zip(launches, (3 * U, U)):
+        if got["vtrace"] != 2 * updates or sum(got.values()) != got["vtrace"]:
+            raise RuntimeError(f"breakout driver: launches {got} in {updates} updates, "
+                               f"expected {2 * updates} of K1 and no other kernel")
+    driver_rows_finite("breakout driver", rows, "total_loss")
+    check_evals("breakout driver", rows, seeds, [2, 4], d["eval_envs"])
+    evals = [r for r in rows if "eval_s" in r]
+    got = {"launches": launches, "fps": [r["fps"] for r in rows],
+           "chunk_s": [r["chunk_s"] for r in rows], "eval_s": [r["eval_s"] for r in evals],
+           "peak_mib": (peak - mem_start) / 2**20, "seconds": time.perf_counter() - t0}
+    log(f"[drivers] (a) anakin_breakout_train, {d['envs']} Breakout envs x T {d['T']}, "
+        f"{first_cfg['dtype']}, {U} updates "
+        f"a chunk: chunks 1-3, then chunk 4 resumed from step {3 * U} bit for bit; env frames/s "
+        f"a chunk {got['fps']} (chunk 1 holds the first calls), chunk s {got['chunk_s']}; "
+        f"serving evals of {d['eval_envs']} envs x {d['eval_steps']} steps at chunks 2 and 4, "
+        f"seeds {seeds}: {got['eval_s']} s, games {[r['eval_episodes'] for r in evals]}, mean "
+        f"returns {[r['eval_mean_return'] for r in evals]}; launches {launches}; total_loss "
+        f"{[r['total_loss'] for r in rows]}; peak {got['peak_mib']:.1f} MiB; "
+        f"{got['seconds']:.1f} s")
+    return got
+
+
+def driver_r2d2(tmp: Path) -> dict:
+    """(44b) `anakin_r2d2_train` on Breakout with R2D2_DRIVER (LSTM 256, 32
+    envs, seq_len 20, burn-in 10, a ring of 1024 sequences, batch 64, K 2,
+    4 updates a chunk, 4 warm-up collects) for 2 chunks, then `--resume`
+    for a 3rd. With the counts zeroed around each run: K2a 2 a warm-up
+    collect and 2 + 2K an update, K2b K an update, nothing else; the
+    restored parameters bit for bit; the episode counters restored, the
+    warm-up run again from them (the ring is not checkpointed); finite
+    losses; the eval at chunk 2, a serving policy's (`serving_evals`),
+    seeded 1002 and ending a game."""
+    from distributed_reinforcement_learning_tpu_torch import anakin_r2d2_train as driver
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_r2d2 import AnakinR2D2
+
+    t0 = time.perf_counter()
+    d = R2D2_DRIVER
+    K, U, warm, n = d["K"], d["U"], d["warm"], d["envs"]
+    fpu = n * d["T"]
+    argv = ["--out", str(tmp / "r2d2"), "--env", "breakout", "--lstm", str(d["lstm"]),
+            "--num-envs", str(n), "--seq-len", str(d["T"]), "--burn-in", str(d["burn_in"]),
+            "--capacity", str(d["capacity"]), "--batch-size", str(d["batch"]),
+            "--updates-per-collect", str(K), "--updates-per-chunk", str(U),
+            "--warmup-collects", str(warm), "--eval-every", "2", "--eval-envs",
+            str(d["eval_envs"]), "--eval-steps", str(d["eval_steps"])]
+    seeds = []
+    zero_launch_counts()
+    with serving_evals(AnakinR2D2, "value", seeds):
+        first = driver.main([*argv, "--total-frames", str((warm + 2 * U) * fpu)])
+    torch.cuda.synchronize()
+    launches = [all_launches()]
+    rows = first["rows"]
+    if [(r["chunk"], r["updates"], r["frames"]) for r in rows] != [
+            (1, K * U, (warm + U) * fpu), (2, 2 * K * U, (warm + 2 * U) * fpu)]:
+        raise RuntimeError(f"r2d2 driver: rows {rows}")
+    episodes = first["state"].episodes.cpu()
+    saved = {k: v.detach().clone() for k, v in first["state"].train.params.items()}
+    del first
+    restored, warm_from = [], []
+
+    def before_warmup(orig, self, state, n):
+        warm_from.append(state.episodes.cpu())
+        return orig(self, state, n)
+
+    zero_launch_counts()
+    with recording_restores(restored), wrapped(AnakinR2D2, "collect_chunk", before_warmup):
+        again = driver.main([*argv, "--total-frames", str((2 * warm + 3 * U) * fpu), "--resume"])
+    torch.cuda.synchronize()
+    launches.append(all_launches())
+    rows += again["rows"]
+    (row,) = again["rows"]
+    if (row["chunk"], row["updates"], row["replay_size"]) != (3, 3 * K * U, (warm + U) * n):
+        raise RuntimeError(f"r2d2 driver: resumed row {row}")
+    if (len(restored) != 1 or restored[0][1] != 2 * K * U
+            or not tensors_bit_equal(restored[0][0], saved)):
+        raise RuntimeError("r2d2 driver: the resume did not restore the parameters bit for bit")
+    if len(warm_from) != 1 or not torch.equal(warm_from[0], episodes):
+        raise RuntimeError(f"r2d2 driver: the warm-up after the resume started from episodes "
+                           f"{warm_from}, the first run ended at {episodes.tolist()}")
+    for got, u in zip(launches, (2 * U, U)):
+        want = {"lstm_fwd": 2 * warm + (2 + 2 * K) * u, "lstm_bwd": K * u}
+        if {k: got[k] for k in want} != want or sum(got.values()) != sum(want.values()):
+            raise RuntimeError(f"r2d2 driver: launches {got}, expected {want}")
+    driver_rows_finite("r2d2 driver", rows, "loss")
+    check_evals("r2d2 driver", rows, seeds, [2], 1)
+    got = {"launches": launches, "fps": [r["fps"] for r in rows],
+           "episodes_restored": int(episodes.sum()), "seconds": time.perf_counter() - t0}
+    log(f"[drivers] (b) anakin_r2d2_train on Breakout, {n} envs x seq_len {d['T']}, K={K}: "
+        f"chunks 1-2, "
+        f"then chunk 3 resumed bit for bit, its {warm} warm-up collects run again from the "
+        f"restored counters ({got['episodes_restored']} episodes over {n} envs; replay "
+        f"{row['replay_size']}); env frames/s a chunk {got['fps']}; launches {launches} (K2a 2 "
+        f"a warm-up collect and {2 + 2 * K} an update, K2b {K} an update); serving eval of "
+        f"{d['eval_envs']} envs x {d['eval_steps']} steps at chunk 2, seed {seeds}: "
+        f"{[(r['eval_episodes'], r['eval_mean_return'], r['eval_s']) for r in rows if 'eval_s' in r]} "
+        f"(games, mean return, s); loss {[r['loss'] for r in rows]}; {got['seconds']:.1f} s")
+    return got
+
+
+def driver_replay_eval(tmp: Path) -> dict:
+    """(44c) `eval_anakin_replay` on checkpoints that the port's
+    `train_apex` / `train_r2d2 --mode anakin --checkpoint_dir` wrote 2
+    updates earlier on the card (`apex`: 20 Breakout envs; `r2d2`:
+    CartPole-POMDP, 12 envs): the restored `train_step` is the saved one
+    and the JSON has the JAX script's keys, with as many seeds as asked
+    and the episodes they completed."""
+    from distributed_reinforcement_learning_tpu_torch import (
+        eval_anakin_replay, train_apex, train_r2d2)
+    from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    keys = {"algo", "section", "train_step", "greedy_mean_return", "per_seed", "episodes",
+            "eval_envs", "eval_steps"}
+    got = {}
+    for algo, train in (("apex", train_apex), ("r2d2", train_r2d2)):
+        ckpt = tmp / f"ckpt_{algo}"
+        train.main(["--config", str(CONFIG), "--section", algo, "--mode", "anakin", "--updates",
+                    "2", "--checkpoint_dir", str(ckpt)])
+        saved = Checkpointer(ckpt).latest_step()
+        out = eval_anakin_replay.main(["--algo", algo, "--config", str(CONFIG), "--section", algo,
+                                       "--checkpoint_dir", str(ckpt), "--eval-envs",
+                                       str(REPLAY_EVAL["envs"]), "--eval-steps",
+                                       str(REPLAY_EVAL["steps"][algo]), "--seeds", "2"])
+        if (set(out) != keys or out["train_step"] != saved or not saved
+                or len(out["per_seed"]) != 2 or not math.isfinite(out["greedy_mean_return"])):
+            raise RuntimeError(f"eval_anakin_replay {algo}: {out} (checkpoint step {saved})")
+        got[algo] = out
+    got["seconds"] = time.perf_counter() - t0
+    log(f"[drivers] (c) eval_anakin_replay: " + "; ".join(
+        f"{a} train_step {o['train_step']}, greedy mean {o['greedy_mean_return']} over "
+        f"{o['episodes']} episodes, per seed {o['per_seed']}"
+        for a, o in got.items() if a != "seconds") + f"; {got['seconds']:.1f} s")
+    return got
+
+
+def driver_evaluate(tmp: Path) -> dict:
+    """(44d) `evaluate` on a `train_local` checkpoint of `impala_cartpole`
+    on the card (4 updates, a checkpoint every 2): step 4 restored, 2
+    episodes, a finite mean return."""
+    from distributed_reinforcement_learning_tpu_torch import evaluate
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import train_local
+
+    t0 = time.perf_counter()
+    ckpt = tmp / "ckpt_impala_cartpole"
+    train_local(str(CONFIG), "impala_cartpole", 4, checkpoint_dir=str(ckpt), checkpoint_interval=2)
+    out = evaluate.main(["--config", str(CONFIG), "--section", "impala_cartpole",
+                         "--checkpoint_dir", str(ckpt), "--episodes", "2", "--max_unrolls", "200"])
+    if out["checkpoint_step"] != 4 or out["episodes"] != 2 or not math.isfinite(out["return_mean"]):
+        raise RuntimeError(f"evaluate: {out}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[drivers] (d) evaluate impala_cartpole at step 4: {json.dumps(out)}")
+    return out
+
+
+def driver_long_run(tmp: Path) -> dict:
+    """(44e) `long_run` on `impala_cartpole`, 2 chunks of 4 updates, one
+    child interpreter each on the card, the driver in its own process
+    group: records 4 then 8 updates with the JAX records' keys and
+    `max_rss_mb`, and 1024 frames each, so the second child resumed
+    from the first's checkpoint (it trained 4 updates, not 8)."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    out = tmp / "longrun" / "impala_cartpole.jsonl"
+    log_path = ROOT / "chiprun_out" / "smoke_long_run.log"
+    log_path.parent.mkdir(exist_ok=True)
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.long_run",
+             "--config", str(CONFIG), "--out", str(out), *LONG_RUN_ARGV],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=LONG_RUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise RuntimeError(f"long_run: no exit in {LONG_RUN_TIMEOUT_S} s (log {log_path})")
+    recs = [json.loads(line) for line in out.read_text().splitlines()] if out.exists() else []
+    keys = {"updates", "frames_total", "chunk_frames", "wall_s", "frames_per_s", "max_rss_mb",
+            "episodes", "mean_return", "last20", "returns", "t"}
+    if (rc != 0 or [r.get("updates") for r in recs] != [4, 8]
+            or any(set(r) != keys or not r["max_rss_mb"] for r in recs)
+            or [r["chunk_frames"] for r in recs] != [1024, 1024]):
+        raise RuntimeError(f"long_run: rc {rc}, records {recs} (log {log_path})")
+    got = {"records": [{k: r[k] for k in ("updates", "chunk_frames", "wall_s", "frames_per_s",
+                                          "max_rss_mb")} for r in recs],
+           "seconds": time.perf_counter() - t0}
+    log(f"[drivers] (e) long_run impala_cartpole, 2 child processes on the card: "
+        f"{got['records']}; {got['seconds']:.1f} s")
+    return got
+
+
+def phase_drivers(mem_start: int) -> dict:
+    """Phase 44: the run drivers on the card, (a)-(e); their files in a
+    temporary directory, removed after."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_drivers_"))
+    try:
+        got = {"breakout": driver_breakout(tmp, mem_start), "r2d2": driver_r2d2(tmp),
+               "replay_eval": driver_replay_eval(tmp), "evaluate": driver_evaluate(tmp),
+               "long_run": driver_long_run(tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got["seconds"] = time.perf_counter() - t0
+    log(f"[drivers] phase 44 {got['seconds']:.1f} s on {nvidia_smi_line()}")
+    return got
+
+
+SYNTHETIC_LAUNCHES = {  # a learn step's launches on each section (PERF.md's kernel table)
+    "impala": {"vtrace": 2},
+    "r2d2": {"lstm_fwd": 2, "lstm_bwd": 1},
+    "apex": {},
+    "ximpala": {"vtrace": 2, "attention_fwd": 2, "attention_dq": 2, "attention_dkv": 2},
+    "xformer": {},
+}
+
+
+def synthetic_learn(section: str):
+    """One `utils/synthetic.py` batch at `section`'s shapes in config.json
+    (batch_size x trajectory or seq_len, its obs shape and head) on the
+    card -> a callable that takes one learn step on it from fresh
+    parameters and returns the step's metrics."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import make_agent
+    from distributed_reinforcement_learning_tpu_torch.utils import synthetic
+
+    agent_cfg, rt = load_config(CONFIG, section)
+    agent = make_agent(section, agent_cfg, device="cuda")
+    state = agent.init_state(0)
+    dev = agent.device
+    B, obs, A = rt.batch_size, agent_cfg.obs_shape, agent_cfg.num_actions
+    pixels = len(obs) == 3
+    if section == "impala":
+        batch = synthetic.synthetic_impala_batch(B, agent_cfg.trajectory, obs, A,
+                                                 agent_cfg.lstm_size, seed=1, device=dev)
+        return lambda: agent.learn(state, batch)[1]
+    if section == "ximpala":
+        batch = synthetic.synthetic_ximpala_batch(B, agent_cfg.trajectory, obs, A, seed=1,
+                                                  device=dev)
+        return lambda: agent.learn(state, batch)[1]
+    if section == "apex":
+        batch, w = synthetic.synthetic_apex_batch(
+            B, obs, A, seed=1, obs_dtype=np.uint8 if pixels else np.float32, device=dev)
+    elif section == "r2d2":
+        batch, w = synthetic.synthetic_r2d2_batch(B, agent_cfg.seq_len, obs, A,
+                                                  agent_cfg.lstm_size, seed=1, device=dev)
+    else:
+        batch, w = synthetic.synthetic_xformer_batch(B, agent_cfg.seq_len, obs, A, seed=1,
+                                                     device=dev)
+    return lambda: agent.learn(state, batch, w)[-1]
+
+
+def phase_synthetic() -> dict:
+    """Phase 45: one learn step on a `utils/synthetic.py` batch at each of
+    the `impala`, `r2d2`, `apex`, `ximpala` and `xformer` sections' own
+    shapes, with the counts zeroed just before: the launches of
+    SYNTHETIC_LAUNCHES and no other, finite metrics."""
+    t0 = time.perf_counter()
+    got = {"launches": {}, "ms": {}}
+    for section, want in SYNTHETIC_LAUNCHES.items():
+        step = synthetic_learn(section)
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        got["ms"][section] = (time.perf_counter() - t1) * 1e3
+        launches = all_launches()
+        if launches != {k: want.get(k, 0) for k in launches}:
+            raise RuntimeError(f"synthetic {section}: launches {launches}, expected {want}")
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+        if bad:
+            raise RuntimeError(f"synthetic {section}: metrics not finite: {bad}")
+        got["launches"][section] = launches
+    got["seconds"] = time.perf_counter() - t0
+    log(f"[synthetic] one learn step a section on a utils/synthetic.py batch: launches "
+        + ", ".join(f"{s} {json.dumps({k: n for k, n in l.items() if n})}"
+                    for s, l in got["launches"].items())
+        + "; first-call ms " + ", ".join(f"{s} {ms:.1f}" for s, ms in got["ms"].items())
+        + f"; phase 45 {got['seconds']:.1f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5024,6 +5477,11 @@ def main() -> int:
     planes_s = time.perf_counter() - t_planes
     phase_memory("learner tier")
     tier = phase_learner_tier()
+    t_drivers = time.perf_counter()
+    drivers = phase_drivers(phase_memory("run drivers"))
+    phase_memory("synthetic batches")
+    synth = phase_synthetic()
+    drivers_s = time.perf_counter() - t_drivers
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -5052,6 +5510,8 @@ def main() -> int:
                   "graph_ms": big["graph_ms"], "plain_graph_ms": big["plain_graph_ms"],
                   "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
         "anakin": {"shape": list(ANAKIN_SHAPE), **anakin_k1},
+        "breakout_driver": {"shape": list(BREAKOUT_DRIVER_SHAPE),
+                            **k1["timings"][BREAKOUT_DRIVER_SHAPE]},
     }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2, devpath,
                   tier),
         *attention_rows(k3, ximpala, xformer_long)]
@@ -5059,6 +5519,15 @@ def main() -> int:
     k3a["launches_by_path"].update(
         ximpala_served_in_process=served["families"]["ximpala"]["launches"]["attention_fwd"],
         ximpala_replica_survivor=replicas["survivor"]["launches"]["attention_fwd"])
+    # Phases 44-45: the drivers' runs (first, resumed) and the synthetic learn steps.
+    by_path = {"anakin_breakout_driver": drivers["breakout"]["launches"],
+               "anakin_r2d2_driver": drivers["r2d2"]["launches"],
+               **{f"synthetic_{section}": [n] for section, n in synth["launches"].items()}}
+    for row in kernels:
+        for path, runs in by_path.items():
+            counts = [got[row["name"]] for got in runs]
+            if any(counts):
+                row["launches_by_path"][path] = counts if len(counts) > 1 else counts[0]
     log(f"[main] learn_ms {main_path['learn_ms']:.3f}, wall per update "
         f"{main_path['wall_per_update_ms']:.1f} ms, own peak {main_path['peak_mib']:.1f} MiB; "
         f"r2d2 learn_ms {r2d2['learn_ms']:.3f}, wall per round {r2d2['wall_per_round_ms']:.1f} "
@@ -5133,6 +5602,13 @@ def main() -> int:
         f"{tier['apex']['d2h_ms_p50']:.3f} / H2D {tier['apex']['h2d_ms_p50']:.3f} ms; r2d2 async "
         f"merges {tier['r2d2']['merges_applied']}; seat 0 killed, seat 1 solo "
         f"{tier['launcher']['solo_rounds']} rounds; phase 43 {tier['seconds']:.1f} s; "
+        f"drivers: breakout {drivers['breakout']['fps']} env frames/s a chunk, peak "
+        f"{drivers['breakout']['peak_mib']:.1f} MiB ({drivers['breakout']['seconds']:.1f} s), "
+        f"r2d2 {drivers['r2d2']['fps']} ({drivers['r2d2']['seconds']:.1f} s), replay eval "
+        f"({drivers['replay_eval']['seconds']:.1f} s), evaluate "
+        f"({drivers['evaluate']['seconds']:.1f} s), long_run "
+        f"({drivers['long_run']['seconds']:.1f} s); phase 44 {drivers['seconds']:.1f} s; "
+        f"synthetic steps phase 45 {synth['seconds']:.1f} s; phases 44-45 {drivers_s:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

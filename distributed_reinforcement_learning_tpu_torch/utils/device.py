@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 
@@ -14,3 +16,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def add_device_arg(parser: argparse.ArgumentParser) -> None:
+    """`--device` (default: CUDA through `resolve_device`), also spelt
+    `--platform` as in the JAX package's scripts."""
+    parser.add_argument("--device", "--platform", dest="device", default=None,
+                        help="torch device (default: cuda; --platform cpu is the JAX spelling)")
