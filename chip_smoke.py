@@ -14,8 +14,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the main path's shape and larger ones, then time both (CUDA events
    over many eager calls, and per call inside a replayed CUDA graph,
    with the inputs rotated past the 50 MB L2 cache where they fit).
-   V-trace (K1) at four shapes (with (18, 20), Anakin IMPALA's on the
-   impala section) and on a set of NaN, +inf and -inf
+   V-trace (K1) at six shapes (with (18, 20), Anakin IMPALA's on the
+   impala section, and (18, 16), a rank's of the sharded impala learner
+   at data 2, phase 46) and on a set of NaN, +inf and -inf
    log-rhos, with and without the rho clip, each bit for bit equal to
    its plain version; each K1 call must make one kernel launch and run
    no other kernel, and ptxas may report no stack or spills for it.
@@ -357,13 +358,33 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    with the counts zeroed just before, K1 2 (`impala`), K2a 2 and K2b 1
    (`r2d2`), K1 2 and K3a/K3b/K3c 2 each (`ximpala`), none for `apex` and
    `xformer` (seq_len 10), and no other kernel; finite metrics.
-46. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's and
-   45's launches beside phase 4's, and its times at phase 38's shape; K2a
-   and K2b phase 20's, 26's, 32's, 40's, 42's, 43's, 44's and 45's beside
-   phase 6's; K3a, K3b and K3c phase 23's and 45's beside phase 9's, and
-   K3a phases 34's and 36's with its times at the served batch shapes).
-47. The device line, then `{"ok": true, "device": {...}}` as the last line.
+46. The sharded learner (`parallel/`), each rank a child process in its
+   own group, each with its own timeout, failing the phase if it fails.
+   (a) A world of one over NCCL (`DRL_COORDINATOR` on a free port,
+   `DRL_NUM_PROCESSES=1`): `ShardedLearner` over `impala`, `r2d2`,
+   `ximpala` and `apex` at full width, 3 steps each from the plain
+   learner's state on its batches (TF32 off): the parameters bit for bit
+   the plain learner's, the kernel launches equal. (b) Two ranks on this
+   card, both on cuda:0 over gloo (the backend rule): `impala` and `r2d2`
+   at data 2, each rank on half of each union batch (K1 at (18, 16), K2a
+   and K2b at (10, 16, 512); 2 K1, 2 K2a and 1 K2b a step), the ranks'
+   parameters bit for bit equal and within rtol 1e-4 (an Adam element at
+   the noise floor within 2 lr a step) of the union-batch learner; `apex`
+   at model 2, each rank holding half of each sharded leaf and its
+   moments. (c) `launch_local_cluster --learners 2` on `impala_cartpole`
+   with 2 CPU actors, 20 updates: both learners on cuda:0 over gloo,
+   both data planes' versions within 4 of each other, every role exits 0
+   and no segment is left in /dev/shm. Logs each rank's backend, the
+   learn-step ms against the plain step, the reduction's ms p50 and bytes
+   a step, and the bytes a rank holds, beside the nvidia-smi line.
+47. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's, 45's
+   and 46's launches beside phase 4's, and its times at phase 38's and
+   46's shapes; K2a and K2b phase 20's, 26's, 32's, 40's, 42's, 43's,
+   44's, 45's and 46's beside phase 6's; K3a, K3b and K3c phase 23's,
+   45's and 46's beside phase 9's, and K3a phases 34's and 36's with its
+   times at the served batch shapes).
+48. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29,
@@ -416,7 +437,9 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor-core float32
 MAIN_SHAPE = (18, 32)  # V-trace at the impala section: T = trajectory - 2, B = batch
 ANAKIN_SHAPE = (18, 20)  # V-trace in Anakin IMPALA on the impala section: B = its 20 envs
 BREAKOUT_DRIVER_SHAPE = (18, 128)  # V-trace in the Breakout driver (phase 44): its 128 envs
-SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, (20, 256), (20, 65536)]
+SHARDED_SHAPE = (18, 16)  # V-trace in a rank of the sharded impala learner at data 2 (phase 46)
+SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHARDED_SHAPE, (20, 256),
+          (20, 65536)]
 UPDATES = 3
 R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 # LSTM (T, B, H): the r2d2 learn step and ingest (12 sequences padded to
@@ -701,7 +724,7 @@ def phase_vtrace() -> dict:
         log(f"[vtrace] ptxas {kernel}: {line}")
     check_no_spills("vtrace", "vtrace_kernel")
     timings = {}
-    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHAPES[-1]):
+    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHARDED_SHAPE, SHAPES[-1]):
         # The main path's 14 KB stay in L2 between its producer and the
         # kernel; the large shape rotates through 4 input sets (127 MB).
         sets = [vtrace_inputs(T, B, seed=i, device="cuda")
@@ -1194,6 +1217,9 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
             "graph_ms": t["graph_ms"], "plain_graph_ms": t["plain_graph_ms"],
             "other_shapes": [{"shape": list(shape), **k2["timings"][shape][tag]}
                              for shape in LSTM_SHAPES[1:]],
+            # A rank of the sharded r2d2 learner at data 2 (phase 46): the
+            # ingest's shape.
+            "sharded_learner": {"shape": list(LSTM_INGEST), **k2["timings"][LSTM_INGEST][tag]},
         })
     return rows
 
@@ -5392,6 +5418,302 @@ def phase_synthetic() -> dict:
     return got
 
 
+# -- the sharded learner (phase 46) --------------------------------------------
+
+SHARDED_STEPS = 3  # learn steps of each family held to the plain learner
+SHARDED_TIMEOUT_S = 240  # each rank process, and the launcher's group
+# (a) a world of one over NCCL: the families at their sections' full widths.
+SHARDED_WORLD_ONE = ("impala", "r2d2", "ximpala", "apex")
+# (b) two ranks on the one card: (section, model axis); data = 2 / model.
+SHARDED_WORLD_TWO = (("impala", 1), ("r2d2", 1), ("apex", 2))
+SHARDED_LAUNCHER_UPDATES = 20
+
+
+def sharded_batch(algo: str, cfg, B: int, seed: int):
+    """A seeded union batch of the family (with IS weights for the replay
+    families, as a tuple)."""
+    return {"impala": seeded_batch, "ximpala": ximpala_batch, "r2d2": r2d2_batch,
+            "apex": apex_batch}[algo](cfg, B, seed)
+
+
+def params_digest(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def timed_steps(learn, state, batches) -> tuple:
+    """`learn` over `batches`, each step synchronised -> (state, ms a step)."""
+    ms = []
+    for data in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = learn(state, *data)[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, ms
+
+
+def sharded_case(section: str, model: int, bar: str) -> dict:
+    """One family's sharded learner in this rank: SHARDED_STEPS steps on
+    its rows of seeded union batches, with the counts zeroed just before;
+    with `bar` ("bitwise" or "learn") rank 0 also runs the plain learner
+    on the union batches and holds the parameters to it."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import ShardedLearner, make_mesh
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+
+    agent_cfg, rt = load_config(CONFIG, section)
+    algo = launch.algo_of(agent_cfg)
+    agent = launch.make_agent(algo, agent_cfg, device=torch.cuda.current_device())
+    n = 1 if algo in ("impala", "ximpala") else 2
+    sl = ShardedLearner(agent, make_mesh(model_parallel=model), n, n)
+    sl.reducer.timed = True
+    union = [sharded_batch(algo, agent_cfg, rt.batch_size, seed=46 + i)
+             for i in range(SHARDED_STEPS)]
+    mine = [(sl.shard_batch(b),) if n == 1 else sl.shard_batch(b) for b in union]
+    state = sl.init_state(seed=1)
+    zero_launch_counts()
+    state, ms = timed_steps(sl.learn, state, mine)
+    got = {"launches": all_launches(), "ms": ms, "bytes_local": sl.state_bytes(state),
+           "reduce_ms": [r[0] for r in sl.reducer.records],
+           "reduce_bytes": [r[1] for r in sl.reducer.records]}
+    whole = sl.gather_state(state)
+    got["bytes_whole"] = sl.state_bytes(whole)
+    got["digest"] = params_digest(whole.params)
+    if bar is None or sl.mesh.rank != 0:
+        return got
+    plain = agent.init_state(seed=1)
+    zero_launch_counts()
+    steps = [(b,) if n == 1 else b for b in union]
+    plain, got["plain_ms"] = timed_steps(agent.learn, plain, steps)
+    got["plain_launches"] = all_launches()
+    if bar == "bitwise":
+        # A control: the plain learner again. Bit for bit needs the card's
+        # deterministic algorithms (`sharded_rank` turns them on).
+        again, _ = timed_steps(agent.learn, agent.init_state(seed=1), steps)
+        differ = [k for k, p in plain.params.items() if not torch.equal(p, whole.params[k])]
+        control = [k for k, p in plain.params.items() if not torch.equal(p, again.params[k])]
+        got.update(max_rel_err=0.0, control_differs=len(control))
+        if differ:
+            raise RuntimeError(f"{section}: a world of one differs from the plain learner in "
+                               f"{len(differ)} leaves ({differ[:3]}); the plain learner from "
+                               f"itself in {len(control)} ({control[:3]})")
+        return got
+    # The card's learn-step bar (PERF.md §2): rtol 1e-4; an Adam element at
+    # float32's noise floor moves by up to ~lr a step either way.
+    lr = float(getattr(agent_cfg, "learning_rate", 0) or agent_cfg.start_learning_rate)
+    adam = algo in ("apex", "r2d2")
+    atol = 2 * SHARDED_STEPS * adam_ratio_bound(SHARDED_STEPS) * lr if adam else 1e-6
+    worst, beyond = 0.0, 0
+    for k, p in plain.params.items():
+        q, p = whole.params[k].detach(), p.detach()
+        torch.testing.assert_close(q, p, rtol=1e-4, atol=atol,
+                                   msg=lambda m, k=k: f"{section} {k}: {m}")
+        # The largest difference against the leaf's largest magnitude.
+        worst = max(worst, float((q - p).abs().max() / p.abs().max().clamp_min(1e-30)))
+        beyond += int(((q - p).abs() > 1e-4 * p.abs() + 1e-2 * lr).sum())
+    got.update(max_rel_err=worst, beyond_rtol=beyond, atol=atol)
+    return got
+
+
+def sharded_rank(cases: list) -> None:
+    """One rank of phase 46 (a child process): join the world from the
+    DRL_* env names, run `cases` ((section, model axis, bar)), print one
+    JSON line."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's and cuBLAS's fastest algorithms may sum in another order on
+    # each call; the bit-for-bit bars need the deterministic ones.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    assert distributed.initialize()
+    out = {"backend": distributed.backend(), "device": str(distributed.device()),
+           "rank": distributed.process_info()[0]}
+    for section, model, bar in cases:
+        out[f"{section}/{model}"] = sharded_case(section, model, bar)
+    print(json.dumps(out), flush=True)
+    distributed.shutdown()
+
+
+def run_ranks(world: int, cases: list, tag: str) -> list[dict]:
+    """`world` rank processes of `sharded_rank`, each in its own process
+    group with its own timeout, all on this card. -> their JSON lines."""
+    import os
+    import signal
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, DRL_COORDINATOR=f"localhost:{free_port()}",
+               DRL_NUM_PROCESSES=str(world), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = []
+    for rank in range(world):
+        log_path = out_dir / f"smoke_sharded_{tag}_rank{rank}.log"
+        f = open(log_path, "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.sharded_rank({cases!r})"],
+            cwd=ROOT, env={**env, "DRL_PROCESS_ID": str(rank)}, stdout=f,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True), f))
+    results = []
+    try:
+        for proc, f in procs:
+            proc.wait(timeout=SHARDED_TIMEOUT_S)
+            f.seek(0)
+            text = f.read()
+            if proc.returncode != 0:
+                raise RuntimeError(f"sharded {tag} rank: exit {proc.returncode}:\n{text[-4000:]}")
+            # torch's own c10d warnings ("[W...") may come first on stderr.
+            first = next(line for line in text.splitlines() if not line.startswith("[W"))
+            if "[distributed] rank" not in first:
+                raise RuntimeError(f"sharded {tag}: the rank's first line names no backend: "
+                                   f"{first!r}")
+            results.append(last_json(text))
+    finally:
+        for proc, f in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+            f.close()
+    return results
+
+
+def poll_plane_versions(base: int, proc, seen: list) -> None:
+    """Both learners' weight versions (ports base, base + 1), every 0.25 s,
+    while the launcher runs, until both pass 3."""
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
+        _I64, OP_GET_WEIGHTS, TransportClient)
+
+    clients = {}
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while proc.poll() is None and time.monotonic() < deadline:
+            try:
+                pair = []
+                for k in range(2):
+                    if k not in clients:
+                        clients[k] = TransportClient("127.0.0.1", base + k, connect_retries=2,
+                                                     retry_interval=0.2)
+                    resp = clients[k]._call(OP_GET_WEIGHTS, _I64.pack(-2))
+                    pair.append(_I64.unpack(resp[:_I64.size])[0])
+                seen.append(tuple(pair))
+                if min(pair) >= 3:
+                    return
+            except (ConnectionError, OSError):
+                pass  # the learners are still starting
+            time.sleep(0.25)
+    finally:
+        for c in clients.values():
+            c.close()
+
+
+def phase_sharded_learner() -> dict:
+    """Phase 46: the sharded learner. (a) A world of one over NCCL:
+    `impala`, `r2d2`, `ximpala` and `apex` at full width, 3 steps each,
+    bit for bit the plain learner, with its launches. (b) Two ranks on
+    this one card (gloo, both on cuda:0): `impala` and `r2d2` at data 2,
+    each rank on half of each union batch, the ranks bit for bit equal
+    and within the learn-step bar of the union-batch learner; `apex` at
+    model 2, each rank holding half of each sharded leaf and its moments.
+    (c) `launch_local_cluster --learners 2` on `impala_cartpole`: both
+    learners on cuda:0, their data planes' versions in lockstep, every
+    role exits 0 and no segment is left."""
+    from distributed_reinforcement_learning_tpu_torch.launch_local_cluster import _free_port_run
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    got = {}
+    one = run_ranks(1, [(s, 1, "bitwise") for s in SHARDED_WORLD_ONE], "world1")[0]
+    if one["backend"] != "nccl" or one["device"] != "cuda:0":
+        raise RuntimeError(f"a world of one on {one['device']} over {one['backend']}, "
+                           "expected cuda:0 over nccl")
+    for section in SHARDED_WORLD_ONE:
+        case = one[f"{section}/1"]
+        if case["launches"] != case["plain_launches"]:
+            raise RuntimeError(f"{section}: sharded launches {case['launches']} != plain "
+                               f"{case['plain_launches']}")
+    got["world1"] = one
+    log(f"[sharded] (a) world of one, rank 0 backend {one['backend']} on {one['device']}; "
+        "learn-step ms p50 sharded / plain (3 steps, the first warm): "
+        + ", ".join(f"{s} {np.median(one[f'{s}/1']['ms']):.2f} / "
+                    f"{np.median(one[f'{s}/1']['plain_ms']):.2f}" for s in SHARDED_WORLD_ONE)
+        + "; parameters bit for bit (deterministic algorithms on; the plain learner "
+        "against itself differs in " + ", ".join(
+            f"{s} {one[f'{s}/1']['control_differs']}" for s in SHARDED_WORLD_ONE)
+        + " leaves), launches "
+        + ", ".join(f"{s} {json.dumps({k: v for k, v in one[f'{s}/1']['launches'].items() if v})}"
+                    for s in SHARDED_WORLD_ONE) + f" as the plain step's ({smi})")
+
+    two = run_ranks(2, [(s, m, "learn") for s, m in SHARDED_WORLD_TWO], "world2")
+    for rank in two:
+        if rank["backend"] != "gloo" or rank["device"] != "cuda:0":
+            raise RuntimeError(f"rank {rank['rank']} on {rank['device']} over "
+                               f"{rank['backend']}, expected cuda:0 over gloo")
+    per_step = {"impala": {"vtrace": 2}, "r2d2": {"lstm_fwd": 2, "lstm_bwd": 1}, "apex": {}}
+    for section, model in SHARDED_WORLD_TWO:
+        key = f"{section}/{model}"
+        if two[0][key]["digest"] != two[1][key]["digest"]:
+            raise RuntimeError(f"{section}: the two ranks' parameters differ")
+        want = {k: SHARDED_STEPS * per_step[section].get(k, 0) for k in two[0][key]["launches"]}
+        for rank in two:
+            if rank[key]["launches"] != want:
+                raise RuntimeError(f"{section} rank {rank['rank']}: launches "
+                                   f"{rank[key]['launches']}, expected {want}")
+    apex = two[0]["apex/2"]
+    if not 0.4 * apex["bytes_whole"] < apex["bytes_local"] < 0.6 * apex["bytes_whole"]:
+        raise RuntimeError(f"apex at model 2: {apex['bytes_local']} bytes a rank of "
+                           f"{apex['bytes_whole']}")
+    got["world2"] = two
+    log("[sharded] (b) two ranks on one card, backends "
+        + ", ".join(f"rank {r['rank']} {r['backend']} on {r['device']}" for r in two)
+        + "; ranks bit for bit equal; "
+        + "; ".join(
+            f"{s} at data {2 // m}, model {m}: learn-step ms p50 {np.median(c['ms']):.2f} "
+            f"(union-batch plain {np.median(c['plain_ms']):.2f}), reduction ms p50 "
+            f"{np.median(c['reduce_ms']) if c['reduce_ms'] else 0.0:.3f} for "
+            f"{(c['reduce_bytes'] or [0])[0]} bytes a step, largest |difference| "
+            f"{c['max_rel_err']:.2e} of a leaf's largest parameter "
+            f"({c['beyond_rtol']} elements past rtol 1e-4 + 1% lr), bytes a rank "
+            f"{c['bytes_local']} of {c['bytes_whole']}, launches a rank "
+            f"{json.dumps({k: v for k, v in c['launches'].items() if v})}"
+            for (s, m), c in ((sm, two[0][f"{sm[0]}/{sm[1]}"]) for sm in SHARDED_WORLD_TWO))
+        + f" ({smi})")
+
+    base = _free_port_run(2)
+    seen: list = []
+    out = run_launcher("impala_cartpole", SHARDED_LAUNCHER_UPDATES, 2, "group",
+                       {"DRL_LEARNER_ADDR": f"127.0.0.1:{base}"}, extra=["--learners", "2"],
+                       during=lambda proc, _: poll_plane_versions(base, proc, seen))
+    learners = [role_json(out, f"learner{k}") for k in range(2)]
+    actors = [role_json(out, f"actor{k}") for k in range(2)]
+    if not all(learners) or not all(actors):
+        raise RuntimeError(f"launcher group: a role printed no summary:\n{out[-4000:]}")
+    for k, (summary,) in enumerate(learners):
+        mh = summary["multihost"]
+        if (summary["device"] != "cuda:0" or mh["backend"] != "gloo" or mh["rank"] != k
+                or summary["train_steps"] != SHARDED_LAUNCHER_UPDATES):
+            raise RuntimeError(f"launcher group learner{k}: {summary['device']}, {mh}, "
+                               f"{summary['train_steps']} steps")
+    if not seen or min(seen[-1]) < 3 or any(abs(a - b) > 4 for a, b in seen):
+        raise RuntimeError(f"launcher group: weight versions {seen}")
+    got["launcher"] = {"versions": seen, "learners": [s for (s,) in learners]}
+    red = [learners[k][0]["multihost"] for k in range(2)]
+    log(f"[sharded] (c) launch_local_cluster --learners 2: both learners on cuda:0 over "
+        f"gloo, {SHARDED_LAUNCHER_UPDATES} updates each, versions (plane 0, plane 1) {seen}, "
+        f"reduction ms p50 " + ", ".join(f"rank {r['rank']} {np.median(r['reduce_ms']):.3f}"
+                                         for r in red)
+        + f" for {red[0]['reduce_bytes'][0]} bytes a step; every role exited 0, no segment "
+        f"left ({smi})")
+    got["seconds"] = time.perf_counter() - t0
+    log(f"[sharded] phase 46 {got['seconds']:.1f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5482,6 +5804,8 @@ def main() -> int:
     phase_memory("synthetic batches")
     synth = phase_synthetic()
     drivers_s = time.perf_counter() - t_drivers
+    phase_memory("sharded learner")
+    sharded = phase_sharded_learner()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -5512,6 +5836,7 @@ def main() -> int:
         "anakin": {"shape": list(ANAKIN_SHAPE), **anakin_k1},
         "breakout_driver": {"shape": list(BREAKOUT_DRIVER_SHAPE),
                             **k1["timings"][BREAKOUT_DRIVER_SHAPE]},
+        "sharded_learner": {"shape": list(SHARDED_SHAPE), **k1["timings"][SHARDED_SHAPE]},
     }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2, devpath,
                   tier),
         *attention_rows(k3, ximpala, xformer_long)]
@@ -5520,9 +5845,15 @@ def main() -> int:
         ximpala_served_in_process=served["families"]["ximpala"]["launches"]["attention_fwd"],
         ximpala_replica_survivor=replicas["survivor"]["launches"]["attention_fwd"])
     # Phases 44-45: the drivers' runs (first, resumed) and the synthetic learn steps.
+    # Phase 46: each family's sharded steps in a world of one and on each
+    # of the two ranks.
     by_path = {"anakin_breakout_driver": drivers["breakout"]["launches"],
                "anakin_r2d2_driver": drivers["r2d2"]["launches"],
-               **{f"synthetic_{section}": [n] for section, n in synth["launches"].items()}}
+               **{f"synthetic_{section}": [n] for section, n in synth["launches"].items()},
+               **{f"sharded_world1_{s}": [sharded["world1"][f"{s}/1"]["launches"]]
+                  for s in SHARDED_WORLD_ONE},
+               **{f"sharded_world2_{s}_model{m}_rank{r['rank']}": [r[f"{s}/{m}"]["launches"]]
+                  for r in sharded["world2"] for s, m in SHARDED_WORLD_TWO}}
     for row in kernels:
         for path, runs in by_path.items():
             counts = [got[row["name"]] for got in runs]
@@ -5609,6 +5940,7 @@ def main() -> int:
         f"({drivers['evaluate']['seconds']:.1f} s), long_run "
         f"({drivers['long_run']['seconds']:.1f} s); phase 44 {drivers['seconds']:.1f} s; "
         f"synthetic steps phase 45 {synth['seconds']:.1f} s; phases 44-45 {drivers_s:.1f} s; "
+        f"sharded learner phase 46 {sharded['seconds']:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -144,32 +144,47 @@ class ApexAgent(common.ThreadLocalModelMixin):
             return dqn.td_error(*self._targets(state.params, state.target_params, batch))
 
     # -- learn -----------------------------------------------------------
-    def grads(self, state: common.TargetTrainState, batch: ApexBatch, is_weight):
+    def grads(self, state: common.TargetTrainState, batch: ApexBatch, is_weight,
+              reducer=None):
         """The gradient half of `learn` -> (grads by parameter name, |TD|,
-        loss); nothing is updated."""
+        loss); nothing is updated. `reducer` (a
+        `parallel/learner.MeshReducer`) makes it one rank's part of a
+        step over a mesh: the gradients (this rank's slices) and the loss
+        averaged across the data axis (the loss is a mean over rows),
+        |TD| gathered to the global batch."""
         batch = common.batch_to_device(batch, self.device)
         is_weight = torch.as_tensor(is_weight, dtype=torch.float32).to(self.device)
-        tv, sav = self._targets(state.params, state.target_params, batch)
+        params, target = state.params, state.target_params
+        if reducer is not None:
+            params, target = reducer.gather(params), reducer.gather(target, grad=False)
+        tv, sav = self._targets(params, target, batch)
         loss = torch.mean(torch.square(tv - sav) * is_weight)
-        names = list(state.params)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-        return dict(zip(names, grads)), dqn.td_error(tv, sav).detach(), loss.detach()
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
+        td, loss = dqn.td_error(tv, sav).detach(), loss.detach()
+        if reducer is not None:
+            grads, reduced = reducer.reduce(grads, "mean", {"loss": loss})
+            td, loss = reducer.gather_rows(td), reduced["loss"]
+        return grads, td, loss
 
     def apply_grads(self, state: common.TargetTrainState, grads: dict[str, torch.Tensor],
-                    loss: torch.Tensor):
+                    loss: torch.Tensor, reducer=None):
         """The update half of `learn`: Adam in place -> (state, metrics).
         `learning_rate` is the schedule at the step being taken and
-        `grad_norm` the norm before clipping, as in the JAX package."""
-        metrics = {"loss": loss, "grad_norm": self.tx.apply(state, grads),
+        `grad_norm` the norm before clipping, as in the JAX package; over
+        a mesh (`reducer`) the norm of the whole reduced gradient."""
+        g_norm = None if reducer is None else reducer.norm(grads)
+        metrics = {"loss": loss, "grad_norm": self.tx.apply(state, grads, g_norm),
                    "learning_rate": self._schedule(state.step)}
         state.step += 1
         return state, metrics
 
-    def learn(self, state: common.TargetTrainState, batch: ApexBatch, is_weight):
+    def learn(self, state: common.TargetTrainState, batch: ApexBatch, is_weight,
+              reducer=None):
         """One Adam step in place -> (state, |TD| `[B]`, metrics); |TD| and
         the metrics are device tensors (no host sync)."""
-        grads, td, loss = self.grads(state, batch, is_weight)
-        state, metrics = self.apply_grads(state, grads, loss)
+        grads, td, loss = self.grads(state, batch, is_weight, reducer)
+        state, metrics = self.apply_grads(state, grads, loss, reducer)
         return state, td, metrics
 
     def learn_many(self, state: common.TargetTrainState, batches: ApexBatch, is_weights):

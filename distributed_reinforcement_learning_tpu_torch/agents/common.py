@@ -119,10 +119,14 @@ class RMSPropWithClip:
         return {k: torch.ones_like(p, requires_grad=False) for k, p in params.items()}
 
     @torch.no_grad()
-    def apply(self, state: TrainState, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    def apply(self, state: TrainState, grads: dict[str, torch.Tensor],
+              g_norm: torch.Tensor | None = None) -> torch.Tensor:
         """Update `state.params` and `state.nu` in place; -> the pre-clip
-        global gradient norm. Leaves `state.step` to the caller."""
-        g_norm = global_norm(grads.values())
+        global gradient norm (`g_norm` when the caller computed it over a
+        mesh, `parallel/learner.MeshReducer.norm`). Leaves `state.step`
+        to the caller."""
+        if g_norm is None:
+            g_norm = global_norm(grads.values())
         keep = g_norm < self.clip_norm
         lr = self.lr(state.step)
         for k, p in state.params.items():
@@ -160,10 +164,13 @@ class AdamWithClip:
         return zeros(), zeros()
 
     @torch.no_grad()
-    def apply(self, state: TargetTrainState, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    def apply(self, state: TargetTrainState, grads: dict[str, torch.Tensor],
+              g_norm: torch.Tensor | None = None) -> torch.Tensor:
         """Update `state.params`, `state.mu`, `state.nu` in place; -> the
-        pre-clip global gradient norm. Leaves `state.step` to the caller."""
-        g_norm = global_norm(grads.values())
+        pre-clip global gradient norm (`g_norm` when the caller computed
+        it over a mesh). Leaves `state.step` to the caller."""
+        if g_norm is None:
+            g_norm = global_norm(grads.values())
         n = np.float32(state.step + 1)
         c1 = float(np.float32(1) - np.float32(self.b1) ** n)
         c2 = float(np.float32(1) - np.float32(self.b2) ** n)
@@ -245,15 +252,26 @@ class SequenceReplayLearnMixin:
             loss = loss + out[2]
         return loss, self._seq_priority(tv, sav).detach()
 
-    def _learn(self, state: TargetTrainState, batch, is_weight: torch.Tensor):
+    def _learn(self, state: TargetTrainState, batch, is_weight: torch.Tensor, reducer=None):
         """One Adam step in place -> (state, priorities, metrics); the
-        metrics are device tensors (no host sync)."""
-        loss, priorities = self._loss(state.params, state.target_params, batch, is_weight)
-        names = list(state.params)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-        grad_norm = self.tx.apply(state, dict(zip(names, grads)))
+        metrics are device tensors (no host sync). `reducer` (a
+        `parallel/learner.MeshReducer`) makes it one rank's part of a
+        step over a mesh: the gradients and the loss are averaged across
+        the data axis (the loss is a mean over sequences), and the
+        priorities gathered to the global batch."""
+        params, target = state.params, state.target_params
+        if reducer is not None:
+            params, target = reducer.gather(params), reducer.gather(target, grad=False)
+        loss, priorities = self._loss(params, target, batch, is_weight)
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
+        metrics, g_norm = {"loss": loss.detach()}, None
+        if reducer is not None:
+            grads, metrics = reducer.reduce(grads, "mean", metrics)
+            priorities, g_norm = reducer.gather_rows(priorities), reducer.norm(grads)
+        metrics["grad_norm"] = self.tx.apply(state, grads, g_norm)
         state.step += 1
-        return state, priorities, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, priorities, metrics
 
     # -- the public calls, on the host class's `device` -------------------
     def state_from_params(self, params: dict[str, torch.Tensor]) -> TargetTrainState:
@@ -273,12 +291,12 @@ class SequenceReplayLearnMixin:
         main and target networks."""
         return self._td_error(state, batch_to_device(batch, self.device))
 
-    def learn(self, state: TargetTrainState, batch, is_weight):
+    def learn(self, state: TargetTrainState, batch, is_weight, reducer=None):
         """One Adam step in place -> (state, priorities `[B]`, metrics);
         priorities and metrics are device tensors (no host sync)."""
         batch = batch_to_device(batch, self.device)
         is_weight = torch.as_tensor(is_weight, dtype=torch.float32).to(self.device)
-        return self._learn(state, batch, is_weight)
+        return self._learn(state, batch, is_weight, reducer)
 
     def learn_many(self, state: TargetTrainState, batches, is_weights):
         """K `learn` steps over `[K, B, ...]` batches -> (state, priorities

@@ -23,6 +23,7 @@ snapshot they pulled while the learner updates its own tensors in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -203,23 +204,33 @@ class ImpalaAgent(common.ThreadLocalModelMixin):
         }
         return total, metrics
 
-    def learn(self, state: common.TrainState, batch: ImpalaBatch):
+    def learn(self, state: common.TrainState, batch: ImpalaBatch, reducer=None):
         """One optimizer step, in place -> (state, metrics).
 
         `learning_rate` is the schedule at the step being taken (before
         the increment) and `grad_norm` the norm before clipping, as in the
-        JAX package. Metric values are device tensors (no host sync)."""
+        JAX package. Metric values are device tensors (no host sync).
+        `reducer` (a `parallel/learner.MeshReducer`) makes it one rank's
+        part of a step over a mesh: the losses are sums over the batch,
+        so the gradients and the loss metrics are summed across the data
+        axis before the clip."""
         batch = common.batch_to_device(batch, self.device)
-        total, metrics = self.loss(state.params, batch)
-        names = list(state.params)
-        grads = torch.autograd.grad(total, [state.params[k] for k in names])
-        metrics["grad_norm"] = self.tx.apply(state, dict(zip(names, grads)))
+        params = state.params if reducer is None else reducer.gather(state.params)
+        total, metrics = self.loss(params, batch)
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(total, [params[k] for k in names])))
+        g_norm = None
+        if reducer is not None:
+            grads, metrics = reducer.reduce(grads, "sum", metrics)
+            g_norm = reducer.norm(grads)
+        metrics["grad_norm"] = self.tx.apply(state, grads, g_norm)
         metrics["learning_rate"] = self._schedule(state.step)
         state.step += 1
         return state, metrics
 
-    def learn_many(self, state: common.TrainState, batches: ImpalaBatch):
+    def learn_many(self, state: common.TrainState, batches: ImpalaBatch, reducer=None):
         """K optimizer steps over a `[K, B, T, ...]` stack, in place ->
         (state, metrics stacked `[K]`): the JAX agent's
         `jit(scan_learn(_learn))`."""
-        return common.learn_many_unweighted(self.learn, state, batches, self.device)
+        learn = self.learn if reducer is None else functools.partial(self.learn, reducer=reducer)
+        return common.learn_many_unweighted(learn, state, batches, self.device)

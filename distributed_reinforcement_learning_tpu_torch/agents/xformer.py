@@ -23,7 +23,7 @@ attention call whose T divides by a power-of-two block of at least 8
 runs the flash kernels K3a (forward), K3b and K3c (backward); the
 sections' seq_len of 10 takes the dense route.
 
-The body features that need a mesh raise and name ROADMAP item 13:
+The body features that need a mesh raise and name ROADMAP item 13c:
 sequence-parallel attention, the pipeline, expert parallelism.
 """
 
@@ -39,7 +39,7 @@ from distributed_reinforcement_learning_tpu_torch.models.functional import funct
 from distributed_reinforcement_learning_tpu_torch.models.transformer_net import TransformerQNet
 from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
 
-_ITEM_13 = "needs a mesh, which is not ported (ROADMAP item 13)"
+_ITEM_13 = "needs a mesh, which is not ported (ROADMAP item 13c)"
 
 
 @dataclasses.dataclass(frozen=True)

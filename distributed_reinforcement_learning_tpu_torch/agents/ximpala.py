@@ -40,7 +40,7 @@ class XImpalaConfig:
     """IMPALA hyperparameters + transformer body knobs, mirroring the
     `ximpala` block of `config.json`. Mixture of experts, remat and the
     stacked layout are ported; sequence-parallel attention and the
-    pipeline need a mesh and raise (ROADMAP item 13)."""
+    pipeline need a mesh and raise (ROADMAP item 13c)."""
 
     obs_shape: tuple[int, ...] = (2,)
     num_actions: int = 2

@@ -27,7 +27,9 @@ holds K batches alive at once. `reconfigure` changes K later: the live
 setting is one `(K, epoch)` tuple swapped by the controlling thread and
 read once a round by the prefetch thread; batches stacked under an older
 epoch are dropped at `get_batch` (counted in `dropped_batches`), so a
-changed K never hands the learner a stack of the old shape.
+changed K never hands the learner a stack of the old shape. Over a mesh
+(`sharding`) the rows are one rank's, placed on its device like any
+batch; K > 1 then needs `stack_sharding`, as in the JAX package.
 
 `h2d_ms()` reads the device time of the copies (CUDA events on the copy
 stream around each batch's copies, after its device buffers are
@@ -55,6 +57,12 @@ def _fields(item: Any) -> dict[str, np.ndarray]:
         return item
     raise TypeError(f"cannot prefetch a {type(item).__name__}: a namedtuple or dict "
                     "of arrays is needed")
+
+
+def _check_stack(k: int, sharding: Any, stack_sharding: Any) -> None:
+    if k > 1 and sharding is not None and stack_sharding is None:
+        raise ValueError("stack_calls > 1 over a mesh needs stack_sharding "
+                         "(a [K, B, ...] spec with the batch dim on the data axis)")
 
 
 class _PinnedSlot:
@@ -86,11 +94,19 @@ class DevicePrefetcher:
     """
 
     def __init__(self, source: Any, batch_size: int, device: torch.device,
-                 stack_calls: int = 1):
+                 stack_calls: int = 1, sharding: Any | None = None,
+                 stack_sharding: Any | None = None):
         self.source = source  # TrajectoryQueue-like: take(batch_size, timeout), closed
         self.batch_size = batch_size
         self.device = torch.device(device)
-        self._cfg: tuple[int, int] = (max(1, int(stack_calls)), 0)  # (K, epoch)
+        # Over a mesh (`sharding`, a `parallel/mesh.Placement` of the data
+        # axis) the dequeued rows are this rank's shard, copied to its
+        # device as any batch is; a K-stack needs its own placement
+        # (`stack_sharding`: B on the data axis, K whole), as in JAX.
+        self.sharding = sharding
+        k = max(1, int(stack_calls))
+        _check_stack(k, sharding, stack_sharding)
+        self._cfg: tuple[int, Any, int] = (k, stack_sharding, 0)  # (K, stack placement, epoch)
         self.dropped_batches = 0  # dequeued but never trained
         self._cuda = self.device.type == "cuda"
         self._out: _queue.Queue = _queue.Queue(maxsize=1)
@@ -107,15 +123,23 @@ class DevicePrefetcher:
     def stack_calls(self) -> int:
         return self._cfg[0]
 
-    def reconfigure(self, stack_calls: int) -> None:
-        """Change the stack depth K: the next round stacks at the new K,
-        and batches already stacked at the old one are dropped at
-        `get_batch`. Called from the learner's controlling thread (one
-        reference swap, which the prefetch thread reads once a round)."""
+    @property
+    def stack_sharding(self):
+        return self._cfg[1]
+
+    def reconfigure(self, stack_calls: int, stack_sharding: Any | None = None) -> None:
+        """Change the stack depth K (and the stack's placement, kept when
+        None): the next round stacks at the new K, and batches already
+        stacked at the old one are dropped at `get_batch`. Called from
+        the learner's controlling thread (one reference swap, which the
+        prefetch thread reads once a round)."""
         k = max(1, int(stack_calls))
-        cur, epoch = self._cfg
-        if k != cur:
-            self._cfg = (k, epoch + 1)
+        cur, cur_sharding, epoch = self._cfg
+        if stack_sharding is None:
+            stack_sharding = cur_sharding
+        _check_stack(k, self.sharding, stack_sharding)
+        if k != cur or stack_sharding is not cur_sharding:
+            self._cfg = (k, stack_sharding, epoch + 1)
 
     def _loop(self) -> None:
         try:
@@ -188,7 +212,7 @@ class DevicePrefetcher:
         n = 0
         while not self._stop.is_set():
             # One read a round: a reconfigure lands at the next round.
-            k, epoch = self._cfg
+            k, _, epoch = self._cfg
             parts = []
             while len(parts) < k:
                 items = self._take()
@@ -222,7 +246,7 @@ class DevicePrefetcher:
             wait = 0.2 if deadline is None else max(0.0, min(0.2, deadline - time.monotonic()))
             try:
                 batch, done, k, epoch = self._out.get(timeout=wait)
-                if epoch != self._cfg[1]:
+                if epoch != self._cfg[2]:
                     self.dropped_batches += k  # stacked at a depth since changed
                     continue
                 break

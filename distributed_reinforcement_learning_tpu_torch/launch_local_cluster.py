@@ -77,9 +77,19 @@ shares ONE board name, which only the publishing seat writes. Refused
 at parse time, as in the JAX launcher: `allreduce` for a family other
 than `apex` (only Ape-X has the split learn step), `--respawn` or
 `--chaos` with more than one seat (a tier restarts only whole). Refused
-by name, with the ROADMAP item: `--learners N` without a tier sync (the
-JAX package's `jax.distributed` learners, item 13b), and
-`--learner_sync` with one learner.
+by name, with the ROADMAP item: `--learner_sync` with one learner.
+
+The multi-process learner (ROADMAP item 13b): `--learners N` with no tier
+sync (or `--learner_sync multihost`) spawns N learner processes that run
+one learn step together over a data mesh (`parallel/distributed.py`,
+`parallel/learner.py`), as the JAX launcher's `jax.distributed` group:
+every role gets `DRL_COORDINATOR` (a free loopback port) and
+`DRL_NUM_PROCESSES`, each learner its `DRL_PROCESS_ID`; learner k serves
+its data plane on the base port + k, creates its own weight board and
+takes `batch_size / N` rows a step; actor t feeds learner t % N. On one
+card the learners share it (over gloo). `--respawn` needs `--learners 1`
+(a group restarts only whole), and a learner of the group that fails
+takes the others down with it.
 """
 
 from __future__ import annotations
@@ -176,10 +186,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--algo", default=None, help="family (default: section-name prefix)")
     p.add_argument("--actors", type=int, default=2)
     p.add_argument("--learners", type=int, default=1,
-                   help="learner processes: N > 1 learner-tier seats (needs a tier sync)")
-    p.add_argument("--learner_sync", choices=("allreduce", "async"), default=None,
+                   help="learner processes: N > 1 learner-tier seats with a tier sync, "
+                        "else one multi-process learner group over a data mesh")
+    p.add_argument("--learner_sync", choices=("allreduce", "async", "multihost"),
+                   default=None,
                    help="with --learners N > 1: the learner tier's exchange, lockstep "
-                        "gradient allreduce (apex) or bounded-staleness parameter merging")
+                        "gradient allreduce (apex) or bounded-staleness parameter merging; "
+                        "or multihost, the learner group (DRL_COORDINATOR)")
     p.add_argument("--updates", type=int, default=500)
     p.add_argument("--run_dir", default=None,
                    help="the learner's metrics.jsonl and every process's telemetry "
@@ -236,22 +249,25 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         # Seats cannot rejoin a live collective (dead ranks stay dead),
         # and a respawned ex-publisher would race the promoted survivor
         # for the shared board name: a tier restarts only whole.
-        p.error("--respawn needs --learners 1 (a learner tier can only restart wholesale)")
+        p.error("--respawn needs --learners 1 (a learner tier, or a multi-process learner "
+                "group, ROADMAP item 13b, can only restart wholesale)")
     return args
 
 
 def learner_tier_sync(args: argparse.Namespace, p: argparse.ArgumentParser) -> str | None:
-    """The tier's sync for `--learners N`, or None for one learner:
-    `--learner_sync` forces it; else `DRL_LEARNER_SEATS` >= 2 turns the
-    tier on with `DRL_LEARNER_SYNC` (default allreduce), as the tier
-    verdict constant would (off). N > 1 with no sync would be the JAX
-    package's `jax.distributed` learners, which are not ported."""
+    """The tier's sync for `--learners N`, or None for one learner and
+    for the multi-process learner group: `--learner_sync` forces it
+    (`multihost` forces the group); else `DRL_LEARNER_SEATS` >= 2 turns
+    the tier on with `DRL_LEARNER_SYNC` (default allreduce), as the tier
+    verdict constant would (off). N > 1 with no sync is the group."""
     from distributed_reinforcement_learning_tpu_torch.runtime import learner_tier
 
     if args.learners <= 1:
         if args.learner_sync is not None:
             p.error("--learner_sync needs --learners N >= 2 (the learner tier, ROADMAP "
-                    "item 13a)")
+                    "item 13a, or the multi-process learner group, item 13b)")
+        return None
+    if args.learner_sync == "multihost":
         return None
     sync = args.learner_sync
     if sync is None:
@@ -263,9 +279,7 @@ def learner_tier_sync(args: argparse.Namespace, p: argparse.ArgumentParser) -> s
             sync = (os.environ.get("DRL_LEARNER_SYNC", "").strip().lower()
                     or learner_tier.VERDICT_SYNC)
     if sync is None:
-        p.error("--learners N > 1 without a tier sync (the multi-host learners, "
-                "DRL_COORDINATOR) is not ported (ROADMAP item 13b); pass --learner_sync "
-                "allreduce|async for the learner tier")
+        return None
     if sync == "allreduce" and args.algo != "apex":
         # attach would refuse it too, but only after every seat built its
         # learner.
@@ -326,7 +340,7 @@ def main(argv: list[str] | None = None) -> int:
 
     tag = f"{os.getpid()}-{os.urandom(4).hex()}"
     ring_names: dict[int, str] = {}
-    board_name = None
+    board_names: dict[int, str] = {}
     if shm_ring.ring_enabled():
         ring_names = {task: f"drlring-{tag}-{task}" for task in range(args.actors)}
         print(f"[cluster] shm rings enabled for {args.actors} co-hosted actor(s)",
@@ -334,7 +348,9 @@ def main(argv: list[str] | None = None) -> int:
     if weight_board.board_enabled():
         # One name for a whole tier: only the publishing seat creates and
         # writes it; a promoted seat re-creates it by creator-pid reclaim.
-        board_name = f"drlwboard-{tag}-{'tier' if args.tier_sync else 0}"
+        # A learner group publishes from every rank: one board a learner.
+        board_names = {rank: f"drlwboard-{tag}-{'tier' if args.tier_sync else rank}"
+                       for rank in range(args.learners)}
         print(f"[cluster] shm weight board enabled for {args.actors} co-hosted actor(s)",
               file=sys.stderr)
 
@@ -350,6 +366,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.serve_inference:
         learner_cmd += ["--serve_inference"]
     n_seats = args.learners
+    group = n_seats > 1 and not args.tier_sync
+    if group:
+        env.update(DRL_COORDINATOR=f"localhost:{_free_port()}", DRL_NUM_PROCESSES=str(n_seats))
+        print(f"[cluster] multi-process learner: {n_seats} ranks over one data mesh",
+              file=sys.stderr)
     coll_peers = ""
     if args.tier_sync:
         # One collective endpoint a seat; the roster (index = rank) goes to
@@ -363,13 +384,16 @@ def main(argv: list[str] | None = None) -> int:
         if args.tier_sync:
             lenv.update(DRL_LEARNER_SEATS=str(n_seats), DRL_LEARNER_RANK=str(rank),
                         DRL_LEARNER_PEERS=coll_peers, DRL_LEARNER_SYNC=args.tier_sync)
+        if group:
+            lenv["DRL_PROCESS_ID"] = str(rank)
         mine = [ring_names[t] for t in sorted(ring_names) if t % n_seats == rank]
         if mine:
             lenv["DRL_SHM_RING_CREATE"] = ",".join(mine)
-        if board_name:
-            lenv["DRL_SHM_WEIGHTS_CREATE"] = board_name
+        board = board_names.get(rank)
+        if board:
+            lenv["DRL_SHM_WEIGHTS_CREATE"] = board
         roles.append(Role(f"learner{rank}" if n_seats > 1 else "learner", learner_cmd, lenv,
-                          "learner", segments=(*mine, *((board_name,) if board_name else ()))))
+                          "learner", segments=(*mine, *((board,) if board else ()))))
     # Act-serving replicas between the learner and the actors: each on
     # its own port, reading the learner's board (read-only) when there is
     # one, on the learner's device.
@@ -383,8 +407,8 @@ def main(argv: list[str] | None = None) -> int:
         if args.device:
             infer_cmd += ["--device", args.device]
         ienv = dict(env, DRL_INFER_PORT=str(iport), DRL_LEARNER_INDEX=str(k % n_seats))
-        if board_name:
-            ienv["DRL_SHM_WEIGHTS_NAME"] = board_name
+        if board_names:
+            ienv["DRL_SHM_WEIGHTS_NAME"] = board_names[k % n_seats]
         roles.append(Role(f"infer{k}", infer_cmd, ienv, "infer"))
         infer_addrs.append(f"127.0.0.1:{iport}")
     if infer_addrs:
@@ -396,8 +420,8 @@ def main(argv: list[str] | None = None) -> int:
         aenv.setdefault("OMP_NUM_THREADS", "1")
         if task in ring_names:
             aenv["DRL_SHM_RING_NAME"] = ring_names[task]
-        if board_name:
-            aenv["DRL_SHM_WEIGHTS_NAME"] = board_name
+        if board_names:
+            aenv["DRL_SHM_WEIGHTS_NAME"] = board_names[task % n_seats]
         roles.append(Role(f"actor{task}", base + [
             "--mode", "actor", "--task", str(task), "--device", "cpu",
             "--actor_grace", str(args.actor_grace),
@@ -472,6 +496,10 @@ def main(argv: list[str] | None = None) -> int:
                 role.done = True
                 if role.kind == "learner":
                     rc = max(rc, 128 - code if code < 0 else code)
+                    if group:  # the other ranks would wait in a collective
+                        print(f"[cluster] {role.name} failed; stopping the learner group",
+                              file=sys.stderr)
+                        signal_roles(("learner",))
         if all(r.done for r in learners):
             break
         if actors and all(r.done for r in actors):
@@ -502,8 +530,7 @@ def main(argv: list[str] | None = None) -> int:
         t.join(timeout=5.0)  # the children's last lines before exit
     if sum(tally.values()):
         print(f"[cluster] respawn tally: {tally}", file=sys.stderr)
-    reap_segments([*ring_names.values(), *((board_name,) if board_name else ())],
-                  "final sweep")
+    reap_segments([*ring_names.values(), *set(board_names.values())], "final sweep")
     return rc
 
 

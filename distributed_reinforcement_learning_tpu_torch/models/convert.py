@@ -118,6 +118,16 @@ def transformer_params_from_jax(tree, head: str = "dueling_q") -> dict[str, torc
     return out
 
 
+def flax_last_dim(name: str, ndim: int) -> int:
+    """The dimension of the port's `ndim`-D leaf `name` that holds its
+    flax counterpart's last one, by the rules above: a `weight` of two or
+    more dimensions was a kernel, transposed (Dense `[in, out]` ->
+    Linear `[out, in]`, HWIO -> OIHW), so dim 0; every leaf kept as it is
+    (the LSTM's fused `gates_kernel [F+H, 4H]`, the `moe` and
+    `blocks_stacked` leaves, biases, LayerNorm weights) its last."""
+    return 0 if ndim >= 2 and name.rsplit(".", 1)[-1] == "weight" else ndim - 1
+
+
 def upgrade_nature_conv_params(tree):
     """The JAX package's `models/torso.py:upgrade_nature_conv_params`:
     rewrite the old NatureConv nesting `Conv_{i}: {kernel, bias}` (flax

@@ -28,7 +28,7 @@ reference's `value - learned_mean` Q-values `[B, T, A]`
   records; the parameter names do not change.
 
 Not ported: sequence-parallel `attention_fn` and `sequence_perm`, the
-pipeline, expert parallelism (ROADMAP item 13).
+pipeline, expert parallelism (ROADMAP item 13c).
 
 Module names are this package's; `models/convert.py` maps flax's
 automatic names (`Dense_0`, `SelfAttentionBlock_0/LayerNorm_0`, ...)

@@ -6,7 +6,7 @@ expressed as 0/1 dispatch and weighted combine tensors `[N, E, C]`
 contracted with the tokens and the expert-stacked weights. The expert
 products are plain einsums, as the JAX package computes them outside any
 Pallas kernel. Expert parallelism (`mesh` with an `expert` axis) needs a
-mesh and raises (ROADMAP item 13).
+mesh and raises (ROADMAP item 13c).
 
 Routing, as there:
 - `top_k` experts per token, gate weights renormalised over the chosen k;
@@ -92,7 +92,7 @@ def moe_mlp(x: torch.Tensor, params: dict[str, torch.Tensor], *, top_k: int = 2,
     """MoE feed-forward over `[..., d_model]` tokens -> (y, aux loss)."""
     if mesh is not None:
         raise ValueError("expert parallelism (a mesh with an expert axis) is not ported "
-                         "(ROADMAP item 13)")
+                         "(ROADMAP item 13c)")
     e = params["moe_gate"].shape[-1]
     lead, d = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, d)

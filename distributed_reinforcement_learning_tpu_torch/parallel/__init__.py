@@ -1,1 +1,40 @@
-"""Partition rules of the port's parameters (the weight plane's shard plans)."""
+"""Parallel learners: the mesh of ranks, the sharded learner, the
+multi-process join, and the partition rules of the weight plane.
+
+Exports what the JAX package's `parallel/__init__.py` exports, except
+item 13c's sequence and pipeline parallelism (`ring_attention`,
+`ulysses_attention`, `pipeline_apply`, `stack_stage_params`)."""
+
+from distributed_reinforcement_learning_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    data_sharding,
+    make_mesh,
+    model_kernel_sharding,
+    place_local_batch,
+    replicated,
+)
+from distributed_reinforcement_learning_tpu_torch.parallel.learner import (
+    ShardedLearner,
+    train_state_sharding,
+)
+from distributed_reinforcement_learning_tpu_torch.parallel import distributed
+
+__all__ = [
+    "DATA_AXIS",
+    "EXPERT_AXIS",
+    "MODEL_AXIS",
+    "PIPE_AXIS",
+    "SEQ_AXIS",
+    "distributed",
+    "ShardedLearner",
+    "data_sharding",
+    "make_mesh",
+    "model_kernel_sharding",
+    "place_local_batch",
+    "replicated",
+    "train_state_sharding",
+]

@@ -28,8 +28,9 @@ tree with flax names, it gives the JAX package's plan.
 `build_exchange_plan` lays the same classes over the learner tier's
 flat gradient vector (`parallel/collective.py:ExchangePlan`), walking
 the parameter dict in its own order, the order of
-`runtime/learner_tier.flatten_tree`. Left out: every device mesh,
-ROADMAP item 13b.
+`runtime/learner_tier.flatten_tree`. The mesh axis names live in
+`parallel/mesh.py`, and the placement of a leaf on a mesh of ranks in
+`parallel/learner.py:train_state_sharding`.
 """
 
 from __future__ import annotations
@@ -41,12 +42,8 @@ import numpy as np
 
 from distributed_reinforcement_learning_tpu_torch.data import codec
 
-# The mesh axis names of the JAX package's `parallel/mesh.py`.
-PIPE_AXIS = "pipe"
-DATA_AXIS = "data"
-SEQ_AXIS = "seq"
-EXPERT_AXIS = "expert"
-MODEL_AXIS = "model"
+from distributed_reinforcement_learning_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS)
 
 # Leaves below this many elements stay replicated whatever rule their
 # name matches: the weight plane pools small leaves into the replicated

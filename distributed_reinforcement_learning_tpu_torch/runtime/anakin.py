@@ -51,12 +51,12 @@ class AnakinState:
 
 
 def refuse_mesh(mesh) -> None:
-    """Raise a ValueError naming ROADMAP item 13 for any `mesh` argument:
-    the loops run on one device (`runtime/anakin_mesh.py`)."""
+    """Raise a ValueError naming ROADMAP item 13b-ii for any `mesh`
+    argument: the loops run on one device (`runtime/anakin_mesh.py`)."""
     if mesh is not None:
         raise ValueError("the on-device loops run on one device: a mesh (envs and ring shards "
                          "over a data axis, the gradient mean across devices) needs the device "
-                         "mesh of ROADMAP item 13, which is not ported")
+                         "mesh of ROADMAP item 13b-ii, which is not ported")
 
 
 def check_env(env, obs_shape, num_actions: int, head: str, exact_obs: bool = True) -> None:

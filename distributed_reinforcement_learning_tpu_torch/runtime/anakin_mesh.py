@@ -5,7 +5,7 @@ None: one device holds the envs, the ring and the learner, the local
 batch is the batch, the local env count is the env count, and the
 metric reducers are the identity. The multi-device part (per-device ring
 shards over a data axis, a gradient mean across devices, the IS weights
-normalised by the global batch max) needs ROADMAP item 13's device mesh:
+normalised by the global batch max) needs the Anakin mesh of ROADMAP item 13b-ii:
 a `mesh` argument is refused by name (`anakin.refuse_mesh`).
 """
 

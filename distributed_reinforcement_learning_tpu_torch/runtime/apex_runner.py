@@ -30,7 +30,10 @@ Counterpart of the JAX package's `runtime/apex_runner.py`:
   at most `DRAIN_CAP` ingest calls between train calls, where the JAX
   package's solo learner drains until the queue is empty.
 
-Not ported: the mesh (ROADMAP item 13).
+With `mesh=` the learner is one rank of a sharded learner
+(`parallel/learner.py`; `ReplayTrainMixin._init_mesh`): it samples its
+own `batch_size / data` rows, one update a call, and writes back its
+rows of the global |TD|.
 """
 
 from __future__ import annotations
@@ -290,10 +293,14 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         updates_per_call: int = 1,
         replay_service=None,
         init_seed: int = 0,
+        mesh=None,
     ):
         """`init_seed` seeds the initial parameters (the JAX learner's
         `rng`, default `PRNGKey(0)`); `seed` seeds only the replay's
-        sampling stream `RandomState(seed)`, as the JAX learner's does."""
+        sampling stream `RandomState(seed)`, as the JAX learner's does.
+        `mesh` (a `parallel/mesh.RankMesh` splitting the data) makes this
+        one rank of a sharded learner (`ReplayTrainMixin._init_mesh`),
+        one update a call."""
         self.agent = agent
         self.queue = queue
         self.weights = weights
@@ -305,11 +312,11 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         print(f"[apex learner] replay: {describe_replay(self.replay)}", file=sys.stderr,
               flush=True)
         self.target_sync_interval = target_sync_interval
-        self._init_stride(updates_per_call)
+        self._init_stride(updates_per_call, mesh)
         self.train_start_unrolls = train_start_unrolls
         self.logger = logger or MetricsLogger(None)
         self.init_seed, self.replay_seed = init_seed, seed  # logged by the runs
-        self.state = agent.sync_target(agent.init_state(init_seed))
+        self.state = self._init_mesh(mesh, init_seed)
         self._np_rng = np.random.RandomState(seed)
         self.publish_interval = max(1, publish_interval)
         self.ingested_unrolls = 0
@@ -486,7 +493,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         with self.timer.stage("replay_update"):
             # Deliberate sync: re-prioritisation targets the host sum tree
             # (the service only enqueues; its router thread applies it).
-            replay.update_batch(idxs, td.cpu().numpy())
+            replay.update_batch(idxs, self._own_rows(td).cpu().numpy())
         return metrics
 
     def close(self) -> None:

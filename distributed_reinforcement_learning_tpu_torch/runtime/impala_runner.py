@@ -18,7 +18,11 @@ Counterpart of the JAX package's `runtime/impala_runner.py`:
   the learner loop in one process; the multi-process topology goes
   through `runtime/transport.py`.
 
-Not ported: the mesh (ROADMAP item 13).
+With `mesh=` the learner is one rank of a sharded learner
+(`parallel/learner.py`, the JAX learner's `mesh=`): its queue holds its
+own rows (`batch_size / data` a rank), `place_local_batch` or the
+prefetcher (with `stack_sharding` for K > 1) puts them on its device,
+and the learn step reduces across the ranks.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from distributed_reinforcement_learning_tpu_torch.data.structures import (
     ImpalaTrajectoryAccumulator, SlicedAccumulators)
 from distributed_reinforcement_learning_tpu_torch.envs.batched import completed_returns
 from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
+from distributed_reinforcement_learning_tpu_torch.parallel.mesh import place_local_batch
 from distributed_reinforcement_learning_tpu_torch.runtime.actor_pipeline import (
     PipelineSlice, run_actor_thread, shape_life_loss, slice_seed, split_batched_env,
     sync_slices_params)
@@ -222,11 +227,16 @@ class ImpalaLearner(PublishCadenceMixin):
         publish_interval: int = 1,
         prefetch: bool = False,
         updates_per_call: int = 1,
+        mesh=None,
     ):
         """`seed` seeds the initial parameters (the JAX learner's `rng`;
         this learner has no replay). `updates_per_call` K > 1 runs K
         optimizer steps a call, with weights published at K-step
-        granularity."""
+        granularity. `mesh` (a `parallel/mesh.RankMesh` splitting the
+        data) makes this one rank of a sharded learner: its batches are
+        its own rows, the learn step goes through
+        `parallel/learner.ShardedLearner` (gradients summed across the
+        ranks), and every rank starts from rank 0's parameters."""
         self.agent = agent
         self.queue = queue
         self.weights = weights
@@ -238,14 +248,29 @@ class ImpalaLearner(PublishCadenceMixin):
         # stacked and copied while batch k trains (with K > 1 the K
         # batches of the next call, as one stack). Off in run_sync (a
         # background consumer would race the deterministic interleave).
+        self._sharded = self._batch_sharding = None
+        if mesh is not None:
+            from distributed_reinforcement_learning_tpu_torch.parallel.learner import (
+                runner_learner)
+            from distributed_reinforcement_learning_tpu_torch.parallel.mesh import data_sharding
+
+            self._sharded = runner_learner(agent, mesh, 1)
+            self._batch_sharding = data_sharding(mesh)
         self.prefetcher = None
         if prefetch:
             from distributed_reinforcement_learning_tpu_torch.data.prefetch import (
                 DevicePrefetcher)
 
-            self.prefetcher = DevicePrefetcher(queue, batch_size, agent.device,
-                                               stack_calls=self.updates_per_call)
-        self.state = agent.init_state(seed)
+            # With K > 1 over a mesh the stack has its own placement (B on
+            # the data axis, K whole).
+            self.prefetcher = DevicePrefetcher(
+                queue, batch_size, agent.device, stack_calls=self.updates_per_call,
+                sharding=self._batch_sharding,
+                stack_sharding=(self._sharded.stacked_data_sharding
+                                if self._sharded is not None and self.updates_per_call > 1
+                                else None))
+        self.state = (self._sharded.init_state(seed) if self._sharded is not None
+                      else agent.init_state(seed))
         self.train_steps = 0
         self.frames_learned = 0
         self.timer = StageTimer(self.logger)
@@ -255,10 +280,15 @@ class ImpalaLearner(PublishCadenceMixin):
     def _learn(self, state, batch):
         """The seam every K = 1 learn step goes through (the agent's
         `learn`); the learner tier rebinds it, and `_learn_many`, on the
-        instance (`runtime/learner_tier.LearnerTier.attach`)."""
+        instance (`runtime/learner_tier.LearnerTier.attach`). Over a mesh,
+        the sharded learner's."""
+        if self._sharded is not None:
+            return self._sharded.learn(state, batch)
         return self.agent.learn(state, batch)
 
     def _learn_many(self, state, batch):
+        if self._sharded is not None:
+            return self._sharded.learn_many(state, batch)
         return self.agent.learn_many(state, batch)
 
     def save_checkpoint(self, ckpt) -> None:
@@ -308,13 +338,22 @@ class ImpalaLearner(PublishCadenceMixin):
             return None
         steps_done = k if batch is not None else len(parts)
         with self.timer.stage("learn"):
+            # Over a mesh a batch from the queue is this rank's rows, put
+            # on its device (the prefetcher places its own).
+            place = self._batch_sharding is not None and self.prefetcher is None
             if k > 1 and batch is not None:
+                if place:
+                    batch = place_local_batch(batch, self._sharded.stacked_data_sharding)
                 self.state, stacked = self._learn_many(self.state, batch)
                 metrics = tree_map(lambda x: x[-1], stacked)
             elif k > 1:
                 for b in parts:
+                    if place:
+                        b = place_local_batch(b, self._batch_sharding)
                     self.state, metrics = self._learn(self.state, b)
             else:
+                if place:
+                    batch = place_local_batch(batch, self._batch_sharding)
                 self.state, metrics = self._learn(self.state, batch)
         frames = steps_done * self.batch_size * self.agent.cfg.trajectory
         self.train_steps += steps_done

@@ -71,23 +71,64 @@ def _is_atari(rt: RuntimeConfig) -> bool:
     return any("v4" in e for e in rt.envs)
 
 
-def make_agent(algo: str, agent_cfg: Any, device: str | torch.device | None = None):
-    """The agent of family `algo` on `device` (an act-serving replica's)."""
+# Families whose learn step can shard beyond data parallelism (ring,
+# pipeline, expert): the JAX package's transformer families.
+_TRANSFORMER_ALGOS = ("xformer", "ximpala")
+
+
+def mesh_axes_for(agent_cfg: Any, rt: RuntimeConfig) -> tuple[int, int, int]:
+    """(seq, pipe, expert) axis sizes the learner mesh should carve for
+    this config, the JAX package's rule: a pipeline forces the seq axis
+    to 1 and takes `pipeline_stages` (else `num_layers`) stages; the
+    expert axis counts only with experts."""
+    pipelined = getattr(agent_cfg, "pipeline", False)
+    return (
+        1 if pipelined else rt.seq_parallel,
+        (getattr(agent_cfg, "pipeline_stages", 0)
+         or getattr(agent_cfg, "num_layers", 1)) if pipelined else 1,
+        rt.expert_parallel if getattr(agent_cfg, "num_experts", 0) else 1,
+    )
+
+
+def needs_sharded_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig) -> bool:
+    """True when the learn step is sharded beyond data parallelism
+    (sequence-parallel attention, a pipeline, experts over an expert
+    axis): ROADMAP item 13c, which `make_agent` refuses by name."""
+    return algo in _TRANSFORMER_ALGOS and (
+        agent_cfg.attention != "dense"
+        or agent_cfg.pipeline
+        or (agent_cfg.num_experts > 0 and rt.expert_parallel > 1)
+    )
+
+
+def make_agent(algo: str, agent_cfg: Any, device: str | torch.device | None = None,
+               rt: RuntimeConfig | None = None):
+    """The agent of family `algo` on `device` (an act-serving replica's).
+    A config for which `needs_sharded_learner` is true is refused: item
+    13c."""
+    if rt is not None and needs_sharded_learner(algo, agent_cfg, rt):
+        seq, pipe, expert = mesh_axes_for(agent_cfg, rt)
+        raise ValueError(f"{algo}: a learn step sharded beyond the data (seq={seq}, "
+                         f"pipe={pipe}, expert={expert}; attention={agent_cfg.attention!r}) "
+                         "needs the sequence, pipeline and expert axes of ROADMAP item 13c, "
+                         "which is not ported")
     return _AGENT_CLS[algo](agent_cfg, device=device)
 
 
 def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
                  logger: MetricsLogger | None = None, seed: int = 0,
                  device: str | torch.device | None = None, agent=None,
-                 prefetch: bool = False, replay_service=None):
+                 prefetch: bool = False, replay_service=None, mesh=None):
     """The learner of family `algo` over any queue and weight store.
     `prefetch` (IMPALA families) overlaps batch k+1's H2D copy with step k;
     `replay_service` (replay families) is the sharded replay the learner
-    samples while it is healthy (`runtime/replay_shard.build_service`).
+    samples while it is healthy (`runtime/replay_shard.build_service`);
+    `mesh` (a `parallel/mesh.RankMesh` over the data) makes the learner
+    one rank of a sharded learner (`parallel/learner.py`).
     `seed` seeds the initial parameters, as the JAX launcher's
     `rng=PRNGKey(seed)` does; the replay learners keep their sampling
     stream at `RandomState(0)`, the JAX learners' default."""
-    agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
+    agent = agent or make_agent(algo, agent_cfg, device=device, rt=rt)
     if algo in ("apex", *SEQUENCE_REPLAY) and prefetch:
         raise ValueError(f"the {algo} learner samples its batches from the replay; "
                          "it has no queue prefetch")
@@ -96,19 +137,19 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
             target_sync_interval=rt.target_sync_interval, logger=logger, init_seed=seed,
             publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
-            replay_service=replay_service)
+            replay_service=replay_service, mesh=mesh)
     if algo in SEQUENCE_REPLAY:
         cls = xformer_runner.XformerLearner if algo == "xformer" else r2d2_runner.R2D2Learner
         return cls(
             agent, queue, weights, rt.batch_size, replay_capacity=rt.replay_capacity,
             target_sync_interval=rt.target_sync_interval, logger=logger, init_seed=seed,
             publish_interval=rt.publish_interval, updates_per_call=rt.updates_per_call,
-            replay_service=replay_service)
+            replay_service=replay_service, mesh=mesh)
     cls = (ximpala_runner.XImpalaLearner if algo == "ximpala"
            else impala_runner.ImpalaLearner)
     return cls(agent, queue, weights, rt.batch_size, logger=logger, seed=seed,
                publish_interval=rt.publish_interval, prefetch=prefetch,
-               updates_per_call=rt.updates_per_call)
+               updates_per_call=rt.updates_per_call, mesh=mesh)
 
 
 def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, weights,

@@ -32,8 +32,11 @@ the learner has stage timings, a profiler window, checkpoints (with a
 replay snapshot) and the opt-in recent mix (`DRL_R2D2_RECENT_FRACTION`,
 `DRL_R2D2_RECENT_WINDOW`). With `remote_act` the actor's acts go to a
 service as rows (its LSTM state and epsilon with them; the advanced
-state comes back) and it pulls no weights. Not ported: the mesh (ROADMAP
-item 13).
+state comes back) and it pulls no weights. With `mesh=` the learner is
+one rank of a sharded learner (`parallel/learner.py`;
+`ReplayTrainMixin._init_mesh`): it samples its own `batch_size / data`
+rows, one update a call, and writes back its rows of the global
+priorities.
 """
 
 from __future__ import annotations
@@ -237,10 +240,14 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         updates_per_call: int = 1,
         replay_service=None,
         init_seed: int = 0,
+        mesh=None,
     ):
         """`init_seed` seeds the initial parameters (the JAX learner's
         `rng`, default `PRNGKey(0)`); `seed` seeds only the replay's
-        sampling stream `RandomState(seed)`, as the JAX learner's does."""
+        sampling stream `RandomState(seed)`, as the JAX learner's does.
+        `mesh` (a `parallel/mesh.RankMesh` splitting the data) makes this
+        one rank of a sharded learner (`ReplayTrainMixin._init_mesh`),
+        one update a call."""
         self.agent = agent
         self.queue = queue
         self.weights = weights
@@ -271,10 +278,10 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         print(f"[r2d2 learner] replay: {describe_replay(self.replay)}", file=sys.stderr,
               flush=True)
         self.target_sync_interval = target_sync_interval
-        self._init_stride(updates_per_call)
+        self._init_stride(updates_per_call, mesh)
         self.logger = logger or MetricsLogger(None)
         self.init_seed, self.replay_seed = init_seed, seed  # logged by the runs
-        self.state = agent.sync_target(agent.init_state(init_seed))
+        self.state = self._init_mesh(mesh, init_seed)
         self._np_rng = np.random.RandomState(seed)
         self.publish_interval = max(1, publish_interval)
         self.ingested_sequences = 0
@@ -422,7 +429,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
             self.state, priorities, metrics = self._learn(self.state, batch, is_weight)
             # Deliberate sync: re-prioritisation targets the host sum tree
             # (the service only enqueues; its router thread applies it).
-            replay.update_batch(idxs, priorities.cpu().numpy())
+            replay.update_batch(idxs, self._own_rows(priorities).cpu().numpy())
         return metrics
 
     def close(self) -> None:

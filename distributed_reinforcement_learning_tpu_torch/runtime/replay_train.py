@@ -44,6 +44,7 @@ from distributed_reinforcement_learning_tpu_torch.data.device_path import gather
 from distributed_reinforcement_learning_tpu_torch.data.fifo import tree_map
 from distributed_reinforcement_learning_tpu_torch.data.replay_service import ReplayServiceEmpty
 from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
+from distributed_reinforcement_learning_tpu_torch.parallel.mesh import DATA_AXIS, place_local_batch
 
 
 class ReplayTrainMixin:
@@ -51,8 +52,12 @@ class ReplayTrainMixin:
     `replay_service`, `batch_size`, `_np_rng`, `target_sync_interval`,
     `train_steps`, `_train_once(replay)` and `PublishCadenceMixin`."""
 
-    def _init_stride(self, updates_per_call: int = 1) -> None:
+    def _init_stride(self, updates_per_call: int = 1, mesh=None) -> None:
         self.updates_per_call = max(1, int(updates_per_call))
+        if self.updates_per_call > 1 and mesh is not None:
+            raise ValueError(
+                "updates_per_call > 1 is not supported with a sharded mesh "
+                "(the weighted learn_many runs one rank alone)")
         if self.updates_per_call > self.target_sync_interval:
             # Every update of one call trains against a frozen target
             # net: a K that swallows whole sync intervals would silently
@@ -69,11 +74,41 @@ class ReplayTrainMixin:
         self._device_path_demoted = False
         self.device_path_force: bool | None = None
 
+    def _init_mesh(self, mesh, init_seed: int):
+        """The initial train state, and over `mesh` the sharded learner:
+        this learner is then one rank of it (its samples are its own
+        rows, the learn step averages across the ranks, every rank starts
+        from rank 0's parameters, and the global priorities come back,
+        of which it writes back its own rows)."""
+        self._sharded = self._batch_sharding = None
+        if mesh is None:
+            return self.agent.sync_target(self.agent.init_state(init_seed))
+        from distributed_reinforcement_learning_tpu_torch.parallel.learner import runner_learner
+        from distributed_reinforcement_learning_tpu_torch.parallel.mesh import data_sharding
+
+        self._sharded = runner_learner(self.agent, mesh, 2)
+        self._batch_sharding = data_sharding(mesh)
+        return self.agent.sync_target(self._sharded.init_state(init_seed))
+
     def _learn(self, state, batch, is_weight):
         """The seam every K = 1 learn step goes through (the agent's
-        `learn`); the learner tier rebinds it on the instance
+        `learn`, or the sharded learner's over a mesh); the learner tier
+        rebinds it on the instance
         (`runtime/learner_tier.LearnerTier.attach`)."""
+        if self._sharded is not None:
+            batch, is_weight = place_local_batch((batch, is_weight), self._batch_sharding)
+            return self._sharded.learn(state, batch, is_weight)
         return self.agent.learn(state, batch, is_weight)
+
+    def _own_rows(self, priorities):
+        """This learner's rows of a step's per-row outputs: over a mesh the
+        global `[B]` is rank-major, and its samples are rows
+        `data_index * B_local` on (the JAX learner writes the first
+        `B_local` back on every process, ROADMAP F15)."""
+        if self._sharded is None:
+            return priorities
+        i = self._sharded.mesh.coords[DATA_AXIS]
+        return priorities[i * self.batch_size:(i + 1) * self.batch_size]
 
     def _active_replay(self):
         """The replay the train path samples and re-prioritises: the
@@ -120,7 +155,9 @@ class ReplayTrainMixin:
                 DeviceSamplePath, device_path_enabled)
 
             force = self.device_path_force
-            if not (device_path_enabled() if force is None else bool(force)):
+            # A mesh learner stays on the host path, as the JAX learner.
+            if (not (device_path_enabled() if force is None else bool(force))
+                    or self._batch_sharding is not None):
                 self._device_path_demoted = True  # the gate is resolved once
                 return None
             self._device_path = dp = DeviceSamplePath(

@@ -50,8 +50,12 @@ they fail. Under `DRL_WEIGHTS_SHARDED` the learner's store publishes
 per shard and its board is the segmented one; every actor's and
 replica's TCP pull is shard-scoped (`ShardedRemoteWeights`, scoped to
 `DRL_WEIGHTS_KEYS`), demoting itself to the whole-blob op against an
-unsharded store. Left out, each refused with a ValueError that names
-its ROADMAP item: the learner tier and multi-host learners (item 13).
+unsharded store. A learner under `DRL_COORDINATOR` / `DRL_NUM_PROCESSES`
+/ `DRL_PROCESS_ID` is one rank of a multi-process learner
+(`parallel/distributed.py`, `parallel/learner.py`); other roles ignore
+those names, as in the JAX package. Left out, each refused with a
+ValueError that names its ROADMAP item: sequence, pipeline and expert
+axes (item 13c) and the Anakin loops over a multi-process group (13b-ii).
 The learner's queue is
 `_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
 wherever the native library builds, else the Python `TrajectoryQueue`.
@@ -1491,10 +1495,41 @@ def refuse_unported(mode: str, algo: str) -> None:
     if mode == "anakin" and algo not in ANAKIN_FAMILIES:
         raise ValueError(f"--mode anakin: the on-device loops (ROADMAP item 14) run "
                          f"{', '.join(ANAKIN_FAMILIES)}; the JAX package has none for {algo}")
-    if os.environ.get("DRL_COORDINATOR", "").strip():
-        raise ValueError("multi-host learners (DRL_COORDINATOR) are not ported "
-                         "(ROADMAP item 13b); the learner tier (DRL_LEARNER_SEATS, "
-                         "DRL_LEARNER_PEERS) is")
+    from distributed_reinforcement_learning_tpu_torch.parallel import distributed
+
+    if mode == "anakin" and distributed.requested():
+        raise ValueError("--mode anakin over a multi-process learner group (DRL_COORDINATOR): "
+                         "the Anakin mesh is ROADMAP item 13b-ii, which is not ported")
+
+
+def _multihost_mesh(algo: str, agent_cfg, rt, world: int):
+    """-> (rt with this rank's `batch_size / world`, the data mesh) for a
+    learner group of `world` ranks, or the JAX package's refusals: a
+    batch that does not divide, a config whose learn step shards beyond
+    the data (item 13c by name), a group with no mesh to run."""
+    import dataclasses
+
+    from distributed_reinforcement_learning_tpu_torch.parallel.mesh import make_mesh
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch
+
+    if rt.batch_size % world:
+        raise ValueError(f"batch_size {rt.batch_size} not divisible by {world} processes")
+    seq, pipe, expert = launch.mesh_axes_for(agent_cfg, rt)
+    inner = pipe * expert * seq
+    data_axis = world // inner if world % inner == 0 else 0
+    if world > 1 and data_axis > 0 and rt.batch_size % data_axis == 0:
+        mesh = make_mesh(seq_parallel=seq, pipe_parallel=pipe, expert_parallel=expert)
+    elif inner > 1 and launch.needs_sharded_learner(algo, agent_cfg, rt):
+        why = (f"device count {world} is not divisible by the inner axes product {inner}"
+               if world % inner else f"batch_size {rt.batch_size} is not divisible by the "
+               f"data axis ({world}//{inner} = {world // inner})")
+        raise ValueError(f"config requires a sharded learner (seq={seq}, pipe={pipe}, "
+                         f"expert={expert}) but no valid mesh fits on {world} devices: {why}")
+    else:
+        # N independent learners would diverge: refused, as in JAX.
+        raise ValueError(f"multi-host learner needs batch_size divisible by the global device "
+                         f"count ({rt.batch_size} global batch, {world} devices)")
+    return dataclasses.replace(rt, batch_size=rt.batch_size // world), mesh
 
 
 def _make_queue(capacity: int):
@@ -1566,6 +1601,16 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     seat of the learner tier (`runtime/learner_tier.py`): it serves on
     the base port + its rank, creates the shared board only while it
     publishes, and its JSON holds the tier's counters (`tier`).
+
+    With `DRL_COORDINATOR`, `DRL_NUM_PROCESSES` and `DRL_PROCESS_ID`
+    (the launcher's `--learners N` without a tier sync) the learner is
+    one rank of a multi-process learner (`parallel/distributed.py`): on
+    `cuda:{rank % devices}` (or the CPU), it serves on the base port +
+    its rank, takes `batch_size / N` rows a step from its own data plane,
+    and runs each learn step with the other ranks over a data mesh
+    (`parallel/learner.py`). Every rank restores the checkpoint; only
+    rank 0 writes it. Its JSON holds the group's rank, world, backend,
+    mesh and the gradient reduction's ms and bytes (`multihost`).
     -> the printed dict."""
     from distributed_reinforcement_learning_tpu_torch.runtime import fleet as fleet_mod
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
@@ -1604,12 +1649,31 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         # collective; one elected seat publishing to the shared board).
         # None: the single learner, untouched. The endpoint comes up
         # first, so that peers' startup barriers find it.
+        from distributed_reinforcement_learning_tpu_torch.parallel import distributed
+
         tier = learner_tier.build_tier()
+        if tier is not None and distributed.requested():
+            tier.close()
+            raise ValueError("the learner tier (DRL_LEARNER_SEATS, ROADMAP item 13a) and the "
+                             "multi-process learner (DRL_COORDINATOR, item 13b) are different "
+                             "scale-out planes: pick one")
         if tier is not None:
             tier.start()
             port += tier.rank
             print(f"[learner] tier seat {tier.rank}/{tier.seats} (sync={tier.sync}, "
                   f"publisher={tier.is_publisher()})", flush=True)
+        # The multi-process learner: a no-op without the env names. Each
+        # rank serves its own data plane on the base port + its rank and
+        # takes batch_size / N rows a step; the mesh splits the data.
+        multihost = distributed.initialize(device=device)
+        rank, world = distributed.process_info()
+        mesh = None
+        if multihost:
+            device = distributed.device()
+            port += rank
+            rt, mesh = _multihost_mesh(algo, agent_cfg, rt, world)
+            print(f"[learner] multi-host: process {rank}/{world}, local batch "
+                  f"{rt.batch_size}, mesh {mesh.shape}", flush=True)
         queue = _make_queue(rt.queue_size)
         weights = WeightStore()
         # Co-hosted actors' publish-once weight plane: the launcher names
@@ -1642,7 +1706,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             learner = launch.make_learner(
                 algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir), seed=seed,
                 device=device, prefetch=algo in ("impala", "ximpala"),
-                replay_service=replay_service)
+                replay_service=replay_service, mesh=mesh)
             if tier is not None:
                 # Rebind the learn seam with the collective exchange
                 # (allreduce refuses a family without the split step).
@@ -1683,6 +1747,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             ckpt = Checkpointer(checkpoint_dir)
             if learner.restore_checkpoint(ckpt):
                 print(f"[learner] resumed from step {learner.train_steps}", flush=True)
+            if rank != 0:
+                ckpt = None  # every rank restores; only rank 0 writes
         inference = None
         if serve_inference:
             from distributed_reinforcement_learning_tpu_torch.runtime.inference import (
@@ -1721,7 +1787,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             if ring_drainer is not None:
                 print(f"[learner] shm rings serving {len(ring_names)} co-hosted actor(s)",
                       flush=True)
-        if maybe_configure("learner", tier.rank if tier is not None else 0, run_dir):
+        if maybe_configure("learner", tier.rank if tier is not None else rank, run_dir):
             _OBS.sample("transport/queue_depth", queue.size)
             _OBS.sample("learner/weight_version", lambda: weights.version)
             if weights.sharded:
@@ -1810,6 +1876,14 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                               **tier.snapshot_stats(),
                               "collective": tier.collective.snapshot_stats()}
                 tier.close()  # stop the sweep and the collective endpoint
+            multihost_stats = None
+            if multihost:
+                reducer = learner._sharded.reducer
+                multihost_stats = {
+                    "rank": rank, "world": world, "backend": distributed.backend(),
+                    "mesh": mesh.shape, "reduce_ms": [ms for ms, _ in reducer.records],
+                    "reduce_bytes": [b for _, b in reducer.records]}
+                distributed.shutdown()
             _OBS.close()
         print(f"[learner] done: {learner.train_steps} updates", flush=True)
         calls = Counter(first_calls) + Counter(learner.timer.run_counts())
@@ -1845,6 +1919,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "weight_shards": weights.shard_stats() if weights.sharded else None,
             "inference": None if inference is None else inference.stats(),
             "tier": tier_stats,
+            "multihost": multihost_stats,
             "peak_device_mib": (torch.cuda.max_memory_allocated(device) / 2**20
                                 if device.type == "cuda" else None),
         }

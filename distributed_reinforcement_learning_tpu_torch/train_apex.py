@@ -13,8 +13,9 @@ cut to a multiple of the write width), `updates_per_call` learns a
 collect. Every mode runs on CUDA unless `--device` names another device.
 Served acts as in `train_impala.py` (`--serve_inference`, `--remote_act`,
 `--mode inference`), and the opt-in planes `DRL_WEIGHTS_SHARDED` and
-`DRL_DEVICE_PATH`. What `train_impala.py` refuses, this refuses: the
-learner tier (item 13).
+`DRL_DEVICE_PATH`, and the multi-process learner (item 13b). What
+`train_impala.py` refuses, this refuses: the sequence and expert axes
+(item 13c) and the Anakin mesh (item 13b-ii).
 """
 
 from __future__ import annotations

@@ -33,9 +33,12 @@
   `data/device_path.py`). Both are off unless set.
 
 Every mode runs on CUDA unless `--device` names another device: start
-actors with `--device cpu` to keep them off the card. Not ported, and
-refused with a ValueError naming the ROADMAP item: the learner tier and
-multi-host learners (item 13).
+actors with `--device cpu` to keep them off the card. A learner under
+`DRL_COORDINATOR` / `DRL_NUM_PROCESSES` / `DRL_PROCESS_ID` is one rank
+of a multi-process learner (ROADMAP item 13b; `runtime/transport.run_role`).
+Not ported, and refused with a ValueError naming the ROADMAP item: the
+sequence, pipeline and expert axes (item 13c), and `--mode anakin` over
+a multi-process group (the Anakin mesh, item 13b-ii).
 """
 
 from __future__ import annotations

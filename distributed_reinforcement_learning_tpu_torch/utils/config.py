@@ -6,7 +6,7 @@ into an agent config and a `RuntimeConfig` and applies the same
 validation (actor, env and action-set counts agree). Keys that select
 what the port does not run yet raise instead of being ignored: the
 transformer features that need a mesh (sequence-parallel attention, the
-pipeline, `seq_parallel` or `expert_parallel` > 1: ROADMAP item 13).
+pipeline, `seq_parallel` or `expert_parallel` > 1: ROADMAP item 13c).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class RuntimeConfig:
     # Optimizer steps per train call (every family).
     updates_per_call: int = 1
     # Devices on a mesh's `seq` and `expert` axes (transformer families):
-    # 1 on one device; more raises (ROADMAP item 13).
+    # 1 on one device; more raises (ROADMAP item 13c).
     seq_parallel: int = 1
     expert_parallel: int = 1
     # r2d2 / xformer actors: residual exploration floor (None = the
@@ -75,7 +75,7 @@ def load_config(path: str | Path, section: str):
     for key in ("seq_parallel", "expert_parallel"):
         if d.get(key, 1) > 1:
             raise ValueError(f"{key}={d[key]} needs a mesh, which is not ported "
-                             "(ROADMAP item 13)")
+                             "(ROADMAP item 13c)")
     rt = RuntimeConfig(
         server_ip=d.get("server_ip", "localhost"),
         server_port=d.get("server_port", 8000),

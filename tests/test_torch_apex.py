@@ -22,6 +22,7 @@
 """
 
 import dataclasses
+import json
 from pathlib import Path
 
 import jax
@@ -388,13 +389,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
     (["--mode", "learner", "--serve_inference"], "item 13"),
     (["--mode", "actor", "--task", "0", "--remote_act"], "item 13"),
 ])
-def test_unported_modes_raise(argv, item, monkeypatch):
-    # Serving acts, the on-device loop and the learner tier are ported:
-    # their modes and flags still refuse the plane that is not, here
-    # multi-host learners (item 13b).
-    monkeypatch.setenv("DRL_COORDINATOR", "localhost:1")
+def test_unported_modes_raise(argv, item, tmp_path):
+    # Serving acts, the on-device loop, the learner tier and the
+    # multi-process learner are ported: their modes and flags still
+    # refuse the plane that is not, here a sequence axis (item 13c).
+    cfg = json.loads(CONFIG.read_text())
+    cfg["apex"]["seq_parallel"] = 2
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
     with pytest.raises(ValueError, match=item):
-        train_apex.main(["--config", str(CONFIG), "--device", "cpu", *argv])
+        train_apex.main(["--config", str(path), "--device", "cpu", *argv])
 
 
 def _unrolls(n=4, seed=0):

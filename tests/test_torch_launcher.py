@@ -90,10 +90,12 @@ def test_launch_trains_through_rings_and_board(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--learners", "2"], "item 13"),
+    # The multi-process learner group (item 13b) is ported; it restarts
+    # only whole, so a respawn policy beside it is refused.
+    (["--learners", "2", "--respawn", "on-exit"], "item 13"),
     (["--learner_sync", "async"], "item 13"),
-    # Serving acts is ported; beside it the other planes are still refused.
-    (["--serve_inference", "--remote_act", "--learners", "2"], "item 13"),
+    # Serving acts is ported; beside it the other refusals still hold.
+    (["--serve_inference", "--remote_act", "--learners", "2", "--chaos"], "item 13"),
     # Sharded publication is ported: these parse (None: no refusal).
     (["--serve_inference", "--remote_act", "--inference_replicas", "2",
       "--weights_sharded", "1"], None),

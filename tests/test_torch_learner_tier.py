@@ -799,7 +799,7 @@ def test_launcher_runs_two_apex_seats_under_allreduce(tmp_path):
 
 
 @pytest.mark.parametrize("argv, msg", [
-    (["--learners", "2"], "item 13b"),
+    (["--learners", "2", "--learner_sync", "multihost", "--respawn", "on-exit"], "item 13b"),
     (["--learners", "2", "--learner_sync", "allreduce", "--section", "r2d2"],
      "use --learner_sync async for 'r2d2'"),
     (["--learners", "2", "--learner_sync", "async", "--respawn", "on-exit"],

@@ -234,17 +234,20 @@ def _stop_after_sharded_pulls(server, pulls: int):
 
 
 # Each case names the plane by its JAX variable. Items 12e (sharded
-# publication), 16 (the device sample path) and 13a (the learner tier) are
-# ported: those cases run the role with the plane on (None; a seat count
-# without a seat identity is the single learner, as in the JAX package);
-# item 13b's are refused by name.
+# publication), 16 (the device sample path), 13a (the learner tier) and
+# 13b (the multi-process learner) are ported: those cases run the role
+# with the plane on (None; a seat count without a seat identity is the
+# single learner, as in the JAX package); the tier together with a
+# learner group is refused, naming both items.
 @pytest.mark.parametrize("mode, env, item", [
     ("inference", {"DRL_WEIGHTS_KEYS": "rep"}, None),
     ("anakin", {"DRL_DEVICE_PATH": "1"}, None),
     ("learner", {"DRL_WEIGHTS_SHARDED": "on"}, None),
     ("actor", {"DRL_WEIGHTS_SHARDED": "1"}, None),
     ("learner", {"DRL_LEARNER_SEATS": "2"}, None),
-    ("learner", {"DRL_COORDINATOR": "localhost:1234"}, "item 13"),
+    ("learner", {"DRL_COORDINATOR": "localhost:1234", "DRL_NUM_PROCESSES": "2",
+                 "DRL_PROCESS_ID": "0", "DRL_LEARNER_RANK": "0",
+                 "DRL_LEARNER_PEERS": "127.0.0.1:1,127.0.0.1:2"}, "item 13"),
     ("learner", {"DRL_DEVICE_PATH": "1"}, None),
     ("learner", {"DRL_WEIGHTS_SHARDED": "1"}, None),
 ])
@@ -295,13 +298,16 @@ def test_unported_planes_are_refused_by_name(mode, env, item, monkeypatch):
         weight_shards.refresh_flags()
 
 
-def test_serving_flags_are_refused(monkeypatch):
+def test_serving_flags_are_refused(tmp_path):
     """Serving acts is ported: the flags are refused only beside a plane
-    that is not (here multi-host learners, ROADMAP item 13b)."""
-    monkeypatch.setenv("DRL_COORDINATOR", "localhost:1234")
+    that is not (here a sequence axis, ROADMAP item 13c)."""
+    cfg = json.loads(CONFIG.read_text())
+    cfg["impala_cartpole"]["seq_parallel"] = 2
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
     with pytest.raises(ValueError, match="item 13"):
-        run_role("impala", str(CONFIG), "impala_cartpole", "learner", 0, device="cpu",
+        run_role("impala", str(path), "impala_cartpole", "learner", 0, device="cpu",
                  serve_inference=True)
     with pytest.raises(ValueError, match="item 13"):
-        run_role("impala", str(CONFIG), "impala_cartpole", "actor", 0, device="cpu",
+        run_role("impala", str(path), "impala_cartpole", "actor", 0, device="cpu",
                  remote_act=True)

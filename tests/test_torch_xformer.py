@@ -377,13 +377,16 @@ def test_full_width_sections_train_through_the_launcher(section, tmp_path, monke
 
 
 @pytest.mark.parametrize("mode, item", [("inference", "item 13"), ("anakin", "item 14")])
-def test_unported_modes_raise_by_name(mode, item, monkeypatch):
-    # Serving acts is ported: an act-serving replica still refuses the
-    # multi-host learners (ROADMAP item 13); this family has no on-device
-    # loop (item 14).
-    monkeypatch.setenv("DRL_COORDINATOR", "127.0.0.1:1")
+def test_unported_modes_raise_by_name(mode, item, tmp_path):
+    # Serving acts is ported: an act-serving replica still refuses a
+    # sequence axis (ROADMAP item 13c); this family has no on-device loop
+    # (item 14).
+    cfg = json.loads(CONFIG.read_text())
+    cfg["xformer"]["seq_parallel"] = 2
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
     with pytest.raises(ValueError, match=item):
-        train_xformer.main(["--config", str(CONFIG), "--mode", mode, "--device", "cpu"])
+        train_xformer.main(["--config", str(path), "--mode", mode, "--device", "cpu"])
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
