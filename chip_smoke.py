@@ -14,17 +14,20 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the main path's shape and larger ones, then time both (CUDA events
    over many eager calls, and per call inside a replayed CUDA graph,
    with the inputs rotated past the 50 MB L2 cache where they fit).
-   V-trace (K1) at six shapes (with (18, 20), Anakin IMPALA's on the
-   impala section, and (18, 16), a rank's of the sharded impala learner
-   at data 2, phase 46) and on a set of NaN, +inf and -inf
+   V-trace (K1) at seven shapes (with (18, 20), Anakin IMPALA's on the
+   impala section, (18, 16), a rank's of the sharded impala learner
+   at data 2, phase 46, and (18, 10), a rank's of Anakin IMPALA at data
+   2, phase 47) and on a set of NaN, +inf and -inf
    log-rhos, with and without the rho clip, each bit for bit equal to
    its plain version; each K1 call must make one kernel launch and run
    no other kernel, and ptxas may report no stack or spills for it.
    The LSTM forward and backward (K2a,
    K2b) at (T, B, H) = (10, 32, 512) and (10, 16, 512) (the r2d2 learn
    step and ingest), (20, 32, 256) and (20, 16, 256) (the r2d2_pixel
-   learn step and ingest), (20, 256, 512) and (30, 32, 256), with ~15%
-   dones, each kernel against its plain
+   learn step and ingest), (20, 256, 512) and (30, 32, 256), and the
+   Anakin ingest shapes, `anakin_r2d2_train`'s (with (10, 6, 512), a rank's Anakin
+   R2D2 ingest at data 2, phase 47), with ~15% dones, each kernel
+   against its plain
    version and the gradients through `LSTMFunction` against autograd of
    the plain loop; the profiler may record no more than one device
    kernel per LSTM call (the persistent kernels), and the log gives each
@@ -377,14 +380,32 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    and no segment is left in /dev/shm. Logs each rank's backend, the
    learn-step ms against the plain step, the reduction's ms p50 and bytes
    a step, and the bytes a rank holds, beside the nvidia-smi line.
-47. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
-   paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's, 45's
-   and 46's launches beside phase 4's, and its times at phase 38's and
-   46's shapes; K2a and K2b phase 20's, 26's, 32's, 40's, 42's, 43's,
-   44's, 45's and 46's beside phase 6's; K3a, K3b and K3c phase 23's,
-   45's and 46's beside phase 9's, and K3a phases 34's and 36's with its
-   times at the served batch shapes).
-48. The device line, then `{"ok": true, "device": {...}}` as the last line.
+47. The Anakin mesh (`runtime/anakin_mesh.py`) and the mesh-sharded
+   tier seat, each rank a child process as in phase 46, on the card's
+   deterministic algorithms. (a) A world of one over NCCL: Anakin
+   IMPALA (20 Breakout envs), Ape-X and R2D2 at phases 38-40's widths,
+   a warm update then 3 updates each, the parameters bit for bit the
+   plain loop's from the same seed, the launches equal (K1 6; K2a 12 and
+   K2b 3; none). (b) Two ranks on cuda:0 over gloo at data 2 (K1 at
+   (18, 10); K2a at (10, 6, 512) on ingest and (10, 16, 512) on learn):
+   the ranks bit for bit equal, `replay_size` the global count, each
+   rank half the ring's bytes, the plain loop's launches a rank; Anakin
+   IMPALA at data 1 x model 2 holding 40-60% of the state a rank and
+   within rtol 1e-4 + 1% lr of the plain loop. (c) Two `apex` tier
+   seats, each two ranks at model 2 (4 processes) under allreduce for 3
+   steps: the seats bit for bit equal, within rtol 1e-3 (Adam's
+   noise-floor elements within its bound) of the union-batch sharded
+   learner, 3 owner-scoped rounds with `-,model` bytes, each seat's
+   publish whole. Logs ms an update against the single-device loop, the
+   reductions' ms p50 and bytes, beside the nvidia-smi line.
+48. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+   paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's-47's
+   launches beside phase 4's, and its times at phase 38's, 46's and
+   47's shapes; K2a and K2b phase 20's, 26's, 32's, 40's, 42's-47's
+   beside phase 6's; K3a, K3b and K3c phase 23's, 45's and 46's beside
+   phase 9's, and K3a phases 34's and 36's with its times at the served
+   batch shapes).
+49. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29,
@@ -427,6 +448,7 @@ from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention a
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
 from distributed_reinforcement_learning_tpu_torch.ops.kernels import vtrace as kvt
 from distributed_reinforcement_learning_tpu_torch.ops.lstm import _scan_reference
+from distributed_reinforcement_learning_tpu_torch.parallel.learner import ShardedLearner
 from distributed_reinforcement_learning_tpu_torch.runtime.launch import build_local
 from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
 
@@ -438,8 +460,9 @@ MAIN_SHAPE = (18, 32)  # V-trace at the impala section: T = trajectory - 2, B = 
 ANAKIN_SHAPE = (18, 20)  # V-trace in Anakin IMPALA on the impala section: B = its 20 envs
 BREAKOUT_DRIVER_SHAPE = (18, 128)  # V-trace in the Breakout driver (phase 44): its 128 envs
 SHARDED_SHAPE = (18, 16)  # V-trace in a rank of the sharded impala learner at data 2 (phase 46)
-SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHARDED_SHAPE, (20, 256),
-          (20, 65536)]
+ANAKIN_MESH_SHAPE = (18, 10)  # V-trace in a rank of Anakin IMPALA at data 2 (phase 47): 10 envs
+SHAPES = [MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHARDED_SHAPE, ANAKIN_MESH_SHAPE,
+          (20, 256), (20, 65536)]
 UPDATES = 3
 R2D2_UPDATES = 3  # warm-up takes 6 rounds of 12 sequences, so 8 rounds in all
 # LSTM (T, B, H): the r2d2 learn step and ingest (12 sequences padded to
@@ -455,8 +478,11 @@ LSTM_ANAKIN_INGEST = [(10, 12, 512), (20, 12, 256)]
 # The R2D2 driver's learn step (phase 44 (b)): batch 64 at H 256; its
 # ingest of 32 envs' sequences is LSTM_PIXEL's shape.
 LSTM_R2D2_DRIVER = (20, 64, 256)
+# A rank's ingest of Anakin R2D2 at data 2 on the r2d2 section (phase 47):
+# its 6 of the 12 envs. Its learn step is LSTM_INGEST's shape.
+LSTM_ANAKIN_MESH_INGEST = (10, 6, 512)
 LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, LSTM_PIXEL, (20, 16, 256), (20, 256, 512),
-               (30, 32, 256), *LSTM_ANAKIN_INGEST, LSTM_R2D2_DRIVER]
+               (30, 32, 256), *LSTM_ANAKIN_INGEST, LSTM_R2D2_DRIVER, LSTM_ANAKIN_MESH_INGEST]
 # Flash attention (B, H, T, D): the ximpala section's act and learn
 # shape, the served ximpala act's buckets of one row and of two actors'
 # rows (phases 34 and 36), bench.py's ximpala_learn shape, and a long
@@ -724,7 +750,8 @@ def phase_vtrace() -> dict:
         log(f"[vtrace] ptxas {kernel}: {line}")
     check_no_spills("vtrace", "vtrace_kernel")
     timings = {}
-    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHARDED_SHAPE, SHAPES[-1]):
+    for T, B in (MAIN_SHAPE, ANAKIN_SHAPE, BREAKOUT_DRIVER_SHAPE, SHARDED_SHAPE,
+                 ANAKIN_MESH_SHAPE, SHAPES[-1]):
         # The main path's 14 KB stay in L2 between its producer and the
         # kernel; the large shape rotates through 4 input sets (127 MB).
         sets = [vtrace_inputs(T, B, seed=i, device="cuda")
@@ -1220,6 +1247,9 @@ def lstm_rows(k2: dict, r2d2: dict, r2d2_default: dict, r2d2_pixel: dict,
             # A rank of the sharded r2d2 learner at data 2 (phase 46): the
             # ingest's shape.
             "sharded_learner": {"shape": list(LSTM_INGEST), **k2["timings"][LSTM_INGEST][tag]},
+            # A rank's ingest of Anakin R2D2 at data 2 (phase 47).
+            "anakin_mesh_ingest": {"shape": list(LSTM_ANAKIN_MESH_INGEST),
+                                   **k2["timings"][LSTM_ANAKIN_MESH_INGEST][tag]},
         })
     return rows
 
@@ -5463,7 +5493,7 @@ def sharded_case(section: str, model: int, bar: str) -> dict:
     its rows of seeded union batches, with the counts zeroed just before;
     with `bar` ("bitwise" or "learn") rank 0 also runs the plain learner
     on the union batches and holds the parameters to it."""
-    from distributed_reinforcement_learning_tpu_torch.parallel import ShardedLearner, make_mesh
+    from distributed_reinforcement_learning_tpu_torch.parallel import make_mesh
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
 
     agent_cfg, rt = load_config(CONFIG, section)
@@ -5520,50 +5550,69 @@ def sharded_case(section: str, model: int, bar: str) -> dict:
     return got
 
 
+def join_world() -> dict:
+    """A rank child's start (phases 46-47): TF32 off and the card's
+    deterministic algorithms on (cuDNN's and cuBLAS's fastest ones may
+    sum in another order on each call; the bit-for-bit bars need the
+    deterministic ones), then the join from the DRL_* env names. -> the
+    rank's backend, device and rank."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    assert distributed.initialize()
+    return {"backend": distributed.backend(), "device": str(distributed.device()),
+            "rank": distributed.process_info()[0]}
+
+
 def sharded_rank(cases: list) -> None:
     """One rank of phase 46 (a child process): join the world from the
     DRL_* env names, run `cases` ((section, model axis, bar)), print one
     JSON line."""
     from distributed_reinforcement_learning_tpu_torch.parallel import distributed
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # cuDNN's and cuBLAS's fastest algorithms may sum in another order on
-    # each call; the bit-for-bit bars need the deterministic ones.
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    assert distributed.initialize()
-    out = {"backend": distributed.backend(), "device": str(distributed.device()),
-           "rank": distributed.process_info()[0]}
+    out = join_world()
     for section, model, bar in cases:
         out[f"{section}/{model}"] = sharded_case(section, model, bar)
     print(json.dumps(out), flush=True)
     distributed.shutdown()
 
 
-def run_ranks(world: int, cases: list, tag: str) -> list[dict]:
-    """`world` rank processes of `sharded_rank`, each in its own process
-    group with its own timeout, all on this card. -> their JSON lines."""
+def start_ranks(world: int, call: str, tag: str, env_set: dict | None = None) -> list:
+    """`world` rank processes running `chip_smoke.<call>` in one world
+    (`DRL_COORDINATOR` on a free port), each in its own process group,
+    all on this card. -> [(process, log file)] for `join_ranks`."""
     import os
-    import signal
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     env = dict(os.environ, DRL_COORDINATOR=f"localhost:{free_port()}",
-               DRL_NUM_PROCESSES=str(world), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+               DRL_NUM_PROCESSES=str(world), CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               **(env_set or {}))
     procs = []
     for rank in range(world):
-        log_path = out_dir / f"smoke_sharded_{tag}_rank{rank}.log"
-        f = open(log_path, "w+")
+        f = open(out_dir / f"smoke_sharded_{tag}_rank{rank}.log", "w+")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke; chip_smoke.sharded_rank({cases!r})"],
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
             cwd=ROOT, env={**env, "DRL_PROCESS_ID": str(rank)}, stdout=f,
             stderr=subprocess.STDOUT, text=True, start_new_session=True), f))
+    return procs
+
+
+def join_ranks(procs: list, tag: str, timeout_s: float = SHARDED_TIMEOUT_S) -> list[dict]:
+    """Wait for `start_ranks`' processes, each within `timeout_s` -> their
+    JSON lines; a rank that fails, names no backend or hangs fails the
+    phase, and every rank left is killed whole."""
+    import os
+    import signal
+
     results = []
     try:
         for proc, f in procs:
-            proc.wait(timeout=SHARDED_TIMEOUT_S)
+            proc.wait(timeout=timeout_s)
             f.seek(0)
             text = f.read()
             if proc.returncode != 0:
@@ -5581,6 +5630,12 @@ def run_ranks(world: int, cases: list, tag: str) -> list[dict]:
                 proc.wait(timeout=30)
             f.close()
     return results
+
+
+def run_ranks(world: int, cases: list, tag: str, rank_fn: str = "sharded_rank") -> list[dict]:
+    """`world` rank processes of `rank_fn(cases)` (`sharded_rank`, or
+    `anakin_mesh_rank` for phase 47) -> their JSON lines."""
+    return join_ranks(start_ranks(world, f"{rank_fn}({cases!r})", tag), tag)
 
 
 def poll_plane_versions(base: int, proc, seen: list) -> None:
@@ -5714,6 +5769,364 @@ def phase_sharded_learner() -> dict:
     return got
 
 
+# -- the Anakin mesh (phase 47) -----------------------------------------------------
+
+ANAKIN_MESH_UPDATES = 3  # updates of each family in each world
+# (a) a world of one over NCCL; (b) two ranks on this card at data 2, and
+# impala at data 1 x model 2: (section, model axis, bar against the plain
+# loop from the same seed, in rank 0).
+ANAKIN_MESH_WORLD_ONE = (("impala", 1, "bitwise"), ("apex", 1, "bitwise"),
+                         ("r2d2", 1, "bitwise"))
+ANAKIN_MESH_WORLD_TWO = (("impala", 1, None), ("apex", 1, None), ("r2d2", 1, None),
+                         ("impala", 2, "learn"))
+ANAKIN_MESH_LAUNCHES = {"impala": lambda K: {"vtrace": 2},  # a K = 1 update's
+                        "apex": lambda K: {},
+                        "r2d2": lambda K: {"lstm_fwd": 2 + 2 * K, "lstm_bwd": K}}
+TIER_SEAT_STEPS = 3  # (c): allreduce steps of the two mesh seats
+TIER_SEAT_ENV = {"DRL_COLL_PARTITION": "1", "DRL_COLL_QUANT": "f32", "DRL_COLL_OVERLAP": "0"}
+
+
+def anakin_loop(section: str, mesh):
+    """Phases 38-40's loop on `section` at full width (impala: 20 Breakout
+    envs; apex: 20 envs x 16 steps, a ring of 32,640; r2d2: 12 envs, a
+    ring of 4,092), over `mesh` or on one device -> (loop, warm-up
+    collects)."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin import AnakinImpala
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_apex import AnakinApex
+    from distributed_reinforcement_learning_tpu_torch.runtime.anakin_r2d2 import AnakinR2D2
+    from distributed_reinforcement_learning_tpu_torch.runtime.launch import _device_env_for
+
+    agent_cfg, rt = load_config(CONFIG, section)
+    env, transform = _device_env_for(agent_cfg, rt)
+    n = rt.num_actors * rt.envs_per_actor
+    dev = torch.cuda.current_device()
+    if section == "impala":
+        return AnakinImpala(ImpalaAgent(agent_cfg, device=dev), n, mesh=mesh, env=env), 0
+    common = dict(batch_size=rt.batch_size, target_sync_interval=rt.target_sync_interval,
+                  updates_per_collect=rt.updates_per_call,
+                  epsilon_floor=rt.epsilon_floor or 0.0, env=env, obs_transform=transform,
+                  mesh=mesh)
+    if section == "apex":
+        width = n * 16
+        cap = min(rt.replay_capacity, 32768)
+        loop = AnakinApex(ApexAgent(agent_cfg, device=dev), num_envs=n,
+                          capacity=cap - cap % width, steps_per_collect=16, **common)
+    else:
+        width = n
+        cap = min(rt.replay_capacity, 4096)
+        loop = AnakinR2D2(R2D2Agent(agent_cfg, device=dev), num_envs=n,
+                          capacity=cap - cap % width, **common)
+    return loop, -(-rt.train_start_factor * rt.batch_size // width)
+
+
+def anakin_run(section: str, mesh) -> tuple:
+    """`section`'s loop from seed 0: its warm-up collects and one warm
+    update (the first in a process pays the card's lazy start-up), then
+    ANAKIN_MESH_UPDATES updates with the counts zeroed just before,
+    synchronised -> (its readings, its whole parameters)."""
+    loop, warm = anakin_loop(section, mesh)
+    state = loop.init(0)
+    if warm:
+        state, _ = loop.collect_chunk(state, warm)
+    state, _ = loop.train_chunk(state, 1)
+    sharded = getattr(loop, "_sharded", None)
+    if sharded is not None:
+        sharded.reducer.timed = True
+        sharded.reducer.records.clear()
+    state, m, wall, launches = timed_chunk(loop, state, ANAKIN_MESH_UPDATES)
+    check_finite(f"anakin mesh {section}", m)
+    whole = state.train if sharded is None else sharded.gather_state(state.train)
+    got = {"launches": launches, "ms_per_update": wall / ANAKIN_MESH_UPDATES * 1e3,
+           "digest": params_digest(whole.params),
+           "bytes_local": ShardedLearner.state_bytes(state.train),
+           "bytes_whole": ShardedLearner.state_bytes(whole),
+           "last": {k: float(v[-1]) for k, v in m.items()}}
+    if sharded is not None:
+        got.update(reduce_ms=[r[0] for r in sharded.reducer.records],
+                   reduce_bytes=[r[1] for r in sharded.reducer.records])
+    if hasattr(state, "replay"):
+        got.update(ring_bytes=state.replay.nbytes(), ring_size=state.replay.size,
+                   capacity=loop.capacity)
+    params = {k: v.detach().clone() for k, v in whole.params.items()}
+    del loop, state, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, params
+
+
+def anakin_mesh_case(section: str, model: int, bar: str | None) -> dict:
+    """One family's loop over this world's mesh; with `bar` rank 0 also
+    runs the plain loop from the same seed and holds the mesh loop's
+    gathered parameters to it: "bitwise", or "learn" (the card's
+    learn-step bar, rtol 1e-4 plus 1% of lr)."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(model_parallel=model)
+    got, params = anakin_run(section, mesh)
+    if bar is None or mesh.rank != 0:
+        return got
+    plain, want = anakin_run(section, None)
+    got.update(plain_ms_per_update=plain["ms_per_update"], plain_launches=plain["launches"],
+               plain_ring_bytes=plain.get("ring_bytes"))
+    if bar == "bitwise":
+        differ = [k for k, p in want.items() if not torch.equal(p, params[k])]
+        if differ:
+            raise RuntimeError(f"anakin mesh {section}: a world of one differs from the plain "
+                               f"loop in {len(differ)} leaves ({differ[:3]})")
+        if got["launches"] != plain["launches"]:
+            raise RuntimeError(f"anakin mesh {section}: launches {got['launches']}, the plain "
+                               f"loop's {plain['launches']}")
+        got["max_rel_err"] = 0.0
+        return got
+    agent_cfg, _ = load_config(CONFIG, section)
+    lr = float(agent_cfg.start_learning_rate)
+    worst, beyond = 0.0, 0
+    for k, p in want.items():
+        q = params[k]
+        torch.testing.assert_close(q, p, rtol=1e-4, atol=1e-2 * lr,
+                                   msg=lambda m, k=k: f"anakin mesh {section} model {model} "
+                                   f"{k}: {m}")
+        worst = max(worst, float((q - p).abs().max() / p.abs().max().clamp_min(1e-30)))
+        beyond += int(((q - p).abs() > 1e-4 * p.abs() + 1e-2 * lr).sum())
+    got.update(max_rel_err=worst, beyond_rtol=beyond)
+    return got
+
+
+def anakin_mesh_rank(cases: list) -> None:
+    """One rank of phase 47 (a), (b) (a child process): join the world,
+    run `cases` ((section, model axis, bar)), print one JSON line."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import distributed
+
+    out = join_world()
+    for section, model, bar in cases:
+        out[f"{section}/{model}"] = anakin_mesh_case(section, model, bar)
+    print(json.dumps(out), flush=True)
+    distributed.shutdown()
+
+
+def tier_seat_rank(seat: int, addrs: list, union_reference: bool) -> None:
+    """One rank of phase 47 (c): a seat of two ranks at model 2 on the
+    `apex` section. Its learner is an ApexLearner over the seat's mesh
+    (through `runner_learner`); rank 0 holds the LearnerTier, rank 1
+    follows. TIER_SEAT_STEPS allreduce steps on the seat's half of a
+    seeded union batch, then one publish; seat 0 first runs the
+    union-batch sharded learner at model 2 and holds its parameters to
+    it. Prints one JSON line."""
+    from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexAgent
+    from distributed_reinforcement_learning_tpu_torch.parallel import (
+        distributed, make_mesh, runner_learner)
+    from distributed_reinforcement_learning_tpu_torch.runtime import learner_tier
+    from distributed_reinforcement_learning_tpu_torch.runtime.apex_runner import ApexLearner
+    from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
+
+    out = join_world()
+    agent_cfg, rt = load_config(CONFIG, "apex")
+    agent = ApexAgent(agent_cfg, device=torch.cuda.current_device())
+    mesh = make_mesh(model_parallel=2)
+    union, isw = apex_batch(agent_cfg, 2 * rt.batch_size, seed=47)
+    b = rt.batch_size
+    half = (tree_map(lambda x: x[seat * b:(seat + 1) * b], union), isw[seat * b:(seat + 1) * b])
+    ref = None
+    if union_reference:
+        sl = runner_learner(agent, mesh, 2)
+        s = agent.sync_target(sl.init_state(0))
+        for _ in range(TIER_SEAT_STEPS):
+            s, _, _ = sl.learn(s, *sl.shard_batch((union, isw)))
+        ref = sl.gather_params(s.params)
+    weights = WeightStore()
+    learner = ApexLearner(agent, TrajectoryQueue(8), weights, batch_size=b, replay_capacity=1024,
+                          mesh=mesh, init_seed=0)
+    tier = None
+    if mesh.rank == 0:
+        tier = learner_tier.LearnerTier(seat, addrs, sync="allreduce", probe_interval_s=60.0)
+        tier.collective.wait_s = 60.0
+        tier.start()
+        tier.attach(learner)
+        out.update(classes=tier._plan.classes, plan_hash=tier._plan.plan_hash,
+                   peers=tier.await_peers(60.0))
+    else:
+        learner_tier.follow_seat(learner)
+    try:
+        step_ms = []
+        for _ in range(TIER_SEAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learner.state, _, _ = learner._learn(learner.state, *half)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        learner.train_steps = TIER_SEAT_STEPS
+        learner.sync_publish = True
+        learner.maybe_publish()
+        published, version = weights.get()
+        whole = learner._sharded.gather_params(learner.state.params)
+        out.update(
+            step_ms=step_ms, version=version, digest=params_digest(whole),
+            published_whole=all(tuple(published[k].shape) == tuple(v.shape)
+                                and torch.equal(published[k].to(v.device), v)
+                                for k, v in whole.items()),
+            bytes_local=ShardedLearner.state_bytes(learner.state),
+            bytes_whole=ShardedLearner.state_bytes(
+                learner._sharded.gather_state(learner.state)))
+        if ref is not None and mesh.rank == 0:
+            lr = float(agent_cfg.start_learning_rate)
+            worst, beyond = 0.0, 0
+            for k, p in ref.items():
+                q = whole[k]
+                worst = max(worst, float((q - p).abs().max() / p.abs().max().clamp_min(1e-30)))
+                beyond += int(((q - p).abs() > 1e-3 * p.abs() + 1e-6).sum())
+            # An Adam element at the gradients' noise floor may move by up
+            # to its ratio bound x lr a step either way (phase 46's bar).
+            atol = 2 * TIER_SEAT_STEPS * adam_ratio_bound(TIER_SEAT_STEPS) * lr
+            for k, p in ref.items():
+                torch.testing.assert_close(whole[k], p, rtol=1e-3, atol=atol,
+                                           msg=lambda m, k=k: f"tier seat {k}: {m}")
+            out.update(max_rel_err=worst, beyond_rtol=beyond, adam_atol=atol)
+        if tier is not None:
+            out["coll"] = tier.collective.snapshot_stats()
+            out["tier"] = tier.snapshot_stats()
+    finally:
+        if tier is not None:
+            tier.close()
+        learner.close()
+    print(json.dumps(out), flush=True)
+    distributed.shutdown()
+
+
+def phase_anakin_mesh() -> dict:
+    """Phase 47: the Anakin mesh and the mesh-sharded seat, each rank a
+    child process in its own group with its own timeout. (a) A world of
+    one over NCCL: Anakin IMPALA (20 envs), Ape-X and R2D2 at phases
+    38-40's widths, ANAKIN_MESH_UPDATES updates each, the parameters bit
+    for bit the plain loop's from the same seed and the launches equal.
+    (b) Two ranks on cuda:0 over gloo at data 2 (10 IMPALA envs a rank,
+    K1 at (18, 10); 160 Ape-X transitions a collect into a ring shard of
+    16,320; 6 R2D2 envs into 2,046 sequences, K2a at (10, 6, 512) on
+    ingest and (10, 16, 512) on learn): the ranks bit for bit equal,
+    `replay_size` the global count, each rank half the ring's bytes, the
+    launches an update of the plain loop; IMPALA at data 1 x model 2
+    holding about half its state a rank, within the learn-step bar of the
+    plain loop. (c) Two tier seats, each two ranks at model 2 (4
+    processes): the seats bit for bit equal, within the bar of the
+    union-batch learner, the plan's `-,model` class owner-scoped, each
+    seat's publish whole."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    got = {}
+    t_part = time.perf_counter()
+    one = run_ranks(1, list(ANAKIN_MESH_WORLD_ONE), "anakin_world1", "anakin_mesh_rank")[0]
+    if one["backend"] != "nccl" or one["device"] != "cuda:0":
+        raise RuntimeError(f"anakin mesh: a world of one on {one['device']} over "
+                           f"{one['backend']}, expected cuda:0 over nccl")
+    for section, _, _ in ANAKIN_MESH_WORLD_ONE:
+        case = one[f"{section}/1"]
+        K = 1 if section == "impala" else load_config(CONFIG, section)[1].updates_per_call
+        want = {k: ANAKIN_MESH_UPDATES * v for k, v in ANAKIN_MESH_LAUNCHES[section](K).items()}
+        if {k: v for k, v in case["launches"].items() if v} != want:
+            raise RuntimeError(f"anakin mesh {section}: launches {case['launches']}, "
+                               f"expected {want}")
+    got["world1"] = one
+    log(f"[anakin mesh] (a) world of one, backend {one['backend']} on {one['device']}: "
+        + "; ".join(f"{s} ms an update {one[f'{s}/1']['ms_per_update']:.1f} (plain "
+                    f"{one[f'{s}/1']['plain_ms_per_update']:.1f}), launches "
+                    f"{json.dumps({k: v for k, v in one[f'{s}/1']['launches'].items() if v})}"
+                    for s, _, _ in ANAKIN_MESH_WORLD_ONE)
+        + f"; parameters bit for bit the plain loop's, launches equal; "
+        f"{time.perf_counter() - t_part:.1f} s ({smi})")
+
+    t_part = time.perf_counter()
+    two = run_ranks(2, list(ANAKIN_MESH_WORLD_TWO), "anakin_world2", "anakin_mesh_rank")
+    for rank in two:
+        if rank["backend"] != "gloo" or rank["device"] != "cuda:0":
+            raise RuntimeError(f"anakin mesh rank {rank['rank']} on {rank['device']} over "
+                               f"{rank['backend']}, expected cuda:0 over gloo")
+    for section, model, _ in ANAKIN_MESH_WORLD_TWO:
+        key = f"{section}/{model}"
+        if two[0][key]["digest"] != two[1][key]["digest"]:
+            raise RuntimeError(f"anakin mesh {key}: the two ranks' parameters differ")
+        K = 1 if section == "impala" else load_config(CONFIG, section)[1].updates_per_call
+        want = {k: ANAKIN_MESH_UPDATES * v for k, v in ANAKIN_MESH_LAUNCHES[section](K).items()}
+        for rank in two:
+            c = rank[key]
+            if {k: v for k, v in c["launches"].items() if v} != want:
+                raise RuntimeError(f"anakin mesh {key} rank {rank['rank']}: launches "
+                                   f"{c['launches']}, expected {want}")
+            if "ring_bytes" in c:
+                whole = one[f"{section}/1"]["ring_bytes"]
+                if 2 * c["ring_bytes"] != whole or c["last"]["replay_size"] != 2 * c["ring_size"]:
+                    raise RuntimeError(f"anakin mesh {key} rank {rank['rank']}: ring "
+                                       f"{c['ring_bytes']} bytes of {whole}, replay_size "
+                                       f"{c['last']['replay_size']}, local size {c['ring_size']}")
+    tp = two[0]["impala/2"]
+    if not 0.4 * tp["bytes_whole"] < tp["bytes_local"] < 0.6 * tp["bytes_whole"]:
+        raise RuntimeError(f"anakin mesh impala at model 2: {tp['bytes_local']} bytes a rank "
+                           f"of {tp['bytes_whole']}")
+    got["world2"] = two
+    single = {s: one[f"{s}/1"]["plain_ms_per_update"] for s, _, _ in ANAKIN_MESH_WORLD_ONE}
+    log("[anakin mesh] (b) two ranks on one card, backends "
+        + ", ".join(f"rank {r['rank']} {r['backend']} on {r['device']}" for r in two)
+        + "; ranks bit for bit equal; "
+        + "; ".join(
+            f"{s} at data {2 // m}, model {m}: ms an update {c['ms_per_update']:.1f} (single "
+            f"device {single[s]:.1f}), reduction ms p50 "
+            f"{np.median(c['reduce_ms']) if c['reduce_ms'] else 0.0:.3f} for "
+            f"{(c['reduce_bytes'] or [0])[0]} bytes ({len(c['reduce_ms'])} in "
+            f"{ANAKIN_MESH_UPDATES} updates), launches a rank "
+            f"{json.dumps({k: v for k, v in c['launches'].items() if v})}"
+            + (f", ring {c['ring_bytes']} bytes a rank, replay_size {c['last']['replay_size']:.0f}"
+               if "ring_bytes" in c else "")
+            + (f", bytes a rank {c['bytes_local']} of {c['bytes_whole']}, largest |difference| "
+               f"{c['max_rel_err']:.2e} of a leaf's largest parameter against the plain loop "
+               f"({c['beyond_rtol']} elements past rtol 1e-4 + 1% lr)" if m == 2 else "")
+            for (s, m, _), c in ((smb, two[0][f"{smb[0]}/{smb[1]}"])
+                                 for smb in ANAKIN_MESH_WORLD_TWO))
+        + f"; {time.perf_counter() - t_part:.1f} s ({smi})")
+
+    t_part = time.perf_counter()
+    addrs = [f"127.0.0.1:{free_port()}" for _ in range(2)]
+    procs = [start_ranks(2, f"tier_seat_rank({seat}, {addrs!r}, {seat == 0})",
+                         f"tier_seat{seat}", TIER_SEAT_ENV) for seat in range(2)]
+    seats = [join_ranks(p, f"tier_seat{k}") for k, p in enumerate(procs)]
+    leads = [seat[0] for seat in seats]
+    digests = {r["digest"] for seat in seats for r in seat}
+    if len(digests) != 1:
+        raise RuntimeError("anakin mesh (c): the seats' parameters differ")
+    for k, lead in enumerate(leads):
+        coll = lead["coll"]
+        if (lead["plan_hash"] != leads[0]["plan_hash"] or "-,model" not in lead["classes"]
+                or not lead["peers"] or coll["coll_rounds_part"] != TIER_SEAT_STEPS
+                or coll["coll_bytes_model"] <= 0):
+            raise RuntimeError(f"anakin mesh (c) seat {k}: plan {lead['classes']}, peers "
+                               f"{lead['peers']}, collective {coll}")
+    for seat in seats:
+        for r in seat:
+            if not r["published_whole"] or r["version"] != TIER_SEAT_STEPS:
+                raise RuntimeError(f"anakin mesh (c): rank {r['rank']} published "
+                                   f"version {r['version']}, whole {r['published_whole']}")
+            if not 0.4 * r["bytes_whole"] < r["bytes_local"] < 0.6 * r["bytes_whole"]:
+                raise RuntimeError(f"anakin mesh (c): {r['bytes_local']} bytes a rank of "
+                                   f"{r['bytes_whole']}")
+    got["tier"] = seats
+    lead = leads[0]
+    log(f"[anakin mesh] (c) two apex tier seats, each two ranks at model 2 on cuda:0 (4 "
+        f"processes): {TIER_SEAT_STEPS} allreduce steps bit for bit equal across the seats "
+        f"and their ranks; against the union-batch sharded learner largest |difference| "
+        f"{lead['max_rel_err']:.2e} of a leaf's largest parameter, {lead['beyond_rtol']} "
+        f"elements past rtol 1e-3 / atol 1e-6 (all within Adam's {lead['adam_atol']:.2e}); "
+        f"plan {lead['classes']}, rounds_part {lead['coll']['coll_rounds_part']}, bytes by "
+        f"class a round " + json.dumps({key[len("coll_bytes_"):]: v / TIER_SEAT_STEPS
+                                         for key, v in lead["coll"].items()
+                                         if key.startswith("coll_bytes_") and v})
+        + "; step ms " + ", ".join(f"seat {k} {np.median(s[0]['step_ms']):.1f}"
+                                   for k, s in enumerate(seats))
+        + f"; each seat published version {TIER_SEAT_STEPS} whole, bytes a rank "
+        f"{lead['bytes_local']} of {lead['bytes_whole']}; {time.perf_counter() - t_part:.1f} s "
+        f"({smi})")
+    got["seconds"] = time.perf_counter() - t0
+    log(f"[anakin mesh] phase 47 {got['seconds']:.1f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5806,6 +6219,8 @@ def main() -> int:
     drivers_s = time.perf_counter() - t_drivers
     phase_memory("sharded learner")
     sharded = phase_sharded_learner()
+    phase_memory("anakin mesh")
+    anakin_mesh = phase_anakin_mesh()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -5837,6 +6252,7 @@ def main() -> int:
         "breakout_driver": {"shape": list(BREAKOUT_DRIVER_SHAPE),
                             **k1["timings"][BREAKOUT_DRIVER_SHAPE]},
         "sharded_learner": {"shape": list(SHARDED_SHAPE), **k1["timings"][SHARDED_SHAPE]},
+        "anakin_mesh": {"shape": list(ANAKIN_MESH_SHAPE), **k1["timings"][ANAKIN_MESH_SHAPE]},
     }, *lstm_rows(k2, r2d2, r2d2_default, r2d2_pixel, launcher_r2d2, anakin_r2d2, devpath,
                   tier),
         *attention_rows(k3, ximpala, xformer_long)]
@@ -5853,7 +6269,13 @@ def main() -> int:
                **{f"sharded_world1_{s}": [sharded["world1"][f"{s}/1"]["launches"]]
                   for s in SHARDED_WORLD_ONE},
                **{f"sharded_world2_{s}_model{m}_rank{r['rank']}": [r[f"{s}/{m}"]["launches"]]
-                  for r in sharded["world2"] for s, m in SHARDED_WORLD_TWO}}
+                  for r in sharded["world2"] for s, m in SHARDED_WORLD_TWO},
+               # Phase 47: each family's Anakin loop in a world of one and on
+               # each of the two ranks.
+               **{f"anakin_mesh_world1_{s}": [anakin_mesh["world1"][f"{s}/1"]["launches"]]
+                  for s, _, _ in ANAKIN_MESH_WORLD_ONE},
+               **{f"anakin_mesh_world2_{s}_model{m}_rank{r['rank']}": [r[f"{s}/{m}"]["launches"]]
+                  for r in anakin_mesh["world2"] for s, m, _ in ANAKIN_MESH_WORLD_TWO}}
     for row in kernels:
         for path, runs in by_path.items():
             counts = [got[row["name"]] for got in runs]
@@ -5941,6 +6363,7 @@ def main() -> int:
         f"({drivers['long_run']['seconds']:.1f} s); phase 44 {drivers['seconds']:.1f} s; "
         f"synthetic steps phase 45 {synth['seconds']:.1f} s; phases 44-45 {drivers_s:.1f} s; "
         f"sharded learner phase 46 {sharded['seconds']:.1f} s; "
+        f"anakin mesh phase 47 {anakin_mesh['seconds']:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -79,10 +79,18 @@ def ingest(replay: DeviceReplay, batch: Any, errs: torch.Tensor) -> DeviceReplay
     return replay
 
 
-def sample(replay: DeviceReplay, uniforms: torch.Tensor):
+def sample(replay: DeviceReplay, uniforms: torch.Tensor, mesh=None):
     """-> (batch, idx `[n]`, IS weights `[n]`) for the `[n]` uniforms in
     [0, 1), one per stratum of `total / n`; anneals beta. Empty slots have
-    zero priority and are never drawn (the ring must hold an entry)."""
+    zero priority and are never drawn (the ring must hold an entry).
+
+    `mesh` (a `parallel/mesh.RankMesh`): `replay` is this rank's shard of
+    a ring split over the `data` axis (the Anakin mesh,
+    `runtime/anakin_mesh.py`). Indices, probabilities and weights stay
+    the shard's own, with its own size N, the right IS weight for the
+    per-shard sampler; only the normalising maximum is the global
+    batch's (JAX's `pmax`), one scalar all-reduce. Without a mesh, or on
+    a data axis of one, nothing changes."""
     n = uniforms.shape[0]
     p = replay.priorities
     cum = torch.cumsum(p, 0)
@@ -92,7 +100,12 @@ def sample(replay: DeviceReplay, uniforms: torch.Tensor):
     idx = torch.clamp(torch.searchsorted(cum, u, right=True), 0, replay.capacity - 1)
     probs = p[idx] / total
     weights = torch.pow(replay.size * probs, -float(replay.beta))
-    weights = weights / weights.max()
+    wmax = weights.max()
+    if mesh is not None:
+        from distributed_reinforcement_learning_tpu_torch.parallel.mesh import DATA_AXIS
+
+        wmax = mesh.all_reduce(wmax.reshape(1), DATA_AXIS, "max")[0]
+    weights = weights / wmax
     batch = type(replay.storage)(*(ring[idx] for ring in replay.storage))
     replay.beta = np.minimum(np.float32(1.0), replay.beta + np.float32(BETA_INCREMENT))
     return batch, idx, weights

@@ -3,7 +3,10 @@ multi-process join, and the partition rules of the weight plane.
 
 Exports what the JAX package's `parallel/__init__.py` exports, except
 item 13c's sequence and pipeline parallelism (`ring_attention`,
-`ulysses_attention`, `pipeline_apply`, `stack_stage_params`)."""
+`ulysses_attention`, `pipeline_apply`, `stack_stage_params`), and the
+port's own pieces that a caller builds a mesh run from: `RankMesh`,
+`Placement`, `MeshReducer` and `runner_learner` (the Anakin loops and
+the tier's mesh seats take them)."""
 
 from distributed_reinforcement_learning_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -11,6 +14,8 @@ from distributed_reinforcement_learning_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     PIPE_AXIS,
     SEQ_AXIS,
+    Placement,
+    RankMesh,
     data_sharding,
     make_mesh,
     model_kernel_sharding,
@@ -18,7 +23,9 @@ from distributed_reinforcement_learning_tpu_torch.parallel.mesh import (
     replicated,
 )
 from distributed_reinforcement_learning_tpu_torch.parallel.learner import (
+    MeshReducer,
     ShardedLearner,
+    runner_learner,
     train_state_sharding,
 )
 from distributed_reinforcement_learning_tpu_torch.parallel import distributed
@@ -30,11 +37,15 @@ __all__ = [
     "PIPE_AXIS",
     "SEQ_AXIS",
     "distributed",
+    "MeshReducer",
+    "Placement",
+    "RankMesh",
     "ShardedLearner",
     "data_sharding",
     "make_mesh",
     "model_kernel_sharding",
     "place_local_batch",
     "replicated",
+    "runner_learner",
     "train_state_sharding",
 ]

@@ -182,12 +182,16 @@ class ShardedLearner:
     the IS weights). `num_aux_outputs`: outputs after the new state (the
     metrics, and for the replay families the per-row vector, which the
     seam gathers to the global batch). `learn` takes this rank's rows,
-    placed or on the host. `grads` / `apply_grads` exist for the replay
-    arity of an agent that splits its step (Ape-X), `learn_many` (`[K,
-    B_local, ...]` stacks) and `stacked_data_sharding` for the IMPALA
-    arity, as in JAX. An MoE transformer is refused over a data split:
-    its load-balancing term is not a sum over rows (item 13c brings the
-    expert axis)."""
+    placed or on the host. The split step exists for the replay arity of
+    an agent that splits its own (Ape-X), as in JAX: `grads(state,
+    batch, is_weight)` -> (this rank's slices of the gradient averaged
+    over `data`, the global `[B]` |TD|, the averaged loss), and
+    `apply_grads(state, grads, loss)` -> (state, metrics), the update
+    of those slices (the learner tier's mesh seat runs its exchange in
+    between). `learn_many` (`[K, B_local, ...]` stacks) and
+    `stacked_data_sharding` exist for the IMPALA arity. An MoE
+    transformer is refused over a data split: its load-balancing term is
+    not a sum over rows (item 13c brings the expert axis)."""
 
     def __init__(self, agent, mesh: RankMesh, num_data_args: int = 1,
                  num_aux_outputs: int = 1):
@@ -248,22 +252,31 @@ class ShardedLearner:
         cut = {}
         for f in _state_dicts(state):
             # A clone, not a view: the whole tensor's storage is let go.
+            # The parameters require grad whatever `state` held (a whole
+            # state gathered for a checkpoint holds detached tensors).
             cut[f] = {k: self.reducer.local(k, v.detach()).clone(
-                memory_format=torch.contiguous_format).requires_grad_(v.requires_grad)
+                memory_format=torch.contiguous_format).requires_grad_(
+                    v.requires_grad or f == "params")
                 for k, v in getattr(state, f).items()}
         return dataclasses.replace(state, **cut)
+
+    def gather_params(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This rank's `{name: tensor}` (parameters, or any dict with
+        their names) -> the whole tensors, detached; a collective along
+        `model` (every rank of the axis calls it). Without a model axis,
+        `params` itself."""
+        if not self.reducer.model_dims:
+            return params
+        return self.reducer.gather({k: v.detach() for k, v in params.items()}, grad=False)
 
     def gather_state(self, state):
         """This rank's state -> the whole state (a collective: every rank
         of the model axis calls it)."""
         if not self.reducer.model_dims:
             return state
-        whole = {}
-        for f in _state_dicts(state):
-            whole[f] = {k: (v.detach() if k not in self.reducer.model_dims else
-                            self.mesh.all_gather(v.detach(), MODEL_AXIS,
-                                                 self.reducer.model_dims[k]))
-                        for k, v in getattr(state, f).items()}
+        whole = {f: self.reducer.gather({k: v.detach() for k, v in getattr(state, f).items()},
+                                        grad=False)
+                 for f in _state_dicts(state)}
         return dataclasses.replace(state, **whole)
 
     @staticmethod
@@ -289,12 +302,12 @@ class ShardedLearner:
 
 def runner_learner(agent, mesh: RankMesh, num_data_args: int) -> ShardedLearner:
     """The sharded learner a runner (`runtime/*_runner.py`) trains
-    through. A runner publishes and checkpoints `state.params` as whole
-    tensors, so its mesh splits the data alone (as every mesh
-    `run_role` builds does); a model axis is refused."""
-    if mesh.size(MODEL_AXIS) > 1:
-        raise ValueError(f"a learner runner over a model axis of {mesh.size(MODEL_AXIS)}: it "
-                         "would publish and checkpoint its parameter slices (ROADMAP item "
-                         "13b-ii); use ShardedLearner directly")
+    through. Over a model axis a rank holds slices, and the runner
+    publishes and checkpoints the whole tensors (`gather_params`,
+    `gather_state`) and restores a whole checkpoint to its slices
+    (`place_state`): these are collectives along `model`, so every rank
+    of the axis publishes, saves and restores at the same steps, as the
+    train steps' own cadence has it. No entry point builds such a mesh
+    (`run_role`'s splits the data alone), as in JAX."""
     return ShardedLearner(agent, mesh, num_data_args=num_data_args,
                           num_aux_outputs=num_data_args)

@@ -19,9 +19,9 @@ calls the collectives explicitly:
   GSPMD's are).
 - `seq`, `pipe` and `expert` above 1 are ROADMAP item 13c.
 
-Only `all_reduce`, `broadcast` and `all_gather` are used: the
-collectives gloo carries for CUDA tensors (two ranks on one GPU run
-gloo). The class is the port's own rather than
+Only `all_reduce` (sum, or max for JAX's `pmax`), `broadcast` and
+`all_gather` are used: the collectives gloo carries for CUDA tensors
+(two ranks on one GPU run gloo). The class is the port's own rather than
 `torch.distributed.device_mesh.DeviceMesh`, whose `init_device_mesh`
 maps one rank to one device of its own.
 
@@ -49,6 +49,9 @@ SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
 AXES = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS)
+
+# The backend op of each reduction; a mean is a sum divided after.
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 ITEM_13C = ("sequence, pipeline and expert parallelism are ROADMAP item 13c, "
             "which is not ported")
@@ -125,16 +128,17 @@ class RankMesh:
 
     # -- collectives along one axis ---------------------------------------
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
-        """Sum (or mean) of `t` over the axis, in place; -> `t`."""
+        """Sum, mean or maximum (`op` "sum", "mean", "max": JAX's `psum`,
+        `pmean`, `pmax`) of `t` over the axis, in place; -> `t`."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"unknown reduction {op!r}")
         n = self.shape[axis]
         if n == 1:
             return t
         self.bytes_moved += t.numel() * t.element_size()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._groups[axis])
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=self._groups[axis])
         if op == "mean":
             t.div_(n)
-        elif op != "sum":
-            raise ValueError(f"unknown reduction {op!r}")
         return t
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:

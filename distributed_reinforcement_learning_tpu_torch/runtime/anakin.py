@@ -37,6 +37,9 @@ from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent, ImpalaBatch
 from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
 from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
+from distributed_reinforcement_learning_tpu_torch.parallel.learner import ShardedLearner
+from distributed_reinforcement_learning_tpu_torch.runtime.anakin_mesh import (
+    check_rank_mesh, data_size, psum, rank_generator, stack_metrics)
 
 
 @dataclasses.dataclass
@@ -48,15 +51,6 @@ class AnakinState:
     h: torch.Tensor  # [B, H]
     c: torch.Tensor  # [B, H]
     generator: torch.Generator
-
-
-def refuse_mesh(mesh) -> None:
-    """Raise a ValueError naming ROADMAP item 13b-ii for any `mesh`
-    argument: the loops run on one device (`runtime/anakin_mesh.py`)."""
-    if mesh is not None:
-        raise ValueError("the on-device loops run on one device: a mesh (envs and ring shards "
-                         "over a data axis, the gradient mean across devices) needs the device "
-                         "mesh of ROADMAP item 13b-ii, which is not ported")
 
 
 def check_env(env, obs_shape, num_actions: int, head: str, exact_obs: bool = True) -> None:
@@ -84,13 +78,6 @@ def episode_stats(ep_returns: list, dones: list, completed: list) -> dict[str, t
     }
 
 
-def stack_metrics(metrics: list[dict], device: torch.device) -> dict[str, torch.Tensor]:
-    """A chunk's per-update metric dicts -> one `[U]` tensor each on
-    `device` (a host number, as the learning rate, is copied there)."""
-    return {k: torch.stack([torch.as_tensor(m[k], device=device) for m in metrics])
-            for k in metrics[0]}
-
-
 class AnakinImpala:
     """IMPALA over a device env, everything on the agent's device.
 
@@ -99,26 +86,51 @@ class AnakinImpala:
     `step(state, actions, draws)`, `completed_episode_mask`):
     `envs.cartpole_device` by default, or a pixel env. `num_envs` is the
     batch B, `agent.cfg.trajectory` the unroll T.
+
+    `mesh` (a `parallel/mesh.RankMesh`; JAX `runtime/anakin.py:77-109`):
+    this loop is one rank of it. Its envs, observations, LSTM state and
+    previous actions are its `num_envs / data` rows; the train state is
+    placed by `parallel/learner.train_state_sharding` (a model axis holds
+    slices of the large kernels and their moments), and the learn step
+    goes through `ShardedLearner` with IMPALA's sum, so the gradient is
+    the union batch's. The act uses the whole parameters, gathered once
+    an update before the collect. The episode stats are summed across
+    `data`. A world of one is the plain loop.
     """
 
     def __init__(self, agent: ImpalaAgent, num_envs: int, mesh=None, env=None):
-        refuse_mesh(mesh)
+        check_rank_mesh(mesh)
         self.env = env if env is not None else cartpole_device
         check_env(self.env, agent.cfg.obs_shape, agent.cfg.num_actions, "policy head")
         self.agent = agent
         self.num_envs = num_envs
+        self.mesh = mesh
+        d = data_size(mesh)
+        if num_envs % d != 0:
+            raise ValueError(f"num_envs ({num_envs}) must divide over the data axis ({d})")
+        self.num_envs_local = num_envs // d
+        self._sharded = None if mesh is None else ShardedLearner(agent, mesh)
 
     def init(self, seed: int = 0) -> AnakinState:
-        """Parameters from `seed` (`agent.init_state`), fresh envs and one
-        generator on the agent's device seeded from `seed`."""
-        agent = self.agent
-        generator = torch.Generator(device=agent.device).manual_seed(seed)
-        env, obs = self.env.reset(self.num_envs, generator)
-        h, c = agent.initial_lstm_state(self.num_envs)
+        """Parameters from `seed` (`agent.init_state`; over a mesh rank
+        0's, placed), fresh envs and one generator on the agent's device
+        seeded from `seed` (and the rank's data coordinate,
+        `anakin_mesh.rank_generator`)."""
+        agent, n = self.agent, self.num_envs_local
+        generator = rank_generator(seed, agent.device, self.mesh)
+        env, obs = self.env.reset(n, generator)
+        h, c = agent.initial_lstm_state(n)
+        train = agent.init_state(seed) if self._sharded is None else self._sharded.init_state(seed)
         return AnakinState(
-            train=agent.init_state(seed), env=env, obs=obs,
-            prev_action=torch.zeros(self.num_envs, dtype=torch.long, device=agent.device),
+            train=train, env=env, obs=obs,
+            prev_action=torch.zeros(n, dtype=torch.long, device=agent.device),
             h=h, c=c, generator=generator)
+
+    def act_params(self, train) -> dict[str, torch.Tensor]:
+        """The parameters the act uses: the whole tensors (over a model
+        axis gathered, a collective along `model`)."""
+        return train.params if self._sharded is None else self._sharded.gather_params(
+            train.params)
 
     @torch.no_grad()
     def _policy(self, params, obs, prev_action, h, c):
@@ -133,8 +145,8 @@ class AnakinImpala:
         """T env steps from `state` (advanced in place) -> (ImpalaBatch of
         contiguous `[B, T, ...]` tensors, episode stats). `actions [T, B]`
         and `env_draws` (T of the env's `draws`) replace the loop's own."""
-        agent, env, gen = self.agent, self.env, state.generator
-        params = state.train.params
+        agent, env, gen, n = self.agent, self.env, state.generator, self.num_envs_local
+        params = self.act_params(state.train)
         names = ("state", "reward", "done", "action", "behavior_policy", "previous_action",
                  "initial_h", "initial_c")
         rec = {k: [] for k in names}
@@ -147,7 +159,7 @@ class AnakinImpala:
                 policy, h, c = self._policy(params, state.obs, state.prev_action, state.h,
                                             state.c)
                 action = actions[t].to(state.prev_action)
-            draws = env.draws(gen, self.num_envs) if env_draws is None else env_draws[t]
+            draws = env.draws(gen, n) if env_draws is None else env_draws[t]
             env_state, next_obs, reward, done, ep_ret = env.step(
                 state.env, env_action(action, agent.cfg.num_actions, env), draws)
             for k, v in zip(names, (state.obs, reward, done, action, policy, state.prev_action,
@@ -164,11 +176,17 @@ class AnakinImpala:
         return batch, episode_stats(ep_returns, rec["done"], completed)
 
     # -- updates -----------------------------------------------------------
-    def update(self, state: AnakinState) -> dict[str, torch.Tensor]:
-        """One T-step collect, then one learn step on it -> metrics."""
-        batch, stats = self.collect(state)
-        state.train, metrics = self.agent.learn(state.train, batch)
-        metrics.update(stats)
+    def update(self, state: AnakinState, actions: torch.Tensor | None = None,
+               env_draws: list | None = None) -> dict[str, torch.Tensor]:
+        """One T-step collect (`actions`, `env_draws` as `collect`'s), then
+        one learn step on it -> metrics, the episode stats summed across
+        `data`."""
+        batch, stats = self.collect(state, actions, env_draws)
+        if self._sharded is None:
+            state.train, metrics = self.agent.learn(state.train, batch)
+        else:
+            state.train, metrics = self._sharded.learn(state.train, batch)
+        metrics.update(psum(self.mesh, stats))
         return metrics
 
     def train_chunk(self, state: AnakinState, num_updates: int):

@@ -1,4 +1,4 @@
-"""Anakin Ape-X: prioritized DQN trained on one device.
+"""Anakin Ape-X: prioritized DQN trained on the device.
 
 Counterpart of the JAX package's `runtime/anakin_apex.py`: the
 reference's `train_apex.py` stack (epsilon-ladder actors pushing
@@ -16,6 +16,11 @@ IS weights and target syncs) over a device env, with the transition ring
 - Ingest scored by `agent.td_error` under the current parameters;
   `updates_per_collect` prioritized learns an update, each writing its
   fresh priorities back; the target syncs on a steps-since-last cadence.
+
+Over a mesh of ranks (`mesh=`, the data axis alone) each rank runs this
+loop on its `num_envs / data` envs and its shard of the ring; the
+gradients and the IS weights' maximum cross between ranks
+(`runtime/anakin_mesh.py`).
 
 Ape-X launches no port kernel: its networks have no LSTM or V-trace.
 """
@@ -35,7 +40,8 @@ from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
 from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.runtime.anakin import (
     check_env, env_action, episode_stats)
-from distributed_reinforcement_learning_tpu_torch.runtime.anakin_mesh import DataMeshReplayMixin
+from distributed_reinforcement_learning_tpu_torch.runtime.anakin_mesh import (
+    DataMeshReplayMixin, rank_generator)
 
 
 @dataclasses.dataclass
@@ -84,24 +90,29 @@ class AnakinApex(DataMeshReplayMixin):
         self.obs_transform = obs_transform or (lambda x: x)
         check_env(self.env, agent.cfg.obs_shape, agent.cfg.num_actions, "Q head",
                   exact_obs=False)
-        self._setup_mesh(mesh, batch_size=batch_size)
+        # Over a mesh the data axis alone, with per-rank ring shards
+        # (`runtime/anakin_mesh.py`): a rank collects from its own envs
+        # and writes `write_width_local` transitions a collect.
+        self._setup_mesh(mesh, num_envs=num_envs, batch_size=batch_size, capacity=capacity)
+        self.write_width_local = self.write_width // self.dshard
 
     def init(self, seed: int = 0) -> AnakinApexState:
-        """Parameters from `seed`, fresh envs, an empty ring and one
-        generator on the agent's device seeded from `seed`."""
-        agent = self.agent
-        generator = torch.Generator(device=agent.device).manual_seed(seed)
-        env, obs = self.env.reset(self.num_envs, generator)
+        """Parameters from `seed` (over a mesh rank 0's), fresh envs, an
+        empty ring (shard) and one generator on the agent's device seeded
+        from `seed` (and the rank's data coordinate)."""
+        agent, n = self.agent, self.num_envs_local
+        generator = rank_generator(seed, agent.device, self.mesh)
+        env, obs = self.env.reset(n, generator)
         obs = self.obs_transform(obs)
         return AnakinApexState(
-            train=agent.init_state(seed), replay=device_replay.make(self._zero_transitions(obs)),
+            train=self._init_train(seed), replay=device_replay.make(self._zero_transitions(obs)),
             env=env, obs=obs,
-            prev_action=torch.zeros(self.num_envs, dtype=torch.long, device=agent.device),
-            episodes=torch.zeros(self.num_envs, dtype=torch.int32, device=agent.device),
+            prev_action=torch.zeros(n, dtype=torch.long, device=agent.device),
+            episodes=torch.zeros(n, dtype=torch.int32, device=agent.device),
             last_sync=0, generator=generator)
 
     def _zero_transitions(self, obs: torch.Tensor) -> ApexBatch:
-        C, dev = self.capacity, obs.device
+        C, dev = self.capacity_local, obs.device
         return ApexBatch(
             state=torch.zeros((C, *obs.shape[1:]), dtype=obs.dtype, device=dev),
             next_state=torch.zeros((C, *obs.shape[1:]), dtype=obs.dtype, device=dev),
@@ -114,7 +125,8 @@ class AnakinApex(DataMeshReplayMixin):
     def collect(self, state: AnakinApexState, actions: torch.Tensor | None = None,
                 env_draws: list | None = None):
         """`steps_per_collect` env steps (state advanced in place) ->
-        (flat ApexBatch `[W]`, time-major and contiguous; episode stats).
+        (flat ApexBatch `[W_local]`, time-major and contiguous; episode
+        stats).
         `actions [S, B]` and `env_draws` replace the loop's own draws."""
         agent, env, gen = self.agent, self.env, state.generator
         params = state.train.params
@@ -127,7 +139,7 @@ class AnakinApex(DataMeshReplayMixin):
                                        self._epsilon(state.episodes), gen)
             else:
                 action = actions[t].to(state.prev_action)
-            draws = env.draws(gen, self.num_envs) if env_draws is None else env_draws[t]
+            draws = env.draws(gen, self.num_envs_local) if env_draws is None else env_draws[t]
             env_state, next_obs, reward, done, ep_ret = env.step(
                 state.env, env_action(action, agent.cfg.num_actions, env), draws)
             next_obs = self.obs_transform(next_obs)
@@ -138,7 +150,7 @@ class AnakinApex(DataMeshReplayMixin):
             state.env, state.obs = env_state, next_obs
             state.prev_action = torch.where(done, 0, action)
             state.episodes = state.episodes + done.to(torch.int32)
-        flat = lambda v: torch.stack(v).reshape((self.write_width,) + tuple(v[0].shape[1:]))
+        flat = lambda v: torch.stack(v).reshape((self.write_width_local,) + tuple(v[0].shape[1:]))
         batch = ApexBatch(**{k: flat(v) for k, v in rec.items()})
         return batch, episode_stats(ep_returns, rec["done"], completed)
 

@@ -1,4 +1,4 @@
-"""Anakin R2D2: recurrent replay trained on one device.
+"""Anakin R2D2: recurrent replay trained on the device.
 
 Counterpart of the JAX package's `runtime/anakin_r2d2.py`. The host
 topology's queue, sum tree and learner loop (`runtime/r2d2_runner.py`,
@@ -18,6 +18,11 @@ carries, `prev_action` reset at `done`.
 On CUDA the LSTM kernels run over every sequence: K2a twice an ingest
 (main and target over the `num_envs` new sequences) and twice a learn,
 K2b once a learn. The acts are single LSTM-cell steps on the plain path.
+
+Over a mesh of ranks (`mesh=`, the data axis alone) each rank runs this
+loop on its `num_envs / data` envs and its shard of the ring, so the
+kernels run at the local widths; the gradients and the IS weights'
+maximum cross between ranks (`runtime/anakin_mesh.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from distributed_reinforcement_learning_tpu_torch.envs import cartpole_device
 from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 from distributed_reinforcement_learning_tpu_torch.runtime.anakin import (
     check_env, env_action, episode_stats)
-from distributed_reinforcement_learning_tpu_torch.runtime.anakin_mesh import DataMeshReplayMixin
+from distributed_reinforcement_learning_tpu_torch.runtime.anakin_mesh import (
+    DataMeshReplayMixin, rank_generator)
 
 @dataclasses.dataclass
 class AnakinR2D2State:
@@ -84,20 +90,23 @@ class AnakinR2D2(DataMeshReplayMixin):
         self.obs_transform = obs_transform or (lambda x: x)
         check_env(self.env, agent.cfg.obs_shape, agent.cfg.num_actions, "Q head",
                   exact_obs=False)
-        self._setup_mesh(mesh, batch_size=batch_size)
+        # Over a mesh the data axis alone, with per-rank ring shards
+        # (`runtime/anakin_mesh.py`): a rank collects from `num_envs_local`.
+        self._setup_mesh(mesh, num_envs=num_envs, batch_size=batch_size, capacity=capacity)
 
     def init(self, seed: int = 0) -> AnakinR2D2State:
-        """Parameters from `seed`, fresh envs and LSTM state, an empty ring
-        and one generator on the agent's device seeded from `seed`."""
-        agent = self.agent
-        generator = torch.Generator(device=agent.device).manual_seed(seed)
-        env, obs = self.env.reset(self.num_envs, generator)
-        h, c = agent.initial_lstm_state(self.num_envs)
+        """Parameters from `seed` (over a mesh rank 0's), fresh envs and
+        LSTM state, an empty ring (shard) and one generator on the agent's
+        device seeded from `seed` (and the rank's data coordinate)."""
+        agent, n = self.agent, self.num_envs_local
+        generator = rank_generator(seed, agent.device, self.mesh)
+        env, obs = self.env.reset(n, generator)
+        h, c = agent.initial_lstm_state(n)
         return AnakinR2D2State(
-            train=agent.init_state(seed), replay=device_replay.make(self._zero_sequences()),
+            train=self._init_train(seed), replay=device_replay.make(self._zero_sequences()),
             env=env, obs=self.obs_transform(obs),
-            prev_action=torch.zeros(self.num_envs, dtype=torch.long, device=agent.device),
-            h=h, c=c, episodes=torch.zeros(self.num_envs, dtype=torch.int32, device=agent.device),
+            prev_action=torch.zeros(n, dtype=torch.long, device=agent.device),
+            h=h, c=c, episodes=torch.zeros(n, dtype=torch.int32, device=agent.device),
             last_sync=0, generator=generator)
 
     def _zero_sequences(self) -> R2D2Batch:
@@ -105,7 +114,7 @@ class AnakinR2D2(DataMeshReplayMixin):
         pixel = len(self.env.OBS_SHAPE) == 3
         obs0 = self.obs_transform(torch.zeros(
             (1, *self.env.OBS_SHAPE), dtype=torch.uint8 if pixel else torch.float32, device=dev))
-        C, T = self.capacity, cfg.seq_len
+        C, T = self.capacity_local, cfg.seq_len
         return R2D2Batch(
             state=torch.zeros((C, T, *obs0.shape[1:]), dtype=obs0.dtype, device=dev),
             previous_action=torch.zeros((C, T), dtype=torch.long, device=dev),
@@ -141,7 +150,7 @@ class AnakinR2D2(DataMeshReplayMixin):
             else:
                 _q, h, c = self._q(params, state.obs, state.h, state.c, state.prev_action)
                 action = actions[t].to(state.prev_action)
-            draws = env.draws(gen, self.num_envs) if env_draws is None else env_draws[t]
+            draws = env.draws(gen, self.num_envs_local) if env_draws is None else env_draws[t]
             env_state, next_obs, reward, done, ep_ret = env.step(
                 state.env, env_action(action, agent.cfg.num_actions, env), draws)
             for k, v in zip(names, (state.obs, state.prev_action, action, reward, done)):

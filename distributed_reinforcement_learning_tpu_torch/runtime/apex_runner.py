@@ -333,7 +333,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         self._pending_ingest: tuple[torch.Tensor, Any, int] | None = None
         self.timer = StageTimer(self.logger)
         self._profiler = ProfilerSession.from_env()
-        weights.publish(self.state.params, 0)
+        weights.publish(self.published_params(), 0)
 
     def _warm_unrolls(self) -> int:
         """Unrolls counted by the warm-up gate: the shards' ingest while
@@ -361,7 +361,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
             "replay_beta": float(replay.beta),
             "ingested_unrolls": self._warm_unrolls(),
             **self._cadence_extra(),
-        }, blobs={"replay": blob} if blob is not None else None)
+        }, blobs={"replay": blob} if blob is not None else None, sharded=self._sharded)
 
     def restore_checkpoint(self, ckpt) -> bool:
         """Resume from the latest checkpoint (the replay too, when its
@@ -369,10 +369,11 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
             decode_replay_snapshot)
 
-        got = ckpt.restore(self.state)
+        got = ckpt.restore(self.state, sharded=self._sharded)
         if got is None:
             return False
         self.state, extra, step = got
+        self._refresh_whole(self.state)
         self.train_steps = int(extra.get("train_steps", 0))
         replay = self._active_replay()
         blob = ckpt.load_blob(step, "replay")
@@ -382,7 +383,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         else:
             self.ingested_unrolls = 0  # the warm-up gate restarts; the replay refills
         replay.beta = float(extra.get("replay_beta", replay.beta))
-        self.weights.publish(self.state.params, self.train_steps)
+        self.weights.publish(self.published_params(), self.train_steps)
         self._restore_cadence(extra)
         return True
 
@@ -422,14 +423,14 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
                     # state as it is now: a later in-place step is ordered
                     # after it on the stream), then complete k-1.
                     td_dev = self.agent.td_error(
-                        self.state, batch_to_device(flat, self.agent.device))
+                        self._scoring_state(), batch_to_device(flat, self.agent.device))
                     done += self._flush_pending_ingest()
                     self._pending_ingest = (td_dev, flat, k)
                     if done:
                         return done
                     continue
                 # Deliberate sync: the priorities go into the host sum tree.
-                td = self.agent.td_error(self.state, flat).cpu().numpy()
+                td = self.agent.td_error(self._scoring_state(), flat).cpu().numpy()
             self._replay_add(td, flat)
             self.ingested_unrolls += k
             return done + k

@@ -275,7 +275,7 @@ class ImpalaLearner(PublishCadenceMixin):
         self.frames_learned = 0
         self.timer = StageTimer(self.logger)
         self._profiler = ProfilerSession.from_env()
-        weights.publish(self.state.params, 0)
+        weights.publish(self.published_params(), 0)
 
     def _learn(self, state, batch):
         """The seam every K = 1 learn step goes through (the agent's
@@ -294,18 +294,19 @@ class ImpalaLearner(PublishCadenceMixin):
     def save_checkpoint(self, ckpt) -> None:
         """Persist the train state and the host counters."""
         ckpt.save(self.train_steps, self.state,
-                  {"train_steps": self.train_steps, "frames_learned": self.frames_learned})
+                  {"train_steps": self.train_steps, "frames_learned": self.frames_learned},
+                  sharded=self._sharded)
 
     def restore_checkpoint(self, ckpt) -> bool:
         """Resume from the latest checkpoint; republishes the restored
         weights."""
-        got = ckpt.restore(self.state)
+        got = ckpt.restore(self.state, sharded=self._sharded)
         if got is None:
             return False
         self.state, extra, _ = got
         self.train_steps = int(extra.get("train_steps", 0))
         self.frames_learned = int(extra.get("frames_learned", 0))
-        self.weights.publish(self.state.params, self.train_steps)
+        self.weights.publish(self.published_params(), self.train_steps)
         self._last_publish_step = self.train_steps  # the line above IS a publish
         return True
 

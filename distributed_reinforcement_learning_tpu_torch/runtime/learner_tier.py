@@ -38,6 +38,18 @@ merged vector. The async merge writes the averaged parameters into the
 live tensors (`copy_`), so Adam's moments and the target network, which
 stay local as in JAX, go on referring to them.
 
+A seat may be a group of ranks (`parallel/mesh.py`, JAX
+`runtime/learner_tier.py:597-632`): its learner's `_sharded`
+(`parallel/learner.ShardedLearner`) splits the data or the model over
+the seat's own `torch.distributed` world. The seat's rank 0 holds the
+tier and exchanges the whole gradient, averaged over `data` and
+gathered over `model`, so the plan's `-,model` class goes owner-scoped
+as in JAX; it broadcasts the merged vector over its seat, and each rank
+applies its slice. The other ranks run the same step with no tier
+(`follow_seat`). `run_role` refuses a tier together with a learner
+group (`DRL_COORDINATOR`), as JAX does, so such a seat lives in the
+library.
+
 Priority write-back is local by construction: every seat samples from
 its own replay, so `update_batch` lands in the seat that sampled.
 
@@ -66,6 +78,7 @@ from distributed_reinforcement_learning_tpu_torch.parallel.collective import (
     PeerLost,
     RoundAborted,
 )
+from distributed_reinforcement_learning_tpu_torch.parallel.mesh import MODEL_AXIS
 
 # benchmarks/learner_verdict.json: "auto_enable" false ("seats" 2, "sync"
 # allreduce), the JAX package's learner_compare verdict (median 0.97x).
@@ -472,9 +485,15 @@ class LearnerTier:
         """Wire the tier into a learner by rebinding its `_learn` seam
         (and `_learn_many`, where it has one) with the collective
         exchange. `allreduce` needs the split learn step,
-        `agent.grads` / `agent.apply_grads` (Ape-X); `async` wraps any
-        learner. Attaching builds the partition plan and pins its hash
-        into the collective's HELLOs.
+        `agent.grads` / `agent.apply_grads` (Ape-X) on a one-device seat,
+        `ShardedLearner.grads` / `apply_grads` on a mesh-sharded one (a
+        learner with `_sharded`: this is the seat's lead rank, the other
+        ranks call `follow_seat`); `async` wraps any learner of one rank
+        and refuses a seat of more (its merge runs on the lead rank
+        alone, so the other ranks' parameters would drift). Attaching
+        builds the partition plan (a mesh seat's from its whole
+        parameters' shapes) and pins its hash into the collective's
+        HELLOs.
 
         Under `allreduce` the collective couples the seats' train
         cadences, so the driving loop must bound the ingest calls between
@@ -485,6 +504,12 @@ class LearnerTier:
         if not hasattr(learner, "_learn"):
             raise ValueError(f"{type(learner).__name__} has no `_learn` seam for the tier "
                              f"to wrap")
+        sharded = getattr(learner, "_sharded", None)
+        if self.sync == "async" and sharded is not None and sharded.mesh.world > 1:
+            raise ValueError(
+                f"DRL_LEARNER_SYNC=async on a seat of {sharded.mesh.world} ranks: the async "
+                f"merge runs on the seat's lead rank alone, so its other ranks would drift; "
+                f"use DRL_LEARNER_SYNC=allreduce for a mesh-sharded seat")
         if getattr(learner, "updates_per_call", 1) > 1:
             if self.sync == "allreduce" or not hasattr(learner, "_learn_many"):
                 # allreduce needs a host boundary an update, and the
@@ -502,6 +527,19 @@ class LearnerTier:
             # wrapped _learn_many (one merge check a K-step call).
         if self.sync == "allreduce":
             agent = learner.agent
+            if sharded is not None:
+                # A mesh-sharded seat: this is its lead rank (global rank 0
+                # of the seat's world); `follow_seat` wraps the others.
+                _check_split_step(sharded)
+                self._plan = self._build_plan(learner)
+                if self._plan is not None:
+                    if self._plan.overlap:
+                        raise ValueError("DRL_COLL_OVERLAP on a mesh-sharded seat: its rounds "
+                                         "run in lockstep with the seat's ranks; set "
+                                         "DRL_COLL_OVERLAP=0")
+                    self.collective.set_plan(self._plan)
+                learner._learn = _make_mesh_seat_learn(sharded, self._merged_rounds)
+                return
             if not (hasattr(agent, "grads") and hasattr(agent, "apply_grads")):
                 raise ValueError(
                     f"DRL_LEARNER_SYNC=allreduce needs the split learn step "
@@ -530,6 +568,12 @@ class LearnerTier:
         params = getattr(getattr(learner, "state", None), "params", None)
         if params is None:
             return None
+        sharded = getattr(learner, "_sharded", None)
+        if sharded is not None:
+            # A mesh seat exchanges the whole gradient: the plan is the
+            # whole parameters', by shape alone (no gather).
+            params = {k: np.broadcast_to(np.float32(0), _whole_shape(sharded, k, p))
+                      for k, p in params.items()}
         from distributed_reinforcement_learning_tpu_torch.parallel.partition import (
             build_exchange_plan)
 
@@ -679,6 +723,77 @@ class LearnerTier:
         self._bump("merges_applied")
         _copy_into(state.params, unflatten_tree(merged, meta))
         return state
+
+
+# -- the mesh-sharded seat ------------------------------------------------------
+
+
+def _check_split_step(sharded) -> None:
+    if not (hasattr(sharded, "grads") and hasattr(sharded, "apply_grads")):
+        raise ValueError(
+            "DRL_LEARNER_SYNC=allreduce needs the split learn step on the mesh learner "
+            "(ShardedLearner.grads/apply_grads — the replay-family (state, batch, is_weight) "
+            "arity); this ShardedLearner lacks it. Use DRL_LEARNER_SYNC=async for this "
+            "family.")
+
+
+def _whole_shape(sharded, name: str, leaf) -> tuple[int, ...]:
+    """The whole shape of a rank's leaf `name` (its model dimension
+    multiplied back by the axis size)."""
+    shape = list(leaf.shape)
+    d = sharded.reducer.model_dims.get(name)
+    if d is not None:
+        shape[d] *= sharded.mesh.size(MODEL_AXIS)
+    return tuple(shape)
+
+
+def _make_mesh_seat_learn(sharded, exchange):
+    """The learn seam of one rank of a mesh-sharded seat (the twin of the
+    JAX package's `ShardedLearner.grads` / `apply_grads` seat). A seat
+    is a world of ranks, its mesh `sharded.mesh`:
+
+    - every rank takes its gradient (`sharded.grads`: averaged over
+      `data`, its slices along `model`) and gathers the whole of it over
+      `model`; the loss rides the flat f32 vector's tail;
+    - the seat's lead (global rank 0, `exchange` set: the tier's
+      `_merged_rounds`) exchanges that vector with the other seats and
+      writes the merged vector back;
+    - the lead broadcasts it over the seat's world, and every rank
+      applies its slice of the merged gradient (`sharded.apply_grads`).
+
+    The ranks call the same collectives in the same order; a follower
+    (`exchange` None) has no tier."""
+    mesh, reducer = sharded.mesh, sharded.reducer
+
+    def seat_learn(state, batch, is_weight):
+        grads, td, loss = sharded.grads(state, batch, is_weight)
+        whole = reducer.gather(grads, grad=False)
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in whole.values()]
+                         + [loss.reshape(1).to(torch.float32)])
+        if exchange is not None:
+            t0 = time.perf_counter()
+            merged = exchange(flat.cpu().numpy())
+            if _OBS.enabled:
+                _OBS.gauge("tier/round_ms", (time.perf_counter() - t0) * 1e3)
+            flat.copy_(torch.from_numpy(np.ascontiguousarray(merged, np.float32)))
+        mesh.broadcast(flat, src=0)
+        mgrads, off = {}, 0
+        for k, g in whole.items():
+            mgrads[k] = reducer.local(k, flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        state, metrics = sharded.apply_grads(state, mgrads, flat[-1])
+        return state, td, metrics
+
+    return seat_learn
+
+
+def follow_seat(learner) -> None:
+    """Wire a non-lead rank of a mesh-sharded seat: its `_learn` runs the
+    seat's step in lockstep with the lead's (`_make_mesh_seat_learn`),
+    with no tier of its own. The lead calls `LearnerTier.attach`."""
+    sharded = learner._sharded
+    _check_split_step(sharded)
+    learner._learn = _make_mesh_seat_learn(sharded, None)
 
 
 def build_tier() -> LearnerTier | None:

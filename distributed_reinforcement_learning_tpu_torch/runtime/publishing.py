@@ -100,6 +100,16 @@ class PublishCadenceMixin:
     # train_steps.
     _last_publish_step = 0
 
+    def published_params(self) -> dict:
+        """The parameters a publish hands the weight store: the whole
+        tensors. A learner over a model axis (`_sharded`) holds slices and
+        gathers them here, a collective along `model`: every rank of the
+        axis publishes at the same steps, as the train steps' cadence has
+        it."""
+        sharded = getattr(self, "_sharded", None)
+        return (self.state.params if sharded is None
+                else sharded.gather_params(self.state.params))
+
     def maybe_publish(self) -> bool:
         """Publish once `publish_interval` steps accumulate since the last;
         -> whether it published."""
@@ -109,7 +119,7 @@ class PublishCadenceMixin:
         t0 = time.perf_counter()
         with self.timer.stage("publish"):
             if _async_publish(self.sync_publish):
-                self.weights.publish_async(self.state.params, self.train_steps)
+                self.weights.publish_async(self.published_params(), self.train_steps)
                 # Bounded staleness: actors must never act on weights more
                 # than ~3 publish intervals old; if the worker lags past
                 # that, wait for it here (the common case never blocks).
@@ -121,7 +131,7 @@ class PublishCadenceMixin:
                               f"actors hold version {self.weights.version} at step "
                               f"{self.train_steps}", file=sys.stderr)
             else:
-                self.weights.publish(self.state.params, self.train_steps)
+                self.weights.publish(self.published_params(), self.train_steps)
         if _OBS.enabled:
             _OBS.gauge("publish/latency_ms", (time.perf_counter() - t0) * 1e3)
             _OBS.count("publish/count")
@@ -152,7 +162,7 @@ class PublishCadenceMixin:
         """close()-time flush: updates since the last publish would
         otherwise never reach the store; then retire the async worker."""
         if self.train_steps > self._last_publish_step:
-            self.weights.publish(self.state.params, self.train_steps)
+            self.weights.publish(self.published_params(), self.train_steps)
             self._last_publish_step = self.train_steps
         if _async_publish(self.sync_publish):
             self.weights.close()

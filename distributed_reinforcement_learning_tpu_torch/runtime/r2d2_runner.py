@@ -288,7 +288,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         self.train_steps = 0
         self.timer = StageTimer(self.logger)
         self._profiler = ProfilerSession.from_env()
-        weights.publish(self.state.params, 0)
+        weights.publish(self.published_params(), 0)
 
     def _warm_sequences(self) -> int:
         """Sequences counted by the warm-up gate: the shards' ingest while
@@ -313,7 +313,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
             "replay_beta": float(replay.beta),
             "ingested_sequences": self._warm_sequences(),
             **self._cadence_extra(),
-        }, blobs={"replay": blob} if blob is not None else None)
+        }, blobs={"replay": blob} if blob is not None else None, sharded=self._sharded)
 
     def restore_checkpoint(self, ckpt) -> bool:
         """Resume from the latest checkpoint (the replay too, when its
@@ -321,10 +321,11 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         from distributed_reinforcement_learning_tpu_torch.utils.checkpoint import (
             decode_replay_snapshot)
 
-        got = ckpt.restore(self.state)
+        got = ckpt.restore(self.state, sharded=self._sharded)
         if got is None:
             return False
         self.state, extra, step = got
+        self._refresh_whole(self.state)
         self.train_steps = int(extra.get("train_steps", 0))
         replay = self._active_replay()
         blob = ckpt.load_blob(step, "replay")
@@ -334,7 +335,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         else:
             self.ingested_sequences = 0  # the replay refills from live traffic
         replay.beta = float(extra.get("replay_beta", replay.beta))
-        self.weights.publish(self.state.params, self.train_steps)
+        self.weights.publish(self.published_params(), self.train_steps)
         self._restore_cadence(extra)
         return True
 
@@ -362,7 +363,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
         with self.timer.stage("ingest_td"):
             batch = stack_pytrees(seqs + [seqs[0]] * (k - n))
             # Deliberate sync: the priorities go into the host sum tree.
-            td = self.agent.td_error(self.state, batch).cpu().numpy()[:n]
+            td = self.agent.td_error(self._scoring_state(), batch).cpu().numpy()[:n]
             if getattr(self.replay, "stacked_samples", False):
                 # One slice assignment per field.
                 self.replay.add_batch_stacked(td, tree_map(lambda x: x[:n], batch))

@@ -35,6 +35,7 @@ Counterpart of the JAX package's `runtime/replay_train.py`:
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 
@@ -80,7 +81,7 @@ class ReplayTrainMixin:
         rows, the learn step averages across the ranks, every rank starts
         from rank 0's parameters, and the global priorities come back,
         of which it writes back its own rows)."""
-        self._sharded = self._batch_sharding = None
+        self._sharded = self._batch_sharding = self._whole = None
         if mesh is None:
             return self.agent.sync_target(self.agent.init_state(init_seed))
         from distributed_reinforcement_learning_tpu_torch.parallel.learner import runner_learner
@@ -88,7 +89,29 @@ class ReplayTrainMixin:
 
         self._sharded = runner_learner(self.agent, mesh, 2)
         self._batch_sharding = data_sharding(mesh)
-        return self.agent.sync_target(self._sharded.init_state(init_seed))
+        state = self.agent.sync_target(self._sharded.init_state(init_seed))
+        self._refresh_whole(state)
+        return state
+
+    def _refresh_whole(self, state) -> None:
+        """Over a model axis, gather the whole parameters and target that
+        ingest scores new data under (`_scoring_state`): a collective
+        along `model`, run where the ranks are in step (construction,
+        each train call, a restore), since each rank ingests at its own
+        pace."""
+        sharded = self._sharded
+        if sharded is None or not sharded.reducer.model_dims:
+            self._whole = None
+            return
+        self._whole = dataclasses.replace(
+            state, params=sharded.gather_params(state.params),
+            target_params=sharded.gather_params(state.target_params))
+
+    def _scoring_state(self):
+        """The train state ingest's `td_error` runs under: the learner's
+        own, or over a model axis its whole tensors as of the last train
+        call."""
+        return self.state if self._whole is None else self._whole
 
     def _learn(self, state, batch, is_weight):
         """The seam every K = 1 learn step goes through (the agent's
@@ -199,6 +222,8 @@ class ReplayTrainMixin:
         if self.train_steps - self._last_target_sync >= self.target_sync_interval:
             self._last_target_sync = self.train_steps
             self.state = self.agent.sync_target(self.state)
+        if self._whole is not None:
+            self._refresh_whole(self.state)
 
     def _cadence_extra(self) -> dict:
         """Checkpoint fields for the cadence counters and the sampling

@@ -55,7 +55,10 @@ unsharded store. A learner under `DRL_COORDINATOR` / `DRL_NUM_PROCESSES`
 (`parallel/distributed.py`, `parallel/learner.py`); other roles ignore
 those names, as in the JAX package. Left out, each refused with a
 ValueError that names its ROADMAP item: sequence, pipeline and expert
-axes (item 13c) and the Anakin loops over a multi-process group (13b-ii).
+axes (item 13c). `--mode anakin` under a learner group is refused too:
+the JAX package's builds no mesh and ignores the names, so it would run
+one independent loop a process (ROADMAP F14); the Anakin loops take a
+mesh of ranks in the library (`runtime/anakin_mesh.py`).
 The learner's queue is
 `_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
 wherever the native library builds, else the Python `TrajectoryQueue`.
@@ -1499,7 +1502,10 @@ def refuse_unported(mode: str, algo: str) -> None:
 
     if mode == "anakin" and distributed.requested():
         raise ValueError("--mode anakin over a multi-process learner group (DRL_COORDINATOR): "
-                         "the Anakin mesh is ROADMAP item 13b-ii, which is not ported")
+                         "the JAX package's --mode anakin builds no mesh and ignores these "
+                         "names, so each process would run one independent loop; the port "
+                         "refuses instead (ROADMAP F14). The Anakin loops take a mesh of "
+                         "ranks in the library (runtime/anakin_mesh.py)")
 
 
 def _multihost_mesh(algo: str, agent_cfg, rt, world: int):

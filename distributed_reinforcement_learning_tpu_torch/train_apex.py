@@ -15,7 +15,7 @@ Served acts as in `train_impala.py` (`--serve_inference`, `--remote_act`,
 `--mode inference`), and the opt-in planes `DRL_WEIGHTS_SHARDED` and
 `DRL_DEVICE_PATH`, and the multi-process learner (item 13b). What
 `train_impala.py` refuses, this refuses: the sequence and expert axes
-(item 13c) and the Anakin mesh (item 13b-ii).
+(item 13c) and `--mode anakin` under `DRL_COORDINATOR` (ROADMAP F14).
 """
 
 from __future__ import annotations

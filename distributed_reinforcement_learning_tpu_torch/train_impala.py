@@ -37,8 +37,11 @@ actors with `--device cpu` to keep them off the card. A learner under
 `DRL_COORDINATOR` / `DRL_NUM_PROCESSES` / `DRL_PROCESS_ID` is one rank
 of a multi-process learner (ROADMAP item 13b; `runtime/transport.run_role`).
 Not ported, and refused with a ValueError naming the ROADMAP item: the
-sequence, pipeline and expert axes (item 13c), and `--mode anakin` over
-a multi-process group (the Anakin mesh, item 13b-ii).
+sequence, pipeline and expert axes (item 13c). `--mode anakin` under
+`DRL_COORDINATOR` is refused as well: the JAX package's builds no mesh
+and ignores the names, so each process would run one independent loop
+(ROADMAP F14); the Anakin loops take a mesh of ranks in the library
+(`runtime/anakin_mesh.py`).
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ in place of flax's msgpack:
   newest `retain` checkpoints are kept;
 - `restore` loads with `torch.load(map_location=<the template's
   device>, weights_only=True)` and copies the values into the
-  template's tensors in place, so a learner keeps its own leaf tensors.
+  template's tensors in place, so a learner keeps its own leaf tensors;
+- a learner over a model axis (`sharded=`) saves its state gathered
+  whole and restores a whole checkpoint to its slices, so a checkpoint
+  has the same tensors whatever mesh wrote or reads it.
 """
 
 from __future__ import annotations
@@ -194,9 +197,16 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Any, extra: dict | None = None,
-             blobs: dict[str, bytes] | None = None) -> Path:
+             blobs: dict[str, bytes] | None = None, sharded=None) -> Path:
         """Persist `state` (+ host `extra`, + named `blobs`) as checkpoint
-        `step`. Sidecars first; the payload is the commit marker."""
+        `step`. Sidecars first; the payload is the commit marker.
+
+        `sharded` (a `parallel/learner.ShardedLearner`): `state` is one
+        rank's, which over a model axis holds slices; the whole state is
+        saved (`gather_state`, a collective along `model`, so every rank
+        of the axis saves at the same step)."""
+        if sharded is not None:
+            state = sharded.gather_state(state)
         body = json.dumps(extra or {}).encode()
         _atomic_write(self._extra_path(step), lambda f: f.write(body))
         for name, data in (blobs or {}).items():
@@ -211,10 +221,19 @@ class Checkpointer:
         path = self._blob_path(step, name)
         return path.read_bytes() if path.exists() else None
 
-    def restore(self, template: Any, step: int | None = None) -> tuple[Any, dict, int] | None:
+    def restore(self, template: Any, step: int | None = None,
+                sharded=None) -> tuple[Any, dict, int] | None:
         """-> (state, extra, step) for `step` (default latest), or None.
         The values land in `template`'s own tensors (see the module
-        docstring)."""
+        docstring).
+
+        `sharded` (a `parallel/learner.ShardedLearner`): `template` is one
+        rank's state; the whole checkpoint loads into its gathered twin
+        and the rank keeps its slices (`place_state`). Both are
+        collectives along `model`: every rank of the axis restores."""
+        if sharded is not None:
+            got = self.restore(sharded.gather_state(template), step)
+            return None if got is None else (sharded.place_state(got[0]), *got[1:])
         if step is None:
             step = self.latest_step()
             if step is None:

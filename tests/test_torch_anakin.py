@@ -13,8 +13,9 @@ package's `runtime/anakin.py`, and the R2D2 loop's learning twin.
   the pixel loops run in `test_torch_anakin_replay.py`).
 - `greedy_rollout` against JAX's argmax rollout, compared over the steps
   before the first near-tie (top two probabilities within 1e-5).
-- The JAX tests' mechanics: chunks, the obs-shape and head guards, the
-  mesh refusal; the launcher's `--mode anakin` summary and resume.
+- The JAX tests' mechanics: chunks, the obs-shape and head guards, a
+  mesh that is not a mesh of ranks; the launcher's `--mode anakin`
+  summary and resume.
 - Learning twins of `tests/test_anakin.py:97` and
   `tests/test_anakin_r2d2.py:126`: the same configurations, update
   counts and bars.
@@ -192,7 +193,7 @@ def test_chunk_mechanics_and_guards():
         AnakinImpala(ImpalaAgent(ImpalaConfig(**anakin_cfg(obs_shape=(84, 84, 4),
                                                            num_actions=3)), device="cpu"),
                      4, env=breakout_device)
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(TypeError, match="RankMesh"):
         AnakinImpala(an.agent, 4, mesh=object())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_impala.main(["--config", str(CONFIG), "--section", "impala_cartpole",

@@ -11,8 +11,8 @@ package's.
   write (priorities at rtol 1e-4) and one prioritized learn step on the
   same sample (loss at rtol 1e-4).
 - The JAX tests' mechanics: ring wrap, capacity alignment, target sync
-  cadence, epsilon schedules, K above the sync interval refused, the mesh
-  refusal, the pixel rings' uint8 storage; the launchers' `--mode
+  cadence, epsilon schedules, K above the sync interval refused, a mesh
+  that is not a mesh of ranks, the pixel rings' uint8 storage; the launchers' `--mode
   anakin` summaries for `r2d2` and `apex`.
 - The learning twin of `tests/test_anakin_apex.py:63`: the same
   configuration, update counts and bar.
@@ -263,7 +263,7 @@ def test_ring_wrap_chunks_and_guards(make):
         make(capacity=40) if make is _apex else make(capacity=10)
     with pytest.raises(ValueError, match="must not exceed"):
         make(updates_per_collect=8, target_sync_interval=4)
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(TypeError, match="RankMesh"):
         make(mesh=object())
 
 

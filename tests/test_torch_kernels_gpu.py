@@ -73,9 +73,10 @@ def _special(args):
 # one column; a ragged last slab (33, 1000: B not a multiple of 32, and
 # 33 not of 4, so rows are not 16-byte aligned); T longer than one chunk
 # of 32 rows (70: two full chunks and a partial one); (18, 16), a rank's
-# of the sharded impala learner at data 2.
+# of the sharded impala learner at data 2; (18, 10), a rank's of Anakin
+# IMPALA at data 2 on the impala section's 20 envs.
 VTRACE_SHAPES = [(18, 32), (20, 256), (20, 65536), (1, 32), (1, 1), (18, 1), (20, 33),
-                 (20, 1000), (70, 1000), (70, 33), (64, 65536), (18, 16)]
+                 (20, 1000), (70, 1000), (70, 33), (64, 65536), (18, 16), (18, 10)]
 
 
 @pytest.mark.gpu
@@ -191,9 +192,11 @@ def _lstm_inputs(T, B, H, seed):
 # The r2d2 learn step; the r2d2_pixel section's learn step (its T is
 # seq_len 20, burn-in inside) and ingest (12 sequences padded to 16); a
 # small one; (30, 32, 256), seq_len 20 with a burn-in of 10 on top; and
-# (10, 16, 512), a rank's of the sharded r2d2 learner at data 2.
+# (10, 16, 512), a rank's of the sharded r2d2 learner at data 2; (10, 6,
+# 512), a rank's ingest of Anakin R2D2 at data 2 on the r2d2 section's 12
+# envs.
 LSTM_SHAPES = [(10, 32, 512), (20, 32, 256), (10, 8, 64), (20, 16, 256), (30, 32, 256),
-               (10, 16, 512)]
+               (10, 16, 512), (10, 6, 512)]
 # Shapes that stress the persistent kernels' partition: a batch that is
 # not a multiple of the 8-row tile, one row, several 64-row chunks, one
 # step, H = 1024 (8 units a block, K staged in chunks), and hidden sizes

@@ -584,6 +584,30 @@ class TestAttach:
         assert k8p.updates_per_call == 1 and k8p.prefetcher.reconfigured_to == 1
         tier.close()
 
+    @pytest.mark.parametrize("world", [1, 2])
+    def test_async_refuses_a_seat_of_more_than_one_rank(self, world):
+        """The async merge runs on a seat's lead rank alone: a seat of one
+        rank attaches, a seat of two is refused by name."""
+        import types
+
+        tier = LearnerTier(0, _addrs(2), sync="async", probe_interval_s=60.0)
+
+        class Seat:
+            _learn = staticmethod(lambda *a: a)
+            _sharded = types.SimpleNamespace(mesh=types.SimpleNamespace(world=world))
+
+        seat = Seat()
+        try:
+            if world == 1:
+                tier.attach(seat)
+                assert seat._learn is not Seat._learn
+            else:
+                with pytest.raises(ValueError, match="async on a seat of 2 ranks"):
+                    tier.attach(seat)
+                assert seat._learn is Seat._learn
+        finally:
+            tier.close()
+
     def test_async_keeps_impala_k_and_forces_replay_k_to_one(self):
         tier = LearnerTier(0, _addrs(2), sync="async", probe_interval_s=60.0)
         impala, apex = _learner("impala", k=4), _learner("apex", k=2)

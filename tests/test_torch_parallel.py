@@ -454,11 +454,19 @@ def test_prefetcher_needs_a_stack_placement_over_a_mesh():
 
 
 def test_runners_refuse_a_model_axis():
+    """No longer refused: a learner runner takes a model axis (it publishes
+    and checkpoints the whole tensors; `tests/test_torch_anakin_mesh.py`
+    trains one). Its sharded learner splits the large kernels over
+    `model`; building it runs no collective."""
     from distributed_reinforcement_learning_tpu_torch.parallel.learner import runner_learner
 
-    mesh = types.SimpleNamespace(size=lambda axis: 2 if axis == MODEL_AXIS else 1)
-    with pytest.raises(ValueError, match="13b-ii"):
-        runner_learner(None, mesh, 1)
+    shape = dict(mesh_shape(2, model_parallel=2))
+    mesh = types.SimpleNamespace(shape=shape, size=shape.get, coords=dict.fromkeys(shape, 0),
+                                 device=torch.device("cpu"))
+    kw = dict(CASES[4]["impala_dptp"][1])
+    sl = runner_learner(ImpalaAgent(ImpalaConfig(**kw), device="cpu"), mesh, 1)
+    assert isinstance(sl, ShardedLearner)
+    assert "lstm.gates_kernel" in sl.reducer.model_dims
 
 
 # -- the reduction seam alone -----------------------------------------------------
