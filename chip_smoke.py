@@ -398,14 +398,37 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    learner, 3 owner-scoped rounds with `-,model` bytes, each seat's
    publish whole. Logs ms an update against the single-device loop, the
    reductions' ms p50 and bytes, beside the nvidia-smi line.
-48. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+48. The model-parallel transformer body (ROADMAP item 13c), one world of
+   two ranks sharing cuda:0 over gloo, on the card's deterministic
+   algorithms: (a) ring, zigzag ring and Ulysses attention at seq 2 at
+   the `xformer` width (B 32, T 32, 2 heads of 32) with episode
+   segments, values within 1e-5 and gradients within 1e-4 of
+   `dense_attention` on one device; three learn steps of `xformer` at
+   seq_len 32 (b) with `attention: ring_zigzag` at seq 2, (c) of
+   `xformer_moe` at expert 2, (d) with `pipeline: true` at 2 stages of 2
+   microbatches: the ranks bit for bit equal; each step against the
+   single-device agent's step from the same whole state on the union
+   batch: the loss, gradient norm and priorities within ROADMAP F14's
+   bar (rtol 2e-4, atol 2e-5), every leaf at phase 46's bar for Adam
+   (`adam_step_close`: its gradient at rtol 1e-4, the parameters it
+   settles at rtol 1e-4; only an element whose gradient is float32
+   noise within Adam's bound of a step); with each
+   collective's bytes, the ms a step and the
+   K3 launches (K3a at (32, 2, 32, 32) under the expert axis and at (16,
+   2, 32, 32) in each pipeline stage; none under the ring). A world of
+   one over NCCL runs `xformer_moe` bit for bit the plain agent. Beside
+   both, a `train_xformer` group through `launch_local_cluster --learners 2` at
+   seq_parallel 2 (ring_zigzag, seq_len 32) for 3 updates: both
+   learners on cuda:0 over gloo, the mesh's seq axis 2, exit 0, no
+   segment left.
+49. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
    paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's-47's
    launches beside phase 4's, and its times at phase 38's, 46's and
    47's shapes; K2a and K2b phase 20's, 26's, 32's, 40's, 42's-47's
-   beside phase 6's; K3a, K3b and K3c phase 23's, 45's and 46's beside
-   phase 9's, and K3a phases 34's and 36's with its times at the served
-   batch shapes).
-49. The device line, then `{"ok": true, "device": {...}}` as the last line.
+   beside phase 6's; K3a, K3b and K3c phase 23's, 45's, 46's and 48's
+   beside phase 9's, with their times at phase 48's local shapes, and
+   K3a phases 34's and 36's with its times at the served batch shapes).
+50. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29,
@@ -488,7 +511,11 @@ LSTM_SHAPES = [LSTM_MAIN, LSTM_INGEST, LSTM_PIXEL, (20, 16, 256), (20, 256, 512)
 # rows (phases 34 and 36), bench.py's ximpala_learn shape, and a long
 # sequence.
 ATTN_MAIN = (16, 2, 16, 32)
-ATTN_SHAPES = [ATTN_MAIN, (1, 2, 16, 32), (32, 2, 16, 32), (64, 4, 32, 64), (1, 4, 8192, 64)]
+# Phase 48's local shapes: the whole batch at seq_len 32 (the expert axis),
+# and one of its 2 microbatches (a pipeline stage).
+MP_ATTN_SHAPES = [(32, 2, 32, 32), (16, 2, 32, 32)]
+ATTN_SHAPES = [ATTN_MAIN, (1, 2, 16, 32), (32, 2, 16, 32), (64, 4, 32, 64), (1, 4, 8192, 64),
+               *MP_ATTN_SHAPES]
 XIMPALA_UPDATES = 3
 IMPALA_OPTION_STEPS = 3
 SCAN_UPDATES = 8  # impala_cartpole_scan: 2 calls of K = 4
@@ -3347,7 +3374,8 @@ def role_json(out: str, role: str) -> list[dict]:
 
 
 def run_launcher(section: str, updates: int, actors: int, tag: str, env_set: dict,
-                 extra: list[str] = (), during=None, expect_rc: int = 0) -> str:
+                 extra: list[str] = (), during=None, expect_rc: int = 0,
+                 config: Path | None = None) -> str:
     """`launch_local_cluster` from this checkout: the learner on CUDA, the
     actors on the CPU, in a process group of its own that is killed whole
     on failure or timeout. `during(proc, log_path)` runs while it does.
@@ -3366,7 +3394,7 @@ def run_launcher(section: str, updates: int, actors: int, tag: str, env_set: dic
     out_dir.mkdir(exist_ok=True)
     log_path = out_dir / f"smoke_launcher_{tag}.log"
     cmd = [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.launch_local_cluster",
-           "--config", str(CONFIG), "--section", section, "--actors", str(actors),
+           "--config", str(config or CONFIG), "--section", section, "--actors", str(actors),
            "--updates", str(updates), "--actor_grace", "5", *extra]
     with open(log_path, "w+") as f:
         proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
@@ -6127,6 +6155,321 @@ def phase_anakin_mesh() -> dict:
     return got
 
 
+# -- the model-parallel transformer body (phase 48) ----------------------------------
+
+MP_STEPS = 3  # learn steps of each case
+MP_T = 32  # seq_len of (a)-(d): dense attention takes the flash route at head dim 32
+MP_B = 32  # the xformer sections' batch
+# (b)-(d): (tag, section, config changes, mesh axes).
+MP_CASES = (("ring_zigzag_seq2", "xformer", {"attention": "ring_zigzag"}, {"seq_parallel": 2}),
+            ("moe_expert2", "xformer_moe", {}, {"expert_parallel": 2}),
+            ("pipeline_pipe2", "xformer", {"pipeline": True, "pipeline_microbatches": 2},
+             {"pipe_parallel": 2}))
+MP_LAUNCHER_UPDATES = 3
+MP_TIMEOUT_S = 180
+
+
+def mp_attention(mesh) -> dict:
+    """(a): each kind on this rank against dense attention on its device
+    (B 32, T 32, 2 heads of 32, ~10% episode ends), the values and the q,
+    k, v gradients of sum(out * w); the ms of a forward and backward
+    (median of 5 after a warm one) and the bytes each collective moved."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import sequence as sp
+
+    g = torch.Generator(device="cuda").manual_seed(480)
+    shape = (MP_B, MP_T, 2, 32)
+    q, k, v, w = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+    done = torch.rand((MP_B, MP_T), generator=g, device="cuda") < 0.1
+    segs = torch.cat([torch.zeros_like(done[:, :1], dtype=torch.int32),
+                      torch.cumsum(done.to(torch.int32), 1)[:, :-1]], 1).to(torch.int32)
+
+    def fwd_bwd(fn):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*qkv)
+        return out.detach(), torch.autograd.grad((out * w).sum(), qkv)
+
+    want, want_g = fwd_bwd(lambda a, b, c: dense_attention(a, b, c, causal=True, q_seg=segs,
+                                                           k_seg=segs))
+    fns = {"ring": lambda *a: sp.ring_attention(mesh, *a, segment_ids=segs),
+           "zigzag": lambda *a: sp.ring_attention(mesh, *a, segment_ids=segs,
+                                                  schedule="zigzag"),
+           "ulysses": lambda *a: sp.ulysses_attention(mesh, *a, segment_ids=segs)}
+    got = {}
+    for kind, fn in fns.items():
+        b0 = dict(mesh.bytes_by)
+        out, grads = fwd_bwd(fn)
+        moved = {key: n - b0.get(key, 0) for key, n in mesh.bytes_by.items() if n > b0.get(key, 0)}
+        val_err = float((out - want).abs().max())
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(grads, want_g))
+        if val_err > 1e-5 or grad_err > 1e-4:
+            raise RuntimeError(f"(a) {kind}: value error {val_err:.2e}, gradient error "
+                               f"{grad_err:.2e} against dense attention")
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd_bwd(fn)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got[kind] = {"val_err": val_err, "grad_err": grad_err, "bytes": moved,
+                     "ms": float(np.median(ms))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fwd_bwd(lambda a, b, c: dense_attention(a, b, c, causal=True, q_seg=segs, k_seg=segs))
+    torch.cuda.synchronize()
+    got["dense_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    return got
+
+
+def mp_step(learn, state, data) -> tuple:
+    """One synchronised step of `learn` with the launch counts zeroed just
+    before -> (state, ms, (loss, grad norm, priorities), launches)."""
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    state, prio, m = learn(state, *data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()
+    return state, ms, (float(m["loss"]), float(m["grad_norm"]), prio.detach().cpu().numpy()), \
+        launches
+
+
+def mp_copy(state):
+    """A train state's tensors, detached copies (a gathered state shares its
+    replicated leaves with the live one, which a step updates in place)."""
+    return dataclasses.replace(state, **{f: {k: v.detach().clone() for k, v in
+                                             getattr(state, f).items()}
+                                         for f in ("params", "target_params", "mu", "nu")})
+
+
+def mp_load(state, whole):
+    """`whole`'s numbers written into `state`, the single-device agent's."""
+    with torch.no_grad():
+        for f in ("params", "target_params", "mu", "nu"):
+            for k, t in getattr(state, f).items():
+                t.copy_(getattr(whole, f)[k])
+    return dataclasses.replace(state, step=whole.step)
+
+
+def mp_bar(section: str, t: int, before, got, want, got_out: tuple, want_out: tuple,
+           lr: float) -> tuple:
+    """Learn step `t` of the sharded learner against the single-device
+    agent's step from the same whole state (`before`) on the union batch:
+    the loss, gradient norm and priorities within ROADMAP F14's bar (rtol
+    2e-4, atol 2e-5), and each leaf at phase 46's bar (`adam_step_close`:
+    its gradient, read off Adam's first moment, at rtol 1e-4; the
+    parameters it settles at rtol 1e-4, atol 1% of lr; only the elements
+    whose gradient is float32 noise within Adam's bound of one step) ->
+    (the noise-floor elements, the largest gradient difference of a
+    leaf's largest)."""
+    (g_loss, g_norm, g_prio), (w_loss, w_norm, w_prio) = got_out, want_out
+    np.testing.assert_allclose([g_loss, g_norm], [w_loss, w_norm], rtol=2e-4, atol=2e-5,
+                               err_msg=f"{section}: step {t}'s loss and gradient norm")
+    np.testing.assert_allclose(g_prio, w_prio, rtol=2e-4, atol=2e-5,
+                               err_msg=f"{section}: step {t}'s priorities")
+    grad = lambda s, k: (s.mu[k] - 0.9 * before.mu[k]) / 0.1
+    unsettled, grad_err = 0, 0.0
+    for k in want.params:
+        g_got, g_want = grad(got, k), grad(want, k).detach()
+        unsettled += adam_step_close(f"{section} step {t} {k}", got.params[k],
+                                     want.params[k].detach(), g_got, g_want, lr, t)
+        grad_err = max(grad_err, float((g_got - g_want).abs().max()
+                                       / g_want.abs().max().clamp_min(1e-30)))
+    return unsettled, grad_err
+
+
+def mp_case(tag: str, section: str, change: dict, mesh_kw: dict) -> dict:
+    """(b)-(d) in this rank: MP_STEPS learn steps of the section at seq_len
+    MP_T over the mesh, the ranks' digest, and in rank 0 each step held to
+    the single-device agent's step from the same whole state on the union
+    batch (`mp_bar`). The whole state is gathered around every step (its
+    bytes are not a step's); the launch counts are zeroed just before
+    each step and read just after."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import make_mesh
+
+    agent_cfg, _ = load_config(CONFIG, section)
+    agent_cfg = dataclasses.replace(agent_cfg, seq_len=MP_T, **change)
+    mesh = make_mesh(**mesh_kw)
+    agent = XformerAgent(agent_cfg, device=torch.cuda.current_device(), mesh=mesh)
+    sl = ShardedLearner(agent, mesh, 2, 2)
+    sl.reducer.timed = True
+    union = [xformer_batch(agent_cfg, MP_B, seed=48 + i) for i in range(MP_STEPS)]
+    state = sl.init_state(seed=1)
+    lead = mesh.rank == 0
+    if lead:
+        plain_cfg = dataclasses.replace(agent_cfg, attention="dense", pipeline=False,
+                                        stacked=agent_cfg.pipeline or agent_cfg.stacked)
+        plain = XformerAgent(plain_cfg, device=torch.cuda.current_device())
+        pstate = plain.init_state(seed=1)
+    got = {"ms": [], "plain_ms": [], "launches": {}, "plain_launches": {}, "bytes_by": {},
+           "unsettled": [], "grad_rel_err": [], "losses": []}
+    add = lambda into, counts: into.update({k: into.get(k, 0) + v for k, v in counts.items()})
+    for t, batch in enumerate(union, 1):
+        before = mp_copy(sl.gather_state(state))
+        # Rank 0 checked the last step meanwhile: start the timed step together.
+        torch.distributed.barrier()
+        b0 = dict(mesh.bytes_by)
+        state, ms, out, launches = mp_step(sl.learn, state, sl.shard_batch(batch))
+        add(got["bytes_by"], {key: n - b0.get(key, 0) for key, n in mesh.bytes_by.items()})
+        got["ms"].append(ms)
+        add(got["launches"], launches)
+        after = mp_copy(sl.gather_state(state))
+        if not lead:
+            continue
+        pstate, pms, pout, plaunches = mp_step(plain.learn, mp_load(pstate, before), batch)
+        got["plain_ms"].append(pms)
+        add(got["plain_launches"], plaunches)
+        unsettled, grad_err = mp_bar(section, t, before, after, pstate, out, pout,
+                                     agent_cfg.learning_rate)
+        got["unsettled"].append(unsettled)
+        got["grad_rel_err"].append(grad_err)
+        got["losses"].append([out[0], pout[0]])
+    got["bytes_by"] = {key: n // MP_STEPS for key, n in got["bytes_by"].items() if n > 0}
+    got["reduce_ms"] = [r[0] for r in sl.reducer.records + sl.reducer.seq_records]
+    got["bytes_local"] = sl.state_bytes(state)
+    whole = sl.gather_state(state)
+    got["bytes_whole"] = sl.state_bytes(whole)
+    got["digest"] = params_digest(whole.params)
+    return got
+
+
+def mp_world_one() -> dict:
+    """A world of one over NCCL: `xformer_moe` at seq_len MP_T over a mesh
+    of one, bit for bit the plain agent (deterministic algorithms on)."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import make_mesh
+
+    agent_cfg, _ = load_config(CONFIG, "xformer_moe")
+    agent_cfg = dataclasses.replace(agent_cfg, seq_len=MP_T)
+    mesh = make_mesh()
+    sl = ShardedLearner(XformerAgent(agent_cfg, device=torch.cuda.current_device(), mesh=mesh),
+                        mesh, 2, 2)
+    union = [xformer_batch(agent_cfg, MP_B, seed=48 + i) for i in range(MP_STEPS)]
+    zero_launch_counts()
+    state, ms = timed_steps(sl.learn, sl.init_state(seed=1), [sl.shard_batch(b) for b in union])
+    launches = all_launches()
+    plain = XformerAgent(agent_cfg, device=torch.cuda.current_device())
+    zero_launch_counts()
+    pstate, plain_ms = timed_steps(plain.learn, plain.init_state(seed=1), union)
+    differ = [k for k, p in pstate.params.items() if not torch.equal(p, state.params[k])]
+    if differ:
+        raise RuntimeError(f"xformer_moe: a world of one differs from the plain agent in "
+                           f"{len(differ)} leaves ({differ[:3]})")
+    return {"launches": launches, "plain_launches": all_launches(), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def mp_rank(world_one: bool = False) -> None:
+    """One rank of phase 48 (a child process): join the world from the
+    DRL_* env names, run (a)-(d) (or the world of one's case), print one
+    JSON line."""
+    from distributed_reinforcement_learning_tpu_torch.parallel import distributed, make_mesh
+
+    out = join_world()
+    if world_one:
+        out["moe_world1"] = mp_world_one()
+    else:
+        out["attention"] = mp_attention(make_mesh(seq_parallel=2))
+        print(json.dumps({"attention": out["attention"]}), flush=True)
+        for tag, section, change, mesh_kw in MP_CASES:
+            out[tag] = mp_case(tag, section, change, mesh_kw)
+            print(json.dumps({tag: out[tag]}), flush=True)
+    print(json.dumps(out), flush=True)
+    distributed.shutdown()
+
+
+def mp_launcher_config() -> Path:
+    """config.json with the `xformer` section at seq_parallel 2 under the
+    zigzag ring and seq_len MP_T, beside the smoke's logs."""
+    cfg = json.loads(CONFIG.read_text())
+    cfg["xformer"].update(attention="ring_zigzag", seq_parallel=2, seq_len=MP_T)
+    path = ROOT / "chiprun_out" / "smoke_model_parallel_config.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def phase_model_parallel() -> dict:
+    """Phase 48: the model-parallel transformer body. The world of two
+    (gloo on cuda:0), the world of one (NCCL) and the launcher's learner
+    group at seq 2 run at once, each rank a child process in its own
+    group with its own timeout (their host work shares the cores, so the
+    ms a step are read beside the others)."""
+    from distributed_reinforcement_learning_tpu_torch.launch_local_cluster import _free_port_run
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    two = start_ranks(2, "mp_rank()", "mp_world2")
+    one = start_ranks(1, "mp_rank(world_one=True)", "mp_world1")
+    worlds = {}
+
+    def join_worlds(proc, log_path) -> None:
+        worlds["two"] = join_ranks(two, "mp_world2", MP_TIMEOUT_S)
+        (worlds["one"],) = join_ranks(one, "mp_world1", MP_TIMEOUT_S)
+
+    base = _free_port_run(2)
+    out = run_launcher("xformer", MP_LAUNCHER_UPDATES, 2, "model_parallel",
+                       {"DRL_LEARNER_ADDR": f"127.0.0.1:{base}"}, extra=["--learners", "2"],
+                       config=mp_launcher_config(), during=join_worlds)
+    launcher_s = time.perf_counter() - t0
+    two, one = worlds["two"], worlds["one"]
+    for rank in two:
+        if rank["backend"] != "gloo" or rank["device"] != "cuda:0":
+            raise RuntimeError(f"rank {rank['rank']} on {rank['device']} over "
+                               f"{rank['backend']}, expected cuda:0 over gloo")
+    if one["backend"] != "nccl" or one["device"] != "cuda:0":
+        raise RuntimeError(f"a world of one on {one['device']} over {one['backend']}")
+    for tag, _, _, _ in MP_CASES:
+        if two[0][tag]["digest"] != two[1][tag]["digest"]:
+            raise RuntimeError(f"{tag}: the two ranks' parameters differ")
+        if two[0][tag]["launches"] != two[1][tag]["launches"]:
+            raise RuntimeError(f"{tag}: the ranks' launches differ")
+    att = two[0]["attention"]
+    log("[model-parallel] (a) seq 2, B 32, T 32, 2 heads of 32, both ranks gloo on cuda:0: "
+        + ", ".join(f"{kind} value err {att[kind]['val_err']:.2e}, grad err "
+                    f"{att[kind]['grad_err']:.2e}, forward+backward {att[kind]['ms']:.2f} ms, "
+                    f"bytes {att[kind]['bytes']}" for kind in ("ring", "zigzag", "ulysses"))
+        + f"; dense on one device {att['dense_ms']:.2f} ms ({smi})")
+    for tag, _, _, mesh_kw in MP_CASES:
+        c = two[0][tag]
+        log(f"[model-parallel] {tag} ({mesh_kw}): ranks bit for bit equal; learn-step ms p50 "
+            f"{np.median(c['ms']):.2f} (rank 1 {np.median(two[1][tag]['ms']):.2f}; one device "
+            f"{np.median(c['plain_ms']):.2f}); each step against one device's from the same "
+            f"whole state: losses (sharded, one device) {c['losses']}, loss, grad norm and "
+            f"priorities within rtol 2e-4 / atol 2e-5, every leaf at phase 46's Adam bar "
+            f"(largest gradient difference a step "
+            f"{['%.2e' % e for e in c['grad_rel_err']]} of the leaf's largest, noise-floor "
+            f"elements {c['unsettled']}), "
+            f"bytes a step by collective {c['bytes_by']}, data/seq reductions ms "
+            f"{[round(x, 3) for x in c['reduce_ms']]}, bytes a rank {c['bytes_local']} of "
+            f"{c['bytes_whole']}, launches a rank "
+            f"{json.dumps({k: v for k, v in c['launches'].items() if v})} (one device "
+            f"{json.dumps({k: v for k, v in c['plain_launches'].items() if v})}) ({smi})")
+    w1 = one["moe_world1"]
+    log(f"[model-parallel] world of one over nccl: xformer_moe bit for bit the plain agent, "
+        f"ms p50 {np.median(w1['ms']):.2f} / {np.median(w1['plain_ms']):.2f}, launches "
+        f"{json.dumps({k: v for k, v in w1['launches'].items() if v})} ({smi})")
+
+    learners = [role_json(out, f"learner{k}") for k in range(2)]
+    if not all(learners):
+        raise RuntimeError(f"launcher group: a learner printed no summary:\n{out[-4000:]}")
+    for k, (summary,) in enumerate(learners):
+        mh = summary["multihost"]
+        if (summary["device"] != "cuda:0" or mh["backend"] != "gloo" or mh["rank"] != k
+                or mh["mesh"]["seq"] != 2 or summary["train_steps"] != MP_LAUNCHER_UPDATES):
+            raise RuntimeError(f"launcher group learner{k}: {summary['device']}, {mh}, "
+                               f"{summary['train_steps']} steps")
+    log(f"[model-parallel] launch_local_cluster --learners 2, xformer at seq_parallel 2 "
+        f"(ring_zigzag, seq_len {MP_T}): both learners on cuda:0 over gloo, mesh "
+        f"{learners[0][0]['multihost']['mesh']}, {MP_LAUNCHER_UPDATES} updates each, every "
+        f"role exited 0, no segment left ({launcher_s:.1f} s, beside the worlds; {smi})")
+    got = {"world2": two, "world1": one, "launcher_s": launcher_s,
+           "seconds": time.perf_counter() - t0}
+    log(f"[model-parallel] phase 48 {got['seconds']:.1f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6221,6 +6564,8 @@ def main() -> int:
     sharded = phase_sharded_learner()
     phase_memory("anakin mesh")
     anakin_mesh = phase_anakin_mesh()
+    phase_memory("model-parallel body")
+    model_parallel = phase_model_parallel()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -6275,7 +6620,12 @@ def main() -> int:
                **{f"anakin_mesh_world1_{s}": [anakin_mesh["world1"][f"{s}/1"]["launches"]]
                   for s, _, _ in ANAKIN_MESH_WORLD_ONE},
                **{f"anakin_mesh_world2_{s}_model{m}_rank{r['rank']}": [r[f"{s}/{m}"]["launches"]]
-                  for r in anakin_mesh["world2"] for s, m, _ in ANAKIN_MESH_WORLD_TWO}}
+                  for r in anakin_mesh["world2"] for s, m, _ in ANAKIN_MESH_WORLD_TWO},
+               # Phase 48: each case's 3 learn steps on each of the two
+               # ranks, and the world of one.
+               **{f"model_parallel_{tag}_rank{r['rank']}": [r[tag]["launches"]]
+                  for r in model_parallel["world2"] for tag, _, _, _ in MP_CASES},
+               "model_parallel_moe_world1": [model_parallel["world1"]["moe_world1"]["launches"]]}
     for row in kernels:
         for path, runs in by_path.items():
             counts = [got[row["name"]] for got in runs]
@@ -6364,6 +6714,7 @@ def main() -> int:
         f"synthetic steps phase 45 {synth['seconds']:.1f} s; phases 44-45 {drivers_s:.1f} s; "
         f"sharded learner phase 46 {sharded['seconds']:.1f} s; "
         f"anakin mesh phase 47 {anakin_mesh['seconds']:.1f} s; "
+        f"model-parallel body phase 48 {model_parallel['seconds']:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

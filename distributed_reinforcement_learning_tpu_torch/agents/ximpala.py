@@ -19,6 +19,10 @@ Parameters are explicit tensors run through `models.functional.functional_call`
 on a meta-device model, as in `agents/impala.py`. On CUDA tensors every
 attention call with T divisible by a power-of-two block of at least 8
 runs the flash kernels K3a (forward), K3b and K3c (backward).
+
+With `mesh=` the learn step is one rank's part of a step sharded as the
+config's body knobs say (`agents/xformer.build_transformer_models`:
+sequence, pipeline, experts); `act` runs the plain-apply twin.
 """
 
 from __future__ import annotations
@@ -31,16 +35,14 @@ import torch
 from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaAgent
 from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
-    build_transformer_models, init_transformer_params, moe_aux_term)
+    TwinModelMixin, build_transformer_models, init_transformer_params, moe_aux_term)
 from distributed_reinforcement_learning_tpu_torch.models.functional import functional_call
 
 
 @dataclasses.dataclass(frozen=True)
 class XImpalaConfig:
     """IMPALA hyperparameters + transformer body knobs, mirroring the
-    `ximpala` block of `config.json`. Mixture of experts, remat and the
-    stacked layout are ported; sequence-parallel attention and the
-    pipeline need a mesh and raise (ROADMAP item 13c)."""
+    `ximpala` block of `config.json`; the body knobs are `XformerConfig`'s."""
 
     obs_shape: tuple[int, ...] = (2,)
     num_actions: int = 2
@@ -88,14 +90,22 @@ class XImpalaActOutput(NamedTuple):
     policy: torch.Tensor  # [N, A] window-final softmax (the behavior policy)
 
 
-class XImpalaAgent(ImpalaAgent):
+class XImpalaAgent(TwinModelMixin, ImpalaAgent):
     """`ImpalaAgent` (its loss, `learn` and optimizer) with the transformer
     as the model, so the IMPALA learner runs it; only the forward, the
     model and `act` differ."""
 
-    def _build_model(self, generator: torch.Generator | None):
-        return build_transformer_models(self.cfg, seq_len=self.cfg.trajectory,
-                                        head="actor_critic", generator=generator)[0]
+    loss_reduction = "sum"
+
+    def __init__(self, cfg: XImpalaConfig, device: str | torch.device | None = None,
+                 mesh=None):
+        self.mesh = mesh
+        super().__init__(cfg, device)
+        self.twin  # noqa: B018 — build now, so a bad config raises here
+
+    def _build_models(self, generator: torch.Generator | None):
+        return build_transformer_models(self.cfg, self.mesh, seq_len=self.cfg.trajectory,
+                                        head="actor_critic", generator=generator)
 
     def init_state(self, seed: int = 0) -> common.TrainState:
         """Fresh parameters drawn on the CPU from `seed` (the same numbers
@@ -110,7 +120,7 @@ class XImpalaAgent(ImpalaAgent):
         """Sample from the window-final softmax policy with `generator`
         (on the agent's device). Windows are `[N, W, ...]`."""
         policy, _ = functional_call(
-            self.model, params, (common.normalize_obs(obs_win), prev_action_win, done_win))
+            self.twin, params, (common.normalize_obs(obs_win), prev_action_win, done_win))
         policy = policy[:, -1]
         action = torch.multinomial(policy, 1, generator=generator).squeeze(-1)
         return XImpalaActOutput(action, policy)
@@ -124,4 +134,4 @@ class XImpalaAgent(ImpalaAgent):
         if not self.cfg.num_experts:
             return functional_call(self.model, params, args)
         (policy, value), aux = functional_call(self.model, params, args, {"return_aux": True})
-        return policy, value, moe_aux_term(self.cfg, aux)
+        return policy, value, self.aux_share(moe_aux_term(self.cfg, aux))

@@ -1,9 +1,8 @@
-"""Parallel learners: the mesh of ranks, the sharded learner, the
-multi-process join, and the partition rules of the weight plane.
+"""Parallel learners: the mesh of ranks, the sharded learner, sequence
+and pipeline parallelism, the multi-process join, and the partition
+rules of the weight plane.
 
-Exports what the JAX package's `parallel/__init__.py` exports, except
-item 13c's sequence and pipeline parallelism (`ring_attention`,
-`ulysses_attention`, `pipeline_apply`, `stack_stage_params`), and the
+Exports what the JAX package's `parallel/__init__.py` exports, and the
 port's own pieces that a caller builds a mesh run from: `RankMesh`,
 `Placement`, `MeshReducer` and `runner_learner` (the Anakin loops and
 the tier's mesh seats take them)."""
@@ -28,6 +27,14 @@ from distributed_reinforcement_learning_tpu_torch.parallel.learner import (
     runner_learner,
     train_state_sharding,
 )
+from distributed_reinforcement_learning_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    stack_stage_params,
+)
+from distributed_reinforcement_learning_tpu_torch.parallel.sequence import (
+    ring_attention,
+    ulysses_attention,
+)
 from distributed_reinforcement_learning_tpu_torch.parallel import distributed
 
 __all__ = [
@@ -44,8 +51,12 @@ __all__ = [
     "data_sharding",
     "make_mesh",
     "model_kernel_sharding",
+    "pipeline_apply",
     "place_local_batch",
     "replicated",
+    "ring_attention",
     "runner_learner",
+    "stack_stage_params",
     "train_state_sharding",
+    "ulysses_attention",
 ]

@@ -21,6 +21,22 @@ JAX's `_learn(axis_name=...)`) calls `MeshReducer` between
   of the reduced gradient for the update. The leaves are JAX's
   (`train_state_sharding`); the gradient norm adds the slices' squares
   across the axis.
+- `pipe` and `expert`: each rank stores its stage's layers or its
+  experts (the `blocks_stacked` and `moe_*` leaves' leading dim) and
+  their moments, and the forward uses them as they are
+  (`parallel/pipeline.py`, `ops/moe.py`); their gradients are whole on
+  the rank that holds them, and the norm adds their squares across the
+  axis.
+- `seq`: with the transformer's stream split over the axis
+  (`agent.seq_sharded`), each rank's gradient is the part of its steps,
+  and the gradients are summed across `seq` (after the data reduction,
+  in one more flat all-reduce; the loss metrics are the same on every
+  seq rank and are not).
+
+Inside a step the model's own collectives carry their transposes
+(`parallel/mesh.py`), so each parameter's gradient is the single-device
+agent's on the union batch, with no n-fold count along `seq`, `pipe` or
+`expert`.
 
 With no reducer every agent does bit for bit what it did before. In a
 world of one no collective runs in a learn step; `init_state`'s
@@ -42,7 +58,10 @@ from distributed_reinforcement_learning_tpu_torch.agents import common
 from distributed_reinforcement_learning_tpu_torch.models.convert import flax_last_dim
 from distributed_reinforcement_learning_tpu_torch.parallel import mesh as mesh_lib
 from distributed_reinforcement_learning_tpu_torch.parallel.mesh import (
-    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, Placement, RankMesh)
+    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Placement, RankMesh)
+
+# The axes along which the ranks of one data coordinate learn on the same rows.
+_LINE_AXES = (SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS)
 
 # Leaves smaller than this stay replicated: a gather of a 256-float bias
 # costs more than its slice saves.
@@ -70,8 +89,7 @@ def train_state_sharding(mesh: RankMesh, params: Any) -> dict[str, Placement]:
       the `model` axis, with at least `_MIN_SHARD_SIZE` elements, splits
       that dimension over `model`; the rest replicate.
 
-    The first two fire only at pipe or expert sizes above 1, which
-    `make_mesh` refuses until ROADMAP item 13c."""
+    The first two fire only at pipe or expert sizes above 1."""
     params = getattr(params, "params", params)
     pipe, ep, m = mesh.size(PIPE_AXIS), mesh.size(EXPERT_AXIS), mesh.size(MODEL_AXIS)
     out = {}
@@ -94,15 +112,35 @@ def train_state_sharding(mesh: RankMesh, params: Any) -> dict[str, Placement]:
 
 class MeshReducer:
     """The agents' reduction seam over a mesh (`reducer=` of their learn
-    steps). `records` holds (host ms, bytes) of each data-axis reduction;
-    the ms wait for the device first only when `timed` is set."""
+    steps). `records` holds (host ms, bytes) of each data-axis reduction,
+    `seq_records` of each seq-axis one; the ms wait for the device first
+    only when `timed` is set. `shard_dims` maps every leaf split over an
+    axis to (axis, dim); `model_dims` those over `model` (gathered before
+    the forward). `seq_partial`: the gradients are parts over `seq`."""
 
-    def __init__(self, mesh: RankMesh, placements: dict[str, Placement]):
+    def __init__(self, mesh: RankMesh, placements: dict[str, Placement],
+                 seq_partial: bool = False):
         self.mesh = mesh
-        self.model_dims = {name: p.dim(MODEL_AXIS) for name, p in placements.items()
-                           if p.dim(MODEL_AXIS) is not None}
+        self.shard_dims = {}
+        for name, p in placements.items():
+            for axis in (MODEL_AXIS, PIPE_AXIS, EXPERT_AXIS):
+                if p.dim(axis) is not None:
+                    self.shard_dims[name] = (axis, p.dim(axis))
+        self.model_dims = {name: d for name, (axis, d) in self.shard_dims.items()
+                           if axis == MODEL_AXIS}
+        self.seq_partial = seq_partial and mesh.size(SEQ_AXIS) > 1
         self.timed = False
         self.records: list[tuple[float, int]] = []
+        self.seq_records: list[tuple[float, int]] = []
+
+    def _timed_reduce(self, flat: torch.Tensor, axis: str, op: str, records: list) -> None:
+        if self.timed and flat.is_cuda:
+            torch.cuda.synchronize(flat.device)
+        t0, b0 = time.perf_counter(), self.mesh.bytes_moved
+        self.mesh.all_reduce(flat, axis, op)
+        if self.timed and flat.is_cuda:
+            torch.cuda.synchronize(flat.device)
+        records.append(((time.perf_counter() - t0) * 1e3, self.mesh.bytes_moved - b0))
 
     def gather(self, params: dict[str, torch.Tensor], grad: bool = True) -> dict:
         """The whole tensors of model-sharded leaves (fresh leaves that
@@ -118,12 +156,34 @@ class MeshReducer:
         return out
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of the whole tensor `t` of leaf `name`."""
+        """This rank's slice of the whole tensor `t` of a model-sharded
+        leaf `name` (the other leaves' gradients are already this rank's)."""
         d = self.model_dims.get(name)
         if d is None:
             return t
         n = t.shape[d] // self.mesh.size(MODEL_AXIS)
         return t.narrow(d, self.mesh.coords[MODEL_AXIS] * n, n)
+
+    def cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor `t` of any sharded leaf."""
+        if name not in self.shard_dims:
+            return t
+        axis, d = self.shard_dims[name]
+        n = t.shape[d] // self.mesh.size(axis)
+        return t.narrow(d, self.mesh.coords[axis] * n, n)
+
+    def whole(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This rank's `{name: tensor}` -> the whole tensors (a collective
+        along each sharded axis: every rank of it calls it)."""
+        if not self.shard_dims:
+            return params
+        out = {}
+        for name, p in params.items():
+            if name in self.shard_dims:
+                axis, d = self.shard_dims[name]
+                p = self.mesh.all_gather(p.detach(), axis, d)
+            out[name] = p
+        return out
 
     def reduce(self, grads: dict[str, torch.Tensor], op: str,
                metrics: dict[str, torch.Tensor] | None = None):
@@ -131,41 +191,54 @@ class MeshReducer:
         `op`, the metrics reduced with them). One all-reduce of one flat
         buffer carries both."""
         metrics = dict(metrics or {})
+        names, keys = list(grads), list(metrics)
         if self.mesh.size(DATA_AXIS) > 1:
-            names, keys = list(grads), list(metrics)
             ref = grads[names[0]]
             flat = torch.cat([grads[k].reshape(-1) for k in names]
                              + [metrics[k].to(ref).reshape(1) for k in keys])
-            if self.timed and ref.is_cuda:
-                torch.cuda.synchronize(ref.device)
-            t0, b0 = time.perf_counter(), self.mesh.bytes_moved
-            self.mesh.all_reduce(flat, DATA_AXIS, op)
-            if self.timed and ref.is_cuda:
-                torch.cuda.synchronize(ref.device)
-            self.records.append(((time.perf_counter() - t0) * 1e3, self.mesh.bytes_moved - b0))
-            out, i = {}, 0
-            for k in names:
-                n = grads[k].numel()
-                out[k] = flat[i:i + n].view_as(grads[k])
-                i += n
-            grads = out
+            self._timed_reduce(flat, DATA_AXIS, op, self.records)
+            grads = _unflatten(flat, grads)
+            i = sum(g.numel() for g in grads.values())
             metrics = {k: flat[i + j] for j, k in enumerate(keys)}
+        if self.seq_partial:
+            flat = torch.cat([grads[k].reshape(-1) for k in names])
+            self._timed_reduce(flat, SEQ_AXIS, "sum", self.seq_records)
+            grads = _unflatten(flat, grads)
         return {k: self.local(k, g) for k, g in grads.items()}, metrics
 
     def norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole reduced gradient from this rank's
-        slices: the sharded leaves' squares are summed across `model`."""
-        if not self.model_dims:
+        slices: each sharded leaf's squares are summed across its axis."""
+        if not self.shard_dims:
             return common.global_norm(grads.values())
-        sq = lambda names: sum(torch.sum(torch.square(grads[k])) for k in names)
-        sharded = torch.as_tensor(sq(self.model_dims), dtype=torch.float32,
-                                  device=self.mesh.device).reshape(1)
-        self.mesh.all_reduce(sharded, MODEL_AXIS)
-        return torch.sqrt(sharded[0] + sq([k for k in grads if k not in self.model_dims]))
+        sq = lambda names: sum((torch.sum(torch.square(grads[k])) for k in names),
+                               torch.zeros((), device=self.mesh.device))
+        total = sq([k for k in grads if k not in self.shard_dims])
+        for axis in (PIPE_AXIS, EXPERT_AXIS, MODEL_AXIS):
+            names = [k for k, (a, _) in self.shard_dims.items() if a == axis and k in grads]
+            if names:
+                part = sq(names).to(torch.float32).reshape(1)
+                self.mesh.all_reduce(part, axis)
+                total = total + part[0]
+        return torch.sqrt(total)
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Per-row outputs `[B_local]` -> the global `[B]`, rank-major."""
         return self.mesh.all_gather(t, DATA_AXIS, 0)
+
+
+def is_line_lead(mesh: RankMesh) -> bool:
+    """Whether this rank is coordinate 0 on every seq, pipe and expert
+    axis: the rank whose rows its line learns on under `lead_rows`."""
+    return all(mesh.coords.get(a, 0) == 0 for a in _LINE_AXES)
+
+
+def _unflatten(flat: torch.Tensor, like: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    out, i = {}, 0
+    for k, g in like.items():
+        out[k] = flat[i:i + g.numel()].view_as(g)
+        i += g.numel()
+    return out
 
 
 def _state_dicts(state) -> list[str]:
@@ -189,23 +262,35 @@ class ShardedLearner:
     `apply_grads(state, grads, loss)` -> (state, metrics), the update
     of those slices (the learner tier's mesh seat runs its exchange in
     between). `learn_many` (`[K, B_local, ...]` stacks) and
-    `stacked_data_sharding` exist for the IMPALA arity. An MoE
-    transformer is refused over a data split: its load-balancing term is
-    not a sum over rows (item 13c brings the expert axis)."""
+    `stacked_data_sharding` exist for the IMPALA arity. A transformer
+    agent built over the same mesh (`mesh=`) runs its sequence, pipeline
+    and expert axes; an MoE transformer routes the union batch over the
+    data split (`ops/moe.py`). Over a seq, pipe or expert axis the ranks
+    of one data coordinate (a line) learn on the same rows, as JAX's
+    global batch is replicated along those axes: the caller hands every
+    rank of a line the same rows (`shard_batch` of one union batch does).
+    With `lead_rows` (a runner whose ranks each sample their own data
+    plane, `runner_learner`) `learn` and `learn_many` instead take the
+    rows of the line's lead (`is_line_lead`), broadcast along the axes."""
 
     def __init__(self, agent, mesh: RankMesh, num_data_args: int = 1,
-                 num_aux_outputs: int = 1):
+                 num_aux_outputs: int = 1, lead_rows: bool = False):
         if num_data_args not in (1, 2) or num_aux_outputs != num_data_args:
             raise ValueError(f"learn arity ({num_data_args}, {num_aux_outputs}): IMPALA's "
                              "(1, 1) or the replay families' (2, 2)")
-        if getattr(agent.cfg, "num_experts", 0) and mesh.size(DATA_AXIS) > 1:
-            raise ValueError("an MoE transformer over a data split: its load-balancing term "
-                             f"is not additive over rows; {mesh_lib.ITEM_13C}")
+        if getattr(agent, "mesh", None) not in (None, mesh):
+            raise ValueError("the agent was built over another mesh than the learner's")
+        if (getattr(agent.cfg, "num_experts", 0) and mesh.size(DATA_AXIS) > 1
+                and getattr(agent, "mesh", None) is not mesh):
+            raise ValueError("an MoE transformer over a data split routes the union batch: "
+                             "build the agent with mesh= the learner's mesh")
         self.agent = agent
         self.mesh = mesh
         self.num_data_args = num_data_args
+        self._line_axes = ([a for a in _LINE_AXES if mesh.size(a) > 1] if lead_rows else [])
         self.state_sharding = train_state_sharding(mesh, agent.model.state_dict())
-        self.reducer = MeshReducer(mesh, self.state_sharding)
+        self.reducer = MeshReducer(mesh, self.state_sharding,
+                                   seq_partial=getattr(agent, "seq_sharded", False))
         self._data_sh = mesh_lib.data_sharding(mesh)
         self._repl = mesh_lib.replicated(mesh)
         if num_data_args == 2 and hasattr(agent, "grads") and hasattr(agent, "apply_grads"):
@@ -219,13 +304,30 @@ class ShardedLearner:
         """One step of the agent over this rank's rows -> the agent's
         outputs (the state in place, then metrics; for the replay
         families the global `[B]` per-row vector before them)."""
-        return self.agent.learn(state, *data, reducer=self.reducer)
+        return self.agent.learn(state, *self._same_rows(data), reducer=self.reducer)
 
     def _learn_many(self, state, batches):
         """K steps over a `[K, B_local, ...]` stack -> (state, metrics
         stacked `[K]`)."""
         learn = functools.partial(self.agent.learn, reducer=self.reducer)
+        (batches,) = self._same_rows((batches,))
         return common.learn_many_unweighted(learn, state, batches, self.agent.device)
+
+    def _same_rows(self, data: tuple) -> tuple:
+        """Under `lead_rows`, `data` as the lead of this rank's seq, pipe
+        and expert line holds it; else `data`."""
+        if not self._line_axes:
+            return data
+        dev = self.agent.device
+
+        def bcast(x):
+            t = torch.as_tensor(x).to(dev)
+            wire = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous().clone()
+            for axis in self._line_axes:
+                self.mesh.broadcast_axis(wire, axis)
+            return wire.to(torch.bool) if t.dtype == torch.bool else wire
+
+        return mesh_lib.map_leaves(bcast, data)
 
     # -- state ------------------------------------------------------------
     def init_state(self, seed: int = 0, params: dict | None = None):
@@ -245,16 +347,16 @@ class ShardedLearner:
 
     def place_state(self, state):
         """A whole state (fresh, converted or restored) -> this rank's:
-        each model-sharded leaf cut to its slice. Unchanged without a
-        model axis."""
-        if not self.reducer.model_dims:
+        each sharded leaf cut to its slice. Unchanged without a sharded
+        leaf."""
+        if not self.reducer.shard_dims:
             return state
         cut = {}
         for f in _state_dicts(state):
             # A clone, not a view: the whole tensor's storage is let go.
             # The parameters require grad whatever `state` held (a whole
             # state gathered for a checkpoint holds detached tensors).
-            cut[f] = {k: self.reducer.local(k, v.detach()).clone(
+            cut[f] = {k: self.reducer.cut(k, v.detach()).clone(
                 memory_format=torch.contiguous_format).requires_grad_(
                     v.requires_grad or f == "params")
                 for k, v in getattr(state, f).items()}
@@ -263,19 +365,18 @@ class ShardedLearner:
     def gather_params(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """This rank's `{name: tensor}` (parameters, or any dict with
         their names) -> the whole tensors, detached; a collective along
-        `model` (every rank of the axis calls it). Without a model axis,
-        `params` itself."""
-        if not self.reducer.model_dims:
+        each sharded axis (every rank of it calls it). Without a sharded
+        leaf, `params` itself."""
+        if not self.reducer.shard_dims:
             return params
-        return self.reducer.gather({k: v.detach() for k, v in params.items()}, grad=False)
+        return self.reducer.whole({k: v.detach() for k, v in params.items()})
 
     def gather_state(self, state):
         """This rank's state -> the whole state (a collective: every rank
-        of the model axis calls it)."""
-        if not self.reducer.model_dims:
+        of each sharded axis calls it)."""
+        if not self.reducer.shard_dims:
             return state
-        whole = {f: self.reducer.gather({k: v.detach() for k, v in getattr(state, f).items()},
-                                        grad=False)
+        whole = {f: self.reducer.whole({k: v.detach() for k, v in getattr(state, f).items()})
                  for f in _state_dicts(state)}
         return dataclasses.replace(state, **whole)
 
@@ -302,12 +403,14 @@ class ShardedLearner:
 
 def runner_learner(agent, mesh: RankMesh, num_data_args: int) -> ShardedLearner:
     """The sharded learner a runner (`runtime/*_runner.py`) trains
-    through. Over a model axis a rank holds slices, and the runner
-    publishes and checkpoints the whole tensors (`gather_params`,
-    `gather_state`) and restores a whole checkpoint to its slices
-    (`place_state`): these are collectives along `model`, so every rank
-    of the axis publishes, saves and restores at the same steps, as the
-    train steps' own cadence has it. No entry point builds such a mesh
-    (`run_role`'s splits the data alone), as in JAX."""
+    through. Over a model, pipe or expert axis a rank holds slices, and
+    the runner publishes and checkpoints the whole tensors
+    (`gather_params`, `gather_state`) and restores a whole checkpoint to
+    its slices (`place_state`): these are collectives along the sharded
+    axes, so every rank publishes, saves and restores at the same steps,
+    as the train steps' own cadence has it. Each rank samples its own
+    data plane, so over a seq, pipe or expert axis a line learns on its
+    lead's rows (`lead_rows`), and only the lead writes priorities back
+    (`runtime/replay_train.ReplayTrainMixin._own_rows`)."""
     return ShardedLearner(agent, mesh, num_data_args=num_data_args,
-                          num_aux_outputs=num_data_args)
+                          num_aux_outputs=num_data_args, lead_rows=True)

@@ -492,9 +492,7 @@ class ApexLearner(PublishCadenceMixin, ReplayTrainMixin):
         with self.timer.stage("learn"):
             self.state, td, metrics = self._learn(self.state, batch, is_weight)
         with self.timer.stage("replay_update"):
-            # Deliberate sync: re-prioritisation targets the host sum tree
-            # (the service only enqueues; its router thread applies it).
-            replay.update_batch(idxs, self._own_rows(td).cpu().numpy())
+            self._write_back(replay, idxs, td)
         return metrics
 
     def close(self) -> None:

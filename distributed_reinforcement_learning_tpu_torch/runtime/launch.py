@@ -14,6 +14,7 @@ Everything runs on CUDA unless the caller passes another `device`.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -93,7 +94,7 @@ def mesh_axes_for(agent_cfg: Any, rt: RuntimeConfig) -> tuple[int, int, int]:
 def needs_sharded_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig) -> bool:
     """True when the learn step is sharded beyond data parallelism
     (sequence-parallel attention, a pipeline, experts over an expert
-    axis): ROADMAP item 13c, which `make_agent` refuses by name."""
+    axis), and actors therefore need a plain-apply twin."""
     return algo in _TRANSFORMER_ALGOS and (
         agent_cfg.attention != "dense"
         or agent_cfg.pipeline
@@ -102,17 +103,33 @@ def needs_sharded_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig) -> bool:
 
 
 def make_agent(algo: str, agent_cfg: Any, device: str | torch.device | None = None,
-               rt: RuntimeConfig | None = None):
-    """The agent of family `algo` on `device` (an act-serving replica's).
-    A config for which `needs_sharded_learner` is true is refused: item
-    13c."""
+               rt: RuntimeConfig | None = None, mesh=None, actor: bool = False):
+    """The agent of family `algo` on `device`, the JAX package's rule.
+
+    A transformer config whose learn step is sharded (`needs_sharded_learner`)
+    gets, for an `actor`, the plain-apply twin's agent (dense attention,
+    no pipeline, the stacked layout a pipelined learner publishes); for a
+    learner, the agent over `mesh`, or over a mesh of the world's ranks
+    carved by `mesh_axes_for` when `mesh` is None (a world too small for
+    the axes is refused, as JAX refuses one device). A transformer
+    learner given a `mesh` takes it whatever its config (an MoE routes the
+    mesh's union batch)."""
+    cls = _AGENT_CLS[algo]
     if rt is not None and needs_sharded_learner(algo, agent_cfg, rt):
-        seq, pipe, expert = mesh_axes_for(agent_cfg, rt)
-        raise ValueError(f"{algo}: a learn step sharded beyond the data (seq={seq}, "
-                         f"pipe={pipe}, expert={expert}; attention={agent_cfg.attention!r}) "
-                         "needs the sequence, pipeline and expert axes of ROADMAP item 13c, "
-                         "which is not ported")
-    return _AGENT_CLS[algo](agent_cfg, device=device)
+        if actor:
+            return cls(dataclasses.replace(
+                agent_cfg, attention="dense", pipeline=False,
+                stacked=agent_cfg.pipeline or agent_cfg.stacked), device=device)
+        if mesh is None:
+            from distributed_reinforcement_learning_tpu_torch.parallel.mesh import make_mesh
+
+            seq, pipe, expert = mesh_axes_for(agent_cfg, rt)
+            mesh = make_mesh(seq_parallel=seq, pipe_parallel=pipe, expert_parallel=expert,
+                             device=device)
+        return cls(agent_cfg, device=device, mesh=mesh)
+    if algo in _TRANSFORMER_ALGOS and mesh is not None and not actor:
+        return cls(agent_cfg, device=device, mesh=mesh)
+    return cls(agent_cfg, device=device)
 
 
 def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
@@ -128,7 +145,7 @@ def make_learner(algo: str, agent_cfg: Any, rt: RuntimeConfig, queue, weights,
     `seed` seeds the initial parameters, as the JAX launcher's
     `rng=PRNGKey(seed)` does; the replay learners keep their sampling
     stream at `RandomState(0)`, the JAX learners' default."""
-    agent = agent or make_agent(algo, agent_cfg, device=device, rt=rt)
+    agent = agent or make_agent(algo, agent_cfg, device=device, rt=rt, mesh=mesh)
     if algo in ("apex", *SEQUENCE_REPLAY) and prefetch:
         raise ValueError(f"the {algo} learner samples its batches from the replay; "
                          "it has no queue prefetch")
@@ -160,7 +177,7 @@ def make_actor(algo: str, agent_cfg: Any, rt: RuntimeConfig, task: int, queue, w
     (any family; a `transport.RemoteInference` or `RemoteActService`, or
     an `InferenceServer.submit`) makes the actor act through a service:
     it then pulls no weights."""
-    agent = agent or _AGENT_CLS[algo](agent_cfg, device=device)
+    agent = agent or make_agent(algo, agent_cfg, device=device, rt=rt, actor=True)
     env = _make_batched_env(rt, task, agent_cfg.num_actions)
     if algo == "apex":
         return apex_runner.ApexActor(agent, env, queue, weights, seed=seed,
@@ -187,14 +204,18 @@ def build_local(agent_cfg: ImpalaConfig | ApexConfig | R2D2Config | XformerConfi
                 | XImpalaConfig, rt: RuntimeConfig, run_dir: str | None = None, seed: int = 0,
                 device: str | torch.device | None = None):
     """-> (learner, actors, run_sync) for single-process training; one
-    agent is shared by the learner and every actor."""
+    agent is shared by the learner and every actor, except a sharded
+    learner's (`needs_sharded_learner`), whose actors share its twin's."""
     algo = algo_of(agent_cfg)
     queue = TrajectoryQueue(rt.queue_size)
     weights = WeightStore()
-    agent = _AGENT_CLS[algo](agent_cfg, device=device)
+    agent = make_agent(algo, agent_cfg, device=device, rt=rt)
+    actor_agent = (make_agent(algo, agent_cfg, device=device, rt=rt, actor=True)
+                   if needs_sharded_learner(algo, agent_cfg, rt) else agent)
     learner = make_learner(algo, agent_cfg, rt, queue, weights, logger=MetricsLogger(run_dir),
                            seed=seed, agent=agent)
-    actors = [make_actor(algo, agent_cfg, rt, i, queue, weights, seed=seed + 1 + i, agent=agent)
+    actors = [make_actor(algo, agent_cfg, rt, i, queue, weights, seed=seed + 1 + i,
+                         agent=actor_agent)
               for i in range(rt.num_actors)]
     return learner, actors, _RUNNER[algo].run_sync
 

@@ -428,9 +428,7 @@ class R2D2Learner(PublishCadenceMixin, ReplayTrainMixin):
             batch = items if getattr(replay, "stacked_samples", False) else stack_pytrees(items)
         with self.timer.stage("learn"):
             self.state, priorities, metrics = self._learn(self.state, batch, is_weight)
-            # Deliberate sync: re-prioritisation targets the host sum tree
-            # (the service only enqueues; its router thread applies it).
-            replay.update_batch(idxs, self._own_rows(priorities).cpu().numpy())
+            self._write_back(replay, idxs, priorities)
         return metrics
 
     def close(self) -> None:

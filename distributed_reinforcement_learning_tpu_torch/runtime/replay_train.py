@@ -94,13 +94,13 @@ class ReplayTrainMixin:
         return state
 
     def _refresh_whole(self, state) -> None:
-        """Over a model axis, gather the whole parameters and target that
-        ingest scores new data under (`_scoring_state`): a collective
-        along `model`, run where the ranks are in step (construction,
+        """Over a model, pipe or expert axis, gather the whole parameters
+        and target that ingest scores new data under (`_scoring_state`):
+        a collective along those axes, run where the ranks are in step (construction,
         each train call, a restore), since each rank ingests at its own
         pace."""
         sharded = self._sharded
-        if sharded is None or not sharded.reducer.model_dims:
+        if sharded is None or not sharded.reducer.shard_dims:
             self._whole = None
             return
         self._whole = dataclasses.replace(
@@ -124,14 +124,30 @@ class ReplayTrainMixin:
         return self.agent.learn(state, batch, is_weight)
 
     def _own_rows(self, priorities):
-        """This learner's rows of a step's per-row outputs: over a mesh the
-        global `[B]` is rank-major, and its samples are rows
+        """This learner's rows of a step's per-row outputs, or None: over a
+        mesh the global `[B]` is rank-major, and its samples are rows
         `data_index * B_local` on (the JAX learner writes the first
-        `B_local` back on every process, ROADMAP F15)."""
+        `B_local` back on every process, ROADMAP F15). A rank that is not
+        its seq, pipe or expert line's lead learned on the lead's rows,
+        not on the ones it sampled: it has none to write back (None)."""
         if self._sharded is None:
             return priorities
-        i = self._sharded.mesh.coords[DATA_AXIS]
+        from distributed_reinforcement_learning_tpu_torch.parallel.learner import is_line_lead
+
+        mesh = self._sharded.mesh
+        if not is_line_lead(mesh):
+            return None
+        i = mesh.coords[DATA_AXIS]
         return priorities[i * self.batch_size:(i + 1) * self.batch_size]
+
+    def _write_back(self, replay, idxs, priorities) -> None:
+        """Re-prioritise the sampled `idxs` with this learner's rows of a
+        step's per-row outputs (`_own_rows`), where it has any. A
+        deliberate sync: re-prioritisation targets the host sum tree (the
+        service only enqueues; its router thread applies it)."""
+        rows = self._own_rows(priorities)
+        if rows is not None:
+            replay.update_batch(idxs, rows.cpu().numpy())
 
     def _active_replay(self):
         """The replay the train path samples and re-prioritises: the

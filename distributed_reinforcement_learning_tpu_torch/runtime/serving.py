@@ -210,7 +210,7 @@ def run_replica(algo: str, config_path: str, section: str, task: int = 0, seed: 
                          f"not {algo}")
     port = _env_int("DRL_INFER_PORT", 0) or (rt.server_port + 1000 + task)
     host, lport = resolve_learner_addr(rt)
-    agent = launch.make_agent(algo, agent_cfg, device=device)
+    agent = launch.make_agent(algo, agent_cfg, device=device, rt=rt, actor=True)
     # The first connect keeps the client's 60 retries (the learner may
     # start after the replica); from then on the grace loops own the
     # deadline.

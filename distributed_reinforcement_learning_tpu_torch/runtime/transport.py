@@ -53,12 +53,13 @@ replica's TCP pull is shard-scoped (`ShardedRemoteWeights`, scoped to
 unsharded store. A learner under `DRL_COORDINATOR` / `DRL_NUM_PROCESSES`
 / `DRL_PROCESS_ID` is one rank of a multi-process learner
 (`parallel/distributed.py`, `parallel/learner.py`); other roles ignore
-those names, as in the JAX package. Left out, each refused with a
-ValueError that names its ROADMAP item: sequence, pipeline and expert
-axes (item 13c). `--mode anakin` under a learner group is refused too:
-the JAX package's builds no mesh and ignores the names, so it would run
-one independent loop a process (ROADMAP F14); the Anakin loops take a
-mesh of ranks in the library (`runtime/anakin_mesh.py`).
+those names, as in the JAX package. The group's mesh carries the
+transformer families' sequence, pipeline and expert axes
+(`runtime/launch.mesh_axes_for`); a config that needs them where no mesh
+fits is refused, as in JAX. `--mode anakin` under a learner group is
+refused: the JAX package's builds no mesh and ignores the names, so it
+would run one independent loop a process (ROADMAP F14); the Anakin loops
+take a mesh of ranks in the library (`runtime/anakin_mesh.py`).
 The learner's queue is
 `_make_queue`'s: the C++ ring queue (`data/native.py:NativeTrajectoryQueue`)
 wherever the native library builds, else the Python `TrajectoryQueue`.
@@ -1508,34 +1509,49 @@ def refuse_unported(mode: str, algo: str) -> None:
                          "ranks in the library (runtime/anakin_mesh.py)")
 
 
-def _multihost_mesh(algo: str, agent_cfg, rt, world: int):
-    """-> (rt with this rank's `batch_size / world`, the data mesh) for a
+def _multihost_mesh(algo: str, agent_cfg, rt, world: int, multihost: bool = True):
+    """-> (rt with this rank's `batch_size / data`, the mesh) for a
     learner group of `world` ranks, or the JAX package's refusals: a
-    batch that does not divide, a config whose learn step shards beyond
-    the data (item 13c by name), a group with no mesh to run."""
+    batch that does not divide, a pipeline whose per-rank batch does not
+    split into its microbatches, a config whose learn step shards beyond
+    the data where no mesh fits, a group with no mesh to run. A single
+    learner (`multihost` False, a world of one) gets no mesh, or the same
+    refusal when its config needs one."""
     import dataclasses
 
     from distributed_reinforcement_learning_tpu_torch.parallel.mesh import make_mesh
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
 
-    if rt.batch_size % world:
+    if multihost and rt.batch_size % world:
         raise ValueError(f"batch_size {rt.batch_size} not divisible by {world} processes")
     seq, pipe, expert = launch.mesh_axes_for(agent_cfg, rt)
     inner = pipe * expert * seq
     data_axis = world // inner if world % inner == 0 else 0
+    mesh = None
     if world > 1 and data_axis > 0 and rt.batch_size % data_axis == 0:
+        if pipe > 1:
+            micro = agent_cfg.pipeline_microbatches
+            if (rt.batch_size // data_axis) % micro != 0:
+                raise ValueError(f"pipeline needs the per-device batch "
+                                 f"({rt.batch_size}/{data_axis}) divisible by "
+                                 f"pipeline_microbatches={micro}")
         mesh = make_mesh(seq_parallel=seq, pipe_parallel=pipe, expert_parallel=expert)
     elif inner > 1 and launch.needs_sharded_learner(algo, agent_cfg, rt):
-        why = (f"device count {world} is not divisible by the inner axes product {inner}"
+        why = (f"device count {world} is not divisible by the inner axes product {inner} — "
+               "adjust seq_parallel/pipeline_stages/expert_parallel"
                if world % inner else f"batch_size {rt.batch_size} is not divisible by the "
                f"data axis ({world}//{inner} = {world // inner})")
         raise ValueError(f"config requires a sharded learner (seq={seq}, pipe={pipe}, "
                          f"expert={expert}) but no valid mesh fits on {world} devices: {why}")
-    else:
+    elif multihost:
         # N independent learners would diverge: refused, as in JAX.
         raise ValueError(f"multi-host learner needs batch_size divisible by the global device "
                          f"count ({rt.batch_size} global batch, {world} devices)")
-    return dataclasses.replace(rt, batch_size=rt.batch_size // world), mesh
+    if not multihost:
+        return rt, None
+    # A rank holds its data coordinate's rows: B / data (B / world without
+    # seq, pipe or expert axes).
+    return dataclasses.replace(rt, batch_size=rt.batch_size // data_axis), mesh
 
 
 def _make_queue(capacity: int):
@@ -1673,11 +1689,10 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         # takes batch_size / N rows a step; the mesh splits the data.
         multihost = distributed.initialize(device=device)
         rank, world = distributed.process_info()
-        mesh = None
+        rt, mesh = _multihost_mesh(algo, agent_cfg, rt, world, multihost)
         if multihost:
             device = distributed.device()
             port += rank
-            rt, mesh = _multihost_mesh(algo, agent_cfg, rt, world)
             print(f"[learner] multi-host: process {rank}/{world}, local batch "
                   f"{rt.batch_size}, mesh {mesh.shape}", flush=True)
         queue = _make_queue(rt.queue_size)
@@ -1754,7 +1769,12 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             if learner.restore_checkpoint(ckpt):
                 print(f"[learner] resumed from step {learner.train_steps}", flush=True)
             if rank != 0:
-                ckpt = None  # every rank restores; only rank 0 writes
+                # Every rank restores; only rank 0 writes. Over a pipe,
+                # expert or model axis the others still join each save's
+                # gather of the whole state.
+                sharded = getattr(learner, "_sharded", None)
+                ckpt = (Checkpointer(checkpoint_dir, writes=False)
+                        if sharded is not None and sharded.reducer.shard_dims else None)
         inference = None
         if serve_inference:
             from distributed_reinforcement_learning_tpu_torch.runtime.inference import (

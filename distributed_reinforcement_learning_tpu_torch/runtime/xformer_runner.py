@@ -20,6 +20,9 @@ discards is un-pushed (`slice_discard_act`). `timeout_nonterminal`
 records a time-limit truncation as non-terminal, as `R2D2Actor` does.
 With `remote_act` the windows and epsilons go to a service as rows, the
 windows stay here, and no weights are pulled.
+With a config whose learn step is sharded (a sequence, pipeline or
+expert axis) the actor's agent is the plain-apply twin's and the
+learner's is built over the learner's mesh (`runtime/launch.make_agent`).
 """
 
 from __future__ import annotations

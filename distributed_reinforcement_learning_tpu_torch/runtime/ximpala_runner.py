@@ -10,6 +10,9 @@ softmax as the behavior policy; it has the pipeline's slice protocol.
 With `remote_act` the windows go to a service as rows (the action and
 the behaviour policy come back), the windows stay here, and no weights
 are pulled.
+With a config whose learn step is sharded (a sequence, pipeline or
+expert axis) the actor's agent is the plain-apply twin's and the
+learner's is built over the learner's mesh (`runtime/launch.make_agent`).
 """
 
 from __future__ import annotations

@@ -13,9 +13,11 @@ cut to a multiple of the write width), `updates_per_call` learns a
 collect. Every mode runs on CUDA unless `--device` names another device.
 Served acts as in `train_impala.py` (`--serve_inference`, `--remote_act`,
 `--mode inference`), and the opt-in planes `DRL_WEIGHTS_SHARDED` and
-`DRL_DEVICE_PATH`, and the multi-process learner (item 13b). What
-`train_impala.py` refuses, this refuses: the sequence and expert axes
-(item 13c) and `--mode anakin` under `DRL_COORDINATOR` (ROADMAP F14).
+`DRL_DEVICE_PATH`, and the multi-process learner (item 13b), which
+ignores a section's `seq_parallel` and `expert_parallel` (they shard the
+transformer families alone), as the JAX package does. What
+`train_impala.py` refuses, this refuses: `--mode anakin` under
+`DRL_COORDINATOR` (ROADMAP F14).
 """
 
 from __future__ import annotations

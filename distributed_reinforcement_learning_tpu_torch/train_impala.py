@@ -35,10 +35,11 @@
 Every mode runs on CUDA unless `--device` names another device: start
 actors with `--device cpu` to keep them off the card. A learner under
 `DRL_COORDINATOR` / `DRL_NUM_PROCESSES` / `DRL_PROCESS_ID` is one rank
-of a multi-process learner (ROADMAP item 13b; `runtime/transport.run_role`).
-Not ported, and refused with a ValueError naming the ROADMAP item: the
-sequence, pipeline and expert axes (item 13c). `--mode anakin` under
-`DRL_COORDINATOR` is refused as well: the JAX package's builds no mesh
+of a multi-process learner (ROADMAP item 13b; `runtime/transport.run_role`),
+whose mesh carries the transformer families' sequence, pipeline and
+expert axes (item 13c; a non-transformer section's `seq_parallel` and
+`expert_parallel` are ignored, as in the JAX package). `--mode anakin`
+under `DRL_COORDINATOR` is refused: the JAX package's builds no mesh
 and ignores the names, so each process would run one independent loop
 (ROADMAP F14); the Anakin loops take a mesh of ranks in the library
 (`runtime/anakin_mesh.py`).

@@ -11,8 +11,8 @@ on the device; `--anakin_capacity`, default min(replay_capacity, 4096)
 sequences). Every mode runs on CUDA unless `--device` names another
 device; served acts and the opt-in planes (`DRL_WEIGHTS_SHARDED`,
 `DRL_DEVICE_PATH`) as in `train_impala.py`; what `train_impala.py`
-refuses (the item 13c axes, and `--mode anakin` under `DRL_COORDINATOR`,
-ROADMAP F14), this refuses.
+refuses (`--mode anakin` under `DRL_COORDINATOR`, ROADMAP F14), this
+refuses.
 """
 
 from __future__ import annotations

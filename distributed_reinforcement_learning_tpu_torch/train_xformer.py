@@ -10,8 +10,12 @@ device; served acts and the opt-in planes (`DRL_WEIGHTS_SHARDED`,
 `DRL_DEVICE_PATH`) as in `train_impala.py`; what `train_impala.py`
 refuses (the learner tier, 13), this refuses, and `--mode anakin` too: the JAX package has no
 on-device loop for this family (ROADMAP item 14 ported IMPALA's, Ape-X's
-and R2D2's). The `xformer_moe` section runs the same family with routed
-experts.
+and R2D2's). A learner group (`--learners N` of `launch_local_cluster`,
+`DRL_COORDINATOR`) runs the section's sequence (`attention`,
+`seq_parallel`), pipeline (`pipeline`, `pipeline_stages`,
+`pipeline_microbatches`) and expert (`expert_parallel`) axes; actors
+act on the plain-apply twin. The `xformer_moe` section runs the same
+family with routed experts.
 """
 
 from __future__ import annotations

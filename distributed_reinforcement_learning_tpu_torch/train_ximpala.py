@@ -10,7 +10,11 @@ device; served acts and sharded publication (`DRL_WEIGHTS_SHARDED`) as
 in `train_impala.py`; what `train_impala.py` refuses (the learner tier,
 13), this refuses, and `--mode anakin` too: the JAX package has no
 on-device loop for this family (ROADMAP item 14 ported IMPALA's, Ape-X's
-and R2D2's).
+and R2D2's). A learner group (`--learners N` of `launch_local_cluster`,
+`DRL_COORDINATOR`) runs the section's sequence (`attention`,
+`seq_parallel`), pipeline (`pipeline`, `pipeline_stages`,
+`pipeline_microbatches`) and expert (`expert_parallel`) axes; actors
+act on the plain-apply twin.
 """
 
 from __future__ import annotations

@@ -165,7 +165,11 @@ class Checkpointer:
     `ckpt_{step:010d}.blob.<name>` (auxiliary blobs), both written first.
     """
 
-    def __init__(self, directory: str | Path, retain: int = 3):
+    def __init__(self, directory: str | Path, retain: int = 3, writes: bool = True):
+        """`writes` False: `save` joins a sharded state's gather (every
+        rank of its axes must) and writes nothing; the group's other
+        ranks hold such a store."""
+        self.writes = writes
         self.directory = Path(directory)
         self.directory.mkdir(parents=True, exist_ok=True)
         self.retain = retain
@@ -207,6 +211,8 @@ class Checkpointer:
         of the axis saves at the same step)."""
         if sharded is not None:
             state = sharded.gather_state(state)
+        if not self.writes:
+            return self._payload_path(step)
         body = json.dumps(extra or {}).encode()
         _atomic_write(self._extra_path(step), lambda f: f.write(body))
         for name, data in (blobs or {}).items():

@@ -3,10 +3,7 @@
 
 Counterpart of the JAX package's `utils/config.py`. Loads one section
 into an agent config and a `RuntimeConfig` and applies the same
-validation (actor, env and action-set counts agree). Keys that select
-what the port does not run yet raise instead of being ignored: the
-transformer features that need a mesh (sequence-parallel attention, the
-pipeline, `seq_parallel` or `expert_parallel` > 1: ROADMAP item 13c).
+validation (actor, env and action-set counts agree).
 """
 
 from __future__ import annotations
@@ -18,8 +15,7 @@ from pathlib import Path
 from distributed_reinforcement_learning_tpu_torch.agents.apex import ApexConfig
 from distributed_reinforcement_learning_tpu_torch.agents.impala import ImpalaConfig
 from distributed_reinforcement_learning_tpu_torch.agents.r2d2 import R2D2Config
-from distributed_reinforcement_learning_tpu_torch.agents.xformer import (
-    XformerConfig, check_dense_body)
+from distributed_reinforcement_learning_tpu_torch.agents.xformer import XformerConfig
 from distributed_reinforcement_learning_tpu_torch.agents.ximpala import XImpalaConfig
 
 
@@ -43,8 +39,8 @@ class RuntimeConfig:
     train_start_factor: int = 3
     # Optimizer steps per train call (every family).
     updates_per_call: int = 1
-    # Devices on a mesh's `seq` and `expert` axes (transformer families):
-    # 1 on one device; more raises (ROADMAP item 13c).
+    # Ranks on the learner mesh's `seq` and `expert` axes (transformer
+    # families; `runtime/launch.mesh_axes_for`).
     seq_parallel: int = 1
     expert_parallel: int = 1
     # r2d2 / xformer actors: residual exploration floor (None = the
@@ -72,10 +68,6 @@ def load_config(path: str | Path, section: str):
     algorithm = d.get("algorithm", section.split("_")[0])
     if algorithm not in ("impala", "apex", "r2d2", "xformer", "ximpala"):
         raise ValueError(f"unknown algorithm {algorithm!r} in section {section!r}")
-    for key in ("seq_parallel", "expert_parallel"):
-        if d.get(key, 1) > 1:
-            raise ValueError(f"{key}={d[key]} needs a mesh, which is not ported "
-                             "(ROADMAP item 13c)")
     rt = RuntimeConfig(
         server_ip=d.get("server_ip", "localhost"),
         server_port=d.get("server_port", 8000),
@@ -160,8 +152,7 @@ def load_config(path: str | Path, section: str):
 
 def _xformer_config(d: dict) -> XformerConfig:
     """The xformer branch, with the JAX package's keys and defaults
-    (d_model 128 and 4 heads where the section names none). The body
-    knobs that need a mesh raise (`check_dense_body`)."""
+    (d_model 128 and 4 heads where the section names none)."""
     cfg = XformerConfig(
         obs_shape=tuple(d["model_input"]),
         num_actions=d["model_output"],
@@ -185,13 +176,11 @@ def _xformer_config(d: dict) -> XformerConfig:
         # As for r2d2: the distinct `adam_clip_norm` key opts in to a clip.
         gradient_clip_norm=d.get("adam_clip_norm", None),
     )
-    check_dense_body(cfg)
     return cfg
 
 
 def _ximpala_config(d: dict) -> XImpalaConfig:
-    """The ximpala branch, with the JAX package's keys and defaults. The
-    body knobs that need a mesh raise (`check_dense_body`)."""
+    """The ximpala branch, with the JAX package's keys and defaults."""
     cfg = XImpalaConfig(
         obs_shape=tuple(d["model_input"]),
         num_actions=d["model_output"],
@@ -218,5 +207,4 @@ def _ximpala_config(d: dict) -> XImpalaConfig:
         stacked=d.get("stacked", False),
         remat=d.get("remat", False),
     )
-    check_dense_body(cfg)
     return cfg

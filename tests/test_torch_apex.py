@@ -389,16 +389,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
     (["--mode", "learner", "--serve_inference"], "item 13"),
     (["--mode", "actor", "--task", "0", "--remote_act"], "item 13"),
 ])
-def test_unported_modes_raise(argv, item, tmp_path):
+def test_unported_modes_raise(argv, item, tmp_path, monkeypatch):
     # Serving acts, the on-device loop, the learner tier and the
-    # multi-process learner are ported: their modes and flags still
-    # refuse the plane that is not, here a sequence axis (item 13c).
+    # multi-process learner are ported, and so is item 13c: a sequence
+    # axis on a non-transformer section is ignored, as the JAX package
+    # ignores it. Each mode takes the section (its run is stubbed at its
+    # entry), and the learner it would build is the plain agent, with no
+    # mesh.
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch, transport
+
     cfg = json.loads(CONFIG.read_text())
     cfg["apex"]["seq_parallel"] = 2
     path = tmp_path / "config.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(ValueError, match=item):
-        train_apex.main(["--config", str(path), "--device", "cpu", *argv])
+    calls = []
+    stub = lambda *a, **kw: calls.append(a) or {}
+    monkeypatch.setattr(transport, "run_role", stub)
+    monkeypatch.setattr(launch, "train_anakin_apex", stub)
+    train_apex.main(["--config", str(path), "--device", "cpu", *argv])
+    assert len(calls) == 1
+    agent_cfg, rt = load_config(path, "apex")
+    assert rt.seq_parallel == 2 and not launch.needs_sharded_learner("apex", agent_cfg, rt)
+    assert transport._multihost_mesh("apex", agent_cfg, rt, 1, False)[1] is None
+    assert type(launch.make_agent("apex", agent_cfg, device="cpu", rt=rt)) is ApexAgent
 
 
 def _unrolls(n=4, seed=0):

@@ -64,7 +64,8 @@ def test_port_imports_with_jax_blocked():
                  "data.replay_spill", "data.admission", "data.device_path",
                  "runtime.replay_shard", "ops.moe", "runtime.xformer_runner",
                  "train_xformer", "envs.pong_sim", "envs.invaders_sim",
-                 "envs.gymnasium_env", "runtime.inference", "runtime.serving"):
+                 "envs.gymnasium_env", "runtime.inference", "runtime.serving",
+                 "parallel.sequence", "parallel.pipeline"):
         assert f"distributed_reinforcement_learning_tpu_torch.{name}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,

@@ -421,9 +421,11 @@ def test_lstm_kernels_reject_strided_input():
 # Flash attention (B, H, T, D): the ximpala section's act and learn shape,
 # bench.py's ximpala_learn shape, D = 128 with a partial last tile, a
 # sequence of more than 32 tiles (the kernels test 32 tiles per pass),
-# half of one 16-row tile (T = 8) and a partial second one (T = 24).
+# half of one 16-row tile (T = 8) and a partial second one (T = 24), and
+# a rank's shapes on the model-parallel paths at seq_len 32: the whole
+# batch under the expert axis, a microbatch of a pipeline stage.
 ATTN_SHAPES = [(16, 2, 16, 32), (64, 4, 32, 64), (2, 2, 200, 128), (1, 2, 1096, 64),
-               (3, 2, 8, 32), (2, 3, 24, 64)]
+               (3, 2, 8, 32), (2, 3, 24, 64), (32, 2, 32, 32), (16, 2, 32, 32)]
 
 
 def _attn_inputs(B, H, T, D, seed):

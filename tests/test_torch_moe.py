@@ -132,7 +132,13 @@ def test_init_draws_the_jax_shapes_within_the_glorot_bounds():
 
 
 def test_a_mesh_raises_naming_item_13():
+    # Item 13c is ported: over a mesh of one (this process alone) the
+    # union batch is the rank's own, and moe_mlp is the plain one bit for
+    # bit (test_torch_expert.py holds the expert and data axes to JAX).
+    from distributed_reinforcement_learning_tpu_torch.parallel import make_mesh
+
     params, x = _inputs(seed=0)
-    with pytest.raises(ValueError, match="item 13"):
-        moe.moe_mlp(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in params.items()},
-                    mesh=object())
+    args = (torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in params.items()})
+    y, aux = moe.moe_mlp(*args)
+    y1, aux1 = moe.moe_mlp(*args, mesh=make_mesh(device="cpu"))
+    assert torch.equal(y, y1) and torch.equal(aux, aux1)

@@ -1,6 +1,7 @@
 """The port's multi-process learner (ROADMAP item 13b's learner half):
-the twins of `tests/test_multihost.py` without its sequence- and
-pipeline-parallel rows (item 13c).
+the twins of `tests/test_multihost.py` (its sequence- and
+pipeline-parallel rows are `tests/test_torch_sequence.py` and
+`tests/test_torch_pipeline.py`, item 13c).
 
 - Two learner processes join one `DRL_COORDINATOR` world (gloo on the
   CPU) and each feeds its own queue different trajectories; the data
@@ -14,8 +15,8 @@ pipeline-parallel rows (item 13c).
   ride out the outage. Then the launcher's `--learners 2` runs the same
   group with two actors.
 - The refusals: the learner tier together with a learner group, a batch
-  that does not divide the group, and the sequence, pipeline and expert
-  sizes of item 13c, each by name.
+  that does not divide the group, and item 13c's axes where no mesh fits
+  one process (JAX's own refusal); the knobs load as JAX loads them.
 """
 
 from __future__ import annotations
@@ -272,21 +273,45 @@ def test_a_batch_that_does_not_divide_is_refused():
 @pytest.mark.parametrize("knob", [{"seq_parallel": 2}, {"expert_parallel": 2},
                                   {"attention": "ring"}, {"pipeline": True}])
 def test_item_13c_sizes_are_refused_by_name(knob, tmp_path):
-    from distributed_reinforcement_learning_tpu_torch.agents.xformer import XformerConfig
+    # Item 13c is ported: each knob loads as the JAX package loads it, and a
+    # learner whose step needs the axis is refused on one process for
+    # JAX's own reason (no mesh fits one device), by run_role's sizing
+    # and by make_agent's mesh; its actors get the plain-apply twin. A
+    # sequence axis under dense attention is ignored, and the ring with
+    # seq_parallel 1 runs over a mesh of one, as in JAX.
+    from distributed_reinforcement_learning_tpu.utils.config import load_config as jax_load
     from distributed_reinforcement_learning_tpu_torch.runtime import launch
+    from distributed_reinforcement_learning_tpu_torch.runtime.transport import _multihost_mesh
     from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
 
     cfg = json.loads(CONFIG.read_text())
-    if "parallel" in next(iter(knob)):
-        cfg["xformer_moe"].update(knob)
-        path = tmp_path / "config.json"
-        path.write_text(json.dumps(cfg))
-        with pytest.raises(ValueError, match="item 13c"):
-            load_config(path, "xformer_moe")
+    section = "xformer_moe" if "parallel" in next(iter(knob)) else "xformer"
+    cfg[section].update(knob)
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
+    agent_cfg, rt = load_config(path, section)
+    jax_cfg, jax_rt = jax_load(path, section)
+    assert (rt.seq_parallel, rt.expert_parallel) == (jax_rt.seq_parallel, jax_rt.expert_parallel)
+    assert (agent_cfg.attention, agent_cfg.pipeline) == (jax_cfg.attention, jax_cfg.pipeline)
+    if "seq_parallel" in knob:
+        assert not launch.needs_sharded_learner("xformer", agent_cfg, rt)
+        assert _multihost_mesh("xformer", agent_cfg, rt, 1, False)[1] is None
+        assert launch.make_agent("xformer", agent_cfg, device="cpu", rt=rt).mesh is None
         return
-    _, rt = load_config(CONFIG, "xformer")
-    with pytest.raises(ValueError, match="item 13c"):
-        launch.make_agent("xformer", XformerConfig(**knob), device="cpu", rt=rt)
+    assert launch.needs_sharded_learner("xformer", agent_cfg, rt)
+    if "attention" in knob:
+        assert _multihost_mesh("xformer", agent_cfg, rt, 1, False)[1] is None
+        agent = launch.make_agent("xformer", agent_cfg, device="cpu", rt=rt)
+        assert agent.mesh.shape["seq"] == 1 and agent.twin is not agent.model
+        return
+    with pytest.raises(ValueError, match="config requires a sharded learner .* no valid mesh "
+                                         "fits on 1 devices"):
+        _multihost_mesh("xformer", agent_cfg, rt, 1, False)
+    with pytest.raises(ValueError, match="1 devices not divisible"):
+        launch.make_agent("xformer", agent_cfg, device="cpu", rt=rt)
+    actor = launch.make_agent("xformer", agent_cfg, device="cpu", rt=rt, actor=True)
+    assert actor.mesh is None and actor.cfg.attention == "dense" and not actor.cfg.pipeline
+    assert actor.cfg.stacked == agent_cfg.pipeline
 
 
 def test_anakin_over_a_learner_group_is_refused(monkeypatch):

@@ -298,16 +298,33 @@ def test_unported_planes_are_refused_by_name(mode, env, item, monkeypatch):
         weight_shards.refresh_flags()
 
 
-def test_serving_flags_are_refused(tmp_path):
-    """Serving acts is ported: the flags are refused only beside a plane
-    that is not (here a sequence axis, ROADMAP item 13c)."""
+def test_serving_flags_are_refused(tmp_path, monkeypatch):
+    """Serving acts is ported, and so is item 13c: a sequence axis on a
+    non-transformer section is ignored, as in JAX. The learner with
+    `serve_inference` and the actor with `remote_act` reach their agents
+    with no mesh (the agent's construction stops each run here; the
+    actor's client does not connect)."""
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch, transport
+
     cfg = json.loads(CONFIG.read_text())
     cfg["impala_cartpole"]["seq_parallel"] = 2
     path = tmp_path / "config.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(ValueError, match="item 13"):
+    seen = []
+
+    class Reached(Exception):
+        pass
+
+    def agent(algo, agent_cfg, device=None, rt=None, mesh=None, actor=False):
+        seen.append((algo, rt.seq_parallel, mesh, actor))
+        raise Reached
+
+    monkeypatch.setattr(launch, "make_agent", agent)
+    monkeypatch.setattr(transport, "TransportClient", lambda *a, **kw: None)
+    with pytest.raises(Reached):
         run_role("impala", str(path), "impala_cartpole", "learner", 0, device="cpu",
                  serve_inference=True)
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(Reached):
         run_role("impala", str(path), "impala_cartpole", "actor", 0, device="cpu",
                  remote_act=True)
+    assert seen == [("impala", 2, None, False), ("impala", 2, None, True)]

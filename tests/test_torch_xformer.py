@@ -12,8 +12,9 @@
   tests/test_torch_xformer_agent.py.
 - Causality and episode isolation (the JAX `tests/test_xformer.py`
   cases).
-- The `xformer` and `xformer_moe` sections load as in the JAX package;
-  the features that need a mesh raise and name ROADMAP item 13.
+- The `xformer` and `xformer_moe` sections load as in the JAX package,
+  mesh knobs included; an agent knob that needs a mesh is refused
+  without one in JAX's words.
 - The actor against the JAX actor, both driven by stand-in agents that
   play one fixed action sequence: the windows each act is handed, the
   epsilons, and the queued sequences, whose codec blobs are byte for byte
@@ -207,17 +208,30 @@ def test_load_config_matches_jax(section):
     ({"pipeline": True}, True), ({"seq_parallel": 2}, False),
     ({"expert_parallel": 2}, False)])
 def test_mesh_features_raise_naming_item_13(tmp_path, knob, agent_raises):
+    # Item 13c is ported: every knob loads as the JAX package loads it. An
+    # agent knob that needs a mesh is refused without one, for JAX's own
+    # reason and in its words; a runtime knob sizes the learner's mesh,
+    # and a mesh of one carries it (the MoE routes over it).
+    from distributed_reinforcement_learning_tpu.agents.xformer import XformerAgent as JaxAgent
+    from distributed_reinforcement_learning_tpu_torch.parallel import make_mesh
+
     section = {**json.loads(CONFIG.read_text())["xformer_moe"], **knob}
     path = tmp_path / "config.json"
     path.write_text(json.dumps({"xformer": section}))
-    with pytest.raises(ValueError, match="item 13"):
-        load_config(path, "xformer")
+    agent_cfg, rt = load_config(path, "xformer")
+    jax_cfg, jax_rt = jax_load_config(path, "xformer")
+    assert (rt.seq_parallel, rt.expert_parallel) == (jax_rt.seq_parallel, jax_rt.expert_parallel)
+    assert (agent_cfg.attention, agent_cfg.pipeline) == (jax_cfg.attention, jax_cfg.pipeline)
     if agent_raises:
-        with pytest.raises(ValueError, match="item 13"):
+        with pytest.raises(ValueError, match="needs a mesh") as got:
             XformerAgent(XformerConfig(**knob), device="cpu")
-    else:  # a runtime knob: what it asks for is a mesh
-        with pytest.raises(ValueError, match="item 13"):
-            build_transformer_models(XformerConfig(), mesh=object(), seq_len=10)
+        with pytest.raises(ValueError, match="needs a mesh") as want:
+            JaxAgent(JaxConfig(**knob))
+        assert str(got.value) == str(want.value)
+    else:
+        model, twin = build_transformer_models(agent_cfg, mesh=make_mesh(device="cpu"),
+                                               seq_len=10)
+        assert twin is not model and model.blocks[0].moe_mesh.shape["expert"] == 1
 
 
 def test_stacked_layout_refuses_experts():
@@ -377,16 +391,28 @@ def test_full_width_sections_train_through_the_launcher(section, tmp_path, monke
 
 
 @pytest.mark.parametrize("mode, item", [("inference", "item 13"), ("anakin", "item 14")])
-def test_unported_modes_raise_by_name(mode, item, tmp_path):
-    # Serving acts is ported: an act-serving replica still refuses a
-    # sequence axis (ROADMAP item 13c); this family has no on-device loop
-    # (item 14).
+def test_unported_modes_raise_by_name(mode, item, tmp_path, monkeypatch):
+    # Serving acts and item 13c are ported: an act-serving replica takes a
+    # sequence axis (ignored under dense attention, as in JAX) and builds
+    # the plain agent (its run is stubbed at its entry); this family has
+    # no on-device loop (item 14), which is still refused by name.
+    from distributed_reinforcement_learning_tpu_torch.runtime import launch, transport
+
     cfg = json.loads(CONFIG.read_text())
     cfg["xformer"]["seq_parallel"] = 2
     path = tmp_path / "config.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(ValueError, match=item):
-        train_xformer.main(["--config", str(path), "--mode", mode, "--device", "cpu"])
+    if mode == "anakin":
+        with pytest.raises(ValueError, match=item):
+            train_xformer.main(["--config", str(path), "--mode", mode, "--device", "cpu"])
+        return
+    calls = []
+    monkeypatch.setattr(transport, "run_role", lambda *a, **kw: calls.append(a) or {})
+    train_xformer.main(["--config", str(path), "--mode", mode, "--device", "cpu"])
+    assert [c[3] for c in calls] == ["inference"]
+    agent_cfg, rt = load_config(path, "xformer")
+    agent = launch.make_agent("xformer", agent_cfg, device="cpu", rt=rt, actor=True)
+    assert rt.seq_parallel == 2 and agent.mesh is None and agent.twin is agent.model
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -293,16 +293,28 @@ def test_load_config_matches_jax():
 @pytest.mark.parametrize("knob", [{"attention": "ring"}, {"pipeline": True},
                                   {"seq_parallel": 2}, {"expert_parallel": 2}])
 def test_unported_body_knobs_raise(tmp_path, knob):
-    """The body features that need a mesh raise and name ROADMAP item 13:
-    in the config, and (the agent config's own knobs) in the agent."""
+    """Item 13c is ported: every knob loads as the JAX package loads it,
+    and an agent knob that needs a mesh is refused without one, for JAX's
+    own reason and in its words (`test_torch_sequence.py`,
+    `test_torch_pipeline.py` and `test_torch_expert.py` run them over
+    meshes)."""
+    from distributed_reinforcement_learning_tpu.agents.ximpala import (
+        XImpalaAgent as JaxAgent, XImpalaConfig as JaxConfig)
+    from distributed_reinforcement_learning_tpu.utils.config import load_config as jax_load
+
     section = {**json.loads(CONFIG.read_text())["ximpala"], **knob}
     path = tmp_path / "config.json"
     path.write_text(json.dumps({"ximpala": section}))
-    with pytest.raises(ValueError, match="not ported .ROADMAP item 13"):
-        load_config(path, "ximpala")
+    agent_cfg, rt = load_config(path, "ximpala")
+    jax_cfg, jax_rt = jax_load(path, "ximpala")
+    assert (rt.seq_parallel, rt.expert_parallel) == (jax_rt.seq_parallel, jax_rt.expert_parallel)
+    assert (agent_cfg.attention, agent_cfg.pipeline) == (jax_cfg.attention, jax_cfg.pipeline)
     if set(knob) <= {f.name for f in dataclasses.fields(XImpalaConfig)}:
-        with pytest.raises(ValueError, match="not ported .ROADMAP item 13"):
+        with pytest.raises(ValueError, match="needs a mesh") as got:
             XImpalaAgent(XImpalaConfig(**{**SMALL, **knob}), device="cpu")
+        with pytest.raises(ValueError, match="needs a mesh") as want:
+            JaxAgent(JaxConfig(**{**SMALL, **knob}))
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("knob", [{"num_experts": 4}, {"remat": True}, {"stacked": True}])
