@@ -421,14 +421,31 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    seq_parallel 2 (ring_zigzag, seq_len 32) for 3 updates: both
    learners on cuda:0 over gloo, the mesh's seq axis 2, exit 0, no
    segment left.
-49. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
+49. The scripts: the port's counterparts of the JAX package's last
+   seven scripts, each from a temporary directory removed after, on the
+   card: `profile_learn_decomp 128` and `profile_nature_learn` (32)
+   alone, each a child process, each variant's wall ms (CUDA events) and
+   device ms (torch.profiler); then `actor_scale_demo --actors 4 --minutes 0.5
+   --stats-interval 5` (a CUDA learner, 4 CPU actors, child processes)
+   while `diag_imitation`, `return_curves --families
+   impala_cartpole,r2d2_cartpole_pomdp,ximpala_cartpole --updates-scale
+   0.005`, `stability_probe --updates 20` and `r2d2_cycle_probe
+   --updates 20 --seeds 0 --baseline` run in this process. Each must
+   exit 0 and print its JSON fields (and write its files), every actor's
+   stats line must be read, no file may appear under `benchmarks/`, and
+   each must launch exactly the kernels its path runs (K1 for the
+   profilers and the demo's learner; K1, K2a/K2b and K3a/K3b/K3c for the
+   three families; K2a/K2b for the two R2D2 probes; none for the
+   imitation check), with the counts zeroed just before each.
+50. A `{"kernels": [...]}` line with each kernel's numbers (the Ape-X
    paths launch none; K1 carries phases 27-33's, 35's, 38's, 44's-47's
    launches beside phase 4's, and its times at phase 38's, 46's and
    47's shapes; K2a and K2b phase 20's, 26's, 32's, 40's, 42's-47's
    beside phase 6's; K3a, K3b and K3c phase 23's, 45's, 46's and 48's
    beside phase 9's, with their times at phase 48's local shapes, and
-   K3a phases 34's and 36's with its times at the served batch shapes).
-50. The device line, then `{"ok": true, "device": {...}}` as the last line.
+   K3a phases 34's and 36's with its times at the served batch shapes;
+   each kernel phase 49's launches by script).
+51. The device line, then `{"ok": true, "device": {...}}` as the last line.
 
 Before each phase from 3 on, the device memory still allocated is
 logged, so that the peaks of phases 4, 6, 9, 15, 18, 21, 23, 24, 26-29,
@@ -6470,6 +6487,267 @@ def phase_model_parallel() -> dict:
     return got
 
 
+# Phase 49: each of the seven scripts' modules, its argv, and the kernels
+# its run must launch (PERF.md's kernel table); diag_imitation runs none.
+SCRIPT_ARGV = {
+    "profile_learn_decomp": ["128"],
+    "profile_nature_learn": [],
+    "diag_imitation": [],
+    "return_curves": ["--families", "impala_cartpole,r2d2_cartpole_pomdp,ximpala_cartpole",
+                      "--updates-scale", "0.005"],
+    "stability_probe": ["--updates", "20"],
+    "r2d2_cycle_probe": ["--updates", "20", "--seeds", "0", "--baseline"],
+}
+SCRIPT_KERNELS = {
+    "profile_learn_decomp": {"vtrace"},
+    "profile_nature_learn": {"vtrace"},
+    "diag_imitation": set(),
+    "return_curves": {"vtrace", "lstm_fwd", "lstm_bwd", "attention_fwd", "attention_dq",
+                      "attention_dkv"},
+    "stability_probe": {"lstm_fwd", "lstm_bwd"},
+    "r2d2_cycle_probe": {"lstm_fwd", "lstm_bwd"},
+    "actor_scale_demo": {"vtrace"},
+}
+DEMO_ARGV = ["--actors", "4", "--minutes", "0.5", "--stats-interval", "5"]
+DEMO_TIMEOUT_S = 180
+SCRIPT_TIMEOUT_S = 300
+
+
+def json_lines(text: str) -> list[dict]:
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            with contextlib.suppress(json.JSONDecodeError):
+                out.append(json.loads(line))
+    return out
+
+
+def benchmarks_files() -> dict[str, float]:
+    return {str(p): p.stat().st_mtime for p in (ROOT / "benchmarks").rglob("*") if p.is_file()}
+
+
+def run_script_module(name: str, tmp: Path) -> dict:
+    """`<name>.main(argv)` in this process, from `tmp`, on the card, its
+    stdout kept apart (its JSON would mix with this script's lines): ->
+    its seconds, its launches (counts zeroed just before), the JSON it
+    printed. Fails on a non-zero exit or on launches other than the
+    kernels `SCRIPT_KERNELS` names, or none of one it names."""
+    import importlib
+    import io
+    import os
+
+    mod = importlib.import_module(f"distributed_reinforcement_learning_tpu_torch.{name}")
+    env = {k: os.environ.get(k) for k in ("DRL_R2D2_RECENT_FRACTION", "DRL_R2D2_RECENT_WINDOW")}
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(tmp)
+        with contextlib.redirect_stdout(buf):
+            mod.main(SCRIPT_ARGV[name])
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise RuntimeError(f"{name}: exit {e.code}:\n{buf.getvalue()[-3000:]}") from None
+    finally:
+        os.chdir(cwd)
+        for k, v in env.items():  # r2d2_cycle_probe sets them for its variants
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = all_launches()
+    ran = {k for k, n in launches.items() if n}
+    if ran != SCRIPT_KERNELS[name]:
+        raise RuntimeError(f"{name}: launched {launches}, expected {sorted(SCRIPT_KERNELS[name])}")
+    printed = json_lines(buf.getvalue())
+    return {"seconds": seconds, "launches": launches, "json": printed, "stdout": buf.getvalue()}
+
+
+def run_script_process(name: str, tmp: Path) -> dict:
+    """`python -m <name> <argv>` from `tmp` in a child process (its own
+    group) on the card, as an operator runs it: -> its seconds, the
+    launches its JSON reports (`ops/kernels.launch_counts`), its JSON,
+    its stdout. The profilers run so: torch.profiler, used by many phases
+    before, lost device events when this process profiled them again (a
+    whole smoke's phase 49 read 0.0 ms of kernels for variants that run
+    2.6 ms alone). Fails as `run_script_module` does."""
+    import os
+    import signal
+
+    log_path = ROOT / "chiprun_out" / f"smoke_{name}.log"
+    log_path.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"distributed_reinforcement_learning_tpu_torch.{name}",
+         *SCRIPT_ARGV[name]], cwd=tmp, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=SCRIPT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        log_path.write_text(out)
+        raise RuntimeError(f"{name}: no exit in {SCRIPT_TIMEOUT_S} s (log {log_path})") from None
+    log_path.write_text(out)
+    printed = json_lines(out)
+    if proc.returncode != 0 or not printed:
+        raise RuntimeError(f"{name}: exit {proc.returncode} (log {log_path})")
+    launches = printed[-1]["launches"]
+    if {k for k, n in launches.items() if n} != SCRIPT_KERNELS[name]:
+        raise RuntimeError(f"{name}: launched {launches}, expected {sorted(SCRIPT_KERNELS[name])}")
+    return {"seconds": time.perf_counter() - t0, "launches": launches, "json": printed,
+            "stdout": out}
+
+
+def check_script_outputs(got: dict, tmp: Path) -> None:
+    """Each module's JSON fields and files (phase 49)."""
+    ld = got["profile_learn_decomp"]["json"][-1]
+    if (ld["B"] != 128 or sorted(v[0] for v in ld["variants"]) != list("ABCDEFGHI")
+            or not all(v["wall_ms"] > 0 and v["device_ms"] and v["device_ms"] > 0
+                       for v in ld["variants"].values())):
+        raise RuntimeError(f"profile_learn_decomp: {ld}")
+    nat = got["profile_nature_learn"]["json"][-1]
+    saved = json.loads((tmp / "runs" / "nature_cnn_profile" / "RESULTS.json").read_text())
+    keys = {"B", "K", "dtype", "bwd_ms_derived", "sum_grad_opt_ms", "sum_over_learn",
+            "fwd_minus_conv_ms", "loss_minus_fwd_ms",
+            *(f"{part}_{what}" for part in ("conv", "fwd", "post", "loss", "grad", "opt", "learn")
+              for what in ("ms", "device_ms", "busy"))}
+    if saved != nat or not keys <= set(nat) or nat["B"] != 32 or nat["K"] != 16:
+        raise RuntimeError(f"profile_nature_learn: {nat}")
+    di = got["diag_imitation"]["json"][-1]
+    if (set(di) != {"final_acc", "marginal_acc", "steps", "pairs", "seconds"}
+            or di["pairs"] != 255 * 64 or di["steps"] != 300
+            or not 0 <= di["marginal_acc"] <= 1 or not 0 <= di["final_acc"] <= 1):
+        raise RuntimeError(f"diag_imitation: {di}")
+    rc = got["return_curves"]["json"][-1]
+    want = {f"{f}_smoke" for f in SCRIPT_ARGV["return_curves"][1].split(",")}
+    if set(rc) != want or any("error" in v or v["episodes"] <= 0 for v in rc.values()):
+        raise RuntimeError(f"return_curves: {rc}")
+    for name in want:
+        lines = (tmp / "runs" / "curves" / f"{name}.jsonl").read_text().splitlines()
+        if json.loads(lines[0])["meta"] != rc[name] or len(lines) != rc[name]["episodes"] + 1:
+            raise RuntimeError(f"return_curves: {name}.jsonl does not match its summary")
+    sp = got["stability_probe"]["json"][-1]
+    if (sp["section"] != "r2d2" or sp["updates"] != 20 or sp["episodes"] <= 0
+            or len(sp["roll_curve"]) != 40):
+        raise RuntimeError(f"stability_probe: {sp}")
+    summary = json.loads((tmp / "runs" / "r2d2_recent" / "summary.json").read_text())
+    if (sorted(summary["runs"]) != ["baseline_seed0", "recent_seed0"]
+            or any(r["episodes"] <= 0 for r in summary["runs"].values())):
+        raise RuntimeError(f"r2d2_cycle_probe: {summary}")
+
+
+def run_actor_scale_demo(tmp: Path):
+    """Start `actor_scale_demo` as an operator runs it, a child process (in
+    its own group) spawning the CUDA learner and 4 CPU actors; -> `finish`,
+    which waits for it (or, with `kill`, kills its group) and returns its
+    summary, the learner's summary (launches in its process) and seconds.
+    `finish` fails unless the demo exits 0, every actor's stats line was
+    read, the learner learned and launched K1 and nothing else."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    log_path = ROOT / "chiprun_out" / "smoke_actor_scale_demo.log"
+    log_path.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    f = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_reinforcement_learning_tpu_torch.actor_scale_demo",
+         *DEMO_ARGV], cwd=tmp, env=env, stdout=f, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+
+    def finish(kill: bool = False) -> dict:
+        if kill:
+            os.killpg(proc.pid, signal.SIGKILL)
+        try:
+            rc = proc.wait(timeout=DEMO_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise RuntimeError(f"actor_scale_demo: no exit in {DEMO_TIMEOUT_S} s (log {log_path})")
+        finally:
+            f.close()
+        out_dir = tmp / "runs" / "actor_scale"
+        if rc != 0 or not (out_dir / "summary.json").exists():
+            raise RuntimeError(f"actor_scale_demo: rc {rc} (log {log_path})")
+        summary = json.loads((out_dir / "summary.json").read_text())
+        learner = json_lines((out_dir / "learner_tail.log").read_text())
+        series = (out_dir / "depth_series.jsonl").read_text().splitlines()
+        actors = int(DEMO_ARGV[1])
+        if (sorted(summary["per_actor_unrolls"]) != [str(k) for k in range(actors)]
+                or summary["learner_updates"] <= 0 or not series or not learner):
+            raise RuntimeError(f"actor_scale_demo: {summary} (log {log_path})")
+        launches = learner[-1]["launches"]
+        if {k for k, n in launches.items() if n} != SCRIPT_KERNELS["actor_scale_demo"]:
+            raise RuntimeError(f"actor_scale_demo: the learner launched {launches}")
+        return {"summary": summary, "learner": learner[-1], "launches": launches,
+                "seconds": time.perf_counter() - t0}
+
+    return finish
+
+
+def phase_scripts() -> dict:
+    """Phase 49: the seven modules of the JAX package's scripts on the card,
+    each from a temporary directory removed after: the two profilers
+    first, alone on the card, each a child process; then
+    `actor_scale_demo` as a child process while the other four run in
+    this process."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    before = benchmarks_files()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_scripts_"))
+    got: dict = {}
+    try:
+        for name in ("profile_learn_decomp", "profile_nature_learn"):
+            got[name] = run_script_process(name, tmp)
+        finish_demo = run_actor_scale_demo(tmp)
+        try:
+            for name in ("diag_imitation", "return_curves", "stability_probe",
+                         "r2d2_cycle_probe"):
+                got[name] = run_script_module(name, tmp)
+        except BaseException:
+            with contextlib.suppress(Exception):
+                finish_demo(kill=True)
+            raise
+        got["actor_scale_demo"] = finish_demo()
+        check_script_outputs(got, tmp)
+        if benchmarks_files() != before or (tmp / "benchmarks").exists():
+            raise RuntimeError("a script wrote under benchmarks/")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("profile_learn_decomp", "profile_nature_learn"):
+        for line in got[name]["stdout"].splitlines():
+            if not line.startswith("{"):
+                log(f"[scripts] {name}: {line}")
+    ld = got["profile_learn_decomp"]["json"][-1]
+    log(f"[scripts] profile_learn_decomp B 128 bfloat16: " + "; ".join(
+        f"{label} wall {v['wall_ms']:.3f} ms, device {v['device_ms']:.3f} ms, "
+        f"{100 * v['busy']:.1f}% busy" for label, v in ld["variants"].items()) + f" ({smi})")
+    log(f"[scripts] profile_nature_learn B 32: {json.dumps(got['profile_nature_learn']['json'][-1])}"
+        f" ({smi})")
+    for name in ("diag_imitation", "return_curves", "stability_probe", "r2d2_cycle_probe"):
+        g = got[name]
+        log(f"[scripts] {name}: "
+            + (json.dumps(g["json"][-1]) if g["json"] else g["stdout"].strip())[:1500])
+    demo = got["actor_scale_demo"]
+    log(f"[scripts] actor_scale_demo {' '.join(DEMO_ARGV)}: {json.dumps(demo['summary'])}; the "
+        f"learner on {demo['learner']['device']}, {demo['learner']['train_steps']} steps, "
+        f"launches {json.dumps({k: v for k, v in demo['launches'].items() if v})}")
+    log("[scripts] seconds and launches: " + "; ".join(
+        f"{name} {g['seconds']:.1f} s, "
+        f"{json.dumps({k: v for k, v in g['launches'].items() if v})}" for name, g in got.items()))
+    got["seconds"] = time.perf_counter() - t0
+    log(f"[scripts] phase 49 {got['seconds']:.1f} s; no file under benchmarks/ ({smi})")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6566,6 +6844,8 @@ def main() -> int:
     anakin_mesh = phase_anakin_mesh()
     phase_memory("model-parallel body")
     model_parallel = phase_model_parallel()
+    phase_memory("scripts")
+    scripts = phase_scripts()
 
     t = k1["timings"][MAIN_SHAPE]
     big = k1["timings"][SHAPES[-1]]
@@ -6625,7 +6905,10 @@ def main() -> int:
                # ranks, and the world of one.
                **{f"model_parallel_{tag}_rank{r['rank']}": [r[tag]["launches"]]
                   for r in model_parallel["world2"] for tag, _, _, _ in MP_CASES},
-               "model_parallel_moe_world1": [model_parallel["world1"]["moe_world1"]["launches"]]}
+               "model_parallel_moe_world1": [model_parallel["world1"]["moe_world1"]["launches"]],
+               # Phase 49: each script module's run.
+               **{f"script_{name}": [got["launches"]] for name, got in scripts.items()
+                  if name != "seconds"}}
     for row in kernels:
         for path, runs in by_path.items():
             counts = [got[row["name"]] for got in runs]
@@ -6715,6 +6998,7 @@ def main() -> int:
         f"sharded learner phase 46 {sharded['seconds']:.1f} s; "
         f"anakin mesh phase 47 {anakin_mesh['seconds']:.1f} s; "
         f"model-parallel body phase 48 {model_parallel['seconds']:.1f} s; "
+        f"scripts phase 49 {scripts['seconds']:.1f} s; "
         f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

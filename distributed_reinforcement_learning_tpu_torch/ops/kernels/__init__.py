@@ -31,3 +31,16 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count in this process."""
+    from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn
+    from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
+    from distributed_reinforcement_learning_tpu_torch.ops.kernels import vtrace as kvt
+
+    return {"vtrace": kvt.vtrace_cuda.launches, "lstm_fwd": klstm.lstm_fwd_cuda.launches,
+            "lstm_bwd": klstm.lstm_bwd_cuda.launches,
+            "attention_fwd": kattn.flash_fwd_cuda.launches,
+            "attention_dq": kattn.flash_dq_cuda.launches,
+            "attention_dkv": kattn.flash_dkv_cuda.launches}

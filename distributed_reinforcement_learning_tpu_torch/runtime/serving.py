@@ -39,6 +39,7 @@ import time
 
 from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
 from distributed_reinforcement_learning_tpu_torch.observability import maybe_configure
+from distributed_reinforcement_learning_tpu_torch.ops.kernels import launch_counts
 from distributed_reinforcement_learning_tpu_torch.runtime.inference import (
     InferenceServer, make_act_adapter)
 
@@ -197,7 +198,7 @@ def run_replica(algo: str, config_path: str, section: str, task: int = 0, seed: 
     from distributed_reinforcement_learning_tpu_torch.runtime import launch, weight_shards
     from distributed_reinforcement_learning_tpu_torch.runtime.transport import (
         RECONNECT_RETRIES, ShardedRemoteWeights, TransportClient, TransportError, TransportServer,
-        _kernel_launches, resolve_learner_addr)
+        resolve_learner_addr)
     from distributed_reinforcement_learning_tpu_torch.runtime.weights import WeightStore
     from distributed_reinforcement_learning_tpu_torch.utils.config import load_config
     from distributed_reinforcement_learning_tpu_torch.utils.device import resolve_device
@@ -310,6 +311,6 @@ def run_replica(algo: str, config_path: str, section: str, task: int = 0, seed: 
                "acts_served": server.stat("acts_served"),
                "act_busy_replies": server.stat("act_busy_replies"),
                **inference.stats(), "weight_versions_seen": versions_seen,
-               "weight_version": version, "launches": _kernel_launches()}
+               "weight_version": version, "launches": launch_counts()}
     print(json.dumps(summary), flush=True)
     return summary

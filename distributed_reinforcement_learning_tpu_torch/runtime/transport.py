@@ -93,6 +93,7 @@ from distributed_reinforcement_learning_tpu_torch.data.fifo import blob_ingest
 from distributed_reinforcement_learning_tpu_torch.observability import TELEMETRY as _OBS
 from distributed_reinforcement_learning_tpu_torch.observability import maybe_configure
 from distributed_reinforcement_learning_tpu_torch.observability.metrics import stale_bucket
+from distributed_reinforcement_learning_tpu_torch.ops.kernels import launch_counts
 
 OP_PUT_TRAJ = 1
 OP_GET_WEIGHTS = 2
@@ -1569,19 +1570,6 @@ def _make_queue(capacity: int):
     return TrajectoryQueue(capacity)
 
 
-def _kernel_launches() -> dict[str, int]:
-    """Every kernel wrapper's launch count in this process."""
-    from distributed_reinforcement_learning_tpu_torch.ops.kernels import attention as kattn
-    from distributed_reinforcement_learning_tpu_torch.ops.kernels import lstm as klstm
-    from distributed_reinforcement_learning_tpu_torch.ops.kernels import vtrace as kvt
-
-    return {"vtrace": kvt.vtrace_cuda.launches, "lstm_fwd": klstm.lstm_fwd_cuda.launches,
-            "lstm_bwd": klstm.lstm_bwd_cuda.launches,
-            "attention_fwd": kattn.flash_fwd_cuda.launches,
-            "attention_dq": kattn.flash_dq_cuda.launches,
-            "attention_dkv": kattn.flash_dkv_cuda.launches}
-
-
 def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
              num_updates: int = 1000, run_dir: str | None = None, seed: int = 0,
              checkpoint_dir: str | None = None, checkpoint_interval: int = 500,
@@ -1594,7 +1582,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     `device` names another device.
 
     The learner prints `[learner] serving on :<port>` when it listens,
-    `[learner] done: N updates` when it stops, then one JSON line: train
+    `[learner] done: N updates` when it stops (at `num_updates`, or on
+    SIGINT, a stop request), then one JSON line: train
     steps, frames learned, the kernels' launches in its process, stage ms
     (the first step, which pays the start-up costs, apart from the mean
     over the rest), the prefetcher's H2D ms a batch, publication latency,
@@ -1608,7 +1597,10 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     completed rounds, seconds from its first round's start to its last
     round's end, the env steps it took with a round cut short by the
     learner's exit included and the seconds they took, the newest weight
-    version it held).
+    version it held). Under `DRL_TRANSPORT_STATS_S` the server prints a
+    `[transport] depth=...` line and each actor an `[actor k] stats {...}`
+    line (its client's counters, `frames`, `weight_version`) every that
+    many seconds.
 
     With `serve_inference` the learner also answers OP_ACT through an
     `InferenceServer` on its own device (seed `seed + 7777`), logs
@@ -1870,6 +1862,8 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
         t0 = time.perf_counter()
         try:
             _learner_loop(algo, learner, num_updates, ckpt, checkpoint_interval, on_step)
+        except KeyboardInterrupt:  # a stop request (SIGINT): wind down and report
+            print(f"[learner] interrupted at step {learner.train_steps}; stopping", flush=True)
         finally:
             wall = time.perf_counter() - t0
             shutdown_at = time.time()  # wall clock: actors' demotions are held to it
@@ -1927,7 +1921,7 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
             "replay": None if replay is None else type(replay).__name__,
             "replay_size": None if replay is None else len(replay),
             "replay_service": replay_stats,
-            "launches": _kernel_launches(), "wall_s": wall,
+            "launches": launch_counts(), "wall_s": wall,
             "first_step_stage_ms": first_step_ms,
             "stage_ms": learner.timer.run_means_ms(),
             "stage_total_ms": learner.timer.run_totals_ms(),
@@ -2070,6 +2064,11 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
     # The first round's start; the end of the last round, or the failure
     # that cut a round short (its steps count in the actor's `_steps`).
     started = stopped = None
+    # Under DRL_TRANSPORT_STATS_S, a `[actor k] stats {...}` line every
+    # that many seconds: the client's counters, frames and the weight
+    # version held (the JAX actor's line, read by `actor_scale_demo`).
+    stats_s = float(os.environ.get("DRL_TRANSPORT_STATS_S", "0"))
+    next_stats = time.monotonic() + stats_s
     try:
         try:
             while True:
@@ -2096,6 +2095,12 @@ def run_role(algo: str, config_path: str, section: str, mode: str, task: int,
                     time.sleep(1.0)
                 finally:
                     max_version = max(max_version, getattr(actor, "_version", -1))
+                if stats_s > 0 and time.monotonic() >= next_stats:
+                    next_stats = time.monotonic() + stats_s
+                    st = client.snapshot_stats()
+                    st["frames"] = frames
+                    st["weight_version"] = getattr(actor, "_version", None)
+                    print(f"[actor {task}] stats {st}", flush=True)
         except KeyboardInterrupt:  # the cluster launcher's stop request
             print(f"[actor {task}] interrupted; stopping", flush=True)
     finally:

@@ -823,7 +823,10 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
     incarnation (the header's creator-pid word against the
     heartbeat-reported pid). A segmented board's pull reads the changed
     shards and assembles them (`weight_shards.materialize`); a shard the
-    board latched off (oversize) is filled over TCP.
+    board latched off (oversize) is filled over TCP. An actor holding no
+    weights that finds the board still empty pulls over TCP: a learner
+    tier's board is written by the publishing seat, which may lag the
+    actor's own seat (the JAX package's actor raises there instead).
 
     Concurrency map (tools/drlint lock-discipline): `stats` is bumped on
     the actor loop thread and polled by the telemetry flush thread's
@@ -1042,6 +1045,13 @@ class BoardWeights(_LockedStatsMixin, ShmReattachMixin):
         if retries:
             self._retries_seen = board.read_retries
             self._bump("seqlock_retries", retries)
+        if got is None and have_version < 0:
+            # The board holds no version yet. A learner tier's board is
+            # written by the publishing seat, which may still be building
+            # its learner when this actor's own seat already serves: pull
+            # from that seat over TCP (a learner publishes before it
+            # serves) until the first version lands on the board.
+            return self._tcp_pull(have_version)
         if got is None:  # already newest: the no-syscall common case
             if _OBS.enabled:
                 _OBS.gauge("actor/weight_pull_ms",

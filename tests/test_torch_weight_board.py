@@ -196,6 +196,45 @@ def test_board_weights_demote_to_tcp_when_the_writer_closes():
         board.unlink()
 
 
+def test_board_weights_pull_over_tcp_until_the_board_has_a_version():
+    """A learner tier's shared board is written by the publishing seat,
+    which may still be building its learner when an actor's own seat
+    already serves (ROADMAP F16: the actor raised "no weights published
+    yet", its seat starved and the other seat waited in its first round).
+    An actor holding no weights that finds the board empty pulls its own
+    seat's over TCP; once the board has a version, it reads the board."""
+    own = WeightStore()  # the actor's seat: it publishes before it serves
+    own.publish(_params(0), 0)
+    board = weight_board.serve_board(_name("empty"))
+    assert board is not None
+    port = _free_port()
+    server = TransportServer(TrajectoryQueue(4), own, host="127.0.0.1", port=port).start()
+    client = TransportClient("127.0.0.1", port)
+    bw = weight_board.attach_board_weights(board.name, client,
+                                           fallback=ShardedRemoteWeights(client, "cpu"))
+    publisher = WeightStore()  # the publishing seat, still building its learner
+    try:
+        assert bw is not None and bw.attached
+        got = bw.get_if_newer(-1)
+        assert got is not None, "an empty board left the actor with no weights"
+        params, version = got
+        assert version == 0 and all(torch.equal(params[k], v) for k, v in _params(0).items())
+        assert server.stat("weight_sends") == 1 and bw.stat("board_pulls") == 0 and bw.attached
+        publisher.attach_board(board)
+        publisher.publish(_params(1), 1)
+        params, version = bw.get_if_newer(0)
+        assert version == 1 and all(torch.equal(params[k], v) for k, v in _params(1).items())
+        assert bw.stat("board_pulls") == 1 and server.stat("weight_sends") == 1
+        assert bw.stat("tcp_fallbacks") == 0 and bw.attached
+    finally:
+        publisher.close()
+        bw.close()
+        client.close()
+        server.stop()
+        board.close()
+        board.unlink()
+
+
 def test_a_segmented_board_is_refused_by_name():
     name = _name("sharded")
     sharded = jax_board.ShardedWeightBoard.create(name, 1 << 16)
